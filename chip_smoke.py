@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
+``$CUDA_HOME`` or on ``PATH``).  Phases, each of which must pass:
+
+1. build — compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a, one
+   ``nvcc`` per source in parallel, into ``src/repro_torch/kernels/_build``;
+2. kernels — holds each kernel (K1 TopK threshold, K2 TopK mask, K3 l2
+   norm, K4 Q_r rounding) against its plain PyTorch version on the card,
+   at the main path's shapes, edge cases and one large shape: K1, K2 and
+   K4 bit-equal, K3 within ``NORM_RTOL``; then times kernel, plain version
+   and the library yardstick;
+3. train — drives the quickstart configuration (MLP 784-64-10, 20
+   Dirichlet(0.7) clients, 5 per round, batch 32, p = 0.1) through
+   ``server.run_federated`` on the card, once with ``TopK(0.3)`` and once
+   with ``QuantQr(8)``, with every launch counter set to 0 just before and
+   read just after; each counter must equal the count the batching
+   implies.  Then times steady-state rounds (wall clock, and device busy
+   time under ``torch.profiler``, whose idle share is given against both
+   the plain and the profiled wall clock) and replays the first
+   rounds on the CPU through the plain versions: cohorts, steps and bits
+   must be equal, the train loss within ``LOSS_RTOL``.
+
+Prints the card's name and power limit, one line per kernel and shape, a
+``{"kernels": [...]}`` JSON line, and as the last line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+NORM_RTOL = 1e-5               # K3 vs torch.sum: float32 sums in other orders
+LOSS_RTOL = 1e-4               # cuBLAS vs CPU matmuls in the replayed rounds
+ROUNDS = 20
+REPLAY_ROUNDS = 3
+PROFILE_ROUNDS = 5
+LARGE = (4, 1 << 24)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def profile_rounds(torch, prng, alg, params0, label: str) -> None:
+    """Steady-state rounds (no eval): host wall per round, then the same
+    rounds under ``torch.profiler`` for the device's busy time per round,
+    its idle share and the device ops that take the most time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def rounds(state, key, n):
+        for _ in range(n):
+            key, sub = prng.split(key, 2)
+            state, _ = alg.round(state, sub)
+        torch.cuda.synchronize()
+        return state, key
+
+    state, key = rounds(alg.init(params0), prng.PRNGKey(2), 3)   # warm up
+    t0 = time.time()
+    state, key = rounds(state, key, PROFILE_ROUNDS)
+    wall_ms = (time.time() - t0) / PROFILE_ROUNDS * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        rounds(state, key, PROFILE_ROUNDS)
+        prof_wall_ms = (time.time() - t0) / PROFILE_ROUNDS * 1e3
+    dev_us = {}      # device-side events (kernels, copies, memsets) by name
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            dev_us[ev.name] = (dev_us.get(ev.name, 0.0)
+                               + ev.time_range.elapsed_us())
+    print(f"[profile] {label}: steady ms/round {wall_ms!r} (under the "
+          f"profiler {prof_wall_ms!r})", flush=True)
+    if not dev_us:
+        print(f"[profile] {label}: the profiler recorded no device events; "
+              f"device busy time not measured", flush=True)
+        return
+    busy_ms = sum(dev_us.values()) / PROFILE_ROUNDS / 1e3
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[profile] {label}: device busy ms/round {busy_ms!r}, idle share "
+          f"{1.0 - busy_ms / wall_ms!r} of the steady round (under the "
+          f"profiler {1.0 - busy_ms / prof_wall_ms!r}), {len(dev_us)} device "
+          f"op names; "
+          f"top (ms/round): " + "; ".join(
+              f"{name[:70]} {us / PROFILE_ROUNDS / 1e3!r}" for name, us in top),
+          flush=True)
+
+
+class KernelRecord:
+    def __init__(self, name, source, replaces):
+        self.name, self.source, self.replaces = name, source, replaces
+        self.max_abs_err = 0.0
+        self.timings = {}
+
+    def err(self, a, b) -> None:
+        d = (a.double() - b.double()).abs()
+        self.max_abs_err = max(self.max_abs_err, float(d.max()) if d.numel() else 0.0)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs one CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import prng
+    from repro_torch.compress import QuantQr, TopK
+    from repro_torch.core import fed_data, server
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.data import dirichlet, synthetic
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.models import small
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    card = card_line()
+    print(f"card: {card}", flush=True)
+
+    # ---- 1. build ---------------------------------------------------------- #
+    t0 = time.time()
+    libs = build.build_all()
+    print(f"[build] {len(libs)} libraries in {time.time() - t0:.1f} s: "
+          + ", ".join(p.name for p in libs.values()), flush=True)
+
+    # ---- 2. kernels --------------------------------------------------------- #
+    recs = {
+        "K1": KernelRecord("topk_threshold_bits",
+                           "src/repro_torch/kernels/csrc/topk_compress.cu",
+                           "src/repro/kernels/topk_compress.py:94"),
+        "K2": KernelRecord("topk_mask",
+                           "src/repro_torch/kernels/csrc/topk_compress.cu",
+                           "src/repro/kernels/topk_compress.py:149"),
+        "K3": KernelRecord("l2_norm",
+                           "src/repro_torch/kernels/csrc/quantize.cu",
+                           "src/repro/kernels/quantize.py:68"),
+        "K4": KernelRecord("quantize_qr",
+                           "src/repro_torch/kernels/csrc/quantize.cu",
+                           "src/repro/kernels/quantize.py:97"),
+    }
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hidden = 64
+    leaf_sizes = (784 * hidden, hidden, hidden * hidden, hidden,
+                  hidden * 10, 10)
+    topk = TopK(0.3)
+    s = 5
+
+    def randn(rows, n, dtype=torch.float32):
+        return torch.randn(rows, n, generator=gen, device=dev).to(dtype)
+
+    def same_bits(a, b) -> bool:
+        view = torch.int16 if a.element_size() == 2 else torch.int32
+        return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+    topk_cases = [(f"main n={n}", randn(s, n), topk._k(n)) for n in leaf_sizes]
+    x = randn(3, 1000)
+    x[1] = 0.5                                   # all-equal magnitudes
+    x[1, ::2] = -0.5
+    x[2, :10] = 0.0                              # zeros and -0.0
+    x[2, 10:20] = -0.0
+    for k in (1, 999, 1000, 5000, 0):            # k = 1, n-1, >= n, <= 0
+        topk_cases.append((f"edge n=1000 k={k}", x, k))
+    topk_cases.append(("odd n=777", randn(4, 777), 77))     # scalar mask path
+    topk_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 1229))
+    topk_cases.append(("large", randn(*LARGE), LARGE[1] // 10))
+    for label, xc, k in topk_cases:
+        t = tk.threshold_bits(xc, k)
+        t_ref = ref.topk_threshold_bits(xc, k)
+        m = tk.mask_by_threshold(xc, t)
+        m_ref = ref.mask_by_threshold(xc, t_ref)
+        torch.cuda.synchronize()
+        if not torch.equal(t, t_ref):
+            raise AssertionError(f"K1 {label}: kernel threshold differs")
+        if not same_bits(m, m_ref):
+            raise AssertionError(f"K2 {label}: kernel mask differs")
+        recs["K1"].err(t, t_ref)
+        recs["K2"].err(m.float(), m_ref.float())
+    print(f"[kernels] K1/K2 bit-equal to the plain version on "
+          f"{len(topk_cases)} cases", flush=True)
+
+    qr_cases = [(f"main n={n}", randn(s, n), 8) for n in leaf_sizes]
+    x = randn(3, 1001)
+    x[0, :7] = 0.0
+    x[0, 7] = -0.0
+    x[1] = 0.0                                   # norm 0: output all zero
+    for r in (1, 4, 8):
+        qr_cases.append((f"edge n=1001 r={r}", x, r))
+    qr_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 4))
+    qr_cases.append(("large", randn(*LARGE), 8))
+    for label, xc, r in qr_cases:
+        u = torch.rand(xc.shape, generator=gen, device=dev)
+        norm = qk.l2_norm(xc)
+        again = qk.l2_norm(xc)
+        norm_ref = ref.l2_norm(xc)
+        out = qk.quantize_qr_with_uniforms(xc, r, u, norm)
+        out_ref = ref.quantize_qr_with_uniforms(xc, r, u, norm)
+        torch.cuda.synchronize()
+        if not torch.equal(norm, again):
+            raise AssertionError(f"K3 {label}: two runs gave different norms")
+        if not torch.allclose(norm, norm_ref, rtol=NORM_RTOL, atol=0.0):
+            raise AssertionError(f"K3 {label}: norm off by more than "
+                                 f"rtol {NORM_RTOL}")
+        if not same_bits(out, out_ref):
+            raise AssertionError(f"K4 {label}: kernel output differs")
+        recs["K3"].err(norm, norm_ref)
+        recs["K4"].err(out.float(), out_ref.float())
+    print(f"[kernels] K4 bit-equal and K3 within rtol {NORM_RTOL} (and "
+          f"deterministic) on {len(qr_cases)} cases", flush=True)
+
+    # timings: the largest main-path leaf (5 clients x 784*64) and LARGE
+    for shape, iters in (((s, leaf_sizes[0]), 200), (LARGE, 10)):
+        rows, n = shape
+        xc = randn(rows, n)
+        xa = xc.abs()
+        u = torch.rand(shape, generator=gen, device=dev)
+        k = topk._k(n)
+        t = tk.threshold_bits(xc, k)
+        norm = qk.l2_norm(xc)
+        nx = rows * n
+        plans = {
+            "K1": (lambda: tk.threshold_bits(xc, k),
+                   lambda: ref.topk_threshold_bits(xc, k),
+                   lambda: torch.topk(xa, k, dim=1, sorted=False),
+                   4 * nx + 12 * rows, 16 * nx),
+            "K2": (lambda: tk.mask_by_threshold(xc, t),
+                   lambda: ref.mask_by_threshold(xc, t), None,
+                   8 * nx + 8 * rows, 2 * nx),
+            "K3": (lambda: qk.l2_norm(xc), lambda: ref.l2_norm(xc),
+                   lambda: torch.linalg.vector_norm(xc, dim=1),
+                   4 * nx + 4 * rows, 2 * nx),
+            "K4": (lambda: qk.quantize_qr_with_uniforms(xc, 8, u, norm),
+                   lambda: ref.quantize_qr_with_uniforms(xc, 8, u, norm),
+                   None, 12 * nx + 4 * rows, 10 * nx),
+        }
+        tag = "main" if shape != LARGE else "large"
+        for key_, (kern, plain, lib, nbytes, nops) in plans.items():
+            rec = recs[key_]
+            b_ms, b_by = bound_ms(nbytes, nops)
+            row = {"shape": list(shape),
+                   "kernel_ms": time_ms(torch, kern, iters),
+                   "plain_ms": time_ms(torch, plain, max(2, iters // 10)),
+                   "library_ms": (time_ms(torch, lib, max(2, iters // 10))
+                                  if lib is not None else None),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rec.timings[tag] = row
+            print(f"[kernels] {key_} {rec.name} {tag} {shape}: kernel_ms="
+                  f"{row['kernel_ms']!r} plain_ms={row['plain_ms']!r} "
+                  f"library_ms={row['library_ms']!r} bound_ms={b_ms!r} "
+                  f"({b_by})", flush=True)
+        del xc, xa, u
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 3. train ----------------------------------------------------------- #
+    ds = synthetic.make_mnist_like(n_train=8000, n_test=1000)
+    parts = dirichlet.dirichlet_partition(ds.y_train, n_clients=20,
+                                          alpha=0.7, seed=0)
+    model = small.MLP(784, hidden, 10)
+    loss_fn = small.cross_entropy_loss(model.apply)
+    data = {d: fed_data.from_numpy_partition(ds.x_train, ds.y_train, parts,
+                                             device=d) for d in ("cuda", "cpu")}
+    eval_fn = server.make_eval_fn(model.apply,
+                                  torch.from_numpy(ds.x_test).to(dev),
+                                  torch.from_numpy(ds.y_test).to(dev))
+    cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=5,
+                          batch_size=32, variant="com")
+    params0 = model.init(prng.PRNGKey(0), device=dev)
+    n_leaves = len(leaf_sizes)
+    launches = {}
+    for comp, expect in (
+            (TopK(0.3), {"topk_threshold_bits": ROUNDS * n_leaves,
+                         "topk_mask": ROUNDS * n_leaves,
+                         "l2_norm": 0, "quantize_qr": 0}),
+            (QuantQr(8), {"topk_threshold_bits": 0, "topk_mask": 0,
+                          "l2_norm": ROUNDS * n_leaves,
+                          "quantize_qr": ROUNDS * n_leaves})):
+        label = type(comp).__name__
+        alg = FedComLoc(loss_fn, data["cuda"], cfg, comp)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.time()
+        hist = server.run_federated(alg, params0, ROUNDS, prng.PRNGKey(1),
+                                    eval_fn=eval_fn, eval_every=5)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = ops.launch_counts()
+        print(f"[train] {label}: best acc {hist.best_acc!r} final train loss "
+              f"{hist.train_loss[-1]!r} uplink Mbit "
+              f"{alg.meter.uplink_bits / 1e6!r} total Mbit "
+              f"{alg.meter.total_bits / 1e6!r} ms/round (eval included) "
+              f"{wall / ROUNDS * 1e3!r} launches {counts}", flush=True)
+        if counts != expect:
+            raise AssertionError(f"{label}: launch counts {counts} != {expect}")
+        for name, c in counts.items():
+            if expect[name]:
+                launches[name] = c
+        finite = all(map(lambda v: v == v and abs(v) != float("inf"),
+                         hist.train_loss + hist.test_loss + hist.test_acc))
+        if not finite or hist.best_acc <= 0.2:
+            raise AssertionError(f"{label}: training went wrong: {hist}")
+        profile_rounds(torch, prng, alg, params0, label)
+
+        # replay the first rounds on the card and on the CPU (plain versions)
+        runs = {}
+        for d in ("cuda", "cpu"):
+            alg_d = FedComLoc(loss_fn, data[d], cfg, comp)
+            cohorts = []
+            sample = alg_d.sched.sample_cohort
+
+            def recording(key_, s_, round_idx=0, _sample=sample, _log=cohorts):
+                clients, avail = _sample(key_, s_, round_idx)
+                _log.append(clients.tolist())
+                return clients, avail
+
+            object.__setattr__(alg_d.sched, "sample_cohort", recording)
+            state = alg_d.init({k: {kk: vv.to(d) for kk, vv in v.items()}
+                                for k, v in params0.items()})
+            key_ = prng.PRNGKey(1)
+            rows_ = []
+            for _ in range(REPLAY_ROUNDS):
+                key_, sub = prng.split(key_, 2)
+                state, metrics = alg_d.round(state, sub)
+                rows_.append(metrics)
+            runs[d] = (cohorts, rows_)
+        (c_gpu, m_gpu), (c_cpu, m_cpu) = runs["cuda"], runs["cpu"]
+        if c_gpu != c_cpu:
+            raise AssertionError(f"{label}: cohorts differ {c_gpu} {c_cpu}")
+        for r, (a, b) in enumerate(zip(m_gpu, m_cpu)):
+            for name in ("uplink_bits", "downlink_bits"):
+                if a[name] != b[name]:
+                    raise AssertionError(f"{label} round {r}: {name} "
+                                         f"{a[name]!r} != {b[name]!r}")
+            if a["client_steps"].tolist() != b["client_steps"].tolist():
+                raise AssertionError(f"{label} round {r}: client_steps differ")
+            if abs(a["train_loss"] - b["train_loss"]) > LOSS_RTOL * abs(
+                    b["train_loss"]):
+                raise AssertionError(f"{label} round {r}: train_loss "
+                                     f"{a['train_loss']!r} vs "
+                                     f"{b['train_loss']!r}")
+        print(f"[train] {label}: first {REPLAY_ROUNDS} rounds CUDA == CPU on "
+              f"cohorts {c_gpu}, client_steps, uplink/downlink bits; "
+              f"train_loss within rtol {LOSS_RTOL}: "
+              f"{[m['train_loss'] for m in m_gpu]!r} vs "
+              f"{[m['train_loss'] for m in m_cpu]!r}", flush=True)
+        torch.cuda.synchronize()
+
+    kernels = []
+    for rec in recs.values():
+        main_t = rec.timings["main"]
+        kernels.append({
+            "name": rec.name, "route": "cuda", "source": rec.source,
+            "replaces": rec.replaces, "launches": launches[rec.name],
+            "max_abs_err": rec.max_abs_err, "ms": main_t["kernel_ms"],
+            "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
+            "library_ms": main_t["library_ms"], "shape": main_t["shape"],
+            "large": rec.timings["large"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the FedComLoc reproduction (``repro``).
+
+Mirrors the JAX package's module layout; imports torch and numpy only.
+Entry points take an explicit ``device`` (default ``"cuda"``); the kernels
+on the path are hand-written CUDA for Hopper (``kernels/csrc``), and a
+CPU tensor runs their plain PyTorch versions.
+"""
+
+
+def not_ported(what: str) -> NotImplementedError:
+    """The error every option outside the ported slice raises."""
+    return NotImplementedError(f"{what} not yet ported; see ROADMAP Queue A")

@@ -1,0 +1,144 @@
+"""Compression operators (paper §3.1) on stacked client trees, with exact
+bit accounting — the port of ``repro.compress.compressors``.
+
+``compress(stacked, keys) -> (compressed stacked tree, BitsReport)``: every
+leaf carries a leading client axis ``s`` and ``keys`` is the ``(s, 2)``
+per-client key batch, so one call is ``jax.vmap(comp.compress)`` of the
+reference (``core/clients.py:642``).  Each leaf's clients are compressed
+by one kernel launch over ``(s, n)`` rows.  Reports hold ``(s,)`` float32
+vectors, counted from the payload produced: TopK's nnz from ``x != 0``,
+Q_r's per-tensor norms.
+
+Ported here: ``Identity``, ``TopK(scope="tensor", impl="select")`` and
+``QuantQr(scope="tensor")``.  ``Compose``, ``Int8Sync``, ``scope="global"``,
+``impl="quantile"`` and per-client overrides are not yet ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch import not_ported, prng
+from repro_torch import tree as tree_util
+from repro_torch.compress.report import (
+    FLOAT_BITS, INDEX_BITS, BitsReport, dense_bits, leaf_value_bits,
+    per_client)
+from repro_torch.kernels import ops as kops
+
+PyTree = Any
+
+
+
+def _clients(stacked: PyTree) -> Tuple[int, torch.device]:
+    leaf = tree_util.leaves(stacked)[0]
+    return leaf.shape[0], leaf.device
+
+
+def _dense_report(stacked: PyTree) -> BitsReport:
+    """Per-client bits of the uncompressed payload (one client's tree)."""
+    s, dev = _clients(stacked)
+    bits = dense_bits(tree_util.map(lambda x: x[0], stacked))
+    return BitsReport(value_bits=per_client(bits, s, dev),
+                      index_bits=per_client(0.0, s, dev),
+                      meta_bits=per_client(0.0, s, dev))
+
+
+class Compressor:
+    """Base class.  Subclasses implement ``compress``; ``apply`` drops the
+    report (FedComLoc-Local, where nothing is sent)."""
+
+    def compress(self, stacked: PyTree, keys: Optional[torch.Tensor] = None
+                 ) -> Tuple[PyTree, BitsReport]:
+        raise NotImplementedError
+
+    def apply(self, stacked: PyTree,
+              keys: Optional[torch.Tensor] = None) -> PyTree:
+        return self.compress(stacked, keys)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity(Compressor):
+    def compress(self, stacked, keys=None):
+        return stacked, _dense_report(stacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopK(Compressor):
+    """Keep the ``density`` fraction of largest-|.| entries of each leaf
+    (Def. 3.1), ties at the threshold kept.  Bits: (leaf dtype width +
+    INDEX_BITS) per coordinate of the actual support; dense at
+    ``density >= 1``."""
+
+    density: float = 0.1
+    scope: str = "tensor"
+    impl: str = "select"
+
+    def __post_init__(self):
+        if not (0.0 < self.density <= 1.0):
+            raise ValueError(f"density must be in (0, 1], got {self.density}")
+        if self.scope != "tensor":
+            raise not_ported(f"TopK scope={self.scope!r}")
+        if self.impl != "select":
+            raise not_ported(f"TopK impl={self.impl!r}")
+
+    def _k(self, size: int) -> int:
+        return max(1, min(size, int(round(self.density * size))))
+
+    def compress(self, stacked, keys=None):
+        if self.density >= 1.0:
+            return stacked, _dense_report(stacked)
+        s, dev = _clients(stacked)
+        vb = torch.zeros(s, dtype=torch.float32, device=dev)
+        ib = torch.zeros(s, dtype=torch.float32, device=dev)
+
+        def mask(x):
+            nonlocal vb, ib
+            n = x[0].numel()
+            out = kops.topk_mask(x.reshape(s, n), self._k(n)).reshape(x.shape)
+            nnz = (out.reshape(s, n) != 0).sum(1).to(torch.float32)
+            vb = vb + nnz * leaf_value_bits(out)
+            ib = ib + nnz * INDEX_BITS
+            return out
+
+        out = tree_util.map(mask, stacked)
+        return out, BitsReport(value_bits=vb, index_bits=ib,
+                               meta_bits=per_client(0.0, s, dev))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantQr(Compressor):
+    """QSGD binary quantization with ``r`` bits (Def. 3.2), per leaf.
+    Unbiased.  Bits: sign + r-bit level per scalar, plus one fp32 norm per
+    tensor."""
+
+    r: int = 8
+    scope: str = "tensor"
+
+    def __post_init__(self):
+        if self.r <= 0:
+            raise ValueError("r must be positive")
+        if self.scope != "tensor":
+            raise not_ported(f"QuantQr scope={self.scope!r}")
+
+    def compress(self, stacked, keys=None):
+        if keys is None:
+            raise ValueError("QuantQr requires an rng key (stochastic rounding)")
+        s, dev = _clients(stacked)
+        leaves = tree_util.leaves(stacked)
+        # client i's leaf j draws its uniforms from split(keys[i], L)[j],
+        # as the reference's per-client compress does
+        leaf_keys = prng.split(keys, len(leaves))           # (s, L, 2)
+        new = []
+        for j, x in enumerate(leaves):
+            n = x[0].numel()
+            new.append(kops.quantize_qr(x.reshape(s, n), self.r,
+                                        leaf_keys[:, j]).reshape(x.shape))
+        out = tree_util.unflatten(stacked, new)
+        n_total = sum(x[0].numel() for x in leaves)
+        return out, BitsReport(
+            value_bits=per_client(float(n_total) * (1 + self.r), s, dev),
+            index_bits=per_client(0.0, s, dev),
+            meta_bits=per_client(float(len(leaves)) * FLOAT_BITS, s, dev))

@@ -1,0 +1,232 @@
+"""FedComLoc (paper Algorithm 1) — Scaffnew + compression, three variants.
+The port of ``repro.core.fedcomloc``.
+
+* line 7  (FedComLoc-Local):  g_i evaluated at C(x_i);
+* line 8  (FedComLoc-Com):    uplink iterate compressed, x^_i <- C(x^_i);
+* line 11 (FedComLoc-Global): averaged iterate compressed before broadcast;
+* line 16: h_i <- h_i + (p/gamma)(x_{t+1} - x^_{i,t+1}).
+
+``variant="none"`` with ``Identity`` is Scaffnew.  The round consumes the
+reference's key chain exactly — the 5-way split, ``split(k_local, cap)``
+per local step, ``split(k_step, s)`` per client and ``split(kc)`` into
+batch and compression keys — so cohorts, batches and Q_r uniforms equal
+the reference's bit for bit.
+
+The cohort's local SGD is batched: the server model is broadcast to
+``(s, ...)`` stacked rows and every step is one stacked forward/backward
+(``torch.bmm``) for all sampled clients.  Compression runs one kernel
+launch per leaf for the whole cohort.  Ported: the homogeneous schedule,
+the sync policy, ``wire="account"``, ``downlink="dense"`` and
+``local_steps="fixed"``; error feedback, server momentum and geometric
+local phases are not yet ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import not_ported, prng
+from repro_torch import tree as tree_util
+from repro_torch.compress import Compressor, Identity, dense_bits
+from repro_torch.core import aggregation, comm
+from repro_torch.core.clients import (
+    ClientSchedule, batched_compress, mean_over_active, validate_schedule)
+from repro_torch.core.engine import RoundEngine
+from repro_torch.core.fed_data import FederatedData
+
+PyTree = Any
+LossFn = Callable[[PyTree, torch.Tensor, torch.Tensor], torch.Tensor]
+
+VARIANTS = ("none", "com", "local", "global")
+
+
+class FedComLocState(NamedTuple):
+    x: PyTree      # server model (broadcast value), on the device
+    h: PyTree      # control variates, stacked (n_clients, ...)
+    round: int     # communication rounds completed
+
+
+@dataclasses.dataclass(frozen=True)
+class FedComLocConfig:
+    gamma: float = 0.1                 # local stepsize
+    p: float = 0.1                     # communication probability
+    n_clients: int = 100
+    clients_per_round: int = 10
+    batch_size: int = 32
+    variant: str = "com"               # none | com | local | global
+    local_steps: str = "fixed"         # fixed (geometric: not yet ported)
+    max_local_steps: Optional[int] = None
+    error_feedback: bool = False       # not yet ported
+    server_momentum: float = 0.0       # not yet ported
+
+    def __post_init__(self):
+        if self.variant not in VARIANTS:
+            raise ValueError(f"variant must be one of {VARIANTS}")
+        if not (0 < self.p <= 1):
+            raise ValueError("p must be in (0, 1]")
+        if self.n_clients <= 0:
+            raise ValueError("n_clients must be positive")
+        if not (0 < self.clients_per_round <= self.n_clients):
+            raise ValueError(
+                f"clients_per_round must be in [1, n_clients]: got "
+                f"{self.clients_per_round} with n_clients={self.n_clients}")
+        if self.local_steps not in ("fixed", "geometric"):
+            raise ValueError('local_steps must be "fixed" or "geometric"')
+        if self.error_feedback and self.variant != "com":
+            raise ValueError("error_feedback applies to the Com variant")
+        if not (0.0 <= self.server_momentum < 1.0):
+            raise ValueError("server_momentum must be in [0, 1)")
+
+    @property
+    def steps_cap(self) -> int:
+        if self.max_local_steps is not None:
+            return self.max_local_steps
+        if self.local_steps == "fixed":
+            return max(1, round(1.0 / self.p))
+        return max(1, round(4.0 / self.p))
+
+
+
+class FedComLoc(RoundEngine):
+    """Algorithm 1.  ``variant="none"`` with Identity compression = Scaffnew."""
+
+    def __init__(self, loss_fn: LossFn, data: FederatedData,
+                 config: FedComLocConfig,
+                 compressor: Compressor | None = None,
+                 schedule: ClientSchedule | None = None,
+                 policy: aggregation.AggregationPolicy | None = None,
+                 wire: str = "account",
+                 downlink: str = "dense",
+                 store=None,
+                 meter_mode: str = "host"):
+        if config.error_feedback:
+            raise not_ported("error feedback")
+        if config.server_momentum > 0:
+            raise not_ported("server momentum")
+        if config.local_steps != "fixed":
+            raise not_ported(f"local_steps={config.local_steps!r}")
+        self.loss_fn = loss_fn
+        self.data = data
+        self.cfg = config
+        self.policy = policy
+        self.wire = wire
+        self.downlink = downlink
+        self.store = store
+        self.comp = compressor if compressor is not None else Identity()
+        if config.variant == "none" and not isinstance(self.comp, Identity):
+            raise ValueError('variant="none" requires the Identity compressor')
+        self.sched = validate_schedule(
+            schedule if schedule is not None
+            else ClientSchedule.homogeneous(config.n_clients),
+            config.n_clients)
+        self.meter = comm.CommMeter(mode=meter_mode)
+        self._setup_engine()
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def init(self, params0: PyTree) -> FedComLocState:
+        n = self.cfg.n_clients
+        x = tree_util.map(lambda p: p.detach().to(self.device), params0)
+        h = tree_util.map(
+            lambda p: torch.zeros((n,) + tuple(p.shape), dtype=p.dtype,
+                                  device=p.device), x)
+        return FedComLocState(x=x, h=h, round=0)
+
+    def _value_and_grad(self, params: PyTree, xb, yb):
+        """Per-client losses ``(s,)`` and gradients of stacked params."""
+        flat = [p.detach().requires_grad_(True)
+                for p in tree_util.leaves(params)]
+        with torch.enable_grad():
+            losses = self.loss_fn(tree_util.unflatten(params, flat), xb, yb)
+            grads = torch.autograd.grad(losses.sum(), flat)
+        return losses.detach(), tree_util.unflatten(params, list(grads))
+
+    def _round_impl(self, state: FedComLocState, key: torch.Tensor):
+        cfg, sched = self.cfg, self.sched
+        k_sample, k_steps, k_local, k_up, k_down = prng.split(key, 5)
+        s = cfg.clients_per_round
+        clients, _ = sched.sample_cohort(k_sample, s, state.round)
+        num_steps = cfg.steps_cap               # local_steps="fixed"
+        plan = sched.plan(clients, num_steps)
+        dev = self.device
+        rows = clients.to(dev)
+
+        h_s = tree_util.map(lambda h: h[rows], state.h)
+        x_i = tree_util.map(
+            lambda p: p.unsqueeze(0).expand((s,) + tuple(p.shape)).clone(),
+            state.x)
+
+        # the whole round's key chain at once: step j, client i draws
+        # split(split(split(k_local, cap)[j], s)[i]) -> (batch, compress)
+        cap = cfg.steps_cap
+        step_keys = prng.split(k_local, cap)             # (cap, 2)
+        client_keys = prng.split(step_keys, s)           # (cap, s, 2)
+        kb_kc = prng.split(client_keys, 2)               # (cap, s, 2, 2)
+        xb_all, yb_all = self.data.sample_batch(
+            kb_kc[..., 0, :], clients.unsqueeze(0).expand(cap, s),
+            cfg.batch_size)
+        # the homogeneous plan runs every client for all cap steps
+        # (per-client step masks arrive with straggler deadlines)
+        active = (plan.steps > 0).to(dev)
+
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for j in range(cap):
+            x_eval = (self.comp.apply(x_i, kb_kc[j, :, 1])
+                      if cfg.variant == "local" else x_i)
+            losses, g = self._value_and_grad(x_eval, xb_all[j], yb_all[j])
+            x_i = tree_util.map(
+                lambda xc, gc, hc: xc - cfg.gamma * (gc - hc), x_i, g, h_s)
+            loss_sum = loss_sum + mean_over_active(losses, active)
+        x_hat = x_i
+
+        # --- communication (theta_t = 1) --------------------------------- #
+        dense = dense_bits(state.x)
+        client_up = torch.full((s,), dense, dtype=torch.float32)
+        up_bits = torch.tensor(s * dense, dtype=torch.float32)
+        down_bits = torch.tensor(s * dense, dtype=torch.float32)
+        if cfg.variant == "com":
+            up_keys = prng.split(k_up, s)
+            x_hat, up_rep = batched_compress(self.comp, plan, x_hat, up_keys)
+            client_up = up_rep.total_bits.cpu()
+            up_bits = None
+
+        pol = aggregation.resolve_policy(
+            self.policy, sched, plan,
+            client_up * plan.participating.to(torch.float32))
+        out = pol.out
+        client_up = pol.client_up
+        if up_bits is None or pol.may_exclude:
+            up_bits = client_up.sum()
+        x_bar = tree_util.map(lambda t: t.mean(dim=0), x_hat)
+        if cfg.variant == "global":
+            x_bar, down_rep = self.comp.compress(
+                tree_util.map(lambda t: t.unsqueeze(0), x_bar),
+                k_down.unsqueeze(0))
+            x_bar = tree_util.map(lambda t: t[0], x_bar)
+            down_bits = down_rep.total_bits[0].cpu() * s
+
+        # line 16: h_i += (p/gamma) (x_{t+1} - x^_{i,t+1}) for i in S
+        h_s_new = tree_util.map(
+            lambda h, xh, xb_: h + (cfg.p / cfg.gamma) * (xb_.unsqueeze(0) - xh),
+            h_s, x_hat, x_bar)
+        h_new = tree_util.map(lambda h, hs: h.index_copy(0, rows, hs),
+                              state.h, h_s_new)
+
+        metrics = {
+            "train_loss": loss_sum / max(int(plan.steps.max()), 1),
+            "num_local_steps": torch.tensor(num_steps, dtype=torch.int32),
+            "uplink_bits": up_bits,
+            "downlink_bits": down_bits,
+            "client_steps": plan.steps.to(torch.int32),
+            "client_uplink_bits": client_up,
+            "client_finish": out.finish,
+            "sim_time": out.sim_time,
+            **aggregation.policy_metrics(out),
+        }
+        return (FedComLocState(x=x_bar, h=h_new, round=state.round + 1),
+                metrics)

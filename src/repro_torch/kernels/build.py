@@ -1,0 +1,164 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` into ``lib<name>-<hash>.so`` for ``sm_90a``; the hash covers the
+source and the flags, so an edited kernel is rebuilt and a built one is
+reused.  All missing libraries are compiled together, one ``nvcc`` process
+per source, at the first call that needs any of them.  The output goes
+under ``kernels/_build/`` beside the sources, which ``.gitignore`` lists.
+A failed build raises :class:`BuildError` with the compiler's output;
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Callable, Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+
+COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: source stem -> extra nvcc flags.  quantize.cu must not contract
+#: ``scaled - lo`` into an FMA (the Q_r rounding compares its bits).
+SOURCES: Dict[str, tuple] = {
+    "topk_compress": (),
+    "quantize": ("--fmad=false",),
+}
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+class KernelError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+def build_dir() -> Path:
+    return Path(__file__).resolve().parent / "_build"
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BuildError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
+    return found
+
+
+def _flags(name: str) -> tuple:
+    return COMMON_FLAGS + SOURCES[name]
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
+    return build_dir() / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source whose library is missing, all in parallel.
+
+    Returns ``{name: library path}``.  Each compile writes a private
+    temporary file and renames it into place, so concurrent builds never
+    see a partial library.  The compiler's output (``-Xptxas=-v``: each
+    kernel's registers and shared memory) is kept beside the library as
+    ``<library>.log``.
+    """
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = {name: p for name, p in paths.items() if not p.is_file()}
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        text = log.decode(errors="replace")
+        path.with_suffix(".so.log").write_text(text)
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (exit {proc.returncode}):\n{text}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise BuildError("nvcc failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+
+    ``bind`` declares the library's ``argtypes``/``restype`` once, when it
+    is first loaded.
+    """
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all()[name]))
+            bind(lib)
+            _LIBS[name] = lib
+    return lib
+
+
+def on_cpu(x: torch.Tensor) -> bool:
+    """Dispatch by tensor device: True for a CPU tensor (the plain
+    version runs), False for a CUDA tensor (the kernel runs); any other
+    device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def cuda_rows(x: torch.Tensor) -> torch.Tensor:
+    """Validate a CUDA ``(rows, n)`` float32 or bfloat16 input; returns it
+    as contiguous float32."""
+    if x.dim() != 2:
+        raise ValueError(f"expects (rows, n) input, got shape {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"expects float32 or bfloat16, got {x.dtype}")
+    if not 1 <= x.shape[0] <= 65535:
+        raise ValueError(f"rows must be in [1, 65535], got {x.shape[0]}")
+    return x.to(torch.float32).contiguous()
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(code: int, what: str, lib: ctypes.CDLL, errfn: str) -> None:
+    if code != 0:
+        msg = getattr(lib, errfn)(code).decode(errors="replace")
+        raise KernelError(f"{what} failed with CUDA error {code}: {msg}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

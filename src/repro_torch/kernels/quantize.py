@@ -1,0 +1,93 @@
+"""QSGD Q_r: sum of squares (K3) and stochastic rounding (K4) — wrappers
+and plain versions.
+
+The port of ``repro.kernels.quantize``.  Both functions take row-batched
+``(rows, n)`` input (one row per client's leaf) and dispatch by the
+tensor's device: a CPU tensor runs the plain version in
+:mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
+kernel in ``csrc/quantize.cu`` or raises.  K4 takes the norm and the
+uniforms as inputs, so kernel and plain version are bit-equal given the
+same norm and uniforms.
+
+``LAUNCHES`` counts kernel launches per wrapper; only the CUDA path adds
+to it, so a CPU run leaves it at 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"l2_norm": 0, "quantize_qr": 0}
+
+_P = ctypes.c_void_p
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.qr_norm_parts.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    lib.qr_norm_parts.restype = ctypes.c_int
+    lib.qr_l2_norm.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, _P,
+                               ctypes.c_int, _P, _P]
+    lib.qr_l2_norm.restype = ctypes.c_int
+    lib.qr_quantize.argtypes = [_P, _P, _P, _P, ctypes.c_int,
+                                ctypes.c_longlong, ctypes.c_float, _P]
+    lib.qr_quantize.restype = ctypes.c_int
+    lib.qr_error_string.argtypes = [ctypes.c_int]
+    lib.qr_error_string.restype = ctypes.c_char_p
+
+
+def _lib() -> ctypes.CDLL:
+    return build.load("quantize", _bind)
+
+
+def l2_norm(x: torch.Tensor) -> torch.Tensor:
+    """K3: per-row ``sqrt(sum x**2)`` (float32), deterministic on the card."""
+    if build.on_cpu(x):
+        return ref.l2_norm(x)
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    norm = torch.empty(rows, dtype=torch.float32, device=xf.device)
+    if n == 0:
+        return norm.zero_()
+    lib = _lib()
+    parts = lib.qr_norm_parts(rows, n)
+    partial = torch.empty((rows, parts), dtype=torch.float32, device=xf.device)
+    code = lib.qr_l2_norm(build.ptr(xf), rows, n, build.ptr(partial), parts,
+                          build.ptr(norm), build.stream_ptr())
+    build.check(code, "qr_l2_norm", lib, "qr_error_string")
+    LAUNCHES["l2_norm"] += 1
+    return norm
+
+
+def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
+                              norm: torch.Tensor) -> torch.Tensor:
+    """K4: Q_r of each row against ``norm[row]`` with uniforms ``u``
+    (``(rows, n)`` float32), in x's dtype."""
+    if build.on_cpu(x):
+        return ref.quantize_qr_with_uniforms(x, r, u, norm)
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    r = int(r)
+    if not 1 <= r <= 126:
+        raise ValueError(f"r must be in [1, 126], got {r}")
+    for name, t, shape in (("u", u, (rows, n)), ("norm", norm, (rows,))):
+        if (t.shape != shape or t.dtype != torch.float32
+                or t.device != xf.device):
+            raise ValueError(f"{name} must be a float32 {shape} tensor on "
+                             f"x's device, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    u = u.contiguous()
+    norm = norm.contiguous()
+    out = torch.empty_like(xf)
+    if n == 0:
+        return out.to(x.dtype)
+    lib = _lib()
+    code = lib.qr_quantize(build.ptr(xf), build.ptr(u), build.ptr(norm),
+                           build.ptr(out), rows, n, float(2 ** r),
+                           build.stream_ptr())
+    build.check(code, "qr_quantize", lib, "qr_error_string")
+    LAUNCHES["quantize_qr"] += 1
+    return out.to(x.dtype)

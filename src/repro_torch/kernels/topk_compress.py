@@ -1,0 +1,97 @@
+"""TopK radix threshold (K1) and mask (K2): wrappers and plain versions.
+
+The port of ``repro.kernels.topk_compress``.  Both functions take
+row-batched ``(rows, n)`` input (one row per client's leaf) and dispatch
+by the tensor's device: a CPU tensor runs the plain version in
+:mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
+kernel in ``csrc/topk_compress.cu`` or raises.  bf16 input is cast to
+float32 for the kernel (an exact order-embedding of the magnitudes) and
+the mask is cast back.
+
+``LAUNCHES`` counts kernel launches per wrapper; only the CUDA path adds
+to it, so a CPU run leaves it at 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"topk_threshold_bits": 0, "topk_mask": 0}
+
+_P = ctypes.c_void_p
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.topk_threshold_bits.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong,
+                                        _P, _P, _P, _P, _P]
+    lib.topk_threshold_bits.restype = ctypes.c_int
+    lib.topk_mask_apply.argtypes = [_P, _P, _P, ctypes.c_int,
+                                    ctypes.c_longlong, _P]
+    lib.topk_mask_apply.restype = ctypes.c_int
+    lib.topk_error_string.argtypes = [ctypes.c_int]
+    lib.topk_error_string.restype = ctypes.c_char_p
+
+
+def _lib() -> ctypes.CDLL:
+    return build.load("topk_compress", _bind)
+
+
+def threshold_bits(x: torch.Tensor, k) -> torch.Tensor:
+    """K1: per-row bit pattern (int64 holding uint32) of the k-th largest
+    ``|x|``; ``k`` is an int or a per-row tensor.  ``k >= n`` gives 0 and
+    ``k <= 0`` gives ``0xFFFFFFFF``."""
+    if build.on_cpu(x):
+        return ref.topk_threshold_bits(x, k)
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    dev = xf.device
+    if isinstance(k, torch.Tensor):
+        kk = k.to(device=dev, dtype=torch.int32).contiguous()
+    else:
+        kk = torch.full((rows,), int(k), dtype=torch.int32, device=dev)
+    if kk.shape != (rows,):
+        raise ValueError(f"k must be a scalar or ({rows},), got {tuple(kk.shape)}")
+    thr = torch.empty(rows, dtype=torch.int64, device=dev)
+    if n == 0:
+        return thr.zero_()
+    hist = torch.empty((rows, 256), dtype=torch.int32, device=dev)
+    prefix = torch.empty(rows, dtype=torch.int32, device=dev)
+    k_rem = torch.empty(rows, dtype=torch.int64, device=dev)
+    lib = _lib()
+    code = lib.topk_threshold_bits(build.ptr(xf), build.ptr(kk), rows, n,
+                                   build.ptr(hist), build.ptr(prefix),
+                                   build.ptr(k_rem), build.ptr(thr),
+                                   build.stream_ptr())
+    build.check(code, "topk_threshold_bits", lib, "topk_error_string")
+    LAUNCHES["topk_threshold_bits"] += 1
+    return thr
+
+
+def mask_by_threshold(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """K2: ``where(bits >= thr[row], x, 0)`` in x's dtype."""
+    if build.on_cpu(x):
+        return ref.mask_by_threshold(x, thr)
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    if thr.shape != (rows,) or thr.dtype != torch.int64 or thr.device != xf.device:
+        raise ValueError("thr must be an int64 (rows,) tensor on x's device")
+    thr = thr.contiguous()
+    out = torch.empty_like(xf)
+    if n == 0:
+        return out.to(x.dtype)
+    lib = _lib()
+    code = lib.topk_mask_apply(build.ptr(xf), build.ptr(thr), build.ptr(out),
+                               rows, n, build.stream_ptr())
+    build.check(code, "topk_mask_apply", lib, "topk_error_string")
+    LAUNCHES["topk_mask"] += 1
+    return out.to(x.dtype)
+
+
+def topk_mask(x: torch.Tensor, k) -> torch.Tensor:
+    """K1 then K2: zero all but each row's k largest-magnitude entries
+    (ties at the threshold kept; ``k >= n`` keeps every entry)."""
+    return mask_by_threshold(x, threshold_bits(x, k))

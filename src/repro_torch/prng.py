@@ -1,0 +1,178 @@
+"""A counter-based PRNG that reproduces ``jax.random`` (threefry2x32) bit
+for bit, in plain PyTorch.
+
+Every trajectory of the reference package hangs off jax's threefry key
+chain: the 5-way round split, the cohort ``choice``, the batch
+``randint`` and the Q_r uniforms.  Reimplementing that chain exactly lets
+the port's rounds match the reference's cohorts, batch indices and
+rounding draws bit for bit, so the parity tests compare counts exactly.
+
+A key is the raw ``key_data`` pair ``(k0, k1)`` of uint32 words, held as
+an int64 tensor of shape ``(..., 2)``; every function batches over the
+leading key axes.  torch's uint32 coverage is thin, so all uint32
+arithmetic runs in int64 with ``& 0xFFFFFFFF`` after each add and shift.
+
+The formulas follow jax's partitionable threefry mode (the default since
+jax 0.5): with ``T(key, (hi, lo))`` = threefry2x32 over the counter pair,
+
+* ``split(key, n)[i] == T(key, (0, i))``;
+* ``bits(key, (n,))[i] == hi ^ lo`` of ``T(key, (0, i))``;
+* ``uniform == view_f32((bits >> 9) | 0x3F800000) - 1``.
+
+Key chains are cheap and stay wherever the caller keeps them (the round
+drivers keep them on the host); bulk draws (``bits``/``uniform`` over a
+parameter vector) run on the ``device`` they are asked for.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch import not_ported
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor):
+    """Threefry-2x32 with 20 rounds on int64 tensors holding uint32
+    values; all four arguments broadcast against each other."""
+    k2 = k0 ^ k1 ^ 0x1BD11BDA
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & MASK32
+    x1 = (x1 + k1) & MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``'s key data: ``(seed >> 32, seed & mask)``
+    for a 32-bit seed (the high word is 0; a negative seed wraps)."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 32:
+        raise ValueError(f"seed {seed} does not fit 32 bits")
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64)
+
+
+def key_data(key) -> torch.Tensor:
+    """A key as an int64 ``(..., 2)`` tensor (accepts numpy uint32 key
+    data, e.g. ``np.asarray(jax.random.key_data(k))``)."""
+    if isinstance(key, torch.Tensor):
+        if key.shape[-1:] != (2,):
+            raise ValueError(f"key data must end in 2 words, got {key.shape}")
+        return key.to(torch.int64)
+    arr = np.asarray(key)
+    if arr.shape[-1:] != (2,):
+        raise ValueError(f"key data must end in 2 words, got {arr.shape}")
+    return torch.from_numpy(arr.astype(np.int64))
+
+
+def _counter_hash(key: torch.Tensor, n: int, device=None):
+    """``T(key, (0, i))`` for ``i < n``: two ``(..., n)`` words."""
+    key = key_data(key).to(device)
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    k0 = key[..., 0:1]
+    k1 = key[..., 1:2]
+    return threefry2x32(k0, k1, torch.zeros_like(i), i)
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``(..., 2)`` -> ``(..., num, 2)``."""
+    o0, o1 = _counter_hash(key, int(num))
+    return torch.stack((o0, o1), dim=-1)
+
+
+def bits(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, (n,))`` (uint32 values in int64):
+    ``(..., 2)`` keys -> ``(..., n)`` words, computed on ``device``."""
+    o0, o1 = _counter_hash(key, int(n), device)
+    return o0 ^ o1
+
+
+def uniform(key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))`` in [0, 1), float32."""
+    b = bits(key, n, device)
+    mant = ((b >> 9) | 0x3F800000).to(torch.int32)
+    return mant.view(torch.float32) - 1.0
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """Standard normals by jax's erfinv route (``sqrt(2)·erfinv(u)`` with
+    ``u`` uniform in (-1, 1)).  Close to ``jax.random.normal`` but not bit
+    for bit (``erfinv`` differs by ulps); only parameter init uses it, and
+    the parity tests carry weights across instead."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, n, device) * (1.0 - lo) + lo
+    u = torch.clamp(u, min=lo)
+    out = math.sqrt(2.0) * torch.erfinv(u)
+    return out.reshape(key_data(key).shape[:-1] + shape)
+
+
+def randint(key, n: int, minval, maxval, device=None) -> torch.Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)``'s int32 values, as
+    int64 (ready to index with).
+
+    ``minval``/``maxval`` may be per-key tensors of the key batch shape
+    (e.g. a per-client shard size).  jax draws two words per value and
+    folds them with a multiplier; the uint32 wrap of that multiplier's
+    square is part of the result and is kept here.
+    """
+    key = key_data(key)
+    k = split(key, 2)
+    hb = bits(k[..., 0, :], n, device)
+    lb = bits(k[..., 1, :], n, device)
+    dev = hb.device
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    lo = lo.reshape(lo.shape + (1,) * (hb.dim() - lo.dim()))
+    hi = hi.reshape(hi.shape + (1,) * (hb.dim() - hi.dim()))
+    span = torch.where(hi <= lo, torch.ones_like(hi), (hi - lo) & MASK32)
+    mult = torch.remainder(torch.full_like(span, 2 ** 16), span)
+    mult = torch.remainder((mult * mult) & MASK32, span)
+    off = (torch.remainder(hb, span) * mult) & MASK32
+    off = (off + torch.remainder(lb, span)) & MASK32
+    return lo + torch.remainder(off, span)
+
+
+def _shuffle_rounds(n: int) -> int:
+    """jax's static round count for its sort-based shuffle."""
+    return int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for one key: repeated stable
+    sorts of ``arange(n)`` by fresh 32-bit words."""
+    key = key_data(key)
+    if key.shape != (2,):
+        raise ValueError("permutation takes one key")
+    x = torch.arange(n, dtype=torch.int64)
+    for _ in range(_shuffle_rounds(n)):
+        key, sub = split(key, 2)
+        order = torch.sort(bits(sub, n), stable=True).indices
+        x = x[order]
+    return x
+
+
+def choice(key, n: int, s: int, replace: bool = False) -> torch.Tensor:
+    """``jax.random.choice(key, n, (s,), replace=False)``: the first ``s``
+    entries of ``permutation(key, n)``."""
+    if replace:
+        raise not_ported("choice(replace=True)")
+    if not 0 <= s <= n:
+        raise ValueError(f"cannot draw {s} of {n} without replacement")
+    return permutation(key, n)[:s]

@@ -1,0 +1,252 @@
+"""The port's kernels K1-K4 (their plain versions, on the CPU) against the
+reference's Pallas kernels in interpret mode and its jnp oracles; the
+CUDA kernels are held against the plain versions in
+``test_torch_cuda.py``.
+
+Threshold, mask and Q_r are compared bit for bit (Q_r given the same norm
+and uniforms); the norm within rtol 1e-6, since float32 sums in other
+orders may differ in the last bit.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import quantize as jquant  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import topk_compress as jtopk  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import quantize as quant  # noqa: E402
+from repro_torch.kernels import topk_compress as topk  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _partitionable_threefry():
+    """The port reproduces jax's partitionable threefry stream (the
+    default since jax 0.5); pin it whatever the ambient config says."""
+    with jax.threefry_partitionable(True):
+        yield
+
+
+NORM_RTOL = 1e-6
+
+
+def _rows(seed, rows, n, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal((rows, n)).astype(dtype)
+
+
+def _bits_equal(a: np.ndarray, b: np.ndarray):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    view = np.uint16 if a.dtype.itemsize == 2 else np.uint32
+    np.testing.assert_array_equal(a.view(view), b.view(view))
+
+
+# --------------------------------------------------------------------------- #
+# K1 threshold / K2 mask
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("n,k", [
+    (128, 1), (1000, 100), (1024, 1023), (4096, 2048), (5000, 13),
+    (333, 300), (50176, 15053),
+])
+def test_threshold_matches_jnp_oracle_and_pallas(n, k):
+    x = _rows(n + k, 3, n)
+    got = topk.threshold_bits(torch.from_numpy(x), k).numpy()
+    for r in range(3):
+        want = int(jref.topk_threshold_bits(jnp.asarray(x[r]), k))
+        assert got[r] == want
+    if n <= 5000:
+        for r in range(3):
+            assert got[r] == int(jtopk.threshold_bits(jnp.asarray(x[r]), k,
+                                                      interpret=True))
+
+
+@pytest.mark.parametrize("k,want", [(0, 0xFFFFFFFF), (-3, 0xFFFFFFFF),
+                                    (333, 0), (1000, 0)])
+def test_threshold_edge_conventions_match_pallas(k, want):
+    """k <= 0 -> all-ones (empty support); k >= n -> 0 (keep everything),
+    the TPU kernel's conventions."""
+    x = _rows(3, 2, 333)
+    got = topk.threshold_bits(torch.from_numpy(x), k).numpy()
+    assert (got == want).all()
+    assert int(jtopk.threshold_bits(jnp.asarray(x[0]), k,
+                                    interpret=True)) == want
+
+
+def test_threshold_per_row_k():
+    x = _rows(4, 4, 777)
+    ks = [1, 77, 776, 500]
+    got = topk.threshold_bits(torch.from_numpy(x), torch.tensor(ks)).numpy()
+    for r, k in enumerate(ks):
+        assert got[r] == int(jref.topk_threshold_bits(jnp.asarray(x[r]), k))
+
+
+@pytest.mark.parametrize("n,k", [(128, 1), (1000, 100), (1024, 1023),
+                                 (333, 300), (777, 77)])
+def test_mask_matches_oracle_and_pallas_batched(n, k):
+    x = _rows(2 * n + k, 4, n)
+    got = ops.topk_mask(torch.from_numpy(x), k).numpy()
+    for r in range(4):
+        _bits_equal(got[r], np.asarray(jref.topk_mask(jnp.asarray(x[r]), k)))
+        _bits_equal(got[r], np.asarray(
+            jtopk.topk_mask(jnp.asarray(x[r]), k, interpret=True)))
+
+
+def test_mask_ties_keep_every_tie():
+    x = np.asarray([1.0, -1.0, 1.0, 0.5, 2.0] * 40, np.float32)[None]
+    for k, kept in ((3, 40), (50, 160)):     # the 2.0s; then every tied +-1
+        got = ops.topk_mask(torch.from_numpy(x), k).numpy()[0]
+        _bits_equal(got, np.asarray(jtopk.topk_mask(jnp.asarray(x[0]), k,
+                                                    interpret=True)))
+        assert (got != 0).sum() == kept
+
+
+def test_mask_zeros_and_negative_zero():
+    x = _rows(5, 2, 64)
+    x[0, :10] = 0.0
+    x[0, 10:20] = -0.0
+    x[1] = 0.0
+    for k in (5, 50, 60):
+        got = ops.topk_mask(torch.from_numpy(x), k).numpy()
+        for r in range(2):
+            _bits_equal(got[r], np.asarray(jref.topk_mask(jnp.asarray(x[r]), k)))
+
+
+def test_mask_k_at_least_n_returns_input():
+    x = torch.from_numpy(_rows(6, 2, 50))
+    assert ops.topk_mask(x, 50) is x
+    assert ops.topk_mask(x, 51) is x
+
+
+def test_mask_bf16_matches_oracle():
+    x32 = _rows(7, 3, 777)
+    xb = jnp.asarray(x32).astype(jnp.bfloat16)
+    xt = torch.from_numpy(x32).to(torch.bfloat16)
+    np.testing.assert_array_equal(xt.float().numpy(),
+                                  np.asarray(xb.astype(jnp.float32)))
+    got = ops.topk_mask(xt, 77)
+    assert got.dtype == torch.bfloat16
+    for r in range(3):
+        want = np.asarray(jref.topk_mask(xb[r], 77).astype(jnp.float32))
+        _bits_equal(got[r].float().numpy(), want)
+
+
+# --------------------------------------------------------------------------- #
+# K3 norm / K4 Q_r
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("n", [1, 10, 1000, 4099, 50176])
+def test_norm_matches_within_rtol(n):
+    x = _rows(n, 3, n)
+    got = quant.l2_norm(torch.from_numpy(x)).numpy()
+    for r in range(3):
+        xf = jnp.asarray(x[r])
+        np.testing.assert_allclose(got[r], float(jnp.sqrt(jnp.sum(xf * xf))),
+                                   rtol=NORM_RTOL)
+        if n <= 4099:
+            np.testing.assert_allclose(
+                got[r], float(jquant.l2_norm(xf, interpret=True)),
+                rtol=NORM_RTOL)
+
+
+@pytest.mark.parametrize("n,r", [(1000, 1), (1000, 4), (4099, 8), (128, 8),
+                                 (10, 1)])
+def test_qr_bit_exact_given_norm_and_uniforms(n, r):
+    x = _rows(n * r, 3, n)
+    x[0, :5] = 0.0
+    x[0, 5] = -0.0
+    u = np.random.default_rng(n + r).random((3, n)).astype(np.float32)
+    for row in range(3):
+        xj, uj = jnp.asarray(x[row]), jnp.asarray(u[row])
+        # the oracle's own norm, computed the oracle's way
+        norm = np.array(jnp.sqrt(jnp.sum(xj * xj)), np.float32)
+        got = quant.quantize_qr_with_uniforms(
+            torch.from_numpy(x[row:row + 1]), r, torch.from_numpy(u[row:row + 1]),
+            torch.from_numpy(norm.reshape(1))).numpy()[0]
+        _bits_equal(got, np.asarray(jref.quantize_qr_with_uniforms(xj, r, uj)))
+        # the Pallas kernel's grid-accumulated norm
+        pnorm = np.array(jquant.l2_norm(xj, interpret=True), np.float32)
+        got = quant.quantize_qr_with_uniforms(
+            torch.from_numpy(x[row:row + 1]), r, torch.from_numpy(u[row:row + 1]),
+            torch.from_numpy(pnorm.reshape(1))).numpy()[0]
+        _bits_equal(got, np.asarray(jquant.quantize_qr_with_uniforms(
+            xj, r, uj, interpret=True)))
+
+
+def test_qr_zero_vector_is_zero():
+    x = np.zeros((2, 100), np.float32)
+    x[1, :3] = -0.0
+    u = np.random.default_rng(0).random((2, 100)).astype(np.float32)
+    xt = torch.from_numpy(x)
+    out = quant.quantize_qr_with_uniforms(xt, 4, torch.from_numpy(u),
+                                          quant.l2_norm(xt)).numpy()
+    _bits_equal(out, np.zeros_like(x))
+    _bits_equal(out[0], np.asarray(jref.quantize_qr_with_uniforms(
+        jnp.asarray(x[0]), 4, jnp.asarray(u[0]))))
+
+
+def test_qr_bf16_matches_oracle():
+    x32 = _rows(8, 2, 513)
+    xb = jnp.asarray(x32).astype(jnp.bfloat16)
+    xt = torch.from_numpy(x32).to(torch.bfloat16)
+    u = np.random.default_rng(8).random((2, 513)).astype(np.float32)
+    for r in range(2):
+        xf = xb[r].astype(jnp.float32)
+        norm = np.array(jnp.sqrt(jnp.sum(xf * xf)), np.float32).reshape(1)
+        got = quant.quantize_qr_with_uniforms(
+            xt[r:r + 1], 4, torch.from_numpy(u[r:r + 1]), torch.from_numpy(norm))
+        assert got.dtype == torch.bfloat16
+        want = jref.quantize_qr_with_uniforms(xb[r], 4, jnp.asarray(u[r]))
+        _bits_equal(got[0].float().numpy(),
+                    np.asarray(want.astype(jnp.float32)))
+
+
+def test_ops_quantize_draws_reference_uniforms():
+    """ops.quantize_qr draws row i's uniforms from keys[i] exactly as
+    ``jax.random.uniform`` does; given equal norms the output is the
+    reference's bit for bit."""
+    x = _rows(9, 3, 300)
+    keys = jax.random.split(jax.random.PRNGKey(4), 3)
+    got = ops.quantize_qr(torch.from_numpy(x), 8,
+                          torch.from_numpy(np.asarray(keys).astype(np.int64)))
+    norms = quant.l2_norm(torch.from_numpy(x)).numpy()
+    for r in range(3):
+        xj = jnp.asarray(x[r])
+        u = jax.random.uniform(keys[r], (300,))
+        if norms[r] == np.float32(jnp.sqrt(jnp.sum(xj * xj))):
+            _bits_equal(got[r].numpy(),
+                        np.asarray(jref.quantize_qr_with_uniforms(xj, 8, u)))
+        else:
+            np.testing.assert_allclose(got[r].numpy(), np.asarray(
+                jref.quantize_qr_with_uniforms(xj, 8, u)), rtol=1e-5, atol=1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# dispatch and counters
+# --------------------------------------------------------------------------- #
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    ops.reset_launch_counts()
+    x = torch.from_numpy(_rows(10, 3, 256))
+    ops.topk_mask(x, 10)
+    ops.quantize_qr(x, 4, torch.zeros((3, 2), dtype=torch.int64))
+    assert set(ops.launch_counts()) == {"topk_threshold_bits", "topk_mask",
+                                        "l2_norm", "quantize_qr"}
+    assert all(v == 0 for v in ops.launch_counts().values())
+
+
+def test_other_devices_raise():
+    x = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        topk.threshold_bits(x, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        quant.l2_norm(x)
+
+
+def test_rows_layout_is_required():
+    with pytest.raises(ValueError):
+        ref.topk_threshold_bits(torch.zeros(8), 2)

@@ -1,0 +1,147 @@
+"""The port's threefry PRNG against ``jax.random``, bit for bit."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro_torch import prng  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _partitionable_threefry():
+    """The port reproduces jax's partitionable threefry stream (the
+    default since jax 0.5); pin it whatever the ambient config says."""
+    with jax.threefry_partitionable(True):
+        yield
+
+
+SEEDS = [0, 1, 7, 42, 123456789, 2 ** 31 - 1, 2 ** 32 - 1, -1]
+
+
+def _kd(key) -> np.ndarray:
+    return np.asarray(jax.random.key_data(key)).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prng_key_matches(seed):
+    np.testing.assert_array_equal(prng.PRNGKey(seed).numpy(),
+                                  _kd(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [2, 3, 5, 17])
+def test_split_matches(seed, num):
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(prng.split(prng.PRNGKey(seed), num).numpy(),
+                                  _kd(jax.random.split(key, num)))
+
+
+def test_split_batches_over_leading_key_axes():
+    keys = jax.random.split(jax.random.PRNGKey(3), 6).reshape(2, 3, 2)
+    got = prng.split(prng.key_data(np.asarray(keys)), 4).numpy()
+    assert got.shape == (2, 3, 4, 2)
+    for i in range(2):
+        for j in range(3):
+            np.testing.assert_array_equal(
+                got[i, j], _kd(jax.random.split(keys[i, j], 4)))
+
+
+def test_key_chain_of_many_rounds_matches():
+    """The engine's ``key, sub = split(key)`` chain, 50 rounds deep, and
+    the round's 5-way split of every ``sub``."""
+    jk, tk = jax.random.PRNGKey(1), prng.PRNGKey(1)
+    for _ in range(50):
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = prng.split(tk, 2)
+        np.testing.assert_array_equal(prng.split(tsub, 5).numpy(),
+                                      _kd(jax.random.split(jsub, 5)))
+    np.testing.assert_array_equal(tk.numpy(), _kd(jk))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 5, 1000, 4099])
+def test_bits_match(seed, n):
+    key = jax.random.PRNGKey(seed)
+    np.testing.assert_array_equal(prng.bits(prng.PRNGKey(seed), n).numpy(),
+                                  np.asarray(jax.random.bits(key, (n,))))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 10, 4096, 50176])
+def test_uniform_matches_bitwise(seed, n):
+    key = jax.random.PRNGKey(seed)
+    got = prng.uniform(prng.PRNGKey(seed), n).numpy()
+    want = np.asarray(jax.random.uniform(key, (n,)))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_uniform_batched_keys_match_per_key_draws():
+    keys = jax.random.split(jax.random.PRNGKey(9), 5)
+    got = prng.uniform(prng.key_data(np.asarray(keys)), 333).numpy()
+    for i in range(5):
+        want = np.asarray(jax.random.uniform(keys[i], (333,)))
+        np.testing.assert_array_equal(got[i].view(np.uint32),
+                                      want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", SEEDS[:5])
+@pytest.mark.parametrize("span", [1, 2, 7, 100, 65535, 65536, 65537, 70000,
+                                  2 ** 20 + 3, 2 ** 31 - 1])
+def test_randint_matches_including_uint32_wrap(seed, span):
+    """Spans above 2**16 make jax's multiplier square wrap in uint32."""
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.randint(key, (257,), 0, span))
+    got = prng.randint(prng.PRNGKey(seed), 257, 0, span).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_randint_per_key_spans_and_empty_span():
+    keys = jax.random.split(jax.random.PRNGKey(5), 4)
+    spans = np.array([1, 37, 70000, 0])          # 0: maxval <= minval
+    got = prng.randint(prng.key_data(np.asarray(keys)), 64, 0,
+                       torch.from_numpy(spans)).numpy()
+    for i in range(4):
+        want = np.asarray(jax.random.randint(keys[i], (64,), 0,
+                                             jnp.maximum(spans[i], 0)))
+        np.testing.assert_array_equal(got[i], want)
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n,s", [(6, 3), (20, 5), (100, 10), (100, 100),
+                                 (2000, 7)])
+def test_choice_without_replacement_matches(seed, n, s):
+    """n = 2000 needs two rounds of jax's sort-based shuffle."""
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.choice(key, n, (s,), replace=False))
+    np.testing.assert_array_equal(prng.choice(prng.PRNGKey(seed), n, s).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("n", [1, 8, 1000, 1700])
+def test_permutation_matches(n):
+    key = jax.random.PRNGKey(11)
+    np.testing.assert_array_equal(prng.permutation(prng.PRNGKey(11), n).numpy(),
+                                  np.asarray(jax.random.permutation(key, n)))
+
+
+def test_choice_validates():
+    with pytest.raises(ValueError):
+        prng.choice(prng.PRNGKey(0), 3, 4)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        prng.choice(prng.PRNGKey(0), 3, 2, replace=True)
+
+
+def test_normal_is_close_to_jax():
+    """Only parameter init draws normals; they follow jax's erfinv route
+    closely but not bit for bit."""
+    key = jax.random.PRNGKey(0)
+    want = np.asarray(jax.random.normal(key, (64, 32)))
+    got = prng.normal(prng.PRNGKey(0), (64, 32)).numpy()
+    assert got.shape == (64, 32) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-4)
