@@ -9,20 +9,25 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
 1. build — compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a, one
    ``nvcc`` per source in parallel, into ``src/repro_torch/kernels/_build``;
 2. kernels — holds each kernel (K1 TopK threshold, K2 TopK mask, K3 l2
-   norm, K4 Q_r rounding) against its plain PyTorch version on the card,
-   at the main path's shapes, edge cases and one large shape: K1, K2 and
-   K4 bit-equal, K3 within ``NORM_RTOL``; then times kernel, plain version
-   and the library yardstick;
-3. train — drives the quickstart configuration (MLP 784-64-10, 20
+   norm, K4 Q_r rounding, K5 slot compaction, K7 fused Q_r pack, K8 code
+   pack, K9 code unpack) against its plain PyTorch version on the card,
+   at the main path's shapes, edge cases and one large shape: all
+   bit-equal except K3, which must be within ``NORM_RTOL``; K9 must invert
+   K8.  Then times kernel, plain version and the library yardstick;
+3. train — drives the quickstart configuration (MLP 784-64-64-10, 20
    Dirichlet(0.7) clients, 5 per round, batch 32, p = 0.1) through
-   ``server.run_federated`` on the card, once with ``TopK(0.3)`` and once
-   with ``QuantQr(8)``, with every launch counter set to 0 just before and
-   read just after; each counter must equal the count the batching
-   implies.  Then times steady-state rounds (wall clock, and device busy
-   time under ``torch.profiler``, whose idle share is given against both
-   the plain and the profiled wall clock) and replays the first
-   rounds on the CPU through the plain versions: cohorts, steps and bits
-   must be equal, the train loss within ``LOSS_RTOL``.
+   ``server.run_federated`` on the card with ``TopK(0.3)`` and with
+   ``QuantQr(8)``, each once on the account wire and once on the packed
+   wire, with every launch counter set to 0 just before a run and read
+   just after; each counter must equal the count the batching implies.
+   The packed runs must reproduce the account runs' uplink bits exactly,
+   their parameters within ``PARAM_RTOL``/``PARAM_ATOL``, and ship the
+   payload bytes the wire format implies.  Then times steady-state rounds
+   (wall clock, and device busy time under ``torch.profiler``, whose idle
+   share is given against both the plain and the profiled wall clock) and
+   replays the first rounds on the CPU through the plain versions:
+   cohorts, steps, bits and payload bytes must be equal, the train loss
+   within ``LOSS_RTOL``.
 
 Prints the card's name and power limit, one line per kernel and shape, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -32,6 +37,7 @@ Prints the card's name and power limit, one line per kernel and shape, a
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -42,6 +48,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 NORM_RTOL = 1e-5               # K3 vs torch.sum: float32 sums in other orders
 LOSS_RTOL = 1e-4               # cuBLAS vs CPU matmuls in the replayed rounds
+PARAM_RTOL, PARAM_ATOL = 1e-6, 1e-7   # packed vs account rounds on the card
 ROUNDS = 20
 REPLAY_ROUNDS = 3
 PROFILE_ROUNDS = 5
@@ -76,7 +83,7 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_rounds(torch, prng, alg, params0, label: str) -> None:
+def profile_rounds(torch, prng, alg, params0, label: str) -> dict:
     """Steady-state rounds (no eval): host wall per round, then the same
     rounds under ``torch.profiler`` for the device's busy time per round,
     its idle share and the device ops that take the most time."""
@@ -106,11 +113,13 @@ def profile_rounds(torch, prng, alg, params0, label: str) -> None:
                                + ev.time_range.elapsed_us())
     print(f"[profile] {label}: steady ms/round {wall_ms!r} (under the "
           f"profiler {prof_wall_ms!r})", flush=True)
+    out = {"wall_ms": wall_ms, "prof_wall_ms": prof_wall_ms, "busy_ms": None}
     if not dev_us:
         print(f"[profile] {label}: the profiler recorded no device events; "
               f"device busy time not measured", flush=True)
-        return
+        return out
     busy_ms = sum(dev_us.values()) / PROFILE_ROUNDS / 1e3
+    out["busy_ms"] = busy_ms
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     print(f"[profile] {label}: device busy ms/round {busy_ms!r}, idle share "
           f"{1.0 - busy_ms / wall_ms!r} of the steady round (under the "
@@ -119,6 +128,41 @@ def profile_rounds(torch, prng, alg, params0, label: str) -> None:
           f"top (ms/round): " + "; ".join(
               f"{name[:70]} {us / PROFILE_ROUNDS / 1e3!r}" for name, us in top),
           flush=True)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    print(f"[profile] {label}: host self time (ms/round, calls/round): "
+          + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / PROFILE_ROUNDS / 1e3!r}"
+                      f" {e.count / PROFILE_ROUNDS!r}" for e in host), flush=True)
+    return out
+
+
+def interleaved_rounds(torch, prng, algs: dict, params0, label: str) -> None:
+    """Steady ms/round of two algorithms in turns (A B B A, twice), so
+    that host drift falls on both alike."""
+    order = list(algs) + list(algs)[::-1]
+    states = {}
+    for name, alg in algs.items():
+        key = prng.PRNGKey(2)
+        state = alg.init(params0)
+        for _ in range(3):                                  # warm up
+            key, sub = prng.split(key, 2)
+            state, _ = alg.round(state, sub)
+        states[name] = (state, key)
+    times = {name: [] for name in algs}
+    for name in order * 2:
+        alg = algs[name]
+        state, key = states[name]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(PROFILE_ROUNDS):
+            key, sub = prng.split(key, 2)
+            state, _ = alg.round(state, sub)
+        torch.cuda.synchronize()
+        times[name].append((time.time() - t0) / PROFILE_ROUNDS * 1e3)
+        states[name] = (state, key)
+    print(f"[profile] {label} interleaved steady ms/round over windows of "
+          f"{PROFILE_ROUNDS}: " + "; ".join(
+              f"{name} {ts!r} (median {statistics.median(ts)!r})"
+              for name, ts in times.items()), flush=True)
 
 
 class KernelRecord:
@@ -133,6 +177,7 @@ class KernelRecord:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -141,12 +186,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
-    from repro_torch.compress import QuantQr, TopK
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import QuantQr, TopK, wire
     from repro_torch.core import fed_data, server
     from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
     from repro_torch.data import dirichlet, synthetic
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import pack_codes as pk
+    from repro_torch.kernels import qr_pack as qp
     from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import select_slots as sk
     from repro_torch.kernels import topk_compress as tk
     from repro_torch.models import small
 
@@ -165,19 +214,25 @@ def main() -> int:
           + ", ".join(p.name for p in libs.values()), flush=True)
 
     # ---- 2. kernels --------------------------------------------------------- #
+    csrc = "src/repro_torch/kernels/csrc/"
+    tpu = "src/repro/kernels/"
     recs = {
-        "K1": KernelRecord("topk_threshold_bits",
-                           "src/repro_torch/kernels/csrc/topk_compress.cu",
-                           "src/repro/kernels/topk_compress.py:94"),
-        "K2": KernelRecord("topk_mask",
-                           "src/repro_torch/kernels/csrc/topk_compress.cu",
-                           "src/repro/kernels/topk_compress.py:149"),
-        "K3": KernelRecord("l2_norm",
-                           "src/repro_torch/kernels/csrc/quantize.cu",
-                           "src/repro/kernels/quantize.py:68"),
-        "K4": KernelRecord("quantize_qr",
-                           "src/repro_torch/kernels/csrc/quantize.cu",
-                           "src/repro/kernels/quantize.py:97"),
+        "K1": KernelRecord("topk_threshold_bits", csrc + "topk_compress.cu",
+                           tpu + "topk_compress.py:94"),
+        "K2": KernelRecord("topk_mask", csrc + "topk_compress.cu",
+                           tpu + "topk_compress.py:149"),
+        "K3": KernelRecord("l2_norm", csrc + "quantize.cu",
+                           tpu + "quantize.py:68"),
+        "K4": KernelRecord("quantize_qr", csrc + "quantize.cu",
+                           tpu + "quantize.py:97"),
+        "K5": KernelRecord("compact_slots", csrc + "select_slots.cu",
+                           tpu + "select_slots.py:188"),
+        "K7": KernelRecord("quantize_pack_with_uniforms", csrc + "qr_pack.cu",
+                           tpu + "qr_pack.py:61"),
+        "K8": KernelRecord("pack_codes", csrc + "pack_codes.cu",
+                           tpu + "pack_codes.py:62"),
+        "K9": KernelRecord("unpack_codes", csrc + "pack_codes.cu",
+                           tpu + "pack_codes.py:87"),
     }
     gen = torch.Generator(device=dev).manual_seed(0)
     hidden = 64
@@ -188,6 +243,11 @@ def main() -> int:
 
     def randn(rows, n, dtype=torch.float32):
         return torch.randn(rows, n, generator=gen, device=dev).to(dtype)
+
+    def rand_codes(rows, n, b):
+        c = torch.randint(0, 1 << b, (rows, n), generator=gen, device=dev,
+                          dtype=torch.int64)
+        return ref.to_i32(c)
 
     def same_bits(a, b) -> bool:
         view = torch.int16 if a.element_size() == 2 else torch.int32
@@ -248,6 +308,85 @@ def main() -> int:
     print(f"[kernels] K4 bit-equal and K3 within rtol {NORM_RTOL} (and "
           f"deterministic) on {len(qr_cases)} cases", flush=True)
 
+    # K5: (label, x, k, cap); the threshold comes from K1
+    slot_cases = [(f"main n={n}", randn(s, n), topk._k(n), topk._k(n))
+                  for n in leaf_sizes]
+    x = randn(4, 1000)
+    x[0, 40:] = 0.0                              # 40 survivors: cap > support
+    x[1] = 0.5                                   # all-equal: tie overflow
+    x[1, ::2] = -0.5
+    x[2, :10] = 0.0                              # zeros and -0.0
+    x[2, 10:20] = -0.0
+    x[3] = 0.0                                   # no survivor at all
+    for k, cap in ((100, 100), (100, 250), (1000, 1000), (1, 3)):
+        slot_cases.append((f"edge n=1000 k={k} cap={cap}", x, k, cap))
+    slot_cases.append(("odd n=777", randn(4, 777), 77, 77))
+    slot_cases.append(("n=1", randn(3, 1), 1, 1))
+    slot_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 1229,
+                       1229))
+    slot_cases.append(("large", randn(*LARGE), LARGE[1] // 10, LARGE[1] // 10))
+    for label, xc, k, cap in slot_cases:
+        t = tk.threshold_bits(xc, k)
+        idx, vals, nnz = sk.compact_slots(xc, t, cap)
+        idx_r, vals_r, nnz_r = ref.compact_slots(xc, t, cap)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, idx_r) and torch.equal(nnz, nnz_r)
+                and same_bits(vals, vals_r)):
+            raise AssertionError(f"K5 {label}: kernel slots differ")
+        recs["K5"].err(idx, idx_r)
+        recs["K5"].err(vals.float(), vals_r.float())
+    print(f"[kernels] K5 bit-equal to the plain version on "
+          f"{len(slot_cases)} cases", flush=True)
+
+    # K7: (label, x, r), norm from K3
+    pack_qr_cases = [(f"main n={n}", randn(s, n), 8) for n in leaf_sizes]
+    x = randn(3, 1001)
+    x[0, :7] = 0.0
+    x[0, 7] = -0.0
+    x[1] = 0.0                                   # norm 0: every code 0
+    x[2, 3] = 1e4                                # saturates the top level
+    for r in (1, 8, 16):
+        pack_qr_cases.append((f"edge n=1001 r={r}", x, r))
+    pack_qr_cases.append(("n=1", randn(3, 1), 8))  # |x| = norm: saturates
+    pack_qr_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 4))
+    pack_qr_cases.append(("large", randn(*LARGE), 8))
+    for label, xc, r in pack_qr_cases:
+        u = torch.rand(xc.shape, generator=gen, device=dev)
+        norm = qk.l2_norm(xc)
+        words = qp.quantize_pack_with_uniforms(xc, r, u, norm)
+        words_ref = ref.quantize_pack_with_uniforms(xc, r, u, norm)
+        torch.cuda.synchronize()
+        if not torch.equal(words, words_ref):
+            raise AssertionError(f"K7 {label}: kernel words differ")
+        recs["K7"].err(words, words_ref)
+    print(f"[kernels] K7 bit-equal to the plain version on "
+          f"{len(pack_qr_cases)} cases", flush=True)
+
+    # K8 and K9: (label, codes, b); K9 must invert K8
+    code_cases = [(f"main n={n}", rand_codes(s, n, 9), 9) for n in leaf_sizes]
+    for n, b in ((1, 1), (33, 32), (1000, 1), (1000, 32), (4095, 17)):
+        code_cases.append((f"edge n={n} b={b}", rand_codes(3, n, b), b))
+    code_cases.append(("large", rand_codes(*LARGE, 9), 9))
+    for label, codes, b in code_cases:
+        n = codes.shape[1]
+        words = pk.pack_codes(codes, b)
+        words_ref = ref.pack_codes(codes, b)
+        back = pk.unpack_codes(words, b, n)
+        back_ref = ref.unpack_codes(words, b, n)
+        torch.cuda.synchronize()
+        if not torch.equal(words, words_ref):
+            raise AssertionError(f"K8 {label}: kernel words differ")
+        if not torch.equal(back, back_ref):
+            raise AssertionError(f"K9 {label}: kernel codes differ")
+        if not torch.equal(back, codes):
+            raise AssertionError(f"K9(K8(c)) != c at {label}")
+        recs["K8"].err(words, words_ref)
+        recs["K9"].err(back, back_ref)
+    print(f"[kernels] K8/K9 bit-equal to the plain versions and K9(K8(c)) == "
+          f"c on {len(code_cases)} cases", flush=True)
+    del topk_cases, qr_cases, slot_cases, pack_qr_cases, code_cases
+    torch.cuda.empty_cache()
+
     # timings: the largest main-path leaf (5 clients x 784*64) and LARGE
     for shape, iters in (((s, leaf_sizes[0]), 200), (LARGE, 10)):
         rows, n = shape
@@ -257,7 +396,10 @@ def main() -> int:
         k = topk._k(n)
         t = tk.threshold_bits(xc, k)
         norm = qk.l2_norm(xc)
+        codes = ref.qr_codes_with_uniforms(xc, 8, u, norm)
+        words = pk.pack_codes(codes, 9)
         nx = rows * n
+        wbytes = 4 * rows * -(-n // 32) * 9      # 9-bit words
         plans = {
             "K1": (lambda: tk.threshold_bits(xc, k),
                    lambda: ref.topk_threshold_bits(xc, k),
@@ -272,6 +414,20 @@ def main() -> int:
             "K4": (lambda: qk.quantize_qr_with_uniforms(xc, 8, u, norm),
                    lambda: ref.quantize_qr_with_uniforms(xc, 8, u, norm),
                    None, 12 * nx + 4 * rows, 10 * nx),
+            # reads x and thr, writes cap (idx, value) slots and nnz
+            "K5": (lambda: sk.compact_slots(xc, t, k),
+                   lambda: ref.compact_slots(xc, t, k), None,
+                   4 * nx + 8 * rows + 8 * rows * k + 4 * rows, 3 * nx),
+            # reads x, u and norm, writes the words
+            "K7": (lambda: qp.quantize_pack_with_uniforms(xc, 8, u, norm),
+                   lambda: ref.quantize_pack_with_uniforms(xc, 8, u, norm),
+                   None, 8 * nx + 4 * rows + wbytes, 17 * nx),
+            "K8": (lambda: pk.pack_codes(codes, 9),
+                   lambda: ref.pack_codes(codes, 9), None,
+                   4 * nx + wbytes, 9 * nx),
+            "K9": (lambda: pk.unpack_codes(words, 9, n),
+                   lambda: ref.unpack_codes(words, 9, n), None,
+                   wbytes + 4 * nx, 9 * nx),
         }
         tag = "main" if shape != LARGE else "large"
         for key_, (kern, plain, lib, nbytes, nops) in plans.items():
@@ -288,7 +444,7 @@ def main() -> int:
                   f"{row['kernel_ms']!r} plain_ms={row['plain_ms']!r} "
                   f"library_ms={row['library_ms']!r} bound_ms={b_ms!r} "
                   f"({b_by})", flush=True)
-        del xc, xa, u
+        del xc, xa, u, codes, words
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -306,45 +462,116 @@ def main() -> int:
     cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=5,
                           batch_size=32, variant="com")
     params0 = model.init(prng.PRNGKey(0), device=dev)
-    n_leaves = len(leaf_sizes)
-    launches = {}
-    for comp, expect in (
-            (TopK(0.3), {"topk_threshold_bits": ROUNDS * n_leaves,
-                         "topk_mask": ROUNDS * n_leaves,
-                         "l2_norm": 0, "quantize_qr": 0}),
-            (QuantQr(8), {"topk_threshold_bits": 0, "topk_mask": 0,
-                          "l2_norm": ROUNDS * n_leaves,
-                          "quantize_qr": ROUNDS * n_leaves})):
-        label = type(comp).__name__
+    per_run = ROUNDS * len(leaf_sizes)
+    zero = {name: 0 for name in ops.launch_counts()}
+    runs = {}        # (label, wire) -> what the run gave
+    launches = {}    # kernel name -> {run: launches}
+    for comp, mode, used in (
+            (TopK(0.3), "account", ("topk_threshold_bits", "topk_mask")),
+            (TopK(0.3), "packed", ("topk_threshold_bits", "compact_slots")),
+            (QuantQr(8), "account", ("l2_norm", "quantize_qr")),
+            (QuantQr(8), "packed", ("l2_norm", "quantize_pack_with_uniforms",
+                                    "unpack_codes"))):
+        label = f"{type(comp).__name__} {mode}"
+        expect = {**zero, **{name: per_run for name in used}}
         alg = FedComLoc(loss_fn, data["cuda"], cfg, comp)
+        per_round = []
+        round_fn = alg.round
+
+        def recording_round(state, key_, _round=round_fn, _log=per_round):
+            state, metrics = _round(state, key_)
+            _log.append(metrics)
+            return state, metrics
+
+        alg.round = recording_round
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.time()
         hist = server.run_federated(alg, params0, ROUNDS, prng.PRNGKey(1),
-                                    eval_fn=eval_fn, eval_every=5)
+                                    eval_fn=eval_fn, eval_every=5, wire=mode)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = ops.launch_counts()
+        del alg.round
+        payload = sum(m.get("uplink_payload_bytes", 0.0) for m in per_round)
         print(f"[train] {label}: best acc {hist.best_acc!r} final train loss "
               f"{hist.train_loss[-1]!r} uplink Mbit "
               f"{alg.meter.uplink_bits / 1e6!r} total Mbit "
-              f"{alg.meter.total_bits / 1e6!r} ms/round (eval included) "
+              f"{alg.meter.total_bits / 1e6!r} uplink payload bytes "
+              f"{payload!r} ms/round (eval included) "
               f"{wall / ROUNDS * 1e3!r} launches {counts}", flush=True)
         if counts != expect:
             raise AssertionError(f"{label}: launch counts {counts} != {expect}")
-        for name, c in counts.items():
-            if expect[name]:
-                launches[name] = c
+        for name in used:
+            launches.setdefault(name, {})[label] = counts[name]
         finite = all(map(lambda v: v == v and abs(v) != float("inf"),
                          hist.train_loss + hist.test_loss + hist.test_acc))
         if not finite or hist.best_acc <= 0.2:
             raise AssertionError(f"{label}: training went wrong: {hist}")
-        profile_rounds(torch, prng, alg, params0, label)
+        runs[(type(comp).__name__, mode)] = {
+            "alg": alg, "comp": comp, "hist": hist, "payload": payload,
+            "uplink_bits": alg.meter.uplink_bits}
+
+    # the packed runs against the account runs on the card
+    one_client = tree_util.map(lambda p: p.detach(), params0)
+    for name in ("TopK", "QuantQr"):
+        acc, pkd = runs[(name, "account")], runs[(name, "packed")]
+        want_bytes = float(ROUNDS * s * wire.payload_nbytes(pkd["comp"],
+                                                            one_client))
+        if pkd["uplink_bits"] != acc["uplink_bits"]:
+            raise AssertionError(f"{name}: packed uplink bits "
+                                 f"{pkd['uplink_bits']!r} != account "
+                                 f"{acc['uplink_bits']!r}")
+        if pkd["payload"] != want_bytes:
+            raise AssertionError(f"{name}: packed payload {pkd['payload']!r} "
+                                 f"B != {want_bytes!r} B")
+        pa = tree_util.leaves(acc["hist"].final_params)
+        pp = tree_util.leaves(pkd["hist"].final_params)
+        equal = all(torch.equal(a, b) for a, b in zip(pa, pp))
+        diff = max(float((a - b).abs().max()) for a, b in zip(pa, pp))
+        if not all(torch.allclose(b, a, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                   for a, b in zip(pa, pp)):
+            raise AssertionError(f"{name}: packed params differ from account "
+                                 f"by up to {diff!r}")
+        print(f"[train] {name}: packed == account on uplink bits "
+              f"({pkd['uplink_bits']!r}); payload {pkd['payload']!r} B as the "
+              f"wire format implies; params bit-equal {equal} (max abs diff "
+              f"{diff!r}, rtol {PARAM_RTOL} atol {PARAM_ATOL})", flush=True)
+
+    # saturated Q_r codes on the packed run's trajectory (a second run of
+    # it, counting; its launches are not part of the main path's count)
+    saturated = [0, 0]
+    orig_pack = ops.quantize_pack
+
+    def counting_pack(xr, r, keys):
+        words_, norm_ = orig_pack(xr, r, keys)
+        u_ = prng.uniform(keys, xr.shape[-1], device=xr.device)
+        y = xr.abs() / torch.where(norm_ > 0, norm_, 1.0)[:, None]
+        scaled = float(2 ** r) * y
+        lo = torch.floor(scaled)
+        level = lo + (u_ < scaled - lo).to(torch.float32)
+        saturated[0] += int((level >= 2 ** r).sum())
+        saturated[1] += xr.numel()
+        return words_, norm_
+
+    ops.quantize_pack = counting_pack
+    try:
+        server.run_federated(FedComLoc(loss_fn, data["cuda"], cfg, QuantQr(8)),
+                             params0, ROUNDS, prng.PRNGKey(1), wire="packed")
+    finally:
+        ops.quantize_pack = orig_pack
+    print(f"[train] QuantQr packed: {saturated[0]} of {saturated[1]} codes "
+          f"saturated at 2^r - 1", flush=True)
+
+    profiles = {}
+    for (name, mode), run in runs.items():
+        label = f"{name} {mode}"
+        profiles[label] = profile_rounds(torch, prng, run["alg"], params0, label)
 
         # replay the first rounds on the card and on the CPU (plain versions)
-        runs = {}
+        replay = {}
         for d in ("cuda", "cpu"):
-            alg_d = FedComLoc(loss_fn, data[d], cfg, comp)
+            alg_d = FedComLoc(loss_fn, data[d], cfg, run["comp"], wire=mode)
             cohorts = []
             sample = alg_d.sched.sample_cohort
 
@@ -362,35 +589,47 @@ def main() -> int:
                 key_, sub = prng.split(key_, 2)
                 state, metrics = alg_d.round(state, sub)
                 rows_.append(metrics)
-            runs[d] = (cohorts, rows_)
-        (c_gpu, m_gpu), (c_cpu, m_cpu) = runs["cuda"], runs["cpu"]
+            replay[d] = (cohorts, rows_)
+        (c_gpu, m_gpu), (c_cpu, m_cpu) = replay["cuda"], replay["cpu"]
         if c_gpu != c_cpu:
             raise AssertionError(f"{label}: cohorts differ {c_gpu} {c_cpu}")
+        exact = ["uplink_bits", "downlink_bits", "client_steps"]
+        if mode == "packed":
+            exact += ["uplink_payload_bytes", "client_payload_bytes"]
         for r, (a, b) in enumerate(zip(m_gpu, m_cpu)):
-            for name in ("uplink_bits", "downlink_bits"):
-                if a[name] != b[name]:
-                    raise AssertionError(f"{label} round {r}: {name} "
-                                         f"{a[name]!r} != {b[name]!r}")
-            if a["client_steps"].tolist() != b["client_steps"].tolist():
-                raise AssertionError(f"{label} round {r}: client_steps differ")
+            for key_ in exact:
+                if np.asarray(a[key_]).tolist() != np.asarray(b[key_]).tolist():
+                    raise AssertionError(f"{label} round {r}: {key_} "
+                                         f"{a[key_]!r} != {b[key_]!r}")
             if abs(a["train_loss"] - b["train_loss"]) > LOSS_RTOL * abs(
                     b["train_loss"]):
                 raise AssertionError(f"{label} round {r}: train_loss "
                                      f"{a['train_loss']!r} vs "
                                      f"{b['train_loss']!r}")
         print(f"[train] {label}: first {REPLAY_ROUNDS} rounds CUDA == CPU on "
-              f"cohorts {c_gpu}, client_steps, uplink/downlink bits; "
-              f"train_loss within rtol {LOSS_RTOL}: "
-              f"{[m['train_loss'] for m in m_gpu]!r} vs "
+              f"cohorts {c_gpu}, {', '.join(exact)}; train_loss within rtol "
+              f"{LOSS_RTOL}: {[m['train_loss'] for m in m_gpu]!r} vs "
               f"{[m['train_loss'] for m in m_cpu]!r}", flush=True)
         torch.cuda.synchronize()
+    for name in ("TopK", "QuantQr"):
+        interleaved_rounds(torch, prng, {
+            mode: runs[(name, mode)]["alg"] for mode in ("account", "packed")},
+            params0, name)
+        a, p = profiles[f"{name} account"], profiles[f"{name} packed"]
+        busy = ("not measured" if a["busy_ms"] is None or p["busy_ms"] is None
+                else f"device busy ms/round packed {p['busy_ms']!r} vs "
+                     f"account {a['busy_ms']!r}")
+        print(f"[profile] {name}: steady ms/round packed {p['wall_ms']!r} vs "
+              f"account {a['wall_ms']!r}; {busy}", flush=True)
 
     kernels = []
     for rec in recs.values():
         main_t = rec.timings["main"]
+        by_run = launches.get(rec.name, {})
         kernels.append({
             "name": rec.name, "route": "cuda", "source": rec.source,
-            "replaces": rec.replaces, "launches": launches[rec.name],
+            "replaces": rec.replaces, "launches": sum(by_run.values()),
+            "launches_by_run": by_run,
             "max_abs_err": rec.max_abs_err, "ms": main_t["kernel_ms"],
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],

@@ -24,7 +24,7 @@ import torch
 from repro_torch import not_ported, prng
 from repro_torch import tree as tree_util
 from repro_torch.compress.report import (
-    FLOAT_BITS, INDEX_BITS, BitsReport, dense_bits, leaf_value_bits,
+    FLOAT_BITS, INDEX_BITS, BitsReport, dense_report, leaf_value_bits,
     per_client)
 from repro_torch.kernels import ops as kops
 
@@ -35,15 +35,6 @@ PyTree = Any
 def _clients(stacked: PyTree) -> Tuple[int, torch.device]:
     leaf = tree_util.leaves(stacked)[0]
     return leaf.shape[0], leaf.device
-
-
-def _dense_report(stacked: PyTree) -> BitsReport:
-    """Per-client bits of the uncompressed payload (one client's tree)."""
-    s, dev = _clients(stacked)
-    bits = dense_bits(tree_util.map(lambda x: x[0], stacked))
-    return BitsReport(value_bits=per_client(bits, s, dev),
-                      index_bits=per_client(0.0, s, dev),
-                      meta_bits=per_client(0.0, s, dev))
 
 
 class Compressor:
@@ -62,7 +53,7 @@ class Compressor:
 @dataclasses.dataclass(frozen=True)
 class Identity(Compressor):
     def compress(self, stacked, keys=None):
-        return stacked, _dense_report(stacked)
+        return stacked, dense_report(stacked)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,7 +80,7 @@ class TopK(Compressor):
 
     def compress(self, stacked, keys=None):
         if self.density >= 1.0:
-            return stacked, _dense_report(stacked)
+            return stacked, dense_report(stacked)
         s, dev = _clients(stacked)
         vb = torch.zeros(s, dtype=torch.float32, device=dev)
         ib = torch.zeros(s, dtype=torch.float32, device=dev)

@@ -52,3 +52,14 @@ def dense_bits(tree: Any) -> float:
 def per_client(value: float, s: int, device) -> torch.Tensor:
     """A host-side constant as the ``(s,)`` float32 per-client vector."""
     return torch.full((s,), float(value), dtype=torch.float32, device=device)
+
+
+def dense_report(stacked: Any) -> BitsReport:
+    """Per-client bits of the uncompressed payload of a stacked tree (one
+    client's ``dense_bits``, as ``(s,)`` vectors)."""
+    leaf = tree_util.leaves(stacked)[0]
+    s, dev = leaf.shape[0], leaf.device
+    bits = dense_bits(tree_util.map(lambda x: x[0], stacked))
+    return BitsReport(value_bits=per_client(bits, s, dev),
+                      index_bits=per_client(0.0, s, dev),
+                      meta_bits=per_client(0.0, s, dev))

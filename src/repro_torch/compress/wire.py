@@ -1,0 +1,277 @@
+"""Wire codec layer: real packed payloads for compressed trees (DESIGN.md
+§8) — the port of ``repro.compress.wire`` without its sharded part.
+
+The compressors are *transforms*: they return a dense tree whose zeros and
+levels represent the compressed message, plus a :class:`BitsReport` of
+what it would cost.  A codec's ``encode(comp, stacked, keys)`` produces the
+packed buffers a client actually sends, and ``decode(payload)`` rebuilds
+the transform's output on the server.  On the port's stacked trees every
+buffer carries a leading client axis ``s``, so one ``encode`` call is
+``jax.vmap(wire.encode)`` of the reference; :attr:`Payload.nbytes` stays
+per client.
+
+Codecs (``check_supported`` names the mapping):
+
+* ``dense`` — ``Identity`` and ``TopK(density >= 1)``: raw values at the
+  leaf dtype's width.
+* ``topk`` — ``TopK(impl="select")``: per leaf, a static capacity
+  ``cap = k(density)`` of int32 indices (uint32 bit patterns) plus ``cap``
+  values at the leaf dtype.  Empty slots carry the sentinel index ``n``
+  and are dropped by the decode scatter; magnitude ties beyond ``cap``
+  keep the lowest-index ``cap``.
+* ``qr`` — ``QuantQr``: one (1+r)-bit code per scalar (sign bit and r
+  level bits), bit-plane packed into 32-bit words, plus one fp32 norm per
+  leaf.  The top level ``2**r`` saturates to ``2**r - 1``; everywhere
+  else the decode is bit-equal to the transform.
+
+Uplink buffers are uint32 bit patterns in int32 containers, 4 bytes each,
+as in the reference.  The reports are computed as the transforms compute
+them, so account and packed rounds see identical bit metrics;
+``padding_bits`` is the slack between measured and accounted bits.  The
+``topk_qr`` (``Compose``) and ``int8`` (``Int8Sync``) codecs,
+``scope="global"`` and the model-sharded wire are not yet ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch import not_ported, prng
+from repro_torch import tree as tree_util
+from repro_torch.compress.compressors import Compressor, Identity, QuantQr, TopK
+from repro_torch.compress.report import (
+    FLOAT_BITS, INDEX_BITS, BitsReport, dense_report, leaf_value_bits,
+    per_client)
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.qr_pack import MAX_R
+
+PyTree = Any
+
+#: Compressors of the reference whose codecs the port does not have yet.
+_NOT_PORTED = {"Compose": "topk_qr", "Int8Sync": "int8"}
+
+
+@dataclasses.dataclass(frozen=True)
+class WireSpec:
+    """Static description of a packed payload — everything the decoder
+    needs: codec, tree structure, per-leaf shapes and dtypes (one
+    client's), the sparse capacities, and the packed bytes per client."""
+
+    codec: str                       # dense | topk | qr
+    treedef: Any                     # the tree's structure, leaves None
+    shapes: Tuple[Tuple[int, ...], ...]
+    dtypes: Tuple[torch.dtype, ...]
+    caps: Tuple[int, ...] = ()       # per-leaf sparse capacity (topk)
+    r: int = 0                       # level bits (qr)
+    nbytes: int = 0                  # packed payload bytes per client
+
+
+@dataclasses.dataclass
+class Payload:
+    """Packed wire buffers: ``data[leaf]`` is that leaf's buffer tuple in
+    codec order, each buffer with a leading client axis."""
+
+    data: Tuple[Tuple[torch.Tensor, ...], ...]
+    spec: WireSpec
+
+    @property
+    def nbytes(self) -> int:
+        """Packed size in bytes per client."""
+        return self.spec.nbytes
+
+
+def _buffers_nbytes(data) -> int:
+    """Bytes of one client's buffers (the leading client axis excluded)."""
+    return int(sum(b[0].numel() * b.element_size()
+                   for unit in data for b in unit))
+
+
+def measured_bits(payload: Payload) -> float:
+    """The packed payload's wire cost in bits, per client."""
+    return float(payload.nbytes) * 8.0
+
+
+def padding_bits(payload: Payload, report: BitsReport):
+    """Per-client slack between measured and accounted bits: ``(cap -
+    nnz) * (INDEX_BITS + value width)`` for each sparse leaf whose support
+    underfills its capacity, and ``(32 * ceil(n/32) - n) * (1 + r)``
+    word-padding bits per packed-code leaf; dense payloads have none.  Tie
+    overflow beyond ``cap`` makes a sparse leaf's share negative."""
+    return measured_bits(payload) - report.total_bits
+
+
+# --------------------------------------------------------------------------- #
+# codec resolution
+# --------------------------------------------------------------------------- #
+
+def check_supported(comp: Optional[Compressor]) -> str:
+    """Return the wire codec name for ``comp``; raise ``ValueError`` where
+    the reference does and ``NotImplementedError`` for codecs not yet
+    ported.  The static capacity needs the exact-k support, so a TopK
+    whose ``impl`` is not ``"select"`` is rejected."""
+    name = type(comp).__name__
+    if name in _NOT_PORTED:
+        raise not_ported(f"the {_NOT_PORTED[name]} wire codec ({name})")
+    if getattr(comp, "scope", "tensor") != "tensor":
+        raise not_ported(f"wire codecs with scope={comp.scope!r}")
+    if comp is None or isinstance(comp, Identity):
+        return "dense"
+    if isinstance(comp, TopK):
+        if comp.density >= 1.0:
+            return "dense"
+        if comp.impl != "select":
+            raise ValueError(
+                'wire codecs need the exact-k support: TopK(impl="select") '
+                f"(got impl={comp.impl!r} — quantile keeps a data-dependent "
+                "count, which has no static capacity)")
+        return "topk"
+    if isinstance(comp, QuantQr):
+        if comp.r > MAX_R:
+            raise ValueError(f"wire codec supports r <= {MAX_R}, "
+                             f"got r={comp.r}")
+        return "qr"
+    raise ValueError(f"no wire codec for {name}; supported: Identity, "
+                     "TopK(select), QuantQr")
+
+
+def payload_nbytes(comp: Optional[Compressor], tree: PyTree) -> int:
+    """Packed bytes of ``comp``'s wire format for one client's ``tree``,
+    from shapes alone."""
+    codec = check_supported(comp)
+    total = 0
+    for leaf in tree_util.leaves(tree):
+        n, width = leaf.numel(), leaf.element_size()
+        if codec == "dense":
+            total += n * width
+        elif codec == "topk":
+            total += comp._k(n) * (INDEX_BITS // 8 + width)
+        else:
+            total += -(-n // 32) * (1 + comp.r) * 4 + FLOAT_BITS // 8
+    return total
+
+
+# --------------------------------------------------------------------------- #
+# encode / decode
+# --------------------------------------------------------------------------- #
+
+def _scatter_units(entries, unit_sizes, dtype):
+    """Decode-side placement: one scatter for the whole payload.
+
+    ``entries`` holds one ``(idx, vals)`` pair of ``(s, cap)`` slots per
+    sparse leaf.  Leaf indices are offset into one concatenated index
+    space and sentinels go to one extra column, which is dropped, so a
+    single scatter places every leaf's survivors; the flat result is then
+    split back into leaves."""
+    total = sum(unit_sizes)
+    offs = [0]
+    for n in unit_sizes[:-1]:
+        offs.append(offs[-1] + n)
+    idx_all = torch.cat([
+        torch.where(idx < n, idx.to(torch.int64) + off,
+                    torch.full_like(idx, total, dtype=torch.int64))
+        for (idx, _), n, off in zip(entries, unit_sizes, offs)], dim=1)
+    val_all = torch.cat([v.to(dtype) for _, v in entries], dim=1)
+    flat = torch.zeros((idx_all.shape[0], total + 1), dtype=dtype,
+                       device=idx_all.device)
+    flat.scatter_(1, idx_all, val_all)
+    return [flat[:, off:off + n] for off, n in zip(offs, unit_sizes)]
+
+
+def _qr_values(codes: torch.Tensor, norm: torch.Tensor, r: int):
+    """Decode each row's (1+r)-bit codes to float32 values against the
+    row's norm, in the transform's operation order."""
+    levels = float(2 ** r)
+    m = (codes & (2 ** r - 1)).to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=codes.device)
+    sgn = torch.where(((codes >> r) & 1) != 0, -one, one)
+    nrm = norm[:, None]
+    out = nrm * sgn * (m / levels)
+    return torch.where(nrm > 0, out, torch.zeros_like(out))
+
+
+def encode(comp: Optional[Compressor], stacked: PyTree,
+           keys: Optional[torch.Tensor] = None
+           ) -> Tuple[Payload, BitsReport]:
+    """Pack every client's tree into the wire format of ``comp``.
+
+    ``stacked`` carries a leading client axis ``s`` on every leaf and
+    ``keys`` is the ``(s, 2)`` key batch.  Returns ``(payload, report)``
+    with ``(s,)`` report vectors computed exactly as the transform
+    computes them, and ``decode(payload)`` rebuilds what
+    ``comp.compress(stacked, keys)`` returns.  The qr codec splits each
+    client key into one key per leaf, as ``QuantQr`` does, so packed and
+    account rounds draw the same uniforms.
+    """
+    codec = check_supported(comp)
+    leaves = tree_util.leaves(stacked)
+    s, dev = leaves[0].shape[0], leaves[0].device
+    units = [leaf.reshape(s, -1) for leaf in leaves]
+
+    def mkspec(data, **kw):
+        return WireSpec(codec=codec,
+                        treedef=tree_util.map(lambda _: None, stacked),
+                        shapes=tuple(tuple(l.shape[1:]) for l in leaves),
+                        dtypes=tuple(l.dtype for l in leaves),
+                        nbytes=_buffers_nbytes(data), **kw)
+
+    if codec == "dense":
+        data = tuple((u,) for u in units)
+        return Payload(data, mkspec(data)), dense_report(stacked)
+
+    if codec == "topk":
+        # threshold (K1) + compaction (K5) straight to slots; the report
+        # counts the survivors the compaction counted, in leaf order, as
+        # the TopK transform accumulates its nnz
+        vb = torch.zeros(s, dtype=torch.float32, device=dev)
+        ib = torch.zeros(s, dtype=torch.float32, device=dev)
+        caps, data = [], []
+        for leaf, u in zip(leaves, units):
+            cap = comp._k(u.shape[1])
+            idx, vals, nnz = kops.topk_slots(u, cap, cap)
+            nnzf = nnz.to(torch.float32)
+            vb = vb + nnzf * leaf_value_bits(leaf)
+            ib = ib + nnzf * INDEX_BITS
+            data.append((idx, vals))
+            caps.append(cap)
+        data = tuple(data)
+        report = BitsReport(value_bits=vb, index_bits=ib,
+                            meta_bits=per_client(0.0, s, dev))
+        return Payload(data, mkspec(data, caps=tuple(caps))), report
+
+    # codec == "qr"
+    if keys is None:
+        raise ValueError("quantizer codecs need an rng key")
+    r = comp.r
+    leaf_keys = prng.split(keys, len(leaves))               # (s, L, 2)
+    data = tuple(kops.quantize_pack(u, r, leaf_keys[:, j])
+                 for j, u in enumerate(units))
+    n_total = sum(u.shape[1] for u in units)
+    report = BitsReport(
+        value_bits=per_client(float(n_total) * (1 + r), s, dev),
+        index_bits=per_client(0.0, s, dev),
+        meta_bits=per_client(float(len(units)) * FLOAT_BITS, s, dev))
+    return Payload(data, mkspec(data, r=r)), report
+
+
+def decode(payload: Payload) -> PyTree:
+    """Unpack a :class:`Payload` back to the transform-output stacked tree."""
+    spec = payload.spec
+    sizes = [math.prod(shp) for shp in spec.shapes]
+    if spec.codec == "topk":
+        dtype = functools.reduce(torch.promote_types,
+                                 [v.dtype for _, v in payload.data])
+        units = _scatter_units(payload.data, sizes, dtype)
+    elif spec.codec == "qr":
+        units = [_qr_values(kops.unpack_codes(words, 1 + spec.r, n),
+                            norm, spec.r)
+                 for (words, norm), n in zip(payload.data, sizes)]
+    else:
+        units = [bufs[0] for bufs in payload.data]
+    parts = [u.reshape((u.shape[0],) + shp).to(dt)
+             for u, shp, dt in zip(units, spec.shapes, spec.dtypes)]
+    return tree_util.unflatten(spec.treedef, parts)

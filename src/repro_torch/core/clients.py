@@ -7,7 +7,11 @@ subset on the homogeneous synchronous path).
 * ``sample_cohort`` — the uniform without-replacement cohort draw, bit for
   bit ``jax.random.choice`` on the same key;
 * ``mean_over_active`` and ``batched_compress`` (the counterpart of
-  ``vmap_compress``: one compress call for the whole stacked cohort).
+  ``vmap_compress``: one compress call for the whole stacked cohort);
+* the packed uplink (DESIGN.md §8): ``vmap_encode`` at the client
+  boundary, ``mask_payload`` and ``gather_decoded`` on the server, and
+  ``payload_metrics``.  The port has one device, so there is no client
+  axis to gather across.
 
 Plans and cohorts live on the host (small ``(s,)`` tensors); the stacked
 model rows live on the device.  Deadlines, drop-out, availability, the
@@ -156,6 +160,49 @@ def batched_compress(comp, plan: RoundPlan, stacked, keys: torch.Tensor):
     if plan.comp_overrides:
         raise not_ported("per-client compressor overrides")
     return comp.compress(stacked, keys)
+
+
+def vmap_encode(comp, plan: RoundPlan, stacked,
+                keys: Optional[torch.Tensor] = None):
+    """Wire-encode a stacked-client uplink tree in one call, the packed
+    counterpart of :func:`batched_compress`.  Returns ``(Payload,
+    BitsReport)``; the report equals the account-mode one, so finish
+    clocks and bit metrics don't change between modes."""
+    from repro_torch.compress import wire
+    if plan.comp_overrides:
+        raise ValueError(
+            "packed wire mode cannot carry per-client compressor overrides "
+            "(static payload capacity); run them in account mode")
+    return wire.encode(comp, stacked, keys)
+
+
+def mask_payload(payload, partf: torch.Tensor):
+    """Zero the packed buffers of non-participating clients: such a client
+    sends a fully masked payload, which decodes to an all-zero tree that
+    the aggregation already discards."""
+    keep = (partf > 0).to(payload.data[0][0].device)
+
+    def mask(b):
+        k = keep.reshape((-1,) + (1,) * (b.dim() - 1))
+        return torch.where(k, b, torch.zeros((), dtype=b.dtype,
+                                             device=b.device))
+
+    data = tuple(tuple(mask(b) for b in unit) for unit in payload.data)
+    return type(payload)(data, payload.spec)
+
+
+def payload_metrics(payload, partf_full: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The measured-bytes metrics of a packed round: the per-client
+    payload size masked by participation (float32), and its sum."""
+    pb = torch.tensor(float(payload.nbytes), dtype=torch.float32) * partf_full
+    return {"client_payload_bytes": pb, "uplink_payload_bytes": pb.sum()}
+
+
+def gather_decoded(payload, partf_full: torch.Tensor):
+    """The server side of the packed uplink: mask non-participants and
+    decode the whole ``(s, ...)`` stack once."""
+    from repro_torch.compress import wire
+    return wire.decode(mask_payload(payload, partf_full))
 
 
 def validate_schedule(schedule: ClientSchedule,

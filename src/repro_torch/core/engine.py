@@ -11,12 +11,13 @@ Algorithms define ``_round_impl(state, key) -> (state, metrics)`` where
   CUDA graph over a round is later work.
 
 Both record into ``self.meter`` (:class:`repro_torch.core.comm.CommMeter`).
-Only ``wire="account"`` and ``downlink="dense"`` are ported.
+``wire`` is ``"account"`` or ``"packed"`` (DESIGN.md §8); only
+``downlink="dense"`` is ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,11 +26,27 @@ from repro_torch import not_ported, prng
 
 PyTree = Any
 
+WIRE_MODES = ("account", "packed")
+
 
 def _host(v):
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
+
+
+def validate_wire(wire: Optional[str], compressor) -> str:
+    """Resolve and check a wire mode at construction time.  ``"account"``
+    (the default) moves dense trees and only the bits ledger claims
+    compression; ``"packed"`` needs a compressor the wire layer can pack
+    (``repro_torch.compress.wire.check_supported``)."""
+    wire = "account" if wire is None else wire
+    if wire not in WIRE_MODES:
+        raise ValueError(f"wire must be one of {WIRE_MODES}, got {wire!r}")
+    if wire == "packed":
+        from repro_torch.compress import wire as wire_mod
+        wire_mod.check_supported(compressor)
+    return wire
 
 
 class RoundEngine:
@@ -38,12 +55,17 @@ class RoundEngine:
     def _setup_engine(self) -> None:
         from repro_torch.core import aggregation
         self.policy = aggregation.validate_policy(getattr(self, "policy", None))
-        if getattr(self, "wire", "account") != "account":
-            raise not_ported(f"wire={self.wire!r}")
+        self.wire = validate_wire(getattr(self, "wire", None),
+                                  getattr(self, "comp", None))
         if getattr(self, "downlink", "dense") != "dense":
             raise not_ported(f"downlink={self.downlink!r}")
         if getattr(self, "store", None) is not None:
             raise not_ported("client stores")
+
+    def set_wire(self, wire: str) -> "RoundEngine":
+        """Bind a wire mode, ``"account"`` or ``"packed"``; returns self."""
+        self.wire = validate_wire(wire, getattr(self, "comp", None))
+        return self
 
     def round(self, state, key) -> Tuple[Any, Dict[str, Any]]:
         """Run one communication round; returns (state, metrics) with

@@ -15,10 +15,13 @@ the reference's bit for bit.
 The cohort's local SGD is batched: the server model is broadcast to
 ``(s, ...)`` stacked rows and every step is one stacked forward/backward
 (``torch.bmm``) for all sampled clients.  Compression runs one kernel
-launch per leaf for the whole cohort.  Ported: the homogeneous schedule,
-the sync policy, ``wire="account"``, ``downlink="dense"`` and
-``local_steps="fixed"``; error feedback, server momentum and geometric
-local phases are not yet ported.
+launch per leaf for the whole cohort.  Under ``wire="packed"`` the
+cohort's uplink is encoded into real packed payloads at the client
+boundary, non-participants' buffers are masked, and the server decodes
+the stack once (DESIGN.md §8).  Ported: the homogeneous schedule, the
+sync policy, ``wire="account"`` and ``"packed"``, ``downlink="dense"``
+and ``local_steps="fixed"``; error feedback, server momentum and
+geometric local phases are not yet ported.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, dense_bits
 from repro_torch.core import aggregation, comm
 from repro_torch.core.clients import (
-    ClientSchedule, batched_compress, mean_over_active, validate_schedule)
+    ClientSchedule, batched_compress, gather_decoded, mean_over_active,
+    payload_metrics, validate_schedule, vmap_encode)
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.fed_data import FederatedData
 
@@ -189,11 +193,21 @@ class FedComLoc(RoundEngine):
         client_up = torch.full((s,), dense, dtype=torch.float32)
         up_bits = torch.tensor(s * dense, dtype=torch.float32)
         down_bits = torch.tensor(s * dense, dtype=torch.float32)
+        wire_on = self.wire == "packed"
         if cfg.variant == "com":
             up_keys = prng.split(k_up, s)
-            x_hat, up_rep = batched_compress(self.comp, plan, x_hat, up_keys)
+            if wire_on:
+                # the client boundary emits the packed payload; the round
+                # carries on with the server's decode of it
+                payload, up_rep = vmap_encode(self.comp, plan, x_hat, up_keys)
+            else:
+                x_hat, up_rep = batched_compress(self.comp, plan, x_hat,
+                                                 up_keys)
             client_up = up_rep.total_bits.cpu()
             up_bits = None
+        elif wire_on:
+            # uncompressed-uplink variants still move a real dense buffer
+            payload, _ = vmap_encode(None, plan, x_hat)
 
         pol = aggregation.resolve_policy(
             self.policy, sched, plan,
@@ -202,6 +216,10 @@ class FedComLoc(RoundEngine):
         client_up = pol.client_up
         if up_bits is None or pol.may_exclude:
             up_bits = client_up.sum()
+        if wire_on:
+            # decode once, server-side, on the masked stack; non-com
+            # variants ship the raw iterate, so their decode equals x_hat
+            x_hat = gather_decoded(payload, out.partf)
         x_bar = tree_util.map(lambda t: t.mean(dim=0), x_hat)
         if cfg.variant == "global":
             x_bar, down_rep = self.comp.compress(
@@ -228,5 +246,7 @@ class FedComLoc(RoundEngine):
             "sim_time": out.sim_time,
             **aggregation.policy_metrics(out),
         }
+        if wire_on:
+            metrics.update(payload_metrics(payload, out.partf))
         return (FedComLocState(x=x_bar, h=h_new, round=state.round + 1),
                 metrics)

@@ -66,11 +66,15 @@ def run_federated(
     key,
     eval_fn: Optional[Callable] = None,
     eval_every: int = 10,
+    wire: Optional[str] = None,
 ) -> History:
     """Drive ``algorithm`` (anything with .init/.round/.meter) for R rounds,
     one ``algorithm.round`` per round on the ``key, sub = split(key)``
     chain, evaluating after round 1, every ``eval_every`` rounds, and
-    after the last."""
+    after the last.  ``wire`` (``"account"`` | ``"packed"``) rebinds the
+    algorithm's wire mode first (DESIGN.md §8)."""
+    if wire is not None:
+        algorithm.set_wire(wire)
     key = prng.key_data(key)
     state = algorithm.init(params0)
     hist = History()

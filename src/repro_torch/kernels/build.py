@@ -28,11 +28,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-#: source stem -> extra nvcc flags.  quantize.cu must not contract
-#: ``scaled - lo`` into an FMA (the Q_r rounding compares its bits).
+#: source stem -> extra nvcc flags.  quantize.cu and qr_pack.cu must not
+#: contract ``scaled - lo`` into an FMA (the Q_r rounding compares its bits).
 SOURCES: Dict[str, tuple] = {
     "topk_compress": (),
     "quantize": ("--fmad=false",),
+    "select_slots": (),
+    "qr_pack": ("--fmad=false",),
+    "pack_codes": (),
 }
 
 _LOCK = threading.Lock()
@@ -148,6 +151,29 @@ def cuda_rows(x: torch.Tensor) -> torch.Tensor:
     if not 1 <= x.shape[0] <= 65535:
         raise ValueError(f"rows must be in [1, 65535], got {x.shape[0]}")
     return x.to(torch.float32).contiguous()
+
+
+def cuda_codes(t: torch.Tensor) -> torch.Tensor:
+    """Validate a CUDA ``(rows, m)`` int32 input (uint32 codes or words in
+    int32 containers); returns it contiguous."""
+    if t.dim() != 2:
+        raise ValueError(f"expects (rows, m) input, got shape {tuple(t.shape)}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"expects int32 containers, got {t.dtype}")
+    if not 1 <= t.shape[0] <= 65535:
+        raise ValueError(f"rows must be in [1, 65535], got {t.shape[0]}")
+    return t.contiguous()
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> torch.Tensor:
+    """Check a kernel operand's dtype, shape and device; returns it
+    contiguous."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name} must be a {dtype} {tuple(shape)} tensor on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.contiguous()
 
 
 def stream_ptr() -> int:

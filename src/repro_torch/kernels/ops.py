@@ -2,10 +2,9 @@
 
 Each op takes row-batched ``(rows, n)`` input, one row per client's leaf.
 A CPU tensor runs the plain PyTorch version; a CUDA tensor runs the
-hand-written kernel or raises (the wrappers in
-:mod:`repro_torch.kernels.topk_compress` and
-:mod:`repro_torch.kernels.quantize` decide, per call).  There is no
-switch that sends a CUDA tensor down the plain path.
+hand-written kernel or raises (the wrapper modules beside this one decide,
+per call).  There is no switch that sends a CUDA tensor down the plain
+path.
 """
 
 from __future__ import annotations
@@ -13,10 +12,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels import pack_codes as _pack
+from repro_torch.kernels import qr_pack as _qr_pack
 from repro_torch.kernels import quantize as _quant
+from repro_torch.kernels import select_slots as _sel
 from repro_torch.kernels import topk_compress as _topk
 
-_COUNTERS = (_topk.LAUNCHES, _quant.LAUNCHES)
+_COUNTERS = (_topk.LAUNCHES, _quant.LAUNCHES, _sel.LAUNCHES,
+             _qr_pack.LAUNCHES, _pack.LAUNCHES)
 
 
 def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -32,6 +35,36 @@ def quantize_qr(x: torch.Tensor, r: int, keys: torch.Tensor) -> torch.Tensor:
     drawn as ``jax.random.uniform(keys[i], (n,))`` on x's device."""
     u = prng.uniform(keys, x.shape[-1], device=x.device)
     return _quant.quantize_qr_with_uniforms(x, r, u, _quant.l2_norm(x))
+
+
+def topk_slots(x: torch.Tensor, k: int, cap: int):
+    """TopK select + slot extraction, the ``topk`` codec's encode (K1
+    threshold + K5 compaction).  Returns ``(idx, vals, nnz)``: ``cap``
+    int32 slot indices per row (sentinel ``n``), the survivors' values at
+    x's dtype, and each row's survivor count, which the bit accounting
+    reads."""
+    return _sel.compact_slots(x, _topk.threshold_bits(x, int(k)), int(cap))
+
+
+def quantize_pack(x: torch.Tensor, r: int, keys: torch.Tensor):
+    """Q_r quantize + bit-plane pack, the ``qr`` codec's encode (K3 norm +
+    K7 codes).  Returns ``(words, norm)``: each row's (1+r)-bit codes in
+    ``ceil(n/32) * (1+r)`` words and its l2 norm.  Uniforms and norm are
+    those :func:`quantize_qr` uses, so the decode equals the transform
+    except where a code saturates at ``2**r - 1``."""
+    u = prng.uniform(keys, x.shape[-1], device=x.device)
+    norm = _quant.l2_norm(x)
+    return _qr_pack.quantize_pack_with_uniforms(x, r, u, norm), norm
+
+
+def pack_codes(codes: torch.Tensor, b: int) -> torch.Tensor:
+    """Bit-plane pack each row's b-bit codes (K8)."""
+    return _pack.pack_codes(codes, b)
+
+
+def unpack_codes(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes`: each row's ``n`` b-bit codes (K9)."""
+    return _pack.unpack_codes(words, b, n)
 
 
 def launch_counts() -> dict:

@@ -73,14 +73,8 @@ def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
     r = int(r)
     if not 1 <= r <= 126:
         raise ValueError(f"r must be in [1, 126], got {r}")
-    for name, t, shape in (("u", u, (rows, n)), ("norm", norm, (rows,))):
-        if (t.shape != shape or t.dtype != torch.float32
-                or t.device != xf.device):
-            raise ValueError(f"{name} must be a float32 {shape} tensor on "
-                             f"x's device, got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}")
-    u = u.contiguous()
-    norm = norm.contiguous()
+    u = build.expect(u, "u", torch.float32, (rows, n), xf.device)
+    norm = build.expect(norm, "norm", torch.float32, (rows,), xf.device)
     out = torch.empty_like(xf)
     if n == 0:
         return out.to(x.dtype)

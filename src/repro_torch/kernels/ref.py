@@ -134,3 +134,147 @@ def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
     xi = (lo + (u < frac).to(torch.float32)) / levels
     out = nrm * _jax_sign(xf) * xi
     return torch.where(pos, out, torch.zeros_like(out)).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# The packed wire (DESIGN.md §8): slots, Q_r codes and bit-plane words
+# --------------------------------------------------------------------------- #
+#
+# uint32 bit patterns (slot indices, codes, words) travel in int32
+# containers holding the same 32 bits, so a payload's bytes are the
+# reference's (4 per index and per word); the arithmetic runs in int64.
+
+U32 = 1 << 32
+
+
+def as_u32(t: torch.Tensor) -> torch.Tensor:
+    """An int32 container's uint32 value, in int64."""
+    return t.to(torch.int64) & ALL_ONES
+
+
+def to_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) as int32 containers of the same bits."""
+    return torch.where(v >= (1 << 31), v - U32, v).to(torch.int32)
+
+
+def support_slots(support: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per row, the indices of the ``cap`` lowest-index True entries of
+    ``support`` (int32); empty slots carry the sentinel ``n``.
+
+    Slot ``j`` holds the index of the (j+1)-th True entry, found by binary
+    search on the row's support-count cumsum, as
+    ``repro.kernels.ref.support_slots`` does.  Counts are int64, exact at
+    any n."""
+    support = _rows(support)
+    rows = support.shape[0]
+    csum = torch.cumsum(support.to(torch.int64), dim=1)
+    want = torch.arange(1, int(cap) + 1, dtype=torch.int64,
+                        device=support.device).expand(rows, int(cap))
+    return torch.searchsorted(csum.contiguous(), want.contiguous(),
+                              side="left").to(torch.int32)
+
+
+def compact_slots(x: torch.Tensor, thr: torch.Tensor, cap: int):
+    """K5's plain version: the survivors of threshold ``thr[row]``
+    (``bits >= t`` and ``bits != 0``) as ``cap`` slots in index order.
+
+    Returns ``(idx, vals, nnz)``: ``idx`` (rows, cap) int32 with the
+    sentinel ``n`` in empty slots, ``vals`` (rows, cap) at x's dtype with 0
+    in empty slots, and ``nnz`` (rows,) int32, the whole survivor count
+    (ties beyond ``cap`` included: the bit accounting counts them all).
+    Tie overflow keeps the lowest-index ``cap``.
+    """
+    x = _rows(x)
+    n = x.shape[1]
+    bits = mag_bits(x)
+    support = (bits >= thr[:, None]) & (bits != 0)
+    idx = support_slots(support, cap)
+    safe = torch.clamp(idx.to(torch.int64), 0, max(n - 1, 0))
+    gathered = (torch.gather(x, 1, safe) if n else
+                torch.zeros(idx.shape, dtype=x.dtype, device=x.device))
+    vals = torch.where(idx < n, gathered, torch.zeros_like(gathered))
+    return idx, vals, support.sum(dim=1).to(torch.int32)
+
+
+def topk_slots(x: torch.Tensor, k, cap: int):
+    """TopK select + slot extraction (the ``topk`` codec's encode):
+    ``compact_slots`` at the radix threshold of each row's k-th largest
+    magnitude."""
+    return compact_slots(x, topk_threshold_bits(x, k), cap)
+
+
+def qr_codes_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
+                           norm: torch.Tensor) -> torch.Tensor:
+    """The Q_r transform's stochastic levels as (1+r)-bit codes (int32):
+    ``sign << r | min(level, 2**r - 1)``.
+
+    Same uniforms and arithmetic as :func:`quantize_qr_with_uniforms`
+    (``repro.kernels.ref.qr_codes_with_uniforms``): the top level ``2**r``
+    saturates to ``2**r - 1`` so codes fit their r bits.
+    """
+    x = _rows(x)
+    r = int(r)
+    levels = float(2 ** r)
+    xf = x.to(torch.float32)
+    nrm = norm.to(torch.float32)[:, None]
+    y = xf.abs() / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+    scaled = levels * y
+    lo = torch.floor(scaled)
+    code = (lo + (u < scaled - lo).to(torch.float32)).to(torch.int64)
+    code = torch.clamp(code, max=2 ** r - 1)
+    sign = (xf < 0).to(torch.int64)
+    return ((sign << r) | code).to(torch.int32)
+
+
+def check_width(b: int) -> int:
+    """A code width as an int in [1, 32], or ``ValueError``."""
+    b = int(b)
+    if not 1 <= b <= 32:
+        raise ValueError(f"code width must be in [1, 32], got {b}")
+    return b
+
+
+def pack_codes(codes: torch.Tensor, b: int) -> torch.Tensor:
+    """K8's plain version: bit-plane pack each row's ``n`` b-bit codes into
+    ``ceil(n/32) * b`` words (int32 containers).
+
+    Codes are grouped 32 at a time; word ``j*b + t`` holds bit ``t`` of
+    group ``j``'s codes, code ``32*j + l`` at bit ``l`` — the layout of
+    ``repro.kernels.ref.pack_codes``.  Bits of a code at or above ``b`` are
+    ignored; the last group is padded with code 0.
+    """
+    codes = _rows(codes)
+    b = check_width(b)
+    rows, n = codes.shape
+    n32 = -(-n // 32)
+    c = torch.nn.functional.pad(as_u32(codes), (0, n32 * 32 - n))
+    c = c.reshape(rows, n32, 32)
+    lanes = torch.arange(32, dtype=torch.int64, device=codes.device)
+    planes = [(((c >> t) & 1) << lanes).sum(dim=2) for t in range(b)]
+    return to_i32(torch.stack(planes, dim=2).reshape(rows, n32 * b))
+
+
+def unpack_codes(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
+    """K9's plain version, the inverse of :func:`pack_codes`: each row's
+    ``n`` b-bit codes (int32 containers) from its ``ceil(n/32) * b`` words."""
+    words = _rows(words)
+    b, n = check_width(b), int(n)
+    rows = words.shape[0]
+    n32 = -(-n // 32)
+    if words.shape[1] != n32 * b:
+        raise ValueError(f"expected {n32 * b} words for n={n}, b={b}, got "
+                         f"{words.shape[1]}")
+    w = as_u32(words).reshape(rows, n32, b)
+    lanes = torch.arange(32, dtype=torch.int64, device=words.device)
+    codes = torch.zeros((rows, n32, 32), dtype=torch.int64,
+                        device=words.device)
+    for t in range(b):
+        codes |= ((w[:, :, t, None] >> lanes) & 1) << t
+    return to_i32(codes.reshape(rows, n32 * 32)[:, :n])
+
+
+def quantize_pack_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
+                                norm: torch.Tensor) -> torch.Tensor:
+    """K7's plain version: Q_r codes straight to bit-plane words,
+    ``(rows, ceil(n/32) * (1 + r))`` int32 containers."""
+    return pack_codes(qr_codes_with_uniforms(x, r, u, norm), 1 + int(r))

@@ -1,0 +1,73 @@
+"""Select -> slot compaction (K5): wrapper and plain version.
+
+The port of ``repro.kernels.select_slots.compact_slots``.  Takes
+row-batched ``(rows, n)`` input (one row per client's leaf) with one
+threshold per row (K1's bit pattern) and dispatches by the tensor's
+device: a CPU tensor runs the plain version in
+:mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
+kernel in ``csrc/select_slots.cu`` or raises.  bf16 input is compared on
+its float32 magnitude bits (an exact order-embedding) and its values are
+cast back.
+
+``LAUNCHES`` counts kernel launches; only the CUDA path adds to it, so a
+CPU run leaves it at 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"compact_slots": 0}
+
+_P = ctypes.c_void_p
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.slots_tiles.argtypes = [ctypes.c_longlong]
+    lib.slots_tiles.restype = ctypes.c_longlong
+    lib.compact_slots.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong,
+                                  ctypes.c_int, _P, _P, _P, _P, _P]
+    lib.compact_slots.restype = ctypes.c_int
+    lib.slots_error_string.argtypes = [ctypes.c_int]
+    lib.slots_error_string.restype = ctypes.c_char_p
+
+
+def _lib() -> ctypes.CDLL:
+    return build.load("select_slots", _bind)
+
+
+def compact_slots(x: torch.Tensor, thr: torch.Tensor, cap: int):
+    """K5: each row's survivors of ``thr[row]`` (``|x|`` bits ``>= t`` and
+    ``!= 0``) as ``cap`` slots in index order.
+
+    Returns ``(idx, vals, nnz)``: ``idx`` (rows, cap) int32 with the
+    sentinel ``n`` in empty slots, ``vals`` (rows, cap) at x's dtype (0 in
+    empty slots) and ``nnz`` (rows,) int32, the whole survivor count."""
+    if build.on_cpu(x):
+        return ref.compact_slots(x, thr, cap)
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    cap = int(cap)
+    if not 0 <= cap < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"cap and n must fit int32, got cap={cap}, n={n}")
+    thr = build.expect(thr, "thr", torch.int64, (rows,), xf.device)
+    dev = xf.device
+    idx = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    vals = torch.empty((rows, cap), dtype=torch.float32, device=dev)
+    nnz = torch.zeros(rows, dtype=torch.int32, device=dev)
+    if n == 0:
+        return idx.fill_(0), vals.zero_().to(x.dtype), nnz
+    lib = _lib()
+    scratch = torch.empty((rows, lib.slots_tiles(n)), dtype=torch.int32,
+                          device=dev)
+    code = lib.compact_slots(build.ptr(xf), build.ptr(thr), rows, n, cap,
+                             build.ptr(scratch), build.ptr(nnz),
+                             build.ptr(idx), build.ptr(vals),
+                             build.stream_ptr())
+    build.check(code, "compact_slots", lib, "slots_error_string")
+    LAUNCHES["compact_slots"] += 1
+    return idx, vals.to(x.dtype), nnz

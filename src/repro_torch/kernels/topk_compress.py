@@ -77,9 +77,7 @@ def mask_by_threshold(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
         return ref.mask_by_threshold(x, thr)
     xf = build.cuda_rows(x)
     rows, n = xf.shape
-    if thr.shape != (rows,) or thr.dtype != torch.int64 or thr.device != xf.device:
-        raise ValueError("thr must be an int64 (rows,) tensor on x's device")
-    thr = thr.contiguous()
+    thr = build.expect(thr, "thr", torch.int64, (rows,), xf.device)
     out = torch.empty_like(xf)
     if n == 0:
         return out.to(x.dtype)

@@ -5,8 +5,9 @@ the port only (no JAX), so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1, K2 and K4 must be bit-equal to the plain versions; K3 within rtol
-1e-5 (float32 sums in another order) and bit-equal to itself run to run.
+K1, K2, K4, K5, K7, K8 and K9 must be bit-equal to the plain versions;
+K3 within rtol 1e-5 (float32 sums in another order) and bit-equal to
+itself run to run.
 """
 
 import pytest
@@ -14,7 +15,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import pack_codes as pack  # noqa: E402
+from repro_torch.kernels import qr_pack  # noqa: E402
 from repro_torch.kernels import quantize as quant  # noqa: E402
+from repro_torch.kernels import select_slots as sel  # noqa: E402
 from repro_torch.kernels import topk_compress as topk  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -60,11 +64,61 @@ def test_qr_kernels_match_plain(cuda_device, rows, n, r):
     assert _same_bits(out, ref.quantize_qr_with_uniforms(x, r, u, norm))
 
 
+@pytest.mark.parametrize("rows,n,k,cap", [
+    (5, 50176, 15053, 15053), (5, 10, 3, 3), (3, 1000, 100, 300),
+    (3, 4097, 1, 1), (2, 33, 33, 33), (2, 1, 1, 1), (2, 5000, 2000, 100)])
+def test_compact_slots_matches_plain(cuda_device, rows, n, k, cap):
+    x = _rows(rows, n, cuda_device, n + cap)
+    x[0, : n // 3] = 0.0                         # underfull support
+    if rows > 2:
+        x[2] = 0.25                              # all tied: overflow
+    t = topk.threshold_bits(x, k)
+    idx, vals, nnz = sel.compact_slots(x, t, cap)
+    idx_r, vals_r, nnz_r = ref.compact_slots(x, t, cap)
+    assert torch.equal(idx, idx_r) and torch.equal(nnz, nnz_r)
+    assert _same_bits(vals, vals_r)
+
+
+@pytest.mark.parametrize("rows,n,r", [(5, 50176, 8), (5, 10, 8), (3, 1001, 1),
+                                      (2, 33, 16), (2, 1, 4)])
+def test_quantize_pack_matches_plain(cuda_device, rows, n, r):
+    x = _rows(rows, n, cuda_device, n + r)
+    x[1] = 0.0                                   # norm 0 -> all codes 0
+    x[0, 0] = 1e4                                # saturates the top level
+    u = torch.rand((rows, n), device=cuda_device)
+    norm = quant.l2_norm(x)
+    words = qr_pack.quantize_pack_with_uniforms(x, r, u, norm)
+    assert torch.equal(words,
+                       ref.quantize_pack_with_uniforms(x, r, u, norm))
+
+
+@pytest.mark.parametrize("rows,n,b", [(5, 50176, 9), (3, 1, 1), (3, 31, 5),
+                                      (3, 33, 17), (2, 4096, 32), (2, 1000, 9)])
+def test_pack_unpack_match_plain_and_invert(cuda_device, rows, n, b):
+    gen = torch.Generator(device=cuda_device).manual_seed(n * b)
+    codes = torch.randint(-2 ** 31, 2 ** 31, (rows, n), generator=gen,
+                          device=cuda_device, dtype=torch.int64)
+    codes = ref.to_i32(ref.as_u32(codes) & ((1 << b) - 1))
+    words = pack.pack_codes(codes, b)
+    assert torch.equal(words, ref.pack_codes(codes, b))
+    back = pack.unpack_codes(words, b, n)
+    assert torch.equal(back, ref.unpack_codes(words, b, n))
+    assert torch.equal(back, codes)
+
+
 def test_launch_counters_count_cuda_launches(cuda_device):
     x = _rows(4, 256, cuda_device, 0)
+    keys = torch.zeros((4, 2), dtype=torch.int64)
     ops.reset_launch_counts()
     ops.topk_mask(x, 10)
-    ops.quantize_qr(x, 4, torch.zeros((4, 2), dtype=torch.int64))
+    ops.quantize_qr(x, 4, keys)
+    ops.topk_slots(x, 10, 10)
+    words, _ = ops.quantize_pack(x, 4, keys)
+    ops.unpack_codes(words, 5, 256)
+    ops.pack_codes(torch.zeros((4, 256), dtype=torch.int32,
+                               device=cuda_device), 5)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"topk_threshold_bits": 1, "topk_mask": 1,
-                                   "l2_norm": 1, "quantize_qr": 1}
+    assert ops.launch_counts() == {
+        "topk_threshold_bits": 2, "topk_mask": 1, "l2_norm": 2,
+        "quantize_qr": 1, "compact_slots": 1,
+        "quantize_pack_with_uniforms": 1, "pack_codes": 1, "unpack_codes": 1}

@@ -170,7 +170,7 @@ def test_cpu_run_leaves_every_launch_counter_at_zero(setup):
         ta.run_rounds(ta.init(convert.params_from_jax(setup["p0"], "cpu")),
                       prng.PRNGKey(0), 2)
     counts = ops.launch_counts()
-    assert len(counts) == 4 and all(v == 0 for v in counts.values()), counts
+    assert len(counts) == 8 and all(v == 0 for v in counts.values()), counts
 
 
 @pytest.mark.parametrize("make", [
@@ -181,7 +181,7 @@ def test_cpu_run_leaves_every_launch_counter_at_zero(setup):
     lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, local_steps="geometric")),
     lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
-                        compress.TopK(0.3), wire="packed"),
+                        jcomp.Int8Sync(), wire="packed"),
     lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
                         compress.TopK(0.3), downlink="account"),
     lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),

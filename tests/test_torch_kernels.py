@@ -232,10 +232,17 @@ def test_ops_quantize_draws_reference_uniforms():
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launch_counts()
     x = torch.from_numpy(_rows(10, 3, 256))
+    keys = torch.zeros((3, 2), dtype=torch.int64)
     ops.topk_mask(x, 10)
-    ops.quantize_qr(x, 4, torch.zeros((3, 2), dtype=torch.int64))
-    assert set(ops.launch_counts()) == {"topk_threshold_bits", "topk_mask",
-                                        "l2_norm", "quantize_qr"}
+    ops.quantize_qr(x, 4, keys)
+    ops.topk_slots(x, 10, 10)
+    words, _ = ops.quantize_pack(x, 4, keys)
+    ops.unpack_codes(words, 5, 256)
+    ops.pack_codes(torch.zeros((3, 256), dtype=torch.int32), 5)
+    assert set(ops.launch_counts()) == {
+        "topk_threshold_bits", "topk_mask", "l2_norm", "quantize_qr",
+        "compact_slots", "quantize_pack_with_uniforms", "pack_codes",
+        "unpack_codes"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 
