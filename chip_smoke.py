@@ -9,25 +9,39 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
 1. build — compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a, one
    ``nvcc`` per source in parallel, into ``src/repro_torch/kernels/_build``;
 2. kernels — holds each kernel (K1 TopK threshold, K2 TopK mask, K3 l2
-   norm, K4 Q_r rounding, K5 slot compaction, K7 fused Q_r pack, K8 code
-   pack, K9 code unpack) against its plain PyTorch version on the card,
-   at the main path's shapes, edge cases and one large shape: all
-   bit-equal except K3, which must be within ``NORM_RTOL``; K9 must invert
-   K8.  Then times kernel, plain version and the library yardstick;
+   norm, K4 Q_r rounding, K5 slot compaction, K6 coded slot compaction,
+   K7 fused Q_r pack, K8 code pack, K9 code unpack) against its plain
+   PyTorch version on the card, at the main path's shapes, edge cases and
+   one large shape: all bit-equal except K3, which must be within
+   ``NORM_RTOL``; K9 must invert K8.  Then times kernel, plain version and
+   the library yardstick;
 3. train — drives the quickstart configuration (MLP 784-64-64-10, 20
-   Dirichlet(0.7) clients, 5 per round, batch 32, p = 0.1) through
-   ``server.run_federated`` on the card with ``TopK(0.3)`` and with
-   ``QuantQr(8)``, each once on the account wire and once on the packed
-   wire, with every launch counter set to 0 just before a run and read
-   just after; each counter must equal the count the batching implies.
-   The packed runs must reproduce the account runs' uplink bits exactly,
-   their parameters within ``PARAM_RTOL``/``PARAM_ATOL``, and ship the
-   payload bytes the wire format implies.  Then times steady-state rounds
-   (wall clock, and device busy time under ``torch.profiler``, whose idle
-   share is given against both the plain and the profiled wall clock) and
-   replays the first rounds on the CPU through the plain versions:
-   cohorts, steps, bits and payload bytes must be equal, the train loss
-   within ``LOSS_RTOL``.
+   Dirichlet(0.7) clients, 5 per round, batch 32, gamma = 0.1, p = 0.1)
+   through ``server.run_federated`` on the card, FedComLoc-Com with
+   ``TopK(0.3)``, ``QuantQr(8)``, ``Compose(TopK(0.25), QuantQr(4))``
+   (Figure 16's k25_q4), ``Compose(TopK(0.5), QuantQr(16))`` (k50_q16),
+   ``Int8Sync()``, ``TopK(0.1)`` with error feedback and server momentum
+   0.6, and ``QuantQr(8)`` with geometric local phases, each on the
+   account and on the packed wire; every launch counter is set to 0 just
+   before a run and read just after, and each must equal the count the
+   batching implies.  The packed runs must ship the payload bytes the
+   wire format implies, and reproduce the account runs' uplink bits
+   exactly and their parameters within ``PARAM_RTOL``/``PARAM_ATOL``.
+   For Compose a further packed run holds, in every round, the server's
+   decode against the account transform of the same uplink: equal except
+   where the wire saturates a code or drops a tie beyond the cap, as its
+   format says.  Where either happened (and in k25_q4, which diverges at
+   this configuration in the JAX package as well: loss above 1 by round
+   5, NaN by round 15), the two runs part, and the rounds through which
+   they agree are printed instead of held.  Every run but k25_q4 must
+   train (finite losses, best accuracy above 0.2).  Then times
+   steady-state rounds (wall clock, and device busy time under
+   ``torch.profiler``, whose idle share is given against both the plain
+   and the profiled wall clock) and replays the first rounds of the TopK,
+   QuantQr, packed k25_q4 and EF runs on the CPU through the plain
+   versions (k25_q4's first ``DIVERGING_REPLAY_ROUNDS``, while its loss is
+   finite): cohorts, steps, bits and payload bytes must be equal, the
+   train loss within ``LOSS_RTOL``.
 
 Prints the card's name and power limit, one line per kernel and shape, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -51,6 +65,7 @@ LOSS_RTOL = 1e-4               # cuBLAS vs CPU matmuls in the replayed rounds
 PARAM_RTOL, PARAM_ATOL = 1e-6, 1e-7   # packed vs account rounds on the card
 ROUNDS = 20
 REPLAY_ROUNDS = 3
+DIVERGING_REPLAY_ROUNDS = 6
 PROFILE_ROUNDS = 5
 LARGE = (4, 1 << 24)
 
@@ -137,7 +152,8 @@ def profile_rounds(torch, prng, alg, params0, label: str) -> dict:
 
 def interleaved_rounds(torch, prng, algs: dict, params0, label: str) -> None:
     """Steady ms/round of two algorithms in turns (A B B A, twice), so
-    that host drift falls on both alike."""
+    that host drift falls on both alike.  Every window runs the same 5
+    rounds from the state after 3 warm-up rounds."""
     order = list(algs) + list(algs)[::-1]
     states = {}
     for name, alg in algs.items():
@@ -158,7 +174,6 @@ def interleaved_rounds(torch, prng, algs: dict, params0, label: str) -> None:
             state, _ = alg.round(state, sub)
         torch.cuda.synchronize()
         times[name].append((time.time() - t0) / PROFILE_ROUNDS * 1e3)
-        states[name] = (state, key)
     print(f"[profile] {label} interleaved steady ms/round over windows of "
           f"{PROFILE_ROUNDS}: " + "; ".join(
               f"{name} {ts!r} (median {statistics.median(ts)!r})"
@@ -187,7 +202,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import prng
     from repro_torch import tree as tree_util
-    from repro_torch.compress import QuantQr, TopK, wire
+    from repro_torch.compress import Compose, Int8Sync, QuantQr, TopK, wire
     from repro_torch.core import fed_data, server
     from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
     from repro_torch.data import dirichlet, synthetic
@@ -227,6 +242,8 @@ def main() -> int:
                            tpu + "quantize.py:97"),
         "K5": KernelRecord("compact_slots", csrc + "select_slots.cu",
                            tpu + "select_slots.py:188"),
+        "K6": KernelRecord("compact_code_slots", csrc + "select_slots.cu",
+                           tpu + "select_slots.py:205"),
         "K7": KernelRecord("quantize_pack_with_uniforms", csrc + "qr_pack.cu",
                            tpu + "qr_pack.py:61"),
         "K8": KernelRecord("pack_codes", csrc + "pack_codes.cu",
@@ -338,6 +355,51 @@ def main() -> int:
     print(f"[kernels] K5 bit-equal to the plain version on "
           f"{len(slot_cases)} cases", flush=True)
 
+    # K6: (label, x, k, cap, r); threshold from K1, masked norm from K3
+    def masked_norm(xc, t):
+        keep = ref.mag_bits(xc) >= t[:, None]
+        return qk.l2_norm(torch.where(keep, xc.float(),
+                                      torch.zeros((), device=dev)))
+
+    k25, k50 = TopK(0.25), TopK(0.5)
+    code_slot_cases = [(f"main n={n} r=4", randn(s, n), k25._k(n),
+                        k25._k(n), 4) for n in leaf_sizes]
+    code_slot_cases += [(f"main n={n} r=16", randn(s, n), k50._k(n),
+                         k50._k(n), 16) for n in leaf_sizes]
+    x = randn(5, 1000)
+    x[0, 40:] = 0.0                              # 40 survivors: cap > support
+    x[1] = 0.5                                   # all-equal: tie overflow
+    x[1, ::2] = -0.5
+    x[2, :10] = 0.0                              # zeros and -0.0
+    x[2, 10:20] = -0.0
+    x[3] = 0.0                                   # no survivor, norm 0
+    x[4, 7] = 1e4                                # saturates the top level
+    for k, cap, r in ((100, 100, 4), (100, 250, 8), (1000, 1000, 16),
+                      (1, 3, 1)):
+        code_slot_cases.append((f"edge n=1000 k={k} cap={cap} r={r}", x, k,
+                                cap, r))
+    code_slot_cases.append(("odd n=777", randn(4, 777), 77, 77, 8))
+    code_slot_cases.append(("n=1", randn(3, 1), 1, 1, 4))   # saturates
+    code_slot_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16),
+                            1024, 1024, 4))
+    code_slot_cases.append(("large", randn(*LARGE), k25._k(LARGE[1]),
+                            k25._k(LARGE[1]), 8))
+    for label, xc, k, cap, r in code_slot_cases:
+        u = torch.rand(xc.shape, generator=gen, device=dev)
+        t = tk.threshold_bits(xc, k)
+        norm = masked_norm(xc, t)
+        idx, codes, nnz = sk.compact_code_slots(xc, u, norm, t, r, cap)
+        idx_r, codes_r, nnz_r = ref.compact_code_slots(xc, u, norm, t, r, cap)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, idx_r) and torch.equal(codes, codes_r)
+                and torch.equal(nnz, nnz_r)):
+            raise AssertionError(f"K6 {label}: kernel coded slots differ")
+        recs["K6"].err(idx, idx_r)
+        recs["K6"].err(codes, codes_r)
+        del u
+    print(f"[kernels] K6 bit-equal to the plain version on "
+          f"{len(code_slot_cases)} cases", flush=True)
+
     # K7: (label, x, r), norm from K3
     pack_qr_cases = [(f"main n={n}", randn(s, n), 8) for n in leaf_sizes]
     x = randn(3, 1001)
@@ -384,7 +446,8 @@ def main() -> int:
         recs["K9"].err(back, back_ref)
     print(f"[kernels] K8/K9 bit-equal to the plain versions and K9(K8(c)) == "
           f"c on {len(code_cases)} cases", flush=True)
-    del topk_cases, qr_cases, slot_cases, pack_qr_cases, code_cases
+    del (topk_cases, qr_cases, slot_cases, code_slot_cases, pack_qr_cases,
+         code_cases)
     torch.cuda.empty_cache()
 
     # timings: the largest main-path leaf (5 clients x 784*64) and LARGE
@@ -400,6 +463,10 @@ def main() -> int:
         words = pk.pack_codes(codes, 9)
         nx = rows * n
         wbytes = 4 * rows * -(-n // 32) * 9      # 9-bit words
+        # K6 at the k25 cap: r = 4 on the main path's leaf, r = 8 at LARGE
+        cap6, r6 = k25._k(n), (4 if shape != LARGE else 8)
+        t6 = tk.threshold_bits(xc, cap6)
+        norm6 = masked_norm(xc, t6)
         plans = {
             "K1": (lambda: tk.threshold_bits(xc, k),
                    lambda: ref.topk_threshold_bits(xc, k),
@@ -428,6 +495,13 @@ def main() -> int:
             "K9": (lambda: pk.unpack_codes(words, 9, n),
                    lambda: ref.unpack_codes(words, 9, n), None,
                    wbytes + 4 * nx, 9 * nx),
+            # reads x, u at the survivors, thr and norm; writes cap
+            # (idx, code) slots and nnz
+            "K6": (lambda: sk.compact_code_slots(xc, u, norm6, t6, r6, cap6),
+                   lambda: ref.compact_code_slots(xc, u, norm6, t6, r6, cap6),
+                   None,
+                   4 * nx + 4 * rows * cap6 + 12 * rows + 8 * rows * cap6
+                   + 4 * rows, 3 * nx + 10 * rows * cap6),
         }
         tag = "main" if shape != LARGE else "large"
         for key_, (kern, plain, lib, nbytes, nops) in plans.items():
@@ -444,7 +518,7 @@ def main() -> int:
                   f"{row['kernel_ms']!r} plain_ms={row['plain_ms']!r} "
                   f"library_ms={row['library_ms']!r} bound_ms={b_ms!r} "
                   f"({b_by})", flush=True)
-        del xc, xa, u, codes, words
+        del xc, xa, u, codes, words, t6, norm6
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -459,21 +533,46 @@ def main() -> int:
     eval_fn = server.make_eval_fn(model.apply,
                                   torch.from_numpy(ds.x_test).to(dev),
                                   torch.from_numpy(ds.y_test).to(dev))
-    cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=5,
-                          batch_size=32, variant="com")
+
+    def config(**over):
+        return FedComLocConfig(gamma=0.1, p=0.1, n_clients=20,
+                               clients_per_round=5, batch_size=32,
+                               variant="com", **over)
+
     params0 = model.init(prng.PRNGKey(0), device=dev)
+    one_client = tree_util.map(lambda p: p.detach(), params0)
     per_run = ROUNDS * len(leaf_sizes)
     zero = {name: 0 for name in ops.launch_counts()}
-    runs = {}        # (label, wire) -> what the run gave
+    k1, k2, k3, k4, k5, k6, k7, k8, k9 = (rec.name for rec in recs.values())
+    double = ("k25_q4", "k50_q16")
+    diverging = ("k25_q4",)       # the JAX package diverges there as well
+    # name -> (compressor, config overrides, {wire: kernels the run
+    # launches once per leaf per round}); Int8Sync calls no kernel
+    train_runs = {
+        "TopK": (TopK(0.3), {}, {"account": (k1, k2), "packed": (k1, k5)}),
+        "QuantQr": (QuantQr(8), {}, {"account": (k3, k4),
+                                     "packed": (k3, k7, k9)}),
+        "k25_q4": (Compose(TopK(0.25), QuantQr(4)), {},
+                   {"account": (k1, k2, k3, k4),
+                    "packed": (k1, k3, k6, k8, k9)}),
+        "k50_q16": (Compose(TopK(0.5), QuantQr(16)), {},
+                    {"account": (k1, k2, k3, k4),
+                     "packed": (k1, k3, k6, k8, k9)}),
+        "Int8Sync": (Int8Sync(), {}, {"account": (), "packed": ()}),
+        "ef_mom": (TopK(0.1), {"error_feedback": True, "server_momentum": 0.6},
+                   {"account": (k1, k2), "packed": (k1, k5)}),
+        "qr8_geometric": (QuantQr(8), {"local_steps": "geometric"},
+                          {"account": (k3, k4), "packed": (k3, k7, k9)}),
+    }
+    replayed = (("TopK", "account"), ("TopK", "packed"), ("QuantQr", "account"),
+                ("QuantQr", "packed"), ("k25_q4", "packed"),
+                ("ef_mom", "account"), ("ef_mom", "packed"))
+    runs = {}        # (name, wire) -> what the run gave
     launches = {}    # kernel name -> {run: launches}
-    for comp, mode, used in (
-            (TopK(0.3), "account", ("topk_threshold_bits", "topk_mask")),
-            (TopK(0.3), "packed", ("topk_threshold_bits", "compact_slots")),
-            (QuantQr(8), "account", ("l2_norm", "quantize_qr")),
-            (QuantQr(8), "packed", ("l2_norm", "quantize_pack_with_uniforms",
-                                    "unpack_codes"))):
-        label = f"{type(comp).__name__} {mode}"
-        expect = {**zero, **{name: per_run for name in used}}
+
+    def run_once(comp, cfg, mode, eval_every=5):
+        """One 20-round ``run_federated`` on the card; returns the
+        algorithm, its history and the per-round metrics."""
         alg = FedComLoc(loss_fn, data["cuda"], cfg, comp)
         per_round = []
         round_fn = alg.round
@@ -484,61 +583,174 @@ def main() -> int:
             return state, metrics
 
         alg.round = recording_round
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.time()
         hist = server.run_federated(alg, params0, ROUNDS, prng.PRNGKey(1),
-                                    eval_fn=eval_fn, eval_every=5, wire=mode)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        counts = ops.launch_counts()
+                                    eval_fn=eval_fn, eval_every=eval_every,
+                                    wire=mode)
         del alg.round
-        payload = sum(m.get("uplink_payload_bytes", 0.0) for m in per_round)
-        print(f"[train] {label}: best acc {hist.best_acc!r} final train loss "
-              f"{hist.train_loss[-1]!r} uplink Mbit "
-              f"{alg.meter.uplink_bits / 1e6!r} total Mbit "
-              f"{alg.meter.total_bits / 1e6!r} uplink payload bytes "
-              f"{payload!r} ms/round (eval included) "
-              f"{wall / ROUNDS * 1e3!r} launches {counts}", flush=True)
-        if counts != expect:
-            raise AssertionError(f"{label}: launch counts {counts} != {expect}")
-        for name in used:
-            launches.setdefault(name, {})[label] = counts[name]
-        finite = all(map(lambda v: v == v and abs(v) != float("inf"),
-                         hist.train_loss + hist.test_loss + hist.test_acc))
-        if not finite or hist.best_acc <= 0.2:
-            raise AssertionError(f"{label}: training went wrong: {hist}")
-        runs[(type(comp).__name__, mode)] = {
-            "alg": alg, "comp": comp, "hist": hist, "payload": payload,
-            "uplink_bits": alg.meter.uplink_bits}
+        return alg, hist, per_round
+
+    for name, (comp, over, used_by_wire) in train_runs.items():
+        for mode, used in used_by_wire.items():
+            label = f"{name} {mode}"
+            expect = {**zero, **{k: per_run for k in used}}
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.time()
+            alg, hist, per_round = run_once(comp, config(**over), mode)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = ops.launch_counts()
+            payload = sum(m.get("uplink_payload_bytes", 0.0) for m in per_round)
+            steps = [int(m["num_local_steps"]) for m in per_round]
+            print(f"[train] {label}: best acc {hist.best_acc!r} final train "
+                  f"loss {hist.train_loss[-1]!r} uplink Mbit "
+                  f"{alg.meter.uplink_bits / 1e6!r} total Mbit "
+                  f"{alg.meter.total_bits / 1e6!r} uplink payload bytes "
+                  f"{payload!r} local steps {steps} ms/round (eval included) "
+                  f"{wall / ROUNDS * 1e3!r} launches {counts}", flush=True)
+            if counts != expect:
+                raise AssertionError(f"{label}: launch counts {counts} != "
+                                     f"{expect}")
+            for k in used:
+                launches.setdefault(k, {})[label] = counts[k]
+            finite = all(map(lambda v: v == v and abs(v) != float("inf"),
+                             hist.train_loss + hist.test_loss + hist.test_acc))
+            if name not in diverging and (not finite or hist.best_acc <= 0.2):
+                raise AssertionError(f"{label}: training went wrong: {hist}")
+            if over.get("local_steps") == "geometric" and len(set(steps)) < 2:
+                raise AssertionError(f"{label}: local steps not drawn: {steps}")
+            runs[(name, mode)] = {
+                "alg": alg, "comp": comp, "cfg": config(**over), "hist": hist,
+                "payload": payload, "uplink_bits": alg.meter.uplink_bits,
+                "bits": [float(m["uplink_bits"]) for m in per_round],
+                "losses": [float(m["train_loss"]) for m in per_round]}
+
+    def max_abs_diff(xs, ys):
+        """Largest |x - y| where both are finite."""
+        return max(float(torch.where(torch.isfinite(a) & torch.isfinite(b),
+                                     (a - b).abs(), torch.zeros_like(a)).max())
+                   for a, b in zip(xs, ys))
+
+    def codec_rounds(comp, cfg):
+        """A packed run of ``comp`` in which every round holds the server's
+        decode of the uplink against the account transform of the same
+        uplink tree and keys, on the card.  They must be equal except where
+        the wire saturates a code at the top level 2^r (the value drops
+        from the masked leaf's norm to norm * (2^r - 1) / 2^r) or drops a
+        tie beyond the cap (the value is 0); the bits must be equal.  A
+        round whose uplink is not finite lies outside the codec's contract
+        and is counted, not checked.  The run also launches the account
+        path, so it lies outside every counted run."""
+        stats = {"checked": 0, "nonfinite": 0, "saturated": 0, "overflow": 0}
+        levels = float(2 ** comp.second.r)
+        orig_encode = wire.encode
+
+        def checking_encode(comp_, stacked, keys=None):
+            payload, rep = orig_encode(comp_, stacked, keys)
+            leaves_ = tree_util.leaves(stacked)
+            if not all(bool(torch.isfinite(l).all()) for l in leaves_):
+                stats["nonfinite"] += 1
+                return payload, rep
+            want, want_rep = comp_.compress(stacked, keys)
+            if not torch.equal(rep.total_bits, want_rep.total_bits):
+                raise AssertionError(f"codec round {stats['checked']}: bits "
+                                     f"{rep.total_bits} != account "
+                                     f"{want_rep.total_bits}")
+            got = wire.decode(payload)
+            for x_, o, g, bufs in zip(leaves_, tree_util.leaves(want),
+                                      tree_util.leaves(got), payload.data):
+                rows_ = x_.shape[0]
+                flat, of = x_.reshape(rows_, -1), o.reshape(rows_, -1)
+                n_ = flat.shape[1]
+                nrm = qk.l2_norm(ops.topk_mask(
+                    flat, comp.first._k(n_)))[:, None]
+                top = (of.abs() == nrm) & (nrm > 0)
+                shipped = torch.zeros((rows_, n_ + 1), dtype=torch.bool,
+                                      device=dev)
+                shipped = shipped.scatter_(1, bufs[0].long(), True)[:, :n_]
+                expect = torch.where(
+                    top, nrm * torch.sign(of) * ((levels - 1) / levels), of)
+                expect = torch.where(shipped, expect, torch.zeros_like(of))
+                stats["saturated"] += int((top & shipped).sum())
+                stats["overflow"] += int(((of != 0) & ~shipped).sum())
+                if not torch.equal(g.reshape(rows_, -1), expect):
+                    raise AssertionError(f"codec round {stats['checked']}: "
+                                         f"decode != account transform")
+            stats["checked"] += 1
+            return payload, rep
+
+        wire.encode = checking_encode
+        try:
+            run_once(comp, cfg, "packed", eval_every=ROUNDS)
+        finally:
+            wire.encode = orig_encode
+        return stats
+
+    def first_difference(a, b):
+        """1-based index of the first round whose values differ (NaN equal
+        to NaN), or None."""
+        for i, (x_, y_) in enumerate(zip(a, b)):
+            if x_ != y_ and not (x_ != x_ and y_ != y_):
+                return i + 1
+        return None
 
     # the packed runs against the account runs on the card
-    one_client = tree_util.map(lambda p: p.detach(), params0)
-    for name in ("TopK", "QuantQr"):
-        acc, pkd = runs[(name, "account")], runs[(name, "packed")]
-        want_bytes = float(ROUNDS * s * wire.payload_nbytes(pkd["comp"],
-                                                            one_client))
+    want_per_upload = {"k25_q4": 63712, "k50_q16": 168672, "Int8Sync": 55074}
+    for name, (comp, over, used_by_wire) in train_runs.items():
+        pkd = runs[(name, "packed")]
+        per_upload = wire.payload_nbytes(comp, one_client)
+        if per_upload != want_per_upload.get(name, per_upload):
+            raise AssertionError(f"{name}: {per_upload} B an upload, not "
+                                 f"{want_per_upload[name]}")
+        want_bytes = float(ROUNDS * s * per_upload)
+        if pkd["payload"] != want_bytes:
+            raise AssertionError(f"{name}: packed payload {pkd['payload']!r} "
+                                 f"B != {want_bytes!r} B")
+        codec = None
+        if name in double:
+            codec = codec_rounds(comp, pkd["cfg"])
+            print(f"[train] {name}: decode == account transform of the same "
+                  f"uplink in {codec['checked']} of {ROUNDS} rounds "
+                  f"({codec['nonfinite']} rounds with a non-finite uplink "
+                  f"not checked), bits equal; {codec['saturated']} codes "
+                  f"saturated at 2^r - 1 and {codec['overflow']} ties beyond "
+                  f"the cap dropped, as the wire format says", flush=True)
+            if codec["checked"] == 0:
+                raise AssertionError(f"{name}: no round checked")
+        acc = runs[(name, "account")]
+        pa = tree_util.leaves(acc["hist"].final_params)
+        pp = tree_util.leaves(pkd["hist"].final_params)
+        equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                    for a, b in zip(pa, pp))
+        summary = (f"uplink bits {pkd['uplink_bits']!r} packed vs "
+                   f"{acc['uplink_bits']!r} account; payload "
+                   f"{pkd['payload']!r} B as the wire format implies "
+                   f"({per_upload} B an upload); params bit-equal {equal} "
+                   f"(max abs diff where finite {max_abs_diff(pa, pp)!r})")
+        if name in diverging or (codec and (codec["saturated"]
+                                            or codec["overflow"])):
+            # the wire's documented differences part the two trajectories
+            print(f"[train] {name}: {summary}; the runs' per-round bits "
+                  f"first differ in round "
+                  f"{first_difference(pkd['bits'], acc['bits'])}, their "
+                  f"losses in round "
+                  f"{first_difference(pkd['losses'], acc['losses'])} (None: "
+                  f"never); not held run to run, the codec check above holds "
+                  f"every round", flush=True)
+            continue
         if pkd["uplink_bits"] != acc["uplink_bits"]:
             raise AssertionError(f"{name}: packed uplink bits "
                                  f"{pkd['uplink_bits']!r} != account "
                                  f"{acc['uplink_bits']!r}")
-        if pkd["payload"] != want_bytes:
-            raise AssertionError(f"{name}: packed payload {pkd['payload']!r} "
-                                 f"B != {want_bytes!r} B")
-        pa = tree_util.leaves(acc["hist"].final_params)
-        pp = tree_util.leaves(pkd["hist"].final_params)
-        equal = all(torch.equal(a, b) for a, b in zip(pa, pp))
-        diff = max(float((a - b).abs().max()) for a, b in zip(pa, pp))
         if not all(torch.allclose(b, a, rtol=PARAM_RTOL, atol=PARAM_ATOL)
                    for a, b in zip(pa, pp)):
             raise AssertionError(f"{name}: packed params differ from account "
-                                 f"by up to {diff!r}")
-        print(f"[train] {name}: packed == account on uplink bits "
-              f"({pkd['uplink_bits']!r}); payload {pkd['payload']!r} B as the "
-              f"wire format implies; params bit-equal {equal} (max abs diff "
-              f"{diff!r}, rtol {PARAM_RTOL} atol {PARAM_ATOL})", flush=True)
+                                 f"by more than rtol {PARAM_RTOL} atol "
+                                 f"{PARAM_ATOL}: {summary}")
+        print(f"[train] {name}: packed == account: {summary}; within rtol "
+              f"{PARAM_RTOL} atol {PARAM_ATOL}", flush=True)
 
-    # saturated Q_r codes on the packed run's trajectory (a second run of
+    # saturated Q_r codes on the packed QuantQr trajectory (a second run of
     # it, counting; its launches are not part of the main path's count)
     saturated = [0, 0]
     orig_pack = ops.quantize_pack
@@ -556,7 +768,8 @@ def main() -> int:
 
     ops.quantize_pack = counting_pack
     try:
-        server.run_federated(FedComLoc(loss_fn, data["cuda"], cfg, QuantQr(8)),
+        server.run_federated(FedComLoc(loss_fn, data["cuda"], config(),
+                                       QuantQr(8)),
                              params0, ROUNDS, prng.PRNGKey(1), wire="packed")
     finally:
         ops.quantize_pack = orig_pack
@@ -567,11 +780,14 @@ def main() -> int:
     for (name, mode), run in runs.items():
         label = f"{name} {mode}"
         profiles[label] = profile_rounds(torch, prng, run["alg"], params0, label)
+        if (name, mode) not in replayed:
+            continue
 
         # replay the first rounds on the card and on the CPU (plain versions)
         replay = {}
         for d in ("cuda", "cpu"):
-            alg_d = FedComLoc(loss_fn, data[d], cfg, run["comp"], wire=mode)
+            alg_d = FedComLoc(loss_fn, data[d], run["cfg"], run["comp"],
+                              wire=mode)
             cohorts = []
             sample = alg_d.sched.sample_cohort
 
@@ -585,7 +801,8 @@ def main() -> int:
                                 for k, v in params0.items()})
             key_ = prng.PRNGKey(1)
             rows_ = []
-            for _ in range(REPLAY_ROUNDS):
+            for _ in range(DIVERGING_REPLAY_ROUNDS if name in diverging
+                           else REPLAY_ROUNDS):
                 key_, sub = prng.split(key_, 2)
                 state, metrics = alg_d.round(state, sub)
                 rows_.append(metrics)
@@ -593,7 +810,8 @@ def main() -> int:
         (c_gpu, m_gpu), (c_cpu, m_cpu) = replay["cuda"], replay["cpu"]
         if c_gpu != c_cpu:
             raise AssertionError(f"{label}: cohorts differ {c_gpu} {c_cpu}")
-        exact = ["uplink_bits", "downlink_bits", "client_steps"]
+        exact = ["uplink_bits", "downlink_bits", "client_steps",
+                 "num_local_steps"]
         if mode == "packed":
             exact += ["uplink_payload_bytes", "client_payload_bytes"]
         for r, (a, b) in enumerate(zip(m_gpu, m_cpu)):
@@ -606,12 +824,12 @@ def main() -> int:
                 raise AssertionError(f"{label} round {r}: train_loss "
                                      f"{a['train_loss']!r} vs "
                                      f"{b['train_loss']!r}")
-        print(f"[train] {label}: first {REPLAY_ROUNDS} rounds CUDA == CPU on "
+        print(f"[train] {label}: first {len(m_gpu)} rounds CUDA == CPU on "
               f"cohorts {c_gpu}, {', '.join(exact)}; train_loss within rtol "
               f"{LOSS_RTOL}: {[m['train_loss'] for m in m_gpu]!r} vs "
               f"{[m['train_loss'] for m in m_cpu]!r}", flush=True)
         torch.cuda.synchronize()
-    for name in ("TopK", "QuantQr"):
+    for name in ("TopK", "QuantQr", "k25_q4"):
         interleaved_rounds(torch, prng, {
             mode: runs[(name, mode)]["alg"] for mode in ("account", "packed")},
             params0, name)

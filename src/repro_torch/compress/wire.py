@@ -19,16 +19,22 @@ Codecs (``check_supported`` names the mapping):
   values at the leaf dtype.  Empty slots carry the sentinel index ``n``
   and are dropped by the decode scatter; magnitude ties beyond ``cap``
   keep the lowest-index ``cap``.
-* ``qr`` — ``QuantQr``: one (1+r)-bit code per scalar (sign bit and r
-  level bits), bit-plane packed into 32-bit words, plus one fp32 norm per
-  leaf.  The top level ``2**r`` saturates to ``2**r - 1``; everywhere
-  else the decode is bit-equal to the transform.
+* ``qr`` — ``QuantQr`` (and ``Compose(TopK(density >= 1), QuantQr)``):
+  one (1+r)-bit code per scalar (sign bit and r level bits), bit-plane
+  packed into 32-bit words, plus one fp32 norm per leaf.  The top level
+  ``2**r`` saturates to ``2**r - 1``; everywhere else the decode is
+  bit-equal to the transform.
+* ``topk_qr`` — ``Compose(TopK, QuantQr)``: ``cap`` slot indices as in
+  ``topk``, the survivors' (1+r)-bit codes of the TopK-masked leaf
+  bit-plane packed at the capacity (code 0 in empty slots), and one fp32
+  norm per leaf (the masked leaf's).  Saturates as ``qr`` does.
+* ``int8`` — ``Int8Sync``: leaf-shaped int8 levels plus one fp32 scale
+  per leaf.
 
 Uplink buffers are uint32 bit patterns in int32 containers, 4 bytes each,
 as in the reference.  The reports are computed as the transforms compute
 them, so account and packed rounds see identical bit metrics;
-``padding_bits`` is the slack between measured and accounted bits.  The
-``topk_qr`` (``Compose``) and ``int8`` (``Int8Sync``) codecs,
+``padding_bits`` is the slack between measured and accounted bits.
 ``scope="global"`` and the model-sharded wire are not yet ported.
 """
 
@@ -43,7 +49,8 @@ import torch
 
 from repro_torch import not_ported, prng
 from repro_torch import tree as tree_util
-from repro_torch.compress.compressors import Compressor, Identity, QuantQr, TopK
+from repro_torch.compress.compressors import (
+    Compose, Compressor, Identity, Int8Sync, QuantQr, TopK)
 from repro_torch.compress.report import (
     FLOAT_BITS, INDEX_BITS, BitsReport, dense_report, leaf_value_bits,
     per_client)
@@ -52,9 +59,6 @@ from repro_torch.kernels.qr_pack import MAX_R
 
 PyTree = Any
 
-#: Compressors of the reference whose codecs the port does not have yet.
-_NOT_PORTED = {"Compose": "topk_qr", "Int8Sync": "int8"}
-
 
 @dataclasses.dataclass(frozen=True)
 class WireSpec:
@@ -62,12 +66,12 @@ class WireSpec:
     needs: codec, tree structure, per-leaf shapes and dtypes (one
     client's), the sparse capacities, and the packed bytes per client."""
 
-    codec: str                       # dense | topk | qr
+    codec: str                       # dense | topk | qr | topk_qr | int8
     treedef: Any                     # the tree's structure, leaves None
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
-    caps: Tuple[int, ...] = ()       # per-leaf sparse capacity (topk)
-    r: int = 0                       # level bits (qr)
+    caps: Tuple[int, ...] = ()       # per-leaf sparse capacity (topk codecs)
+    r: int = 0                       # level bits (qr / topk_qr / int8)
     nbytes: int = 0                  # packed payload bytes per client
 
 
@@ -99,8 +103,10 @@ def measured_bits(payload: Payload) -> float:
 def padding_bits(payload: Payload, report: BitsReport):
     """Per-client slack between measured and accounted bits: ``(cap -
     nnz) * (INDEX_BITS + value width)`` for each sparse leaf whose support
-    underfills its capacity, and ``(32 * ceil(n/32) - n) * (1 + r)``
-    word-padding bits per packed-code leaf; dense payloads have none.  Tie
+    underfills its capacity (the value width is ``1 + r`` for
+    ``topk_qr``), and ``(32 * ceil(m/32) - m) * (1 + r)`` word-padding
+    bits per packed-code leaf of ``m`` codes (``m = n`` for ``qr``, ``m =
+    cap`` for ``topk_qr``); dense and int8 payloads have none.  Tie
     overflow beyond ``cap`` makes a sparse leaf's share negative."""
     return measured_bits(payload) - report.total_bits
 
@@ -111,14 +117,19 @@ def padding_bits(payload: Payload, report: BitsReport):
 
 def check_supported(comp: Optional[Compressor]) -> str:
     """Return the wire codec name for ``comp``; raise ``ValueError`` where
-    the reference does and ``NotImplementedError`` for codecs not yet
-    ported.  The static capacity needs the exact-k support, so a TopK
-    whose ``impl`` is not ``"select"`` is rejected."""
-    name = type(comp).__name__
-    if name in _NOT_PORTED:
-        raise not_ported(f"the {_NOT_PORTED[name]} wire codec ({name})")
-    if getattr(comp, "scope", "tensor") != "tensor":
-        raise not_ported(f"wire codecs with scope={comp.scope!r}")
+    the reference does and ``NotImplementedError`` for ``scope="global"``,
+    which the port does not have yet.  The static capacity needs the
+    exact-k support, so a TopK whose ``impl`` is not ``"select"`` is
+    rejected; ``Compose`` is supported for TopK -> QuantQr with matching
+    scopes."""
+    codec = _codec(comp)
+    scope = _scope_of(comp, codec)
+    if scope != "tensor":
+        raise not_ported(f"wire codecs with scope={scope!r}")
+    return codec
+
+
+def _codec(comp: Optional[Compressor]) -> str:
     if comp is None or isinstance(comp, Identity):
         return "dense"
     if isinstance(comp, TopK):
@@ -135,8 +146,42 @@ def check_supported(comp: Optional[Compressor]) -> str:
             raise ValueError(f"wire codec supports r <= {MAX_R}, "
                              f"got r={comp.r}")
         return "qr"
-    raise ValueError(f"no wire codec for {name}; supported: Identity, "
-                     "TopK(select), QuantQr")
+    if isinstance(comp, Int8Sync):
+        return "int8"
+    if isinstance(comp, Compose):
+        if not (isinstance(comp.first, TopK)
+                and isinstance(comp.second, QuantQr)):
+            raise ValueError(
+                f"wire codec supports Compose(TopK, QuantQr) only, got "
+                f"{type(comp.first).__name__}->{type(comp.second).__name__}")
+        if comp.first.scope != comp.second.scope:
+            raise ValueError(
+                f"wire Compose needs matching scopes, got "
+                f"{comp.first.scope!r} -> {comp.second.scope!r}")
+        if comp.second.r > MAX_R:
+            raise ValueError(f"wire codec supports r <= {MAX_R}, "
+                             f"got r={comp.second.r}")
+        if comp.first.impl != "select":
+            raise ValueError('wire Compose needs TopK(impl="select")')
+        if comp.first.density >= 1.0:
+            return "qr"           # dense support: pure packed-code payload
+        return "topk_qr"
+    raise ValueError(
+        f"no wire codec for {type(comp).__name__}; supported: Identity, "
+        "TopK(select), QuantQr, Compose(TopK, QuantQr), Int8Sync")
+
+
+def _scope_of(comp, codec: str) -> str:
+    if codec in ("dense", "int8"):
+        return comp.scope if isinstance(comp, TopK) else "tensor"
+    if isinstance(comp, Compose):
+        return comp.first.scope
+    return comp.scope
+
+
+def _levels_r(comp) -> int:
+    """The quantizer's level bits of a ``qr`` or ``topk_qr`` codec."""
+    return comp.second.r if isinstance(comp, Compose) else comp.r
 
 
 def payload_nbytes(comp: Optional[Compressor], tree: PyTree) -> int:
@@ -150,8 +195,15 @@ def payload_nbytes(comp: Optional[Compressor], tree: PyTree) -> int:
             total += n * width
         elif codec == "topk":
             total += comp._k(n) * (INDEX_BITS // 8 + width)
+        elif codec == "topk_qr":
+            cap = comp.first._k(n)
+            total += (cap * INDEX_BITS // 8
+                      + -(-cap // 32) * (1 + comp.second.r) * 4
+                      + FLOAT_BITS // 8)
+        elif codec == "int8":
+            total += n + FLOAT_BITS // 8
         else:
-            total += -(-n // 32) * (1 + comp.r) * 4 + FLOAT_BITS // 8
+            total += -(-n // 32) * (1 + _levels_r(comp)) * 4 + FLOAT_BITS // 8
     return total
 
 
@@ -203,9 +255,10 @@ def encode(comp: Optional[Compressor], stacked: PyTree,
     ``keys`` is the ``(s, 2)`` key batch.  Returns ``(payload, report)``
     with ``(s,)`` report vectors computed exactly as the transform
     computes them, and ``decode(payload)`` rebuilds what
-    ``comp.compress(stacked, keys)`` returns.  The qr codec splits each
-    client key into one key per leaf, as ``QuantQr`` does, so packed and
-    account rounds draw the same uniforms.
+    ``comp.compress(stacked, keys)`` returns.  The quantizer codecs split
+    each client key as the transforms do (``Compose``'s ``(k1, k2)``
+    first, then one key per leaf), so packed and account rounds draw the
+    same uniforms.
     """
     codec = check_supported(comp)
     leaves = tree_util.leaves(stacked)
@@ -243,18 +296,47 @@ def encode(comp: Optional[Compressor], stacked: PyTree,
                             meta_bits=per_client(0.0, s, dev))
         return Payload(data, mkspec(data, caps=tuple(caps))), report
 
-    # codec == "qr"
     if keys is None:
-        raise ValueError("quantizer codecs need an rng key")
-    r = comp.r
+        raise ValueError(f"the {codec} codec needs an rng key")
+
+    if codec == "int8":
+        # leaf-shaped int8 levels and one scale per leaf, from the
+        # transform's own encode
+        levels, scales = comp.encode(stacked, keys)
+        data = tuple(zip(tree_util.leaves(levels), tree_util.leaves(scales)))
+        return (Payload(data, mkspec(data, r=comp.magnitude_bits)),
+                comp.report(stacked))
+
+    r = _levels_r(comp)
+    if isinstance(comp, Compose):
+        keys = prng.split(keys, 2)[:, 1]                    # compose's k2
     leaf_keys = prng.split(keys, len(leaves))               # (s, L, 2)
+    meta = per_client(float(len(units)) * FLOAT_BITS, s, dev)
+
+    if codec == "topk_qr":
+        # threshold (K1), masked norm (K3), coded slots (K6), pack (K8);
+        # the report is Compose's support-aware one, nnz from K6's counts
+        ib = torch.zeros(s, dtype=torch.float32, device=dev)
+        caps, data = [], []
+        for j, u in enumerate(units):
+            cap = comp.first._k(u.shape[1])
+            idx, words, norm, nnz = kops.topk_qr_slots(u, cap, cap, r,
+                                                       leaf_keys[:, j])
+            ib = ib + nnz.to(torch.float32) * INDEX_BITS
+            data.append((idx, words, norm))
+            caps.append(cap)
+        data = tuple(data)
+        report = BitsReport(value_bits=ib / INDEX_BITS * (1 + r),
+                            index_bits=ib, meta_bits=meta)
+        return Payload(data, mkspec(data, caps=tuple(caps), r=r)), report
+
+    # codec == "qr"
     data = tuple(kops.quantize_pack(u, r, leaf_keys[:, j])
                  for j, u in enumerate(units))
     n_total = sum(u.shape[1] for u in units)
     report = BitsReport(
         value_bits=per_client(float(n_total) * (1 + r), s, dev),
-        index_bits=per_client(0.0, s, dev),
-        meta_bits=per_client(float(len(units)) * FLOAT_BITS, s, dev))
+        index_bits=per_client(0.0, s, dev), meta_bits=meta)
     return Payload(data, mkspec(data, r=r)), report
 
 
@@ -262,14 +344,23 @@ def decode(payload: Payload) -> PyTree:
     """Unpack a :class:`Payload` back to the transform-output stacked tree."""
     spec = payload.spec
     sizes = [math.prod(shp) for shp in spec.shapes]
-    if spec.codec == "topk":
+    if spec.codec in ("topk", "topk_qr"):
+        if spec.codec == "topk":
+            entries = payload.data
+        else:
+            entries = [(idx, _qr_values(
+                kops.unpack_codes(words, 1 + spec.r, cap), norm, spec.r))
+                for (idx, words, norm), cap in zip(payload.data, spec.caps)]
         dtype = functools.reduce(torch.promote_types,
-                                 [v.dtype for _, v in payload.data])
-        units = _scatter_units(payload.data, sizes, dtype)
+                                 [v.dtype for _, v in entries])
+        units = _scatter_units(entries, sizes, dtype)
     elif spec.codec == "qr":
         units = [_qr_values(kops.unpack_codes(words, 1 + spec.r, n),
                             norm, spec.r)
                  for (words, norm), n in zip(payload.data, sizes)]
+    elif spec.codec == "int8":
+        units = [q.to(torch.float32).reshape(q.shape[0], -1) * sc[:, None]
+                 for q, sc in payload.data]
     else:
         units = [bufs[0] for bufs in payload.data]
     parts = [u.reshape((u.shape[0],) + shp).to(dt)

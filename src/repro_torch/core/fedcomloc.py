@@ -19,9 +19,9 @@ launch per leaf for the whole cohort.  Under ``wire="packed"`` the
 cohort's uplink is encoded into real packed payloads at the client
 boundary, non-participants' buffers are masked, and the server decodes
 the stack once (DESIGN.md §8).  Ported: the homogeneous schedule, the
-sync policy, ``wire="account"`` and ``"packed"``, ``downlink="dense"``
-and ``local_steps="fixed"``; error feedback, server momentum and
-geometric local phases are not yet ported.
+sync policy, ``wire="account"`` and ``"packed"``, ``downlink="dense"``,
+``local_steps="fixed"`` and ``"geometric"``, and the beyond-paper leaky
+error feedback on the Com uplink and Polyak server momentum.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch import not_ported, prng
+from repro_torch import prng
 from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, dense_bits
 from repro_torch.core import aggregation, comm
@@ -48,9 +48,11 @@ VARIANTS = ("none", "com", "local", "global")
 
 
 class FedComLocState(NamedTuple):
-    x: PyTree      # server model (broadcast value), on the device
-    h: PyTree      # control variates, stacked (n_clients, ...)
-    round: int     # communication rounds completed
+    x: PyTree          # server model (broadcast value), on the device
+    h: PyTree          # control variates, stacked (n_clients, ...)
+    round: int         # communication rounds completed
+    e: PyTree = ()     # per-client error-feedback memory, stacked like h
+    mom: PyTree = ()   # server momentum buffer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +63,12 @@ class FedComLocConfig:
     clients_per_round: int = 10
     batch_size: int = 32
     variant: str = "com"               # none | com | local | global
-    local_steps: str = "fixed"         # fixed (geometric: not yet ported)
-    max_local_steps: Optional[int] = None
-    error_feedback: bool = False       # not yet ported
-    server_momentum: float = 0.0       # not yet ported
+    local_steps: str = "fixed"         # fixed | geometric
+    max_local_steps: Optional[int] = None  # cap (geometric); default 4/p
+    # ---- beyond-paper extensions ------------------------------------------ #
+    error_feedback: bool = False       # leaky delta-EF on the Com uplink
+    ef_decay: float = 0.7              # EF memory leak (1.0 diverges here)
+    server_momentum: float = 0.0       # Polyak momentum on the server mean
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
@@ -93,6 +97,16 @@ class FedComLocConfig:
         return max(1, round(4.0 / self.p))
 
 
+def geometric_steps(u: torch.Tensor, p: float, cap: int) -> torch.Tensor:
+    """Local steps of a Geometric(p) phase truncated at ``cap`` — the
+    iterations until the coin lands 1 — from float32 uniforms ``u``:
+    ``clip(floor(log1p(-u) / log1p(-p)) + 1, 1, cap)`` as int32, in
+    float32 as the reference computes it."""
+    num = torch.log1p(-u.to(torch.float32))
+    den = torch.log1p(torch.tensor(-p, dtype=torch.float32))
+    g = torch.floor(num / den).to(torch.int32) + 1
+    return torch.clamp(g, 1, cap)
+
 
 class FedComLoc(RoundEngine):
     """Algorithm 1.  ``variant="none"`` with Identity compression = Scaffnew."""
@@ -106,12 +120,6 @@ class FedComLoc(RoundEngine):
                  downlink: str = "dense",
                  store=None,
                  meter_mode: str = "host"):
-        if config.error_feedback:
-            raise not_ported("error feedback")
-        if config.server_momentum > 0:
-            raise not_ported("server momentum")
-        if config.local_steps != "fixed":
-            raise not_ported(f"local_steps={config.local_steps!r}")
         self.loss_fn = loss_fn
         self.data = data
         self.cfg = config
@@ -136,10 +144,24 @@ class FedComLoc(RoundEngine):
     def init(self, params0: PyTree) -> FedComLocState:
         n = self.cfg.n_clients
         x = tree_util.map(lambda p: p.detach().to(self.device), params0)
-        h = tree_util.map(
-            lambda p: torch.zeros((n,) + tuple(p.shape), dtype=p.dtype,
-                                  device=p.device), x)
-        return FedComLocState(x=x, h=h, round=0)
+
+        def stacked_zeros(p):
+            return torch.zeros((n,) + tuple(p.shape), dtype=p.dtype,
+                               device=p.device)
+
+        e = (tree_util.map(stacked_zeros, x) if self.cfg.error_feedback
+             else ())
+        mom = (tree_util.map(torch.zeros_like, x)
+               if self.cfg.server_momentum > 0 else ())
+        return FedComLocState(x=x, h=tree_util.map(stacked_zeros, x),
+                              round=0, e=e, mom=mom)
+
+    def _num_local_steps(self, key: torch.Tensor) -> int:
+        cap = self.cfg.steps_cap
+        if self.cfg.local_steps == "fixed":
+            return cap
+        # Geometric(p) truncated at cap, from jax.random.uniform(key)
+        return int(geometric_steps(prng.uniform(key, 1), self.cfg.p, cap)[0])
 
     def _value_and_grad(self, params: PyTree, xb, yb):
         """Per-client losses ``(s,)`` and gradients of stacked params."""
@@ -155,7 +177,7 @@ class FedComLoc(RoundEngine):
         k_sample, k_steps, k_local, k_up, k_down = prng.split(key, 5)
         s = cfg.clients_per_round
         clients, _ = sched.sample_cohort(k_sample, s, state.round)
-        num_steps = cfg.steps_cap               # local_steps="fixed"
+        num_steps = self._num_local_steps(k_steps)
         plan = sched.plan(clients, num_steps)
         dev = self.device
         rows = clients.to(dev)
@@ -166,20 +188,22 @@ class FedComLoc(RoundEngine):
             state.x)
 
         # the whole round's key chain at once: step j, client i draws
-        # split(split(split(k_local, cap)[j], s)[i]) -> (batch, compress)
-        cap = cfg.steps_cap
-        step_keys = prng.split(k_local, cap)             # (cap, 2)
-        client_keys = prng.split(step_keys, s)           # (cap, s, 2)
-        kb_kc = prng.split(client_keys, 2)               # (cap, s, 2, 2)
+        # split(split(split(k_local, cap)[j], s)[i]) -> (batch, compress).
+        # The reference scans all cap steps and masks those past the drawn
+        # count; a step with no active client changes nothing and adds 0
+        # to the loss, so only the num_steps active steps run here.
+        step_keys = prng.split(k_local, cfg.steps_cap)[:num_steps]
+        client_keys = prng.split(step_keys, s)           # (steps, s, 2)
+        kb_kc = prng.split(client_keys, 2)               # (steps, s, 2, 2)
         xb_all, yb_all = self.data.sample_batch(
-            kb_kc[..., 0, :], clients.unsqueeze(0).expand(cap, s),
+            kb_kc[..., 0, :], clients.unsqueeze(0).expand(num_steps, s),
             cfg.batch_size)
-        # the homogeneous plan runs every client for all cap steps
+        # the homogeneous plan runs every client for all num_steps steps
         # (per-client step masks arrive with straggler deadlines)
         active = (plan.steps > 0).to(dev)
 
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for j in range(cap):
+        for j in range(num_steps):
             x_eval = (self.comp.apply(x_i, kb_kc[j, :, 1])
                       if cfg.variant == "local" else x_i)
             losses, g = self._value_and_grad(x_eval, xb_all[j], yb_all[j])
@@ -194,15 +218,28 @@ class FedComLoc(RoundEngine):
         up_bits = torch.tensor(s * dense, dtype=torch.float32)
         down_bits = torch.tensor(s * dense, dtype=torch.float32)
         wire_on = self.wire == "packed"
+        ef_on = cfg.variant == "com" and cfg.error_feedback
         if cfg.variant == "com":
             up_keys = prng.split(k_up, s)
+            if ef_on:
+                # EF on the uplink innovation: clients send
+                # C(x^_i - x + e_i), the server rebuilds x + sent, and the
+                # residual stays in e_i; the bits are the innovation's
+                e_s = tree_util.map(lambda e: e[rows], state.e)
+                innov = tree_util.map(
+                    lambda xh, x0, e: xh - x0.unsqueeze(0) + e,
+                    x_hat, state.x, e_s)
+                up_tree = innov
+            else:
+                up_tree = x_hat
             if wire_on:
                 # the client boundary emits the packed payload; the round
                 # carries on with the server's decode of it
-                payload, up_rep = vmap_encode(self.comp, plan, x_hat, up_keys)
+                payload, up_rep = vmap_encode(self.comp, plan, up_tree,
+                                              up_keys)
             else:
-                x_hat, up_rep = batched_compress(self.comp, plan, x_hat,
-                                                 up_keys)
+                sent, up_rep = batched_compress(self.comp, plan, up_tree,
+                                                up_keys)
             client_up = up_rep.total_bits.cpu()
             up_bits = None
         elif wire_on:
@@ -219,7 +256,19 @@ class FedComLoc(RoundEngine):
         if wire_on:
             # decode once, server-side, on the masked stack; non-com
             # variants ship the raw iterate, so their decode equals x_hat
-            x_hat = gather_decoded(payload, out.partf)
+            sent = gather_decoded(payload, out.partf)
+            if cfg.variant != "com":
+                x_hat = sent
+        if cfg.variant == "com":
+            x_hat = (tree_util.map(lambda x0, snt: x0.unsqueeze(0) + snt,
+                                   state.x, sent) if ef_on else sent)
+        e_new = state.e
+        if ef_on:
+            # leaky memory: undecayed EF diverges inside Scaffnew
+            e_s_new = tree_util.map(lambda c, snt: cfg.ef_decay * (c - snt),
+                                    innov, sent)
+            e_new = tree_util.map(lambda e, es: e.index_copy(0, rows, es),
+                                  state.e, e_s_new)
         x_bar = tree_util.map(lambda t: t.mean(dim=0), x_hat)
         if cfg.variant == "global":
             x_bar, down_rep = self.comp.compress(
@@ -235,6 +284,16 @@ class FedComLoc(RoundEngine):
         h_new = tree_util.map(lambda h, hs: h.index_copy(0, rows, hs),
                               state.h, h_s_new)
 
+        # beyond-paper: Polyak momentum on the broadcast point only (the
+        # control variates above saw the plain mean)
+        mom_new = state.mom
+        if cfg.server_momentum > 0:
+            m = cfg.server_momentum
+            mom_new = tree_util.map(
+                lambda mo, xb_, x0: m * mo + (1 - m) * (xb_ - x0),
+                state.mom, x_bar, state.x)
+            x_bar = tree_util.map(lambda x0, mo: x0 + mo, state.x, mom_new)
+
         metrics = {
             "train_loss": loss_sum / max(int(plan.steps.max()), 1),
             "num_local_steps": torch.tensor(num_steps, dtype=torch.int32),
@@ -248,5 +307,5 @@ class FedComLoc(RoundEngine):
         }
         if wire_on:
             metrics.update(payload_metrics(payload, out.partf))
-        return (FedComLocState(x=x_bar, h=h_new, round=state.round + 1),
-                metrics)
+        return (FedComLocState(x=x_bar, h=h_new, round=state.round + 1,
+                               e=e_new, mom=mom_new), metrics)

@@ -28,12 +28,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                 "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-#: source stem -> extra nvcc flags.  quantize.cu and qr_pack.cu must not
-#: contract ``scaled - lo`` into an FMA (the Q_r rounding compares its bits).
+#: source stem -> extra nvcc flags.  quantize.cu, select_slots.cu (K6's
+#: codes) and qr_pack.cu must not contract ``scaled - lo`` into an FMA (the
+#: Q_r rounding compares its bits).
 SOURCES: Dict[str, tuple] = {
     "topk_compress": (),
     "quantize": ("--fmad=false",),
-    "select_slots": (),
+    "select_slots": ("--fmad=false",),
     "qr_pack": ("--fmad=false",),
     "pack_codes": (),
 }

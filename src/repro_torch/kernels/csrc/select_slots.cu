@@ -1,16 +1,21 @@
-// Select -> slot compaction (K5) for Hopper (sm_90a).
+// Select -> slot compaction (K5) and its Q_r-code flavour (K6) for Hopper
+// (sm_90a).
 //
-// Replaces the Pallas TPU kernel in src/repro/kernels/select_slots.py:
+// Replaces the Pallas TPU kernels in src/repro/kernels/select_slots.py:
 //   K5  compact_slots (_compact_kernel): the survivors of a TopK threshold
 //       t (|x| bits >= t and bits != 0) as `cap` static (index, value)
 //       slots in index order; empty slots hold the sentinel index n and
 //       value 0; tie overflow beyond cap keeps the lowest-index cap.
+//   K6  compact_code_slots (_compact_code_kernel): the same slots, each
+//       carrying the survivor's (1+r)-bit Q_r code instead of its value
+//       (the topk_qr wire codec); empty slots hold code 0.
 //
 // Input is row-batched: x (rows, n) float32, one threshold per row (K1's
 // bit pattern, int64 holding uint32) and one static cap for all rows.
-// Outputs: idx (rows, cap) int32, vals (rows, cap) float32 and the row's
-// whole survivor count nnz (rows,) int32, which the bit accounting reads
-// (ties beyond cap included).
+// Outputs: idx (rows, cap) int32, vals (rows, cap) float32 (K5) or codes
+// (rows, cap) int32 holding uint32 (K6), and the row's whole survivor
+// count nnz (rows,) int32, which the bit accounting reads (ties beyond
+// cap included).
 //
 // The hazard is order.  The TPU kernel walked its grid in sequence and
 // carried the running survivor count from block to block.  Blocks here run
@@ -28,9 +33,20 @@
 //       same grid fills the sentinels from the row's last survivor on.
 // A warp covers 32 consecutive elements at a time and the warps of a tile
 // cover consecutive 32 * kChunks stretches, so ranks follow index order.
+// K6 shares (a) and (b); its write pass computes each written survivor's
+// code from x, the uniform u at the survivor's own index (the n-sized
+// stream the account path's K4 reads, not a compacted one), the masked
+// vector's norm (K3's, an input) and levels = 2^r, in the reference's
+// order: y = |x| / norm (IEEE division), scaled = levels * y, lo =
+// floor(scaled), code = lo + [u < scaled - lo], saturated at levels - 1,
+// plus levels when x < 0.  A survivor's masked value is x itself.  This
+// file is compiled with --fmad=false so that scaled - lo is not contracted
+// into an FMA (K5's passes do no float arithmetic, so the flag costs them
+// nothing); no fast math.
 //
-// Bound on an H100 SXM (3.35 TB/s): reads 4n bytes per row (x; pass (c)
-// reads it again) and writes 8 * cap.  At the main path's sizes (5 clients
+// Bound on an H100 SXM (3.35 TB/s): K5 reads 4n bytes per row (x; pass (c)
+// reads it again) and writes 8 * cap; K6 reads 4n (x) plus 4 * cap (u at
+// the survivors) and writes 8 * cap.  At the main path's sizes (5 clients
 // x 50176 floats) the three launches, not memory, are the floor.
 
 #include <cuda_runtime.h>
@@ -170,6 +186,70 @@ __global__ void write_slots(const float* __restrict__ x, long long n,
   }
 }
 
+// grid: (tiles, rows); block: kThreads.  K6's write pass: write_slots
+// with the survivor's Q_r code in place of its value.
+__global__ void write_code_slots(const float* __restrict__ x,
+                                 const float* __restrict__ u, long long n,
+                                 const long long* __restrict__ thr,
+                                 const float* __restrict__ norm, float levels,
+                                 long long tiles, const int* __restrict__ offsets,
+                                 const int* __restrict__ nnz, int cap,
+                                 int* __restrict__ idx, int* __restrict__ codes) {
+  __shared__ int warp_count[kWarps];
+  const int row = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const float* xr = x + (long long)row * n;
+  const float* ur = u + (long long)row * n;
+  const uint32_t t = (uint32_t)thr[row];
+  const long long base = warp_base(blockIdx.x, w);
+  int* ir = idx + (long long)row * cap;
+  int* cr = codes + (long long)row * cap;
+
+  const int filled = min(nnz[row], cap);
+  for (long long p = filled + (long long)blockIdx.x * kThreads + threadIdx.x; p < cap;
+       p += (long long)gridDim.x * kThreads) {
+    ir[p] = (int)n;
+    cr[p] = 0;
+  }
+
+  const int tile_off = offsets[(long long)row * tiles + blockIdx.x];
+  if (tile_off >= cap) return;      // block-uniform: every rank is past cap
+  const float nr = norm[row];
+  const float safe = nr > 0.0f ? nr : 1.0f;
+  const uint32_t top = (uint32_t)levels - 1u;
+  unsigned masks[kChunks];
+  int c = 0;
+  for (int k = 0; k < kChunks; ++k) {
+    masks[k] = __ballot_sync(kFull, survives(xr, base + k * 32 + lane, n, t));
+    c += __popc(masks[k]);
+  }
+  if (lane == 0) warp_count[w] = c;
+  __syncthreads();
+  int pos = tile_off;
+  for (int i = 0; i < w; ++i) pos += warp_count[i];
+  const unsigned below = (1u << lane) - 1u;
+  for (int k = 0; k < kChunks; ++k) {
+    if ((masks[k] >> lane) & 1u) {
+      const int p = pos + __popc(masks[k] & below);
+      if (p < cap) {
+        const long long i = base + k * 32 + lane;
+        const float xv = xr[i];
+        const float y = fabsf(xv) / safe;
+        const float scaled = levels * y;
+        const float lo = floorf(scaled);
+        const float frac = scaled - lo;
+        uint32_t code = (uint32_t)(lo + (ur[i] < frac ? 1.0f : 0.0f));
+        code = code < top ? code : top;
+        if (xv < 0.0f) code += (uint32_t)levels;
+        ir[p] = (int)i;
+        cr[p] = (int)code;
+      }
+    }
+    pos += __popc(masks[k]);
+  }
+}
+
 }  // namespace
 
 #define RETURN_IF_ERROR()                          \
@@ -202,6 +282,26 @@ int compact_slots(const float* x, const long long* thr, int rows, long long n, i
   RETURN_IF_ERROR();
   write_slots<<<grid, kThreads, 0, stream>>>(x, n, thr, tiles, scratch, nnz, cap, idx,
                                              vals);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+
+// K6: idx, codes (rows, cap) and nnz (rows,) from x, u (rows, n), the
+// masked vector's norm (rows,), thr (rows,) and levels = 2^r.
+int compact_code_slots(const float* x, const float* u, const float* norm,
+                       const long long* thr, int rows, long long n, float levels,
+                       int cap, int* scratch, int* nnz, int* idx, int* codes,
+                       void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const long long tiles = slots_tiles(n);
+  const dim3 grid((unsigned int)tiles, (unsigned int)rows);
+  count_tiles<<<grid, kThreads, 0, stream>>>(x, n, thr, tiles, scratch);
+  RETURN_IF_ERROR();
+  scan_tiles<<<rows, kScanThreads, 0, stream>>>(scratch, tiles, nnz);
+  RETURN_IF_ERROR();
+  write_code_slots<<<grid, kThreads, 0, stream>>>(x, u, n, thr, norm, levels, tiles,
+                                                  scratch, nnz, cap, idx, codes);
   RETURN_IF_ERROR();
   return 0;
 }

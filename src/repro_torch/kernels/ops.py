@@ -15,6 +15,7 @@ from repro_torch import prng
 from repro_torch.kernels import pack_codes as _pack
 from repro_torch.kernels import qr_pack as _qr_pack
 from repro_torch.kernels import quantize as _quant
+from repro_torch.kernels import ref
 from repro_torch.kernels import select_slots as _sel
 from repro_torch.kernels import topk_compress as _topk
 
@@ -55,6 +56,28 @@ def quantize_pack(x: torch.Tensor, r: int, keys: torch.Tensor):
     u = prng.uniform(keys, x.shape[-1], device=x.device)
     norm = _quant.l2_norm(x)
     return _qr_pack.quantize_pack_with_uniforms(x, r, u, norm), norm
+
+
+def topk_qr_slots(x: torch.Tensor, k: int, cap: int, r: int,
+                  keys: torch.Tensor):
+    """TopK -> Q_r -> packed slots, the ``topk_qr`` codec's encode (K1
+    threshold, K3 norm of the masked rows, K6 coded slots, K8 pack).
+
+    Row ``i`` draws its uniforms over the full n as
+    ``jax.random.uniform(keys[i], (n,))``; the masked rows are a plain
+    ``where`` (as the reference takes them), so the norm has the bits the
+    account path's K3 gives over K2's output.  Returns ``(idx, words,
+    norm, nnz)``: ``cap`` int32 slot indices per row (sentinel ``n``), the
+    survivors' (1+r)-bit codes in ``ceil(cap/32) * (1+r)`` words, the
+    masked rows' norms and each row's survivor count."""
+    k, cap, r = int(k), int(cap), int(r)
+    u = prng.uniform(keys, x.shape[-1], device=x.device)
+    t = _topk.threshold_bits(x, k)
+    xf = x.to(torch.float32)
+    keep = ref.mag_bits(x) >= t[:, None]
+    norm = _quant.l2_norm(torch.where(keep, xf, torch.zeros_like(xf)))
+    idx, codes, nnz = _sel.compact_code_slots(x, u, norm, t, r, cap)
+    return idx, _pack.pack_codes(codes, 1 + r), norm, nnz
 
 
 def pack_codes(codes: torch.Tensor, b: int) -> torch.Tensor:

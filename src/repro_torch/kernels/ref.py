@@ -108,7 +108,7 @@ def l2_norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(xf * xf, dim=1))
 
 
-def _jax_sign(x: torch.Tensor) -> torch.Tensor:
+def jax_sign(x: torch.Tensor) -> torch.Tensor:
     """``jnp.sign``: +-1, and x itself at +-0 and NaN (``torch.sign``
     returns +0 for -0.0 and 0 for NaN)."""
     one = torch.ones_like(x)
@@ -132,7 +132,7 @@ def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
     lo = torch.floor(scaled)
     frac = scaled - lo
     xi = (lo + (u < frac).to(torch.float32)) / levels
-    out = nrm * _jax_sign(xf) * xi
+    out = nrm * jax_sign(xf) * xi
     return torch.where(pos, out, torch.zeros_like(out)).to(x.dtype)
 
 
@@ -278,3 +278,52 @@ def quantize_pack_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
     """K7's plain version: Q_r codes straight to bit-plane words,
     ``(rows, ceil(n/32) * (1 + r))`` int32 containers."""
     return pack_codes(qr_codes_with_uniforms(x, r, u, norm), 1 + int(r))
+
+
+def compact_code_slots(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
+                       thr: torch.Tensor, r: int, cap: int):
+    """K6's plain version: the survivors of threshold ``thr[row]`` as
+    ``cap`` slots in index order, each carrying its (1+r)-bit Q_r code.
+
+    The codes are those of the TopK-masked vector ``where(bits >= t, x,
+    0)`` against ``norm[row]`` (the masked vector's l2 norm) with the
+    uniform drawn at the survivor's own index of ``u`` (``(rows, n)``), in
+    :func:`qr_codes_with_uniforms`'s operation order.  Returns ``(idx,
+    codes, nnz)``: ``idx`` as :func:`compact_slots` gives it (sentinel
+    ``n``), ``codes`` (rows, cap) int32 holding the uint32 code (0 in empty
+    slots) and ``nnz`` (rows,) int32, the whole survivor count.
+    """
+    x = _rows(x)
+    n = x.shape[1]
+    bits = mag_bits(x)
+    keep = bits >= thr[:, None]
+    support = keep & (bits != 0)
+    xf = x.to(torch.float32)
+    masked = torch.where(keep, xf, torch.zeros_like(xf))
+    codes = qr_codes_with_uniforms(masked, r, u, norm)
+    idx = support_slots(support, cap)
+    safe = torch.clamp(idx.to(torch.int64), 0, max(n - 1, 0))
+    gathered = (torch.gather(codes, 1, safe) if n else
+                torch.zeros(idx.shape, dtype=torch.int32, device=x.device))
+    kept = torch.where(idx < n, gathered, torch.zeros_like(gathered))
+    return idx, kept, support.sum(dim=1).to(torch.int32)
+
+
+def topk_qr_slots(x: torch.Tensor, k, cap: int, r: int, u: torch.Tensor):
+    """TopK -> Q_r -> packed slots, the ``topk_qr`` codec's encode
+    (``repro.kernels.ref.topk_qr_slots``, row-batched).
+
+    Threshold of each row's k-th largest magnitude, the masked vector and
+    its norm (the quantizer's scale, reduced over the n-sized masked row as
+    the transform reduces it), the survivors' codes in ``cap`` slots
+    (:func:`compact_code_slots`), then the codes bit-plane packed at ``b =
+    1 + r``.  Returns ``(idx, words, norm, nnz)``: ``words`` is
+    ``(rows, ceil(cap/32) * (1+r))`` int32 containers.
+    """
+    x = _rows(x)
+    thr = topk_threshold_bits(x, k)
+    xf = x.to(torch.float32)
+    masked = torch.where(mag_bits(x) >= thr[:, None], xf, torch.zeros_like(xf))
+    norm = l2_norm(masked)
+    idx, codes, nnz = compact_code_slots(x, u, norm, thr, r, cap)
+    return idx, pack_codes(codes, 1 + int(r)), norm, nnz

@@ -1,13 +1,15 @@
-"""Select -> slot compaction (K5): wrapper and plain version.
+"""Select -> slot compaction (K5) and its Q_r-code flavour (K6): wrappers
+and plain versions.
 
-The port of ``repro.kernels.select_slots.compact_slots``.  Takes
+The port of ``repro.kernels.select_slots.compact_slots`` and
+``compact_code_slots``.  Both take
 row-batched ``(rows, n)`` input (one row per client's leaf) with one
 threshold per row (K1's bit pattern) and dispatches by the tensor's
 device: a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
 kernel in ``csrc/select_slots.cu`` or raises.  bf16 input is compared on
-its float32 magnitude bits (an exact order-embedding) and its values are
-cast back.
+its float32 magnitude bits (an exact order-embedding); K5 casts its values
+back.
 
 ``LAUNCHES`` counts kernel launches; only the CUDA path adds to it, so a
 CPU run leaves it at 0.
@@ -20,8 +22,9 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.qr_pack import MAX_R
 
-LAUNCHES = {"compact_slots": 0}
+LAUNCHES = {"compact_slots": 0, "compact_code_slots": 0}
 
 _P = ctypes.c_void_p
 
@@ -32,6 +35,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.compact_slots.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong,
                                   ctypes.c_int, _P, _P, _P, _P, _P]
     lib.compact_slots.restype = ctypes.c_int
+    lib.compact_code_slots.argtypes = [_P, _P, _P, _P, ctypes.c_int,
+                                       ctypes.c_longlong, ctypes.c_float,
+                                       ctypes.c_int, _P, _P, _P, _P, _P]
+    lib.compact_code_slots.restype = ctypes.c_int
     lib.slots_error_string.argtypes = [ctypes.c_int]
     lib.slots_error_string.restype = ctypes.c_char_p
 
@@ -71,3 +78,45 @@ def compact_slots(x: torch.Tensor, thr: torch.Tensor, cap: int):
     build.check(code, "compact_slots", lib, "slots_error_string")
     LAUNCHES["compact_slots"] += 1
     return idx, vals.to(x.dtype), nnz
+
+
+def compact_code_slots(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
+                       thr: torch.Tensor, r: int, cap: int):
+    """K6: each row's survivors of ``thr[row]`` as ``cap`` slots in index
+    order, carrying their (1+r)-bit Q_r codes of the TopK-masked row
+    against ``norm[row]`` (the masked row's norm, K3's) with the uniform at
+    the survivor's own index of ``u`` (``(rows, n)`` float32).
+
+    Returns ``(idx, codes, nnz)``: ``idx`` (rows, cap) int32 with the
+    sentinel ``n``, ``codes`` (rows, cap) int32 holding the uint32 codes
+    (0 in empty slots) and ``nnz`` (rows,) int32, the whole survivor
+    count."""
+    if build.on_cpu(x):
+        return ref.compact_code_slots(x, u, norm, thr, r, cap)
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    cap, r = int(cap), int(r)
+    if not 0 <= cap < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"cap and n must fit int32, got cap={cap}, n={n}")
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"r must be in [1, {MAX_R}], got {r}")
+    dev = xf.device
+    u = build.expect(u, "u", torch.float32, (rows, n), dev)
+    norm = build.expect(norm, "norm", torch.float32, (rows,), dev)
+    thr = build.expect(thr, "thr", torch.int64, (rows,), dev)
+    idx = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    codes = torch.empty((rows, cap), dtype=torch.int32, device=dev)
+    nnz = torch.zeros(rows, dtype=torch.int32, device=dev)
+    if n == 0:
+        return idx.fill_(0), codes.zero_(), nnz
+    lib = _lib()
+    scratch = torch.empty((rows, lib.slots_tiles(n)), dtype=torch.int32,
+                          device=dev)
+    code = lib.compact_code_slots(build.ptr(xf), build.ptr(u), build.ptr(norm),
+                                  build.ptr(thr), rows, n, float(2 ** r), cap,
+                                  build.ptr(scratch), build.ptr(nnz),
+                                  build.ptr(idx), build.ptr(codes),
+                                  build.stream_ptr())
+    build.check(code, "compact_code_slots", lib, "slots_error_string")
+    LAUNCHES["compact_code_slots"] += 1
+    return idx, codes, nnz

@@ -1,0 +1,569 @@
+"""Double compression in the port against the reference: K6, ``Compose``,
+``Int8Sync``, the registry and the ``topk_qr``/``int8`` wire codecs.
+
+Kernels: the port's plain K6 (``ref.compact_code_slots``) and
+``ref.topk_qr_slots`` are held bit for bit against the reference's Pallas
+K6 in interpret mode and its jnp oracle (uint32 compared as bit patterns).
+Units stay below 2**24, where the reference's float32 slot counts are
+exact.  Transforms and codecs: the port on stacked trees against
+``jax.vmap`` of the reference with the same keys.  Q_r levels, slot
+indices, packed words and int8 levels are compared bit for bit; the norms
+(torch's and XLA's float32 sums, which may differ in the last place)
+within ``NORM_RTOL``, and values rebuilt from them within ``VALUE_RTOL``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro import compress as jcomp  # noqa: E402
+from repro.compress import registry as jregistry  # noqa: E402
+from repro.compress import wire as jwire  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import select_slots as jsel  # noqa: E402
+from repro.kernels import topk_compress as jtopk  # noqa: E402
+from repro_torch import compress, convert, prng  # noqa: E402
+from repro_torch import tree as tree_util  # noqa: E402
+from repro_torch.compress import wire  # noqa: E402
+from repro_torch.core import clients  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _partitionable_threefry():
+    """The port reproduces jax's partitionable threefry stream (the
+    default since jax 0.5); pin it whatever the ambient config says."""
+    with jax.threefry_partitionable(True):
+        yield
+
+
+@pytest.fixture
+def interpret_backend():
+    """Route the reference's ops through its Pallas kernels (interpret
+    mode), restoring the backend after the test."""
+    before = jops.get_backend()
+    jops.set_backend("interpret")
+    yield
+    jops.set_backend(before)
+
+
+NORM_RTOL = 1e-6
+VALUE_RTOL = 1e-6
+ROWS = 2
+
+
+def _bits(a) -> np.ndarray:
+    """uint32 (reference) or int32 (port) buffers as int32 bit patterns."""
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    return a.view(np.int32) if a.dtype.itemsize == 4 else a
+
+
+def _x(rows: int, n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((rows, n)).astype(
+        np.float32)
+
+
+def _u(rows: int, n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).random((rows, n), dtype=np.float32)
+
+
+# --------------------------------------------------------------------------- #
+# K6: plain version against the Pallas kernel in interpret mode
+# --------------------------------------------------------------------------- #
+
+def _code_slots_match_pallas(x: np.ndarray, u: np.ndarray, k: int, cap: int,
+                             r: int):
+    """The port's plain K6 against the reference's radix threshold, masked
+    norm and Pallas K6, row by row, with the reference's norm; returns the
+    port's slots."""
+    tx, tu = torch.from_numpy(x), torch.from_numpy(u)
+    thr = ref.topk_threshold_bits(tx, k)
+    norms = []
+    for row in range(x.shape[0]):
+        xr = jnp.asarray(x[row])
+        t = jtopk.threshold_bits(xr, k, interpret=True)
+        assert int(t) == int(thr[row])
+        keep = jref._mag_bits(xr) >= t
+        norms.append(np.float32(jnp.sqrt(jnp.sum(
+            jnp.where(keep, xr, 0.0) ** 2))))
+    norm = torch.from_numpy(np.asarray(norms, np.float32))
+    idx, codes, nnz = ref.compact_code_slots(tx, tu, norm, thr, r, cap)
+    assert idx.dtype == codes.dtype == torch.int32
+    assert idx.shape == codes.shape == (x.shape[0], cap)
+    for row in range(x.shape[0]):
+        want_idx, want_codes = jsel.compact_code_slots(
+            jnp.asarray(x[row]), jnp.asarray(u[row]), jnp.float32(norms[row]),
+            jnp.uint32(int(thr[row])), r, cap, interpret=True)
+        np.testing.assert_array_equal(_bits(idx[row]), _bits(want_idx))
+        np.testing.assert_array_equal(_bits(codes[row]), _bits(want_codes))
+        bits = np.abs(x[row]).view(np.int32)
+        support = (bits >= int(thr[row])) & (bits != 0)
+        assert int(nnz[row]) == int(support.sum())
+    return idx, codes, nnz
+
+
+MLP_LEAVES = (784 * 64, 64, 64 * 64, 64, 64 * 10, 10)
+
+
+@pytest.mark.parametrize("r", [4, 8, 16])
+@pytest.mark.parametrize("n", sorted(set(MLP_LEAVES[1:])) + [777])
+def test_compact_code_slots_match_pallas(n, r):
+    k = compress.TopK(0.25)._k(n)
+    _code_slots_match_pallas(_x(ROWS, n, n + r), _u(ROWS, n, n + r + 1),
+                             k, k, r)
+
+
+@pytest.mark.parametrize("density,r", [(0.25, 4), (0.5, 16), (0.25, 8)])
+def test_compact_code_slots_match_pallas_largest_leaf(density, r):
+    n = MLP_LEAVES[0]
+    k = compress.TopK(density)._k(n)
+    _code_slots_match_pallas(_x(ROWS, n, r), _u(ROWS, n, r + 1), k, k, r)
+
+
+def test_compact_code_slots_edges():
+    """cap > support, all ties (overflow keeps the lowest-index cap), no
+    survivor (all zero: norm 0 and every slot empty), a saturating row
+    and n = 1."""
+    x = _x(4, 1000, 5)
+    u = _u(4, 1000, 6)
+    x[0, 40:] = 0.0                              # 40 survivors: cap > support
+    x[1] = 0.5                                   # all ties
+    x[1, ::2] = -0.5
+    x[2] = 0.0                                   # no survivor, norm 0
+    x[3, 7] = 1e4                                # saturates the top level
+    for r in (1, 4, 16):
+        idx, codes, nnz = _code_slots_match_pallas(x, u, 100, 250, r)
+        assert (idx[0, 40:] == 1000).all() and (codes[0, 40:] == 0).all()
+        assert idx[1].tolist() == list(range(250)) and int(nnz[1]) == 1000
+        assert (idx[2] == 1000).all() and (codes[2] == 0).all()
+        slot = int((idx[3] == 7).nonzero()[0, 0])
+        assert int(codes[3, slot]) == 2 ** r - 1          # + sign bit 0
+    _code_slots_match_pallas(_x(3, 1, 7), _u(3, 1, 8), 1, 1, 4)
+
+
+def test_compact_code_slots_reads_u_at_the_survivor_index():
+    """The code of the survivor at index i uses u[i], the n-sized stream
+    the account path's K4 reads, not a survivor-compacted one."""
+    x = np.zeros((1, 64), np.float32)
+    x[0, [3, 40]] = [1.0, 1.0]
+    u = np.ones((1, 64), np.float32)
+    u[0, 40] = 0.0                               # only index 40 rounds up
+    norm = torch.tensor([2.0])                   # y = 0.5, scaled = 1.5 at r=1
+    thr = ref.topk_threshold_bits(torch.from_numpy(x), 2)
+    idx, codes, _ = ref.compact_code_slots(torch.from_numpy(x),
+                                           torch.from_numpy(u), norm, thr,
+                                           1, 2)
+    assert idx[0].tolist() == [3, 40] and codes[0].tolist() == [1, 1]
+    x[0, 3] = 1.0
+    u[0, 3] = 0.0
+    u[0, 40] = 1.0
+    _, codes, _ = ref.compact_code_slots(torch.from_numpy(x),
+                                         torch.from_numpy(u), norm, thr, 2, 2)
+    # r = 2: scaled = 2.0 exactly, lo = 2, frac 0 -> no round-up anywhere
+    assert codes[0].tolist() == [2, 2]
+
+
+@pytest.mark.parametrize("n,density,r", [(4096, 0.25, 4), (640, 0.5, 16),
+                                         (10, 0.25, 4), (777, 0.1, 8)])
+def test_topk_qr_slots_match_jnp_oracle(n, density, r):
+    """``ref.topk_qr_slots`` (threshold, masked norm, K6, K8) against
+    ``repro.kernels.ref.topk_qr_slots``: slots and words bit for bit given
+    the reference's norm, the norm within ``NORM_RTOL``."""
+    x, u = _x(ROWS, n, n), _u(ROWS, n, n + 1)
+    k = compress.TopK(density)._k(n)
+    idx, words, norm, nnz = ref.topk_qr_slots(torch.from_numpy(x), k, k, r,
+                                              torch.from_numpy(u))
+    assert words.shape == (ROWS, -(-k // 32) * (1 + r))
+    for row in range(ROWS):
+        widx, wwords, wnorm, wsup = jref.topk_qr_slots(
+            jnp.asarray(x[row]), k, k, r, jnp.asarray(u[row]))
+        np.testing.assert_allclose(float(norm[row]), float(wnorm),
+                                   rtol=NORM_RTOL)
+        np.testing.assert_array_equal(_bits(idx[row]), _bits(widx))
+        assert int(nnz[row]) == int(np.asarray(wsup).sum())
+        thr = ref.topk_threshold_bits(torch.from_numpy(x[row:row + 1]), k)
+        _, codes, _ = ref.compact_code_slots(
+            torch.from_numpy(x[row:row + 1]), torch.from_numpy(u[row:row + 1]),
+            torch.tensor([float(wnorm)]), thr, r, k)
+        np.testing.assert_array_equal(_bits(ref.pack_codes(codes, 1 + r)[0]),
+                                      _bits(wwords))
+        if float(norm[row]) == float(wnorm):
+            np.testing.assert_array_equal(_bits(words[row]), _bits(wwords))
+
+
+def test_ops_topk_qr_slots_draws_the_reference_uniforms():
+    """``ops.topk_qr_slots`` with per-row keys equals the plain chain fed
+    ``jax.random.uniform(keys[i], (n,))``, as the reference's op draws."""
+    x = _x(3, 1000, 2)
+    jkeys = jax.random.split(jax.random.PRNGKey(4), 3)
+    keys = torch.from_numpy(np.asarray(jkeys).astype(np.int64))
+    got = ops.topk_qr_slots(torch.from_numpy(x), 250, 250, 4, keys)
+    u = np.stack([np.asarray(jax.random.uniform(k, (1000,), jnp.float32))
+                  for k in jkeys])
+    want = ref.topk_qr_slots(torch.from_numpy(x), 250, 250, 4,
+                             torch.from_numpy(u))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# Compose and Int8Sync on stacked trees against jax.vmap(comp.compress)
+# --------------------------------------------------------------------------- #
+
+S = 3
+SHAPES = {"fc0": {"w": (784, 16), "b": (16,)},
+          "fc1": {"w": (16, 16), "b": (16,)},
+          "fc2": {"w": (16, 10), "b": (10,)}}
+
+
+def _stacked_tree(seed: int, shapes=SHAPES, s: int = S) -> dict:
+    rng = np.random.default_rng(seed)
+    return {name: {leaf: rng.standard_normal((s,) + shape).astype(np.float32)
+                   for leaf, shape in leaves.items()}
+            for name, leaves in shapes.items()}
+
+
+def _keys(seed: int, s: int = S):
+    keys = jax.random.split(jax.random.PRNGKey(seed), s)
+    return keys, torch.from_numpy(np.asarray(keys).astype(np.int64))
+
+
+COMPOSES = {
+    "k25_q4": (lambda c: c.Compose(c.TopK(0.25), c.QuantQr(4))),
+    "k50_q16": (lambda c: c.Compose(c.TopK(0.5), c.QuantQr(16))),
+    "k10_q8": (lambda c: c.Compose(c.TopK(0.1), c.QuantQr(8))),
+    "dense_q4": (lambda c: c.Compose(c.TopK(1.0), c.QuantQr(4))),
+    "default": (lambda c: c.Compose()),
+}
+
+
+def _reports_equal(jrep, trep, s: int = S):
+    for name in ("value_bits", "index_bits", "meta_bits", "total_bits"):
+        want = np.broadcast_to(np.asarray(getattr(jrep, name), np.float32), (s,))
+        got = getattr(trep, name).numpy()
+        assert got.dtype == np.float32 and got.shape == (s,)
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def _qr_levels(out: np.ndarray, norm: np.ndarray, r: int) -> np.ndarray:
+    """Signed integer Q_r levels of a transform output ``(s, n)`` against
+    float64 norms ``(s,)`` (a norm an ulp off moves ``out/norm * 2**r`` by
+    far less than 1/2)."""
+    lv = out.astype(np.float64) / np.where(norm > 0, norm, 1.0)[:, None]
+    return np.rint(lv * 2 ** r).astype(np.int64)
+
+
+@pytest.mark.parametrize("name", sorted(COMPOSES))
+def test_compose_matches_vmapped_reference(name):
+    """Same kept support, same signed Q_r levels and the same report; the
+    values within ``VALUE_RTOL`` (the masked norms come from torch's and
+    XLA's sums)."""
+    jc, tc = COMPOSES[name](jcomp), COMPOSES[name](compress)
+    tree_np = _stacked_tree(len(name))
+    jkeys, tkeys = _keys(len(name) + 1)
+    jout, jrep = jax.vmap(jc.compress)(jax.tree.map(jnp.asarray, tree_np),
+                                       jkeys)
+    tout, trep = tc.compress(convert.params_from_jax(tree_np, "cpu"), tkeys)
+    _reports_equal(jrep, trep)
+    r = tc.second.r
+    for a, b, x in zip(jax.tree.leaves(jout), tree_util.leaves(tout),
+                       jax.tree.leaves(tree_np)):
+        a, b = np.asarray(a).reshape(S, -1), b.numpy().reshape(S, -1)
+        assert b.dtype == a.dtype
+        masked = ref.topk_mask(torch.from_numpy(x.reshape(S, -1)),
+                               tc.first._k(a.shape[1])).numpy()
+        norm = np.sqrt((masked.astype(np.float64) ** 2).sum(1))
+        np.testing.assert_array_equal(_qr_levels(b, norm, r),
+                                      _qr_levels(a, norm, r))
+        np.testing.assert_array_equal(b != 0, a != 0)
+        np.testing.assert_allclose(b, a, rtol=VALUE_RTOL, atol=0)
+
+
+def test_compose_splits_the_key_as_the_reference():
+    """Compose's QuantQr stage draws from ``split(key)[1]``: given a
+    pre-masked tree, ``Compose(TopK(1.0), QuantQr)`` equals ``QuantQr``
+    with the second half of each client's split key."""
+    ts = convert.params_from_jax(_stacked_tree(3), "cpu")
+    _, tkeys = _keys(9)
+    got, rep = compress.Compose(compress.TopK(1.0), compress.QuantQr(4)
+                                ).compress(ts, tkeys)
+    want, wrep = compress.QuantQr(4).compress(ts, prng.split(tkeys, 2)[:, 1])
+    for a, b in zip(tree_util.leaves(got), tree_util.leaves(want)):
+        assert torch.equal(a, b)
+    assert torch.equal(rep.total_bits, wrep.total_bits)
+
+
+def test_compose_counts_the_support_it_keeps():
+    """The value bits are nnz * (1 + r) over the kept support: ties kept,
+    already-zero entries not sent."""
+    tree_np = _stacked_tree(4)
+    tree_np["fc1"]["w"][0] = 1.0                 # every entry tied
+    tree_np["fc2"]["w"][1, :8] = 0.0
+    tree_np["fc0"]["b"][2] = 0.0                 # all zero: norm 0
+    jc, tc = COMPOSES["k25_q4"](jcomp), COMPOSES["k25_q4"](compress)
+    jkeys, tkeys = _keys(2)
+    _, jrep = jax.vmap(jc.compress)(jax.tree.map(jnp.asarray, tree_np), jkeys)
+    tout, trep = tc.compress(convert.params_from_jax(tree_np, "cpu"), tkeys)
+    _reports_equal(jrep, trep)
+    assert (tout["fc0"]["b"][2] == 0).all()
+
+
+def test_generic_compose_reports_the_conservative_sum():
+    """Compositions other than TopK -> QuantQr report the second stage's
+    value bits plus both stages' index bits, as the reference does."""
+    for make in (lambda c: c.Compose(c.TopK(0.3), c.TopK(0.5)),
+                 lambda c: c.Compose(c.QuantQr(4), c.TopK(0.3)),
+                 lambda c: c.Compose(c.TopK(0.3), c.Int8Sync())):
+        jc, tc = make(jcomp), make(compress)
+        tree_np = _stacked_tree(6)
+        jkeys, tkeys = _keys(6)
+        _, jrep = jax.vmap(jc.compress)(jax.tree.map(jnp.asarray, tree_np),
+                                        jkeys)
+        _, trep = tc.compress(convert.params_from_jax(tree_np, "cpu"), tkeys)
+        _reports_equal(jrep, trep)
+
+
+@pytest.mark.parametrize("bits", [7, 4, 1])
+def test_int8sync_matches_vmapped_reference(bits):
+    """int8 levels bit for bit, scales (norm / 2**bits, a plain float32
+    sum in both packages) within ``NORM_RTOL``, the dequantized values
+    within ``VALUE_RTOL`` and the report exactly."""
+    jc, tc = jcomp.Int8Sync(bits), compress.Int8Sync(bits)
+    tree_np = _stacked_tree(20 + bits)
+    tree_np["fc1"]["b"][1] = 0.0                 # norm 0: all levels 0
+    jkeys, tkeys = _keys(bits)
+    jt = jax.tree.map(jnp.asarray, tree_np)
+    jq, js = jax.vmap(jc.encode)(jt, jkeys)
+    ts = convert.params_from_jax(tree_np, "cpu")
+    tq, tsc = tc.encode(ts, tkeys)
+    for a, b in zip(jax.tree.leaves(jq), tree_util.leaves(tq)):
+        assert b.dtype == torch.int8 and b.shape == a.shape
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for a, b in zip(jax.tree.leaves(js), tree_util.leaves(tsc)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=NORM_RTOL)
+    jout, jrep = jax.vmap(jc.compress)(jt, jkeys)
+    tout, trep = tc.compress(ts, tkeys)
+    for a, b in zip(jax.tree.leaves(jout), tree_util.leaves(tout)):
+        assert b.dtype == torch.float32
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=VALUE_RTOL,
+                                   atol=0)
+    _reports_equal(jrep, trep)
+
+
+def test_int8sync_clips_at_127():
+    """A coordinate holding all of its leaf's energy reaches level 128,
+    which the int8 payload clips to 127, as the reference does."""
+    ts = {"w": torch.zeros((S, 40))}
+    ts["w"][:, 3] = -5.0
+    _, tkeys = _keys(0)
+    q, sc = compress.Int8Sync().encode(ts, tkeys)
+    assert (q["w"][:, 3] == -127).all() and int(q["w"].count_nonzero()) == S
+    out, _ = compress.Int8Sync().compress(ts, tkeys)
+    assert torch.equal(out["w"][:, 3], torch.full((S,), -5.0 / 128 * 127))
+
+
+def test_int8sync_validates():
+    with pytest.raises(ValueError, match="int8"):
+        compress.Int8Sync(8)
+    with pytest.raises(ValueError, match="rng key"):
+        compress.Int8Sync().compress(convert.params_from_jax(
+            _stacked_tree(0), "cpu"))
+
+
+def test_registry_matches_the_reference():
+    assert compress.available() == jregistry.available()
+    for name in jregistry.available():
+        assert (type(compress.make_compressor(name)).__name__
+                == type(jregistry.make_compressor(name)).__name__)
+    assert compress.make_compressor("TopK", density=0.3) == compress.TopK(0.3)
+    assert compress.make_compressor("double") == compress.Compose(
+        compress.TopK(0.25), compress.QuantQr(4))
+    with pytest.raises(ValueError, match="unknown compressor"):
+        compress.make_compressor("bogus")
+    with pytest.raises(ValueError, match="already registered"):
+        compress.register("topk", compress.TopK)
+    compress.register("topk", compress.TopK, overwrite=True)
+
+
+# --------------------------------------------------------------------------- #
+# the topk_qr and int8 wire codecs against jax.vmap(wire.encode)
+# --------------------------------------------------------------------------- #
+
+CODECS = {
+    "k25_q4": COMPOSES["k25_q4"],
+    "k50_q16": COMPOSES["k50_q16"],
+    "dense_q4": COMPOSES["dense_q4"],
+    "int8": (lambda c: c.Int8Sync()),
+}
+
+
+def _encode_both(name, seed, shapes=SHAPES, s=S):
+    jc, tc = CODECS[name](jcomp), CODECS[name](compress)
+    tree_np = _stacked_tree(seed, shapes, s)
+    jkeys, tkeys = _keys(seed, s)
+    jp, jrep = jax.vmap(lambda t, k: jwire.encode(jc, t, k))(
+        jax.tree.map(jnp.asarray, tree_np), jkeys)
+    tstacked = convert.params_from_jax(tree_np, "cpu")
+    tp, trep = wire.encode(tc, tstacked, tkeys)
+    return tc, tstacked, tkeys, (jp, jrep), (tp, trep)
+
+
+@pytest.mark.parametrize("name", sorted(CODECS))
+def test_encode_matches_vmapped_reference(interpret_backend, name):
+    """Spec, nbytes and report exactly; slot indices, packed words and
+    int8 levels bit for bit; norms and scales within ``NORM_RTOL``."""
+    tc, tstacked, _, (jp, jrep), (tp, trep) = _encode_both(name, 5)
+    assert tp.spec.codec == jp.spec.codec
+    assert tp.spec.caps == jp.spec.caps and tp.spec.r == jp.spec.r
+    one_client = tree_util.map(lambda a: a[0], tstacked)
+    assert tp.nbytes == jp.nbytes == wire.payload_nbytes(tc, one_client)
+    _reports_equal(jrep, trep)
+    for jbufs, tbufs in zip(jp.data, tp.data):
+        assert len(jbufs) == len(tbufs)
+        for a, b in zip(jbufs, tbufs):
+            assert b.shape == a.shape and b.element_size() == np.asarray(
+                a).dtype.itemsize
+            if b.dtype == torch.float32:               # norms and scales
+                np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                           rtol=NORM_RTOL)
+            else:
+                np.testing.assert_array_equal(_bits(b), _bits(a))
+
+
+@pytest.mark.parametrize("name", sorted(CODECS))
+def test_decode_equals_the_account_transform(interpret_backend, name):
+    """decode(encode(x)) is the transform's output bit for bit (no code
+    saturates on this data; the next test covers that one exception), and
+    the reference's decode within ``VALUE_RTOL``."""
+    tc, tstacked, tkeys, (jp, _), (tp, _) = _encode_both(name, 9)
+    want, _ = tc.compress(tstacked, tkeys)
+    got = wire.decode(tp)
+    jgot = jax.vmap(jwire.decode)(jp)
+    for a, b, c in zip(tree_util.leaves(want), tree_util.leaves(got),
+                       jax.tree.leaves(jgot)):
+        assert b.shape == a.shape and b.dtype == a.dtype
+        np.testing.assert_array_equal(_bits(b), _bits(a))
+        np.testing.assert_allclose(b.numpy(), np.asarray(c), rtol=VALUE_RTOL,
+                                   atol=0)
+
+
+def test_topk_qr_decode_saturates_the_top_level():
+    """A survivor holding all of its leaf's masked energy has level 2**r,
+    which the wire sends as 2**r - 1; every other value is bit-equal."""
+    ts = {"w": torch.from_numpy(_x(S, 40, 1) * 1e-3)}
+    ts["w"][:, 3] = 5.0
+    _, keys = _keys(0)
+    comp = compress.Compose(compress.TopK(0.05), compress.QuantQr(4))  # k = 2
+    p, _ = wire.encode(comp, ts, keys)
+    got = wire.decode(p)["w"]
+    want, _ = comp.compress(ts, keys)
+    assert torch.equal(want["w"][:, 3], p.data[0][2])       # level 2**r: norm
+    assert torch.equal(got[:, 3], p.data[0][2] * 15 / 16)
+    got[:, 3] = want["w"][:, 3]
+    assert torch.equal(got, want["w"])
+
+
+MLP_SHAPES = {"fc0": {"w": (784, 64), "b": (64,)},
+              "fc1": {"w": (64, 64), "b": (64,)},
+              "fc2": {"w": (64, 10), "b": (10,)}}
+
+
+@pytest.mark.parametrize("name,nbytes,padding", [
+    ("k25_q4", 63712, 310), ("k50_q16", 168672, 459), ("int8", 55074, 0)])
+def test_mlp_payload_sizes(name, nbytes, padding):
+    """At the quickstart MLP's width (784-64-64-10) one upload is 63 712
+    B (k25_q4), 168 672 B (k50_q16) or 55 074 B (int8), equal to the
+    reference's, and pads by ``(32*ceil(cap/32) - cap) * (1+r)`` bits."""
+    tc, tstacked, _, (jp, jrep), (tp, trep) = _encode_both(
+        name, 1, MLP_SHAPES, 2)
+    one_client = tree_util.map(lambda a: a[0], tstacked)
+    assert tp.nbytes == jp.nbytes == nbytes
+    assert wire.payload_nbytes(tc, one_client) == nbytes
+    pad = wire.padding_bits(tp, trep)
+    assert pad.tolist() == [float(padding)] * 2
+    np.testing.assert_array_equal(
+        pad.numpy(), np.asarray(jwire.padding_bits(jp, jrep), np.float32))
+    if tp.spec.codec == "topk_qr":
+        assert padding == sum((32 * -(-c // 32) - c) * (1 + tp.spec.r)
+                              for c in tp.spec.caps)
+
+
+def test_topk_qr_underfull_payload_pads_empty_slots():
+    tree_np = _stacked_tree(3)
+    tree_np["fc1"]["w"][0] = 0.0
+    tree_np["fc1"]["w"][0, 0, :4] = 1.0           # 4 survivors of cap 64
+    comp = COMPOSES["k25_q4"](compress)
+    _, tkeys = _keys(3)
+    p, rep = wire.encode(comp, convert.params_from_jax(tree_np, "cpu"), tkeys)
+    leaf = [i for i, shp in enumerate(p.spec.shapes) if shp == (16, 16)][0]
+    idx, words, _ = p.data[leaf]
+    cap = p.spec.caps[leaf]
+    assert cap == 64 and (idx[0, 4:] == 256).all()
+    codes = ops.unpack_codes(words, 5, cap)
+    assert (codes[0, 4:] == 0).all()
+    pad = wire.padding_bits(p, rep) - wire.padding_bits(
+        *wire.encode(comp, convert.params_from_jax(_stacked_tree(3), "cpu"),
+                     tkeys))
+    assert float(pad[0]) == (cap - 4) * (32 + 5) and float(pad[1]) == 0.0
+
+
+def _unchecked(cls, **fields):
+    """A compressor instance with fields its constructor refuses (what a
+    config for the reference would hold)."""
+    obj = object.__new__(cls)
+    for k, v in fields.items():
+        object.__setattr__(obj, k, v)
+    return obj
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda c: c.Compose(c.QuantQr(4), c.TopK(0.3)), "Compose\\(TopK, QuantQr\\)"),
+    (lambda c: c.Compose(c.TopK(0.3), c.TopK(0.5)), "Compose\\(TopK, QuantQr\\)"),
+    (lambda c: c.Compose(c.TopK(0.3), c.QuantQr(17)), "r <= 16"),
+    (lambda c: c.Compose(c.TopK(0.3, impl="quantile"), c.QuantQr(4)),
+     "impl=\"select\""),
+    (lambda c: c.Compose(c.TopK(0.3, scope="global"), c.QuantQr(4)),
+     "matching scopes")],
+    ids=["quant_first", "two_topk", "wide_r", "quantile", "scopes"])
+def test_check_supported_raises_the_reference_errors(make, match):
+    """The port's ``check_supported`` on the same composition (its stages
+    built field for field, past the port's own refusal of global scope
+    and quantile TopK) raises the reference's ``ValueError``."""
+    with pytest.raises(ValueError, match=match):
+        jwire.check_supported(make(jcomp))
+
+    def port(stage):
+        cls = getattr(compress, type(stage).__name__)
+        return _unchecked(cls, **{f: getattr(stage, f)
+                                  for f in cls.__dataclass_fields__})
+
+    jc = make(jcomp)
+    with pytest.raises(ValueError, match=match):
+        wire.check_supported(compress.Compose(port(jc.first), port(jc.second)))
+
+
+def test_check_supported_names_the_codecs():
+    assert wire.check_supported(COMPOSES["k25_q4"](compress)) == "topk_qr"
+    assert wire.check_supported(COMPOSES["dense_q4"](compress)) == "qr"
+    assert wire.check_supported(compress.Int8Sync()) == "int8"
+    glob = compress.Compose(
+        _unchecked(compress.TopK, density=0.3, scope="global", impl="select"),
+        _unchecked(compress.QuantQr, r=4, scope="global"))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        wire.check_supported(glob)
+
+
+def test_int8_overrides_stay_unported():
+    plan = clients.RoundPlan(
+        steps=torch.ones(S, dtype=torch.int64),
+        participating=torch.ones(S, dtype=torch.bool),
+        speed=torch.ones(S), bandwidth=torch.ones(S),
+        comp_overrides={"magnitude_bits": torch.full((S,), 4)})
+    ts = convert.params_from_jax(_stacked_tree(0), "cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        clients.batched_compress(compress.Int8Sync(), plan, ts, _keys(0)[1])

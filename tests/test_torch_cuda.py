@@ -5,7 +5,7 @@ the port only (no JAX), so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1, K2, K4, K5, K7, K8 and K9 must be bit-equal to the plain versions;
+K1, K2, K4, K5, K6, K7, K8 and K9 must be bit-equal to the plain versions;
 K3 within rtol 1e-5 (float32 sums in another order) and bit-equal to
 itself run to run.
 """
@@ -106,6 +106,26 @@ def test_pack_unpack_match_plain_and_invert(cuda_device, rows, n, b):
     assert torch.equal(back, codes)
 
 
+@pytest.mark.parametrize("rows,n,k,cap,r", [
+    (5, 50176, 12544, 12544, 4), (5, 50176, 25088, 25088, 16),
+    (5, 10, 2, 2, 4), (3, 1000, 100, 250, 8), (3, 777, 77, 77, 16),
+    (2, 1, 1, 1, 4), (2, 5000, 2000, 100, 1)])
+def test_compact_code_slots_matches_plain(cuda_device, rows, n, k, cap, r):
+    x = _rows(rows, n, cuda_device, n + cap + r)
+    x[0, : n // 3] = 0.0                         # underfull support
+    if rows > 2:
+        x[2] = 0.25                              # all tied: overflow
+        x[1, 0] = 1e4                            # saturates the top level
+    u = torch.rand((rows, n), device=cuda_device)
+    t = topk.threshold_bits(x, k)
+    keep = ref.mag_bits(x) >= t[:, None]
+    norm = quant.l2_norm(torch.where(keep, x, torch.zeros_like(x)))
+    idx, codes, nnz = sel.compact_code_slots(x, u, norm, t, r, cap)
+    idx_r, codes_r, nnz_r = ref.compact_code_slots(x, u, norm, t, r, cap)
+    assert torch.equal(idx, idx_r) and torch.equal(nnz, nnz_r)
+    assert torch.equal(codes, codes_r)
+
+
 def test_launch_counters_count_cuda_launches(cuda_device):
     x = _rows(4, 256, cuda_device, 0)
     keys = torch.zeros((4, 2), dtype=torch.int64)
@@ -117,8 +137,9 @@ def test_launch_counters_count_cuda_launches(cuda_device):
     ops.unpack_codes(words, 5, 256)
     ops.pack_codes(torch.zeros((4, 256), dtype=torch.int32,
                                device=cuda_device), 5)
+    ops.topk_qr_slots(x, 10, 10, 4, keys)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "topk_threshold_bits": 2, "topk_mask": 1, "l2_norm": 2,
-        "quantize_qr": 1, "compact_slots": 1,
-        "quantize_pack_with_uniforms": 1, "pack_codes": 1, "unpack_codes": 1}
+        "topk_threshold_bits": 3, "topk_mask": 1, "l2_norm": 3,
+        "quantize_qr": 1, "compact_slots": 1, "compact_code_slots": 1,
+        "quantize_pack_with_uniforms": 1, "pack_codes": 2, "unpack_codes": 1}

@@ -239,10 +239,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     words, _ = ops.quantize_pack(x, 4, keys)
     ops.unpack_codes(words, 5, 256)
     ops.pack_codes(torch.zeros((3, 256), dtype=torch.int32), 5)
+    ops.topk_qr_slots(x, 10, 10, 4, keys)
     assert set(ops.launch_counts()) == {
         "topk_threshold_bits", "topk_mask", "l2_norm", "quantize_qr",
-        "compact_slots", "quantize_pack_with_uniforms", "pack_codes",
-        "unpack_codes"}
+        "compact_slots", "compact_code_slots", "quantize_pack_with_uniforms",
+        "pack_codes", "unpack_codes"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 

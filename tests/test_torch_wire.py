@@ -33,7 +33,7 @@ from repro.models import small as jsmall  # noqa: E402
 from repro_torch import compress, convert, prng  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.compress import wire  # noqa: E402
-from repro_torch.core import engine, fed_data, server  # noqa: E402
+from repro_torch.core import clients, engine, fed_data, server  # noqa: E402
 from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig  # noqa: E402
 from repro_torch.data import dirichlet, synthetic  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -385,16 +385,34 @@ def test_quantile_topk_has_no_wire_codec():
         wire.check_supported(object())
 
 
-@pytest.mark.parametrize("comp", [
-    lambda: jcomp.Compose(jcomp.TopK(0.3), jcomp.QuantQr(4)),
-    lambda: jcomp.Int8Sync(),
-    lambda: _unchecked(compress.TopK, density=0.3, scope="global",
-                       impl="select"),
-    lambda: _unchecked(compress.QuantQr, r=4, scope="global")],
+def _plan_with_overrides():
+    return clients.RoundPlan(
+        steps=torch.ones(S, dtype=torch.int64),
+        participating=torch.ones(S, dtype=torch.bool),
+        speed=torch.ones(S), bandwidth=torch.ones(S),
+        comp_overrides={"magnitude_bits": torch.full((S,), 4)})
+
+
+# the compose (topk_qr) and int8 codecs are ported; their ids now name
+# what stays unported beside them: Compose at scope="global" and
+# Int8Sync with per-client overrides
+@pytest.mark.parametrize("call", [
+    lambda: wire.check_supported(compress.Compose(
+        _unchecked(compress.TopK, density=0.3, scope="global",
+                   impl="select"),
+        _unchecked(compress.QuantQr, r=4, scope="global"))),
+    lambda: clients.batched_compress(
+        compress.Int8Sync(), _plan_with_overrides(),
+        convert.params_from_jax(_stacked_tree(0), "cpu"),
+        prng.split(prng.PRNGKey(0), S)),
+    lambda: wire.check_supported(_unchecked(
+        compress.TopK, density=0.3, scope="global", impl="select")),
+    lambda: wire.check_supported(_unchecked(compress.QuantQr, r=4,
+                                            scope="global"))],
     ids=["compose", "int8sync", "topk_global", "qr_global"])
-def test_unported_codecs_raise(comp):
+def test_unported_codecs_raise(call):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        wire.check_supported(comp())
+        call()
 
 
 def test_wire_modes_validate():
@@ -540,4 +558,4 @@ def test_packed_cpu_run_leaves_every_launch_counter_at_zero(setup):
         alg.run_rounds(alg.init(convert.params_from_jax(setup["p0"], "cpu")),
                        prng.PRNGKey(0), 2)
     counts = ops.launch_counts()
-    assert len(counts) == 8 and all(v == 0 for v in counts.values()), counts
+    assert len(counts) == 9 and all(v == 0 for v in counts.values()), counts
