@@ -41,7 +41,35 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    QuantQr, packed k25_q4 and EF runs on the CPU through the plain
    versions (k25_q4's first ``DIVERGING_REPLAY_ROUNDS``, while its loss is
    finite): cohorts, steps, bits and payload bytes must be equal, the
-   train loss within ``LOSS_RTOL``.
+   train loss within ``LOSS_RTOL``;
+4. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
+   at the serving shapes (8, 2560, 2560) and (8, 40, 2560, 64), T = 1,
+   odd T, B = 1, decays near 0 and 1 and zeros, and K12 also on the
+   layout prefill launches it on (bf16 ``rwkv6._heads`` views of (B, T,
+   2560) activations); K11 must be bit-equal, K12's y within
+   ``WKV6_YTOL`` of max |y| (plus one bf16 ulp in bf16), its S_T within
+   ``WKV6_YTOL`` of max |S|.  Times both at the serving and a larger
+   shape, K12 on the prefill layout;
+5. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
+   width and depth in bf16, weights from the port's own init on the card,
+   through ``launch/serve.py``'s :func:`serve`: batch 8, prompt 2560
+   (above recurrentgemma's window of 2048, so the ring cache runs), 32
+   greedy decode steps.  The launch counters are set to 0 just before and
+   read just after: one prefill launches K12 32 times (rwkv) or K11 18
+   times (recurrentgemma), and the decode steps launch neither.  Logits
+   must be finite, and prefill(T) + one decode step must agree with
+   prefill(T + 1)'s last logits within ``GAP_REL`` of max |logits|.
+   After a warm-up at the serving shape, prints the median of
+   ``SERVE_TIMED`` prefills' ms and of the per-step decode ms, tokens/s,
+   the counted run's own times, peak memory (weights
+   and serve, above what earlier phases hold), and the device's busy time
+   and idle share under ``torch.profiler`` for one prefill and for 8
+   decode steps;
+6. CUDA against CPU — the same two models at full width and reduced depth
+   (3 layers: one recurrentgemma pattern cycle; 2 for rwkv), float32 with
+   TF32 off, batch 2, prompt 128, 4 decode steps, the same weights on the
+   card and on the CPU: logits within ``CPU_LOGIT_TOL`` and greedy tokens
+   equal.
 
 Prints the card's name and power limit, one line per kernel and shape, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -50,6 +78,7 @@ Prints the card's name and power limit, one line per kernel and shape, a
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -68,6 +97,28 @@ REPLAY_ROUNDS = 3
 DIVERGING_REPLAY_ROUNDS = 6
 PROFILE_ROUNDS = 5
 LARGE = (4, 1 << 24)
+# K12's y and S_T against the plain version, float32: |d| <= WKV6_YTOL *
+# max |plain| (64-term sums of y run in another order than the einsum)
+WKV6_YTOL = 1e-5
+SCAN_MAIN = {"K11": (8, 2560, 2560), "K12": (8, 40, 2560, 64)}
+SCAN_LARGE = {"K11": (32, 4096, 2560), "K12": (32, 40, 4096, 64)}
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2560, 32
+SERVE_PROFILE_STEPS = 8
+SERVE_TIMED = 3               # warm prefills timed for the median
+# launches of one prefill at full depth: rwkv6-3b's 32 rwkv layers run K12,
+# recurrentgemma-2b's 18 rglru layers (26 layers, pattern rglru rglru swa)
+# run K11
+SERVE_LAUNCHES = {"rwkv6-3b": {"wkv6_scan": 32},
+                  "recurrentgemma-2b": {"rglru_scan": 18}}
+# bf16 prefill(T) + one decode step against prefill(T + 1), full width:
+# max |d| <= GAP_REL * max |logits| (bf16 activations and caches, other
+# matmul shapes on the two routes)
+GAP_REL = 0.05
+# CUDA against CPU, float32, full width, reduced depth: |d| <= CPU_LOGIT_TOL
+# * (1 + |cpu|) (cuBLAS against CPU sums at d = 2560, and bf16 KV-cache
+# entries that round the other way)
+CPU_LOGIT_TOL = 1e-3
+CPU_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3}
 
 
 def card_line() -> str:
@@ -78,8 +129,8 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    for _ in range(3):
+def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -102,7 +153,6 @@ def profile_rounds(torch, prng, alg, params0, label: str) -> dict:
     """Steady-state rounds (no eval): host wall per round, then the same
     rounds under ``torch.profiler`` for the device's busy time per round,
     its idle share and the device ops that take the most time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def rounds(state, key, n):
@@ -121,27 +171,23 @@ def profile_rounds(torch, prng, alg, params0, label: str) -> dict:
         t0 = time.time()
         rounds(state, key, PROFILE_ROUNDS)
         prof_wall_ms = (time.time() - t0) / PROFILE_ROUNDS * 1e3
-    dev_us = {}      # device-side events (kernels, copies, memsets) by name
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            dev_us[ev.name] = (dev_us.get(ev.name, 0.0)
-                               + ev.time_range.elapsed_us())
+    dev_ms = device_ms_by_name(prof)
     print(f"[profile] {label}: steady ms/round {wall_ms!r} (under the "
           f"profiler {prof_wall_ms!r})", flush=True)
     out = {"wall_ms": wall_ms, "prof_wall_ms": prof_wall_ms, "busy_ms": None}
-    if not dev_us:
+    if not dev_ms:
         print(f"[profile] {label}: the profiler recorded no device events; "
               f"device busy time not measured", flush=True)
         return out
-    busy_ms = sum(dev_us.values()) / PROFILE_ROUNDS / 1e3
+    busy_ms = sum(dev_ms.values()) / PROFILE_ROUNDS
     out["busy_ms"] = busy_ms
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
     print(f"[profile] {label}: device busy ms/round {busy_ms!r}, idle share "
           f"{1.0 - busy_ms / wall_ms!r} of the steady round (under the "
-          f"profiler {1.0 - busy_ms / prof_wall_ms!r}), {len(dev_us)} device "
+          f"profiler {1.0 - busy_ms / prof_wall_ms!r}), {len(dev_ms)} device "
           f"op names; "
           f"top (ms/round): " + "; ".join(
-              f"{name[:70]} {us / PROFILE_ROUNDS / 1e3!r}" for name, us in top),
+              f"{name[:70]} {ms / PROFILE_ROUNDS!r}" for name, ms in top),
           flush=True)
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
     print(f"[profile] {label}: host self time (ms/round, calls/round): "
@@ -189,6 +235,330 @@ class KernelRecord:
     def err(self, a, b) -> None:
         d = (a.double() - b.double()).abs()
         self.max_abs_err = max(self.max_abs_err, float(d.max()) if d.numel() else 0.0)
+
+
+def device_ms_by_name(prof) -> dict:
+    """The device-side events' durations (kernels, copies, memsets) in a
+    ``torch.profiler`` run, summed by name, in ms."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return out
+
+
+def bf16_ulp(torch, y):
+    """One bf16 ulp of each value of y."""
+    _, e = torch.frexp(y.float())
+    return torch.ldexp(torch.ones_like(y, dtype=torch.float32), e - 8)
+
+
+def check_scan_kernels(torch, dev, recs) -> None:
+    """Phase 4: K11 and K12 against their plain versions, then timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6
+    from repro_torch.models import rwkv6
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def same_bits(a, b):
+        return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def rglru_inputs(b, t, d):
+        x = torch.randn((b, t, d), generator=gen, device=dev)
+        a = torch.rand((b, t, d), generator=gen, device=dev)
+        return x, a
+
+    b, t, d = SCAN_MAIN["K11"]
+    edge = rglru_inputs(2, 333, d)
+    edge[1][0, :, :64] = 1e-7                    # a near 0
+    edge[1][0, :, 64:128] = 1.0 - 1e-7           # a near 1
+    edge[1][1, :, :8] = 1.0                      # 1 - a^2 == 0
+    edge[0][1, :, 8:64] = 0.0                    # zeros
+    rg_cases = [("main", *rglru_inputs(b, t, d)),
+                ("T=1", *rglru_inputs(b, 1, d)),
+                ("T=37", *rglru_inputs(b, 37, d)),
+                ("B=1", *rglru_inputs(1, t, d)),
+                ("edges", *edge)]
+    for label, x, a in rg_cases:
+        y, h = rg.rglru_scan(x, a)
+        y_r, h_r = ref.rglru_scan(x, a)
+        torch.cuda.synchronize()
+        if not (same_bits(y, y_r) and same_bits(h, h_r)):
+            raise AssertionError(f"K11 {label}: kernel differs from the "
+                                 f"plain version")
+        recs["K11"].err(y, y_r)
+        recs["K11"].err(h, h_r)
+    print(f"[scans] K11 bit-equal to the plain version on {len(rg_cases)} "
+          f"cases", flush=True)
+    del rg_cases, edge
+
+    def wkv6_inputs(b, h, t, dtype, heads=False):
+        """heads=True: r/k/v/w are ``rwkv6._heads`` views of (B, T, H*64)
+        activations, the layout prefill launches K12 on."""
+        shape = (b, t, h * 64) if heads else (b, h, t, 64)
+        r, k, v = (0.5 * torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+        w = torch.rand(shape, generator=gen, device=dev)
+        u = 0.1 * torch.randn((h, 64), generator=gen, device=dev)
+        r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
+        if heads:
+            r, k, v, w = (rwkv6._heads(z, 64) for z in (r, k, v, w))
+        return r, k, v, w, u
+
+    b, h, t, _ = SCAN_MAIN["K12"]
+    edge = wkv6_inputs(2, 4, 333, torch.float32)
+    edge[3][0, 0] = 1e-7                         # w near 0: forget
+    edge[3][0, 1] = 1.0 - 1e-7                   # w near 1: remember
+    edge[2][1, 2] = 0.0                          # v = 0
+    edge[0][1, 3] = 0.0                          # r = 0: y = 0
+    wkv_cases = [("main bf16 heads",
+                  wkv6_inputs(b, h, t, torch.bfloat16, heads=True)),
+                 ("main bf16", wkv6_inputs(b, h, t, torch.bfloat16)),
+                 ("main f32", wkv6_inputs(b, h, t, torch.float32)),
+                 ("T=1", wkv6_inputs(b, h, 1, torch.float32)),
+                 ("T=77 bf16", wkv6_inputs(b, h, 77, torch.bfloat16)),
+                 ("B=1", wkv6_inputs(1, h, t, torch.float32)),
+                 ("edges", edge)]
+    s_bits = True
+    for label, args in wkv_cases:
+        y, s_t = wkv6.wkv6_scan(*args)
+        y_r, s_r = ref.wkv6_scan(*(z.contiguous() for z in args))
+        torch.cuda.synchronize()
+        s_err = float((s_t - s_r).abs().max())
+        if s_err > WKV6_YTOL * float(s_r.abs().max()):
+            raise AssertionError(f"K12 {label}: S_T off by {s_err!r}")
+        s_bits = s_bits and same_bits(s_t, s_r)
+        dy = (y.float() - y_r.float()).abs()
+        # the float32 sums may differ by the f32 tolerance; in bf16 the
+        # rounding of y can then land one bf16 ulp away
+        bound = WKV6_YTOL * float(y_r.float().abs().max())
+        if y.dtype == torch.bfloat16:
+            bound = bound + bf16_ulp(torch, y_r)
+        if bool((dy > bound).any()):
+            raise AssertionError(f"K12 {label}: y off by more than the f32 "
+                                 f"tolerance (plus one bf16 ulp in bf16): max "
+                                 f"|dy| {float(dy.max())!r}")
+        recs["K12"].err(y.float(), y_r.float())
+        recs["K12"].err(s_t, s_r)
+    print(f"[scans] K12 y within {WKV6_YTOL} of max |plain| (plus one bf16 "
+          f"ulp in bf16) on {len(wkv_cases)} cases; S_T bit-equal on all: "
+          f"{s_bits}; max abs err {recs['K12'].max_abs_err!r}", flush=True)
+    del wkv_cases, edge
+    torch.cuda.empty_cache()
+
+    for tag, shapes, iters, plain_iters, warm in (
+            ("main", SCAN_MAIN, 20, 2, 2), ("large", SCAN_LARGE, 5, 1, 1)):
+        b, t, d = shapes["K11"]
+        x, a = rglru_inputs(b, t, d)
+        n = b * t * d
+        # reads x and a, writes y and h_T; 7 operations an element
+        plans = {"K11": (lambda: rg.rglru_scan(x, a),
+                         lambda: ref.rglru_scan(x, a),
+                         12 * n + 4 * b * d, 7 * n)}
+        b, h, t, _ = shapes["K12"]
+        args = wkv6_inputs(b, h, t, torch.bfloat16, heads=True)
+        n = b * h * t * 64
+        # reads bf16 r, k, v, f32 w and u, writes bf16 y and f32 S_T.  The
+        # function's least work a (b, h, t): y = S^T r + (sum_i r_i u_i k_i)
+        # v is one FMA (2 operations) a state entry plus 5 a column, and
+        # S <- diag(w) S + k v^T is 3 a state entry: 5 * 64 * 65 in all
+        plans["K12"] = (lambda: wkv6.wkv6_scan(*args),
+                        lambda: ref.wkv6_scan(*args),
+                        (3 * 2 + 4 + 2) * n + 4 * b * h * 64 * 64
+                        + 4 * h * 64, 5 * 65 * n)
+        for key_, (kern, plain, nbytes, nops) in plans.items():
+            rec = recs[key_]
+            b_ms, b_by = bound_ms(nbytes, nops)
+            row = {"shape": list(shapes[key_]),
+                   "kernel_ms": time_ms(torch, kern, iters),
+                   "plain_ms": time_ms(torch, plain, plain_iters, warm),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            rec.timings[tag] = row
+            print(f"[scans] {key_} {rec.name} {tag} {shapes[key_]}: kernel_ms="
+                  f"{row['kernel_ms']!r} plain_ms={row['plain_ms']!r} "
+                  f"library_ms=None (no one PyTorch call computes the scan) "
+                  f"bound_ms={b_ms!r} ({b_by})", flush=True)
+        del x, a, args, plans
+        torch.cuda.empty_cache()
+
+
+def serve_phase(torch, dev) -> dict:
+    """Phase 5: both models at full width and depth through serve().
+    Returns {kernel name: {run label: launches}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    launches = {}
+    for arch, want in SERVE_LAUNCHES.items():
+        m = get_spec(arch).model
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()     # earlier phases' tensors
+        params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(p.numel() for p in tree_util.leaves(params))
+        toks = serve.prompts_for(m, SERVE_BATCH, SERVE_PROMPT + 1, dev)
+        prompts = toks[:, :SERVE_PROMPT]
+        serve.serve(params, m, prompts, 2)     # warm up at the serving shape
+        decode_counts = []
+        orig_decode = tfm.decode_step
+
+        def counting_decode(*a, _orig=orig_decode, **kw):
+            before = ops.launch_counts()
+            out = _orig(*a, **kw)
+            after = ops.launch_counts()
+            decode_counts.append({k: after[k] - before[k] for k in after})
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tfm.decode_step = counting_decode
+        try:
+            res = serve.serve(params, m, prompts, SERVE_GEN)
+        finally:
+            tfm.decode_step = orig_decode
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - before
+        expect = {**{k: 0 for k in counts}, **want}
+        if counts != expect:
+            raise AssertionError(f"{arch}: serve launch counts {counts} != "
+                                 f"{expect}")
+        if any(c[k] for c in decode_counts for k in ("rglru_scan",
+                                                      "wkv6_scan")):
+            raise AssertionError(f"{arch}: a decode step launched a scan")
+        if len(decode_counts) != SERVE_GEN:
+            raise AssertionError(f"{arch}: {len(decode_counts)} decode steps")
+        for name in want:
+            launches.setdefault(name, {})[f"serve {arch}"] = counts[name]
+        finite = bool(torch.isfinite(res.prefill_logits).all()) and all(
+            bool(torch.isfinite(l).all()) for l in res.logits)
+        if not finite or tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN):
+            raise AssertionError(f"{arch}: non-finite logits or tokens of "
+                                 f"shape {tuple(res.tokens.shape)}")
+        # the same shape again, warm: the median of SERVE_TIMED prefills
+        # and of the per-step decode times (host clock, synchronised)
+        max_len = SERVE_PROMPT + SERVE_GEN + 1
+        pre_ms, step_ms = [], []
+        for _ in range(SERVE_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, st = tfm.prefill(params, m, prompts, max_len=max_len)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+        tok = logits.argmax(-1)
+        for _ in range(SERVE_GEN):
+            t0 = time.perf_counter()
+            logits, st = tfm.decode_step(params, m, tok, st)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        pre_med = statistics.median(pre_ms)
+        step_med = statistics.median(step_ms)
+        print(f"[serve] {arch}: {n_params} params bf16, batch {SERVE_BATCH} "
+              f"prompt {SERVE_PROMPT} gen {SERVE_GEN}: prefill ms median "
+              f"{pre_med!r} of {pre_ms!r}; decode ms/step median {step_med!r}"
+              f" (min {min(step_ms)!r}, max {max(step_ms)!r}; "
+              f"{SERVE_BATCH * 1e3 / step_med!r} tokens/s); the counted serve "
+              f"run: prefill ms {res.prefill_s * 1e3!r}, decode ms/step "
+              f"{res.decode_s / SERVE_GEN * 1e3!r}; peak memory {peak} B "
+              f"(max_memory_allocated over what was allocated before the "
+              f"weights); launches {counts} (decode steps: none); "
+              f"tokens[0][:8] {res.tokens[0, :8].tolist()}", flush=True)
+        del st, logits
+
+        # prefill(T) + one decode step against prefill(T + 1)
+        max_len = SERVE_PROMPT + 2
+        _, st = tfm.prefill(params, m, prompts, max_len=max_len)
+        l_step, _ = tfm.decode_step(params, m, toks[:, SERVE_PROMPT], st)
+        l_long, _ = tfm.prefill(params, m, toks, max_len=max_len)
+        gap = float((l_step - l_long).abs().max())
+        scale = float(l_long.abs().max())
+        agree = float((l_step.argmax(-1) == l_long.argmax(-1)).float().mean())
+        print(f"[serve] {arch}: prefill(T) + decode vs prefill(T+1): max abs "
+              f"gap {gap!r} against max |logits| {scale!r} (limit "
+              f"{GAP_REL} x); argmax agreement {agree!r}", flush=True)
+        if not gap <= GAP_REL * scale:
+            raise AssertionError(f"{arch}: self-consistency gap {gap!r} > "
+                                 f"{GAP_REL} * {scale!r}")
+        del st, l_step, l_long
+
+        # the device's busy share: one prefill, then 8 decode steps
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, st = tfm.prefill(params, m, prompts,
+                                     max_len=SERVE_PROMPT + SERVE_GEN + 1)
+            torch.cuda.synchronize()
+            pre_wall = (time.perf_counter() - t0) * 1e3
+        by_name = device_ms_by_name(prof)
+        pre_busy = sum(by_name.values())
+        pre_top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        tok = logits.argmax(-1)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(SERVE_PROFILE_STEPS):
+                logits, st = tfm.decode_step(params, m, tok, st)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            dec_wall = (time.perf_counter() - t0) * 1e3
+        dec_busy = sum(device_ms_by_name(prof).values())
+        host = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)[:5]
+        pre_top = "; ".join(f"{name[:60]} {ms!r}" for name, ms in pre_top)
+        host = "; ".join(
+            f"{e.key[:32]} {e.self_cpu_time_total / SERVE_PROFILE_STEPS / 1e3!r}"
+            for e in host)
+        print(f"[profile] serve {arch}: prefill wall ms {pre_wall!r} device "
+              f"busy ms {pre_busy!r} idle share {1 - pre_busy / pre_wall!r} "
+              f"(top device ms: {pre_top}); {SERVE_PROFILE_STEPS} decode "
+              f"steps wall ms {dec_wall!r} busy ms {dec_busy!r} idle share "
+              f"{1 - dec_busy / dec_wall!r}; decode host self time (ms/step): "
+              f"{host}", flush=True)
+        del params, res, st, logits
+        torch.cuda.empty_cache()
+    return launches
+
+
+def cuda_vs_cpu_phase(torch, dev) -> None:
+    """Phase 6: full width, reduced depth, float32: the card (kernels)
+    against the CPU (plain versions) on the same weights."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    for arch, n_layers in CPU_CHECK_LAYERS.items():
+        m = dataclasses.replace(get_spec(arch).model, n_layers=n_layers,
+                                dtype=torch.float32)
+        params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(1))
+        cpu_params = tree_util.map(lambda t: t.cpu(), params)
+        prompts = serve.prompts_for(m, 2, 128, dev)
+        on_card = serve.serve(params, m, prompts, 4)
+        on_cpu = serve.serve(cpu_params, m, prompts.cpu(), 4)
+        worst = 0.0
+        for g, c in zip([on_card.prefill_logits] + on_card.logits,
+                        [on_cpu.prefill_logits] + on_cpu.logits):
+            worst = max(worst, float(((g.cpu() - c).abs()
+                                      / (1 + c.abs())).max()))
+        same = torch.equal(on_card.tokens.cpu(), on_cpu.tokens)
+        print(f"[cuda-vs-cpu] {arch} ({n_layers} layers, d {m.d_model}, "
+              f"float32): max |cuda - cpu| / (1 + |cpu|) over prefill and 4 "
+              f"decode logits {worst!r} (limit {CPU_LOGIT_TOL}); greedy "
+              f"tokens equal {same}", flush=True)
+        if not (worst <= CPU_LOGIT_TOL and same):
+            raise AssertionError(f"{arch}: CUDA and CPU serving differ")
+        del params, cpu_params
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -250,6 +620,9 @@ def main() -> int:
                            tpu + "pack_codes.py:62"),
         "K9": KernelRecord("unpack_codes", csrc + "pack_codes.cu",
                            tpu + "pack_codes.py:87"),
+        "K11": KernelRecord("rglru_scan", csrc + "rglru_scan.cu",
+                            tpu + "rglru_scan.py:60"),
+        "K12": KernelRecord("wkv6_scan", csrc + "wkv6.cu", tpu + "wkv6.py:62"),
     }
     gen = torch.Generator(device=dev).manual_seed(0)
     hidden = 64
@@ -543,7 +916,8 @@ def main() -> int:
     one_client = tree_util.map(lambda p: p.detach(), params0)
     per_run = ROUNDS * len(leaf_sizes)
     zero = {name: 0 for name in ops.launch_counts()}
-    k1, k2, k3, k4, k5, k6, k7, k8, k9 = (rec.name for rec in recs.values())
+    k1, k2, k3, k4, k5, k6, k7, k8, k9 = (recs[f"K{i}"].name
+                                          for i in range(1, 10))
     double = ("k25_q4", "k50_q16")
     diverging = ("k25_q4",)       # the JAX package diverges there as well
     # name -> (compressor, config overrides, {wire: kernels the run
@@ -839,6 +1213,11 @@ def main() -> int:
                      f"account {a['busy_ms']!r}")
         print(f"[profile] {name}: steady ms/round packed {p['wall_ms']!r} vs "
               f"account {a['wall_ms']!r}; {busy}", flush=True)
+
+    # ---- 4. scans, 5. serve, 6. CUDA against CPU --------------------------- #
+    check_scan_kernels(torch, dev, recs)
+    launches.update(serve_phase(torch, dev))
+    cuda_vs_cpu_phase(torch, dev)
 
     kernels = []
     for rec in recs.values():

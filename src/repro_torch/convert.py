@@ -15,14 +15,31 @@ import torch
 from repro_torch import tree as tree_util
 
 
+def _from_numpy(a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 has no torch counterpart in from_numpy: it
+        # crosses as its uint16 bits
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes   # numpy's bfloat16, as JAX uses it
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_jax(tree_of_numpy: Any, device="cuda") -> Any:
     """numpy leaves (e.g. ``jax.tree.map(np.asarray, params)``) -> tensors
-    on ``device``, same nesting and dtypes."""
-    return tree_util.map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
-        tree_of_numpy)
+    on ``device``, same nesting and dtypes (bfloat16 bit for bit)."""
+    return tree_util.map(lambda a: _from_numpy(a).to(device), tree_of_numpy)
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """The inverse: tensors -> numpy leaves (host copies)."""
-    return tree_util.map(lambda t: t.detach().cpu().numpy(), tree)
+    """The inverse: tensors -> numpy leaves (host copies; bfloat16 leaves
+    become ``ml_dtypes.bfloat16`` arrays with the same bits)."""
+    return tree_util.map(_to_numpy, tree)

@@ -1,7 +1,8 @@
 """Synthetic structured dataset: the offline stand-in for MNIST.
 
-A copy of ``repro.data.synthetic``'s numpy code for the port's slice
-(``make_mnist_like``); the same seed gives byte-equal arrays.  Each class
+A copy of ``repro.data.synthetic``'s numpy code for the port's slices
+(``make_mnist_like``, ``make_lm_tokens``); the same seed gives byte-equal
+arrays.  Each class
 gets an anchor in a latent space; samples are anchor + noise, pushed
 through a fixed random nonlinear "renderer" into 784 dimensions.
 """
@@ -65,3 +66,20 @@ def _make(n_train, n_test, seed, *, latent, out_dim, depth, noise,
         x_train=x[:n_train], y_train=y[:n_train].astype(np.int32),
         x_test=x[n_train:], y_test=y[n_train:].astype(np.int32),
         n_classes=n_classes)
+
+
+def make_lm_tokens(vocab: int, n_seqs: int, seq_len: int,
+                   seed: int = 0) -> np.ndarray:
+    """Synthetic token streams with Markov structure (serving prompts)."""
+    rng = np.random.default_rng(seed)
+    # sparse bigram transition structure: each token prefers a few successors
+    n_next = 8
+    succ = rng.integers(0, vocab, size=(vocab, n_next))
+    out = np.empty((n_seqs, seq_len), dtype=np.int32)
+    tok = rng.integers(0, vocab, size=n_seqs)
+    for t in range(seq_len):
+        out[:, t] = tok
+        explore = rng.random(n_seqs) < 0.1
+        nxt = succ[tok, rng.integers(0, n_next, size=n_seqs)]
+        tok = np.where(explore, rng.integers(0, vocab, size=n_seqs), nxt)
+    return out

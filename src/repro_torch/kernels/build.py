@@ -30,13 +30,16 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: source stem -> extra nvcc flags.  quantize.cu, select_slots.cu (K6's
 #: codes) and qr_pack.cu must not contract ``scaled - lo`` into an FMA (the
-#: Q_r rounding compares its bits).
+#: Q_r rounding compares its bits); rglru_scan.cu keeps the plain
+#: version's ``a*h + gx`` (K11 is bit-equal to it).
 SOURCES: Dict[str, tuple] = {
     "topk_compress": (),
     "quantize": ("--fmad=false",),
     "select_slots": ("--fmad=false",),
     "qr_pack": ("--fmad=false",),
     "pack_codes": (),
+    "rglru_scan": ("--fmad=false",),
+    "wkv6": (),
 }
 
 _LOCK = threading.Lock()

@@ -1,6 +1,7 @@
 """Kernel dispatch for the port: by tensor device, not by a global backend.
 
-Each op takes row-batched ``(rows, n)`` input, one row per client's leaf.
+The uplink's ops take row-batched ``(rows, n)`` input, one row per
+client's leaf; the model zoo's scans take the recurrences' own layouts.
 A CPU tensor runs the plain PyTorch version; a CUDA tensor runs the
 hand-written kernel or raises (the wrapper modules beside this one decide,
 per call).  There is no switch that sends a CUDA tensor down the plain
@@ -16,11 +17,13 @@ from repro_torch.kernels import pack_codes as _pack
 from repro_torch.kernels import qr_pack as _qr_pack
 from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import select_slots as _sel
 from repro_torch.kernels import topk_compress as _topk
+from repro_torch.kernels import wkv6 as _wkv
 
 _COUNTERS = (_topk.LAUNCHES, _quant.LAUNCHES, _sel.LAUNCHES,
-             _qr_pack.LAUNCHES, _pack.LAUNCHES)
+             _qr_pack.LAUNCHES, _pack.LAUNCHES, _rg.LAUNCHES, _wkv.LAUNCHES)
 
 
 def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -88,6 +91,19 @@ def pack_codes(codes: torch.Tensor, b: int) -> torch.Tensor:
 def unpack_codes(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
     """Inverse of :func:`pack_codes`: each row's ``n`` b-bit codes (K9)."""
     return _pack.unpack_codes(words, b, n)
+
+
+def rglru_scan(x: torch.Tensor, a: torch.Tensor):
+    """The RG-LRU scan (K11): x, a (B, T, D) -> (y at x's dtype, h_T
+    float32)."""
+    return _rg.rglru_scan(x, a)
+
+
+def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor):
+    """The RWKV6 WKV scan (K12): r, k, v, w (B, H, T, 64), u (H, 64) ->
+    (y at r's dtype, S_T float32)."""
+    return _wkv.wkv6_scan(r, k, v, w, u)
 
 
 def launch_counts() -> dict:

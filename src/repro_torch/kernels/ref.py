@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the kernels on the port's uplink path.
+"""Plain PyTorch versions of the port's kernels.
 
 These are the oracles the CUDA kernels are held against on the card, and
 the path a wrapper takes when its tensor lies on the CPU.  They mirror
-``repro.kernels.ref`` and the Pallas kernels' semantics, batched over
-rows: every function takes ``(rows, n)`` and treats each row as one
-vector (one client's leaf), with a per-row ``k`` or norm.
+``repro.kernels.ref`` and the Pallas kernels' semantics.  The uplink's
+functions are batched over rows: each takes ``(rows, n)`` and treats each
+row as one vector (one client's leaf), with a per-row ``k`` or norm.  The
+two recurrent scans of the model zoo (:func:`rglru_scan`,
+:func:`wkv6_scan`) are plain time loops over their ``(B, ..., T, ...)``
+inputs.
 
 uint32 bit patterns are held in int64 (torch's uint32 coverage is thin):
 magnitudes have a clear sign bit, so their patterns are exact non-negative
@@ -327,3 +330,50 @@ def topk_qr_slots(x: torch.Tensor, k, cap: int, r: int, u: torch.Tensor):
     norm = l2_norm(masked)
     idx, codes, nnz = compact_code_slots(x, u, norm, thr, r, cap)
     return idx, pack_codes(codes, 1 + int(r)), norm, nnz
+
+
+def rglru_scan(x: torch.Tensor, a: torch.Tensor, h0=None):
+    """The RG-LRU recurrence (``repro.kernels.ref.rglru_scan``), a plain
+    time loop in float32: ``h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0))
+    * x_t`` elementwise over channels.
+
+    x, a: (B, T, D); h0: (B, D) or None (zeros).  Returns ``(y, h_T)``:
+    y (B, T, D) at x's dtype and h_T (B, D) float32.  One op at a time, in
+    this order, so K11 (built without FMA contraction) has its bits.
+    """
+    b, t, d = x.shape
+    af = a.to(torch.float32)
+    gx = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.to(torch.float32)
+    h = (torch.zeros((b, d), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.to(torch.float32))
+    ys = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
+    for i in range(t):
+        h = af[:, i] * h + gx[:, i]
+        ys[:, i] = h
+    return ys.to(x.dtype), h
+
+
+def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, s0=None):
+    """The RWKV6 WKV recurrence (``repro.kernels.ref.wkv6_scan``), a plain
+    time loop in float32::
+
+        y_t = (S_{t-1} + diag(u) k_t v_t^T)^T r_t
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+
+    r, k, w: (B, H, T, K); v: (B, H, T, V); u: (H, K); s0: (B, H, K, V) or
+    None (zeros).  Returns ``(y, S_T)``: y (B, H, T, V) at r's dtype and
+    S_T (B, H, K, V) float32.
+    """
+    b, h, t, _ = r.shape
+    vd = v.shape[-1]
+    rf, kf, vf, wf = (z.to(torch.float32) for z in (r, k, v, w))
+    uf = u.to(torch.float32)[None, :, :, None]
+    s = (torch.zeros((b, h, r.shape[-1], vd), dtype=torch.float32,
+                     device=r.device) if s0 is None else s0.to(torch.float32))
+    ys = torch.empty((b, h, t, vd), dtype=torch.float32, device=r.device)
+    for i in range(t):
+        kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]          # (B,H,K,V)
+        ys[:, :, i] = torch.einsum("bhk,bhkv->bhv", rf[:, :, i], s + uf * kv)
+        s = wf[:, :, i, :, None] * s + kv
+    return ys.to(r.dtype), s

@@ -1,0 +1,92 @@
+"""The RWKV6 WKV recurrence (K12): wrapper and plain version.
+
+The port of ``repro.kernels.wkv6``.  :func:`wkv6_scan` dispatches by the
+tensor's device: a CPU tensor runs the plain time loop in
+:mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
+kernel in ``csrc/wkv6.cu`` or raises.  The kernel's state update keeps the
+plain version's operation order (S_T has its bits on the card); y's
+64-term sums run in another order and agree within a tolerance.
+
+``LAUNCHES`` counts kernel launches; only the CUDA path adds to it, so a
+CPU run leaves it at 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = {"wkv6_scan": 0}
+
+HEAD = 64     # K = V = 64: the head size every RWKV6 model here uses
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.wkv6_scan.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, _LL, _LL, _LL, ctypes.c_int, _LL,
+                              _LL, _LL, _P, _P, _P]
+    lib.wkv6_scan.restype = ctypes.c_int
+    lib.wkv6_error_string.argtypes = [ctypes.c_int]
+    lib.wkv6_error_string.restype = ctypes.c_char_p
+
+
+def _lib() -> ctypes.CDLL:
+    return build.load("wkv6", _bind)
+
+
+def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor):
+    """K12: ``y_t = (S + diag(u) k_t v_t^T)^T r_t``, ``S <- diag(w_t) S +
+    k_t v_t^T`` from ``S_0 = 0``, per (batch, head).
+
+    r, k, v: (B, H, T, 64) float32 or bfloat16 (all three alike); w:
+    (B, H, T, 64) float32; u: (H, 64) float32.  On the card r/k/v/w may be
+    strided views with a dense last dimension (``rwkv6._heads`` of a
+    (B, T, D) activation, read in place), sharing their strides.  Returns
+    ``(y, S_T)``: y (B, H, T, 64) at r's dtype (on the card a
+    (B, H, T, 64) view of a (B, T, H, 64) tensor, so ``_unheads`` needs no
+    copy) and S_T (B, H, 64, 64) float32."""
+    if build.on_cpu(r):
+        return ref.wkv6_scan(r, k, v, w, u)
+    if r.dim() != 4:
+        raise ValueError(f"expects (B, H, T, K) input, got {tuple(r.shape)}")
+    b, h, t, kd = r.shape
+    if kd != HEAD or v.shape[-1] != HEAD:
+        raise ValueError(f"head size must be {HEAD}, got K={kd}, "
+                         f"V={v.shape[-1]}")
+    if r.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"r must be float32 or bfloat16, got {r.dtype}")
+    shape = (b, h, t, HEAD)
+    operands = [(r, "r", r.dtype), (k, "k", r.dtype), (v, "v", r.dtype),
+                (w, "w", torch.float32)]
+    for z, name, dtype in operands:
+        if z.dtype != dtype or tuple(z.shape) != shape or z.device != r.device:
+            raise ValueError(f"{name} must be a {dtype} {shape} tensor on "
+                             f"{r.device}, got {z.dtype} {tuple(z.shape)} "
+                             f"on {z.device}")
+        if z.stride(-1) != 1 or z.stride()[:3] != r.stride()[:3]:
+            raise ValueError(f"{name} must have a dense last dimension and "
+                             f"r's strides {r.stride()}, got {z.stride()}")
+    u = build.expect(u, "u", torch.float32, (h, HEAD), r.device)
+    if not 1 <= b * h <= 2 ** 31 - 1:
+        raise ValueError(f"B*H must be in [1, 2^31), got {b * h}")
+    y = torch.empty((b, t, h, HEAD), dtype=r.dtype, device=r.device)
+    s = torch.empty((b, h, HEAD, HEAD), dtype=torch.float32, device=r.device)
+    if t == 0:
+        return y.transpose(1, 2), s.zero_()
+    sb, sh, st, _ = r.stride()
+    yb, yt, yh, _ = y.stride()
+    lib = _lib()
+    code = lib.wkv6_scan(build.ptr(r), build.ptr(k), build.ptr(v),
+                         build.ptr(w), build.ptr(u), b, h, t, sb, sh, st,
+                         int(r.dtype == torch.bfloat16), yb, yh, yt,
+                         build.ptr(y), build.ptr(s), build.stream_ptr())
+    build.check(code, "wkv6_scan", lib, "wkv6_error_string")
+    LAUNCHES["wkv6_scan"] += 1
+    return y.transpose(1, 2), s

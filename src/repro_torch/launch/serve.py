@@ -1,0 +1,122 @@
+"""Batched serving, the port of ``repro.launch.serve``: prefill a
+batch of prompts, then decode tokens against the carried state.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+      --reduced --batch 4 --prompt-len 64 --gen 16 --device cpu
+
+Without ``--reduced`` it serves the published width and depth (bfloat16)
+and wants the card (``--device cuda``, the default).  :func:`serve` is the
+body, for callers that bring their own weights and prompts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import prng
+from repro_torch.configs import ARCH_IDS, get_spec
+from repro_torch.configs.base import reduced as make_reduced
+from repro_torch.data import synthetic
+from repro_torch.models import transformer as tfm
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor          # (B, gen) int64: the generated tokens
+    prefill_logits: torch.Tensor  # (B, vocab) float32, the prompt's last
+    logits: list                  # gen x (B, vocab) float32, one per decode
+    prefill_s: float              # host clock, synchronised on the card
+    decode_s: float               # all gen decode steps
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(params: dict, cfg: tfm.ModelConfig, prompts: torch.Tensor,
+          gen: int, temperature: float = 0.0, key=None) -> ServeResult:
+    """Prefill ``prompts`` (B, T) and decode ``gen`` tokens, on the
+    prompts' device.
+
+    As the reference's ``serve.py`` does: the caches are sized for
+    ``T + gen + 1``; the first token is the argmax of the prefill logits;
+    each decode step then feeds the last token and picks the next by
+    argmax or, at
+    ``temperature > 0``, by ``jax.random.categorical(sub, logits /
+    temperature)`` with ``key, sub = split(key)`` from ``key`` (default
+    ``PRNGKey(3)``), through :mod:`repro_torch.prng`.  The decode after the
+    last kept token runs too, as in the reference.
+    """
+    device = prompts.device
+    max_len = prompts.shape[1] + gen + 1
+    if temperature > 0 and key is None:
+        key = prng.PRNGKey(3)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill(params, cfg, prompts, max_len=max_len)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    prefill_logits = logits
+    tok = torch.argmax(logits, dim=-1)
+    out, seen = [], []
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        out.append(tok)
+        logits, state = tfm.decode_step(params, cfg, tok, state)
+        seen.append(logits)
+        if temperature > 0:
+            key, sub = prng.split(key, 2)
+            tok = prng.categorical(sub, logits / temperature)
+        else:
+            tok = torch.argmax(logits, dim=-1)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    tokens = (torch.stack(out, dim=1) if out else
+              torch.zeros((prompts.shape[0], 0), dtype=torch.int64,
+                          device=device))
+    return ServeResult(tokens=tokens, prefill_logits=prefill_logits,
+                       logits=seen, prefill_s=prefill_s, decode_s=decode_s)
+
+
+def prompts_for(cfg: tfm.ModelConfig, batch: int, prompt_len: int,
+                device) -> torch.Tensor:
+    """The reference's serve prompts: ``make_lm_tokens(min(vocab, 4096),
+    batch, prompt_len, seed=1)``."""
+    toks = synthetic.make_lm_tokens(min(cfg.vocab, 4096), batch, prompt_len,
+                                    seed=1)
+    return torch.from_numpy(toks).to(device=device, dtype=torch.int64)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    spec = get_spec(args.arch)
+    if args.reduced:
+        spec = make_reduced(spec)
+    m = spec.model
+    device = torch.device(args.device)
+    params = tfm.init_params(m, torch.Generator(device=device).manual_seed(0))
+    prompts = prompts_for(m, args.batch, args.prompt_len, device)
+    res = serve(params, m, prompts, args.gen, args.temperature)
+    print(f"prefill done in {res.prefill_s:.2f}s")
+    n = args.gen * args.batch
+    print(f"generated {args.gen} tokens x {args.batch} seqs in "
+          f"{res.decode_s:.2f}s ({n / max(res.decode_s, 1e-9):.1f} tok/s)")
+    print("sample token ids:", res.tokens[0][:16].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,351 @@
+"""The model zoo's decoder stack, the port of ``repro.models.transformer``
+(serving: prefill + decode).
+
+Per-layer block types (``ModelConfig.block_pattern``, cycled over layers):
+
+  "attn"   — full-attention transformer layer
+  "swa"    — sliding-window attention layer (window = cfg.window)
+  "rglru"  — RecurrentGemma recurrent layer (K11 in prefill)
+  "rwkv"   — RWKV6 layer (time-mix + channel-mix; K12 in prefill)
+
+``prefill(params, cfg, tokens, max_len)`` returns the last position's
+logits and the decode state; ``decode_step(params, cfg, token, state)``
+runs one token against it.  Parameters are the reference's nested dicts
+(same names and layouts).  Not ported yet, and raising
+``NotImplementedError``: MoE layers, M-RoPE, prefix embeddings, the other
+families' options (``_NOT_PORTED``), the training forward and loss, and the
+encoder-decoder wrapper.
+
+The reference's dtype conventions are kept: KV caches and the rglru conv
+state leave prefill in ``dtype`` (bfloat16 by default, even in a float32
+model); a decode step carries the conv state at the activations' dtype
+and the rwkv shift states at the model's dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import not_ported
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn
+from repro_torch.models import layers, rglru, rwkv6
+
+RWKV_HEAD = 64      # the rwkv blocks' head size, as in the reference
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 2
+    head_dim: Optional[int] = None
+    d_ff: int = 512
+    vocab: int = 1024
+    block_pattern: tuple = ("attn",)
+    window: Optional[int] = None           # for "swa" blocks
+    softcap_attn: Optional[float] = None   # gemma2 attn logit cap
+    softcap_final: Optional[float] = None  # gemma2 (not ported)
+    qkv_bias: bool = False                 # qwen2 (not ported)
+    qk_norm: bool = False                  # gemma3 (not ported)
+    post_norm: bool = False                # gemma2 (not ported)
+    act: str = "silu"
+    rope_theta: float = 10_000.0
+    mrope_sections: Optional[tuple] = None  # qwen2-vl (not ported)
+    moe: Any = None                        # MoE config (not ported)
+    moe_period: int = 1
+    n_shared_experts: int = 0
+    embed_scale: bool = False              # gemma: x *= sqrt(d)
+    tie_embeddings: bool = True
+    norm_eps: float = 1e-6
+    dtype: torch.dtype = torch.float32
+    long_context_cap: Optional[int] = None  # (not ported)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def block_type(self, i: int) -> str:
+        return self.block_pattern[i % len(self.block_pattern)]
+
+    def layer_window(self, i: int) -> Optional[int]:
+        return self.window if self.block_type(i) == "swa" else None
+
+
+# options of the reference's other families; the served configs leave each
+# at its default, and any other value raises
+_NOT_PORTED = {"moe": "MoE layers", "mrope_sections": "M-RoPE",
+               "softcap_final": "the final logit softcap",
+               "qkv_bias": "q/k/v biases", "qk_norm": "q/k norms",
+               "post_norm": "post-norms",
+               "long_context_cap": "the long-context window cap"}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for name, what in _NOT_PORTED.items():
+        if getattr(cfg, name) != getattr(ModelConfig, name):
+            raise not_ported(what)
+
+
+# --------------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------------- #
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Random weights with the reference's distributions and layout, drawn
+    from ``gen`` on its device (not the reference's bits: tests carry the
+    reference's weights across instead)."""
+    _check_ported(cfg)
+    params: dict = {
+        "embed": layers.embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
+        "final_norm": layers.rmsnorm_init(cfg.d_model, cfg.dtype, gen.device),
+        "layers": {},
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
+                                              cfg.dtype)
+    for i in range(cfg.n_layers):
+        params["layers"][f"layer_{i}"] = _layer_init(gen, cfg, i)
+    return params
+
+
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int) -> dict:
+    bt = cfg.block_type(i)
+    d, hd, dt, dev = cfg.d_model, cfg.hd, cfg.dtype, gen.device
+    p: dict = {}
+    if bt in ("attn", "swa"):
+        p["ln_attn"] = layers.rmsnorm_init(d, dt, dev)
+        p["q"] = layers.dense_init(gen, d, cfg.n_heads * hd, dt)
+        p["k"] = layers.dense_init(gen, d, cfg.n_kv_heads * hd, dt)
+        p["v"] = layers.dense_init(gen, d, cfg.n_kv_heads * hd, dt)
+        p["o"] = layers.dense_init(gen, cfg.n_heads * hd, d, dt)
+    elif bt == "rglru":
+        p["ln_attn"] = layers.rmsnorm_init(d, dt, dev)
+        p["rglru"] = rglru.rglru_init(gen, d, d, dt)
+    elif bt == "rwkv":
+        p["ln_tm"] = layers.layernorm_init(d, dt, dev)
+        p["ln_cm"] = layers.layernorm_init(d, dt, dev)
+        p["rwkv"] = rwkv6.rwkv6_init(gen, d, cfg.d_ff, dtype=dt)
+        return p
+    else:
+        raise ValueError(f"unknown block type {bt!r}")
+    p["ln_mlp"] = layers.rmsnorm_init(d, dt, dev)
+    p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dt)
+    return p
+
+
+# --------------------------------------------------------------------------- #
+# pieces of the forward
+# --------------------------------------------------------------------------- #
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    b, t, _ = x.shape
+    return x.reshape(b, t, n, hd).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    hd = cfg.hd
+    q = _split_heads(layers.dense(p["q"], x), cfg.n_heads, hd)
+    k = _split_heads(layers.dense(p["k"], x), cfg.n_kv_heads, hd)
+    v = _split_heads(layers.dense(p["v"], x), cfg.n_kv_heads, hd)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The dense feed-forward block (MoE layers are not ported)."""
+    return layers.mlp(p["mlp"], x, cfg.act)
+
+
+def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+              prefix_embeds=None) -> torch.Tensor:
+    if prefix_embeds is not None:
+        raise not_ported("prefix embeddings")
+    x = layers.embed(params["embed"], tokens).to(cfg.dtype)
+    if cfg.embed_scale:
+        # sqrt(d) rounded to the model's dtype first, as the reference does:
+        # bf16(sqrt(2560)) = 50.5, not 50.596
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype).item()
+    return x
+
+
+def _unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h.to(torch.float32) @ params["embed"]["embedding"].T.to(
+            torch.float32)
+    return layers.dense(params["unembed"], h).to(torch.float32)
+
+
+def forward_hidden(*args, **kwargs):
+    raise not_ported("forward_hidden (training)")
+
+
+def loss(*args, **kwargs):
+    raise not_ported("loss (training)")
+
+
+# --------------------------------------------------------------------------- #
+# inference: prefill + decode
+# --------------------------------------------------------------------------- #
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, device="cuda") -> dict:
+    """Per-layer cache dict sized for ``max_len`` context."""
+    state = {}
+    for i in range(cfg.n_layers):
+        bt = cfg.block_type(i)
+        if bt in ("attn", "swa"):
+            w = cfg.layer_window(i)
+            size = min(max_len, w) if w is not None else max_len
+            state[f"layer_{i}"] = attn.init_cache(
+                batch, cfg.n_kv_heads, size, cfg.hd, dtype, device)
+        elif bt == "rglru":
+            state[f"layer_{i}"] = rglru.rglru_init_state(
+                batch, cfg.d_model, dtype, device)
+        elif bt == "rwkv":
+            state[f"layer_{i}"] = rwkv6.rwkv_init_state(
+                batch, cfg.d_model, dtype=dtype, device=device)
+    return state
+
+
+def _first_attn_layer(cfg: ModelConfig):
+    for i in range(cfg.n_layers):
+        if cfg.block_type(i) in ("attn", "swa"):
+            return i
+    return None
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                state: dict, positions3=None):
+    """One token for each sequence.  token: (B,) int.  Returns ``(logits
+    (B, vocab) float32, new_state)``."""
+    _check_ported(cfg)
+    if positions3 is not None:
+        raise not_ported("M-RoPE positions")
+    b = token.shape[0]
+    x = _embed_in(params, cfg, token[:, None])
+    # absolute position: every layer tracks the same length; the first
+    # attention layer's counter gives it (0 in an rwkv-only stack)
+    first = _first_attn_layer(cfg)
+    pos = state[f"layer_{first}"].length if first is not None else 0
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    new_state = {}
+    for i in range(cfg.n_layers):
+        p = params["layers"][f"layer_{i}"]
+        bt = cfg.block_type(i)
+        st = state[f"layer_{i}"]
+        if bt == "rwkv":
+            h = layers.layernorm(p["ln_tm"], x)
+            y, shift_tm, s_new = rwkv6.time_mix_decode(
+                p["rwkv"], h, st.shift_tm, st.s)
+            x = x + y
+            h = layers.layernorm(p["ln_cm"], x)
+            x = x + rwkv6.channel_mix(p["rwkv"], h, prev=st.shift_cm)
+            new_state[f"layer_{i}"] = rwkv6.RWKVState(
+                shift_tm=shift_tm, shift_cm=h[:, -1], s=s_new)
+            continue
+        h = layers.rmsnorm(p["ln_attn"], x)
+        if bt == "rglru":
+            y, st_new = rglru.rglru_block_decode(p["rglru"], h, st)
+        else:
+            q, k, v = _qkv(p, cfg, h, positions)
+            w = cfg.layer_window(i)
+            if w is not None and st.k.shape[2] == w:       # ring cache
+                st_new = attn.update_ring_cache(st, k, v)
+                y = attn.ring_decode_attention(q, st_new,
+                                               softcap=cfg.softcap_attn)
+            else:
+                st_new = attn.update_cache(st, k, v)
+                y = attn.decode_attention(q, st_new, window=w,
+                                          softcap=cfg.softcap_attn)
+            y = layers.dense(p["o"], _merge_heads(y))
+        x = x + y
+        h = layers.rmsnorm(p["ln_mlp"], x)
+        x = x + _ffn(p, cfg, h)
+        new_state[f"layer_{i}"] = st_new
+    h = layers.rmsnorm(params["final_norm"], x)
+    return _unembed(params, cfg, h)[:, 0], new_state
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int, *, prefix_embeds=None, positions3=None,
+            dtype=torch.bfloat16):
+    """Process a prompt batch (B, T); returns ``(last-position logits
+    (B, vocab) float32, decode state sized for max_len)``.
+
+    rwkv layers run K12 and rglru layers K11 over the whole prompt; caches
+    are produced by the full-sequence forward.
+    """
+    _check_ported(cfg)
+    if positions3 is not None:
+        raise not_ported("M-RoPE positions")
+    b, t = tokens.shape
+    x = _embed_in(params, cfg, tokens, prefix_embeds)
+    ttot = x.shape[1]
+    positions = torch.arange(ttot, device=x.device).expand(b, ttot)
+    state = init_decode_state(cfg, b, max_len, dtype, x.device)
+    new_state = {}
+    for i in range(cfg.n_layers):
+        p = params["layers"][f"layer_{i}"]
+        bt = cfg.block_type(i)
+        if bt == "rwkv":
+            h = layers.layernorm(p["ln_tm"], x)
+            r, k, v, g, w = rwkv6._tm_inputs(p["rwkv"], h)
+            y, s_fin = kops.wkv6_scan(
+                rwkv6._heads(r, RWKV_HEAD), rwkv6._heads(k, RWKV_HEAD),
+                rwkv6._heads(v, RWKV_HEAD), rwkv6._heads(w, RWKV_HEAD),
+                p["rwkv"]["u"])
+            x = x + rwkv6._gn_gate(p["rwkv"], rwkv6._unheads(y).to(x.dtype), g)
+            hcm = layers.layernorm(p["ln_cm"], x)
+            x = x + rwkv6.channel_mix(p["rwkv"], hcm)
+            new_state[f"layer_{i}"] = rwkv6.RWKVState(
+                shift_tm=h[:, -1], shift_cm=hcm[:, -1], s=s_fin)
+            continue
+        h = layers.rmsnorm(p["ln_attn"], x)
+        if bt == "rglru":
+            pr = p["rglru"]
+            gate = layers.gelu(layers.dense(pr["wy"], h))
+            xr = layers.dense(pr["wx"], h)
+            xc, conv_st = rglru._causal_depthwise_conv(pr["conv"]["kernel"], xr)
+            a, gi = rglru._rglru_gates(pr, xc)
+            ys, h_fin = kops.rglru_scan(gi * xc.to(torch.float32), a)
+            y = layers.dense(pr["wo"], ys.to(x.dtype) * gate)
+            new_state[f"layer_{i}"] = rglru.RGLRUState(
+                conv=conv_st.to(dtype), h=h_fin)
+        else:
+            q, k, v = _qkv(p, cfg, h, positions)
+            y = attn.chunked_attention(q, k, v, causal=True,
+                                       window=cfg.layer_window(i),
+                                       softcap=cfg.softcap_attn)
+            y = layers.dense(p["o"], _merge_heads(y))
+            st = state[f"layer_{i}"]
+            size = st.k.shape[2]
+            if size < ttot:
+                # ring cache: keep the last `size` positions, rotated so
+                # that slot s holds the token whose position p has
+                # p % size == s (update_ring_cache's slot = length % window)
+                shift = ttot % size
+                st_new = attn.KVCache(
+                    k=torch.roll(k[:, :, -size:], shift, dims=2).to(st.k.dtype),
+                    v=torch.roll(v[:, :, -size:], shift, dims=2).to(st.v.dtype),
+                    length=ttot)
+            else:
+                st_new = attn.update_cache(st, k, v)
+            new_state[f"layer_{i}"] = st_new
+        x = x + y
+        h = layers.rmsnorm(p["ln_mlp"], x)
+        x = x + _ffn(p, cfg, h)
+    h = layers.rmsnorm(params["final_norm"], x)
+    logits = _unembed(params, cfg, h[:, -1:])[:, 0]
+    return logits, new_state

@@ -123,6 +123,30 @@ def normal(key, shape, device=None) -> torch.Tensor:
     return out.reshape(key_data(key).shape[:-1] + shape)
 
 
+def gumbel(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, jax's default "low"
+    mode: ``-log(-log(u))`` with ``u`` uniform in [tiny, 1).  The uniforms
+    have jax's bits; ``log`` may differ from XLA's by an ulp."""
+    shape = tuple(int(s) for s in shape)
+    tiny = float(np.finfo(np.float32).tiny)
+    u = uniform(key, math.prod(shape), device)
+    # jax: max(tiny, u * (1 - tiny) + tiny), and 1 - tiny rounds to 1
+    u = torch.clamp(u + tiny, min=tiny)
+    g = -torch.log(-torch.log(u))
+    return g.reshape(key_data(key).shape[:-1] + shape)
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for one key:
+    ``argmax(gumbel(key, logits.shape) + logits)`` over the last axis
+    (int64; ties go to the first index, as in jax)."""
+    key = key_data(key)
+    if key.shape != (2,):
+        raise ValueError("categorical takes one key")
+    g = gumbel(key, logits.shape, logits.device)
+    return torch.argmax(g + logits.to(torch.float32), dim=-1)
+
+
 def randint(key, n: int, minval, maxval, device=None) -> torch.Tensor:
     """``jax.random.randint(key, (n,), minval, maxval)``'s int32 values, as
     int64 (ready to index with).

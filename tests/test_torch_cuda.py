@@ -5,9 +5,13 @@ the port only (no JAX), so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1, K2, K4, K5, K6, K7, K8 and K9 must be bit-equal to the plain versions;
-K3 within rtol 1e-5 (float32 sums in another order) and bit-equal to
-itself run to run.
+K1, K2, K4, K5, K6, K7, K8, K9 and K11 must be bit-equal to the plain
+versions; K3 within rtol 1e-5 (float32 sums in another order) and
+bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
+update keeps the plain version's operation order) and y within
+``WKV6_YTOL`` of max |y| in float32 (64-term sums in another order), plus
+one bf16 rounding in bf16.  One reduced prefill on the card launches K11
+once per rglru layer and K12 once per rwkv layer.
 """
 
 import pytest
@@ -15,13 +19,28 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.configs import get_spec, reduced  # noqa: E402
 from repro_torch.kernels import pack_codes as pack  # noqa: E402
 from repro_torch.kernels import qr_pack  # noqa: E402
 from repro_torch.kernels import quantize as quant  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import select_slots as sel  # noqa: E402
 from repro_torch.kernels import topk_compress as topk  # noqa: E402
+from repro_torch.kernels import wkv6  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _full_float32_matmuls():
+    """K12's plain version is an einsum: hold the kernel against it in full
+    float32, with TF32 off (set and restored here, whatever the imports
+    left)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 @pytest.fixture
@@ -142,4 +161,83 @@ def test_launch_counters_count_cuda_launches(cuda_device):
     assert ops.launch_counts() == {
         "topk_threshold_bits": 3, "topk_mask": 1, "l2_norm": 3,
         "quantize_qr": 1, "compact_slots": 1, "compact_code_slots": 1,
-        "quantize_pack_with_uniforms": 1, "pack_codes": 2, "unpack_codes": 1}
+        "quantize_pack_with_uniforms": 1, "pack_codes": 2, "unpack_codes": 1,
+        "rglru_scan": 0, "wkv6_scan": 0}
+
+
+WKV6_YTOL = 1e-5
+
+
+@pytest.mark.parametrize("b,t,d", [(8, 2560, 2560), (1, 1, 96), (3, 37, 300)])
+def test_rglru_scan_bit_equal_to_plain(cuda_device, b, t, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(t + d)
+    x = torch.randn((b, t, d), generator=gen, device=cuda_device)
+    a = torch.rand((b, t, d), generator=gen, device=cuda_device)
+    a[0, :, :8] = 1e-7                           # a ~ 0
+    a[0, :, 8:16] = 1.0 - 1e-7                   # a ~ 1
+    x[-1, :, :4] = 0.0
+    y, h = rg.rglru_scan(x, a)
+    y_r, h_r = ref.rglru_scan(x, a)
+    assert _same_bits(y, y_r) and _same_bits(h, h_r)
+
+
+def _wkv6_inputs(b, h, t, device, seed, dtype=torch.float32):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((b, h, t, 64), generator=gen, device=device)
+               for _ in range(3))
+    w = torch.rand((b, h, t, 64), generator=gen, device=device)
+    w[0, 0] = 1e-7                               # forget each step
+    w[-1, -1] = 1.0 - 1e-7                       # remember everything
+    u = 0.1 * torch.randn((h, 64), generator=gen, device=device)
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u
+
+
+@pytest.mark.parametrize("b,h,t,dtype", [
+    (8, 40, 2560, torch.bfloat16), (1, 2, 1, torch.float32),
+    (2, 3, 77, torch.float32)])
+def test_wkv6_scan_matches_plain(cuda_device, b, h, t, dtype):
+    args = _wkv6_inputs(b, h, t, cuda_device, t + h, dtype)
+    y, s = wkv6.wkv6_scan(*args)
+    y_r, s_r = ref.wkv6_scan(*args)
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert _same_bits(s, s_r)
+    tol = WKV6_YTOL * float(y_r.float().abs().max())
+    if dtype == torch.float32:
+        assert float((y - y_r).abs().max()) <= tol
+    else:          # the f32 tolerance, then one bf16 rounding
+        torch.testing.assert_close(y.float(), y_r.float(), rtol=2 ** -7,
+                                   atol=tol)
+
+
+def test_wkv6_reads_strided_heads_in_place(cuda_device):
+    """r/k/v/w as ``_heads`` views of (B, T, D) activations, as prefill
+    passes them; y comes back as a view whose ``_unheads`` is free."""
+    b, t, d = 2, 33, 256
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    acts = [torch.randn((b, t, d), generator=gen, device=cuda_device)
+            for _ in range(3)]
+    w = torch.rand((b, t, d), generator=gen, device=cuda_device)
+    u = torch.randn((d // 64, 64), generator=gen, device=cuda_device)
+    heads = [z.reshape(b, t, d // 64, 64).transpose(1, 2) for z in acts + [w]]
+    y, s = wkv6.wkv6_scan(*heads, u)
+    y_r, s_r = ref.wkv6_scan(*[z.contiguous() for z in heads], u)
+    assert _same_bits(s, s_r)
+    assert float((y - y_r).abs().max()) <= WKV6_YTOL * float(y_r.abs().max())
+    assert y.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_reduced_prefill_launches_one_scan_per_recurrent_layer(cuda_device,
+                                                              arch):
+    m = reduced(get_spec(arch)).model
+    params = tfm.init_params(m, torch.Generator(device=cuda_device)
+                             .manual_seed(0))
+    toks = torch.randint(0, m.vocab, (2, 48), device=cuda_device)
+    ops.reset_launch_counts()
+    logits, _ = tfm.prefill(params, m, toks, max_len=53)
+    torch.cuda.synchronize()
+    kinds = [m.block_type(i) for i in range(m.n_layers)]
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == kinds.count("rglru")
+    assert counts["wkv6_scan"] == kinds.count("rwkv")
+    assert bool(torch.isfinite(logits).all())

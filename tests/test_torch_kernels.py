@@ -1,11 +1,16 @@
-"""The port's kernels K1-K4 (their plain versions, on the CPU) against the
-reference's Pallas kernels in interpret mode and its jnp oracles; the
-CUDA kernels are held against the plain versions in
+"""The port's kernels K1-K4, K11 and K12 (their plain versions, on the
+CPU) against the reference's Pallas kernels in interpret mode and its jnp
+oracles; the CUDA kernels are held against the plain versions in
 ``test_torch_cuda.py``.
 
 Threshold, mask and Q_r are compared bit for bit (Q_r given the same norm
 and uniforms); the norm within rtol 1e-6, since float32 sums in other
-orders may differ in the last bit.
+orders may differ in the last bit.  The scans are time loops whose float32
+sums run in other orders than XLA's: K11 (RG-LRU) is held within rtol =
+atol = 3e-5 and K12 (WKV6) within 3e-4, the JAX package's own tolerances
+for its kernels against its oracles (measured gaps: K11 below 1e-6, K12
+below 3e-6).  bf16 r/k/v (with float32 w, as prefill passes them) are held
+within one bf16 rounding of y (rtol 2^-7).
 """
 
 import pytest
@@ -18,7 +23,9 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import quantize as jquant  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import rglru_scan as jrg  # noqa: E402
 from repro.kernels import topk_compress as jtopk  # noqa: E402
+from repro.kernels import wkv6 as jwkv  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import quantize as quant  # noqa: E402
 from repro_torch.kernels import topk_compress as topk  # noqa: E402
@@ -240,10 +247,14 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.unpack_codes(words, 5, 256)
     ops.pack_codes(torch.zeros((3, 256), dtype=torch.int32), 5)
     ops.topk_qr_slots(x, 10, 10, 4, keys)
+    xs = torch.from_numpy(_rows(11, 2, 3 * 64)).reshape(2, 3, 64)
+    ops.rglru_scan(xs, torch.sigmoid(xs))
+    r4 = xs.reshape(1, 2, 3, 64)
+    ops.wkv6_scan(r4, r4, r4, torch.sigmoid(r4), torch.zeros(2, 64))
     assert set(ops.launch_counts()) == {
         "topk_threshold_bits", "topk_mask", "l2_norm", "quantize_qr",
         "compact_slots", "compact_code_slots", "quantize_pack_with_uniforms",
-        "pack_codes", "unpack_codes"}
+        "pack_codes", "unpack_codes", "rglru_scan", "wkv6_scan"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 
@@ -258,3 +269,146 @@ def test_other_devices_raise():
 def test_rows_layout_is_required():
     with pytest.raises(ValueError):
         ref.topk_threshold_bits(torch.zeros(8), 2)
+
+
+# --------------------------------------------------------------------------- #
+# K11 RG-LRU scan
+# --------------------------------------------------------------------------- #
+
+RGLRU_TOL = 3e-5
+WKV6_TOL = 3e-4
+
+
+def _rglru_inputs(seed, b, t, d):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    a = (1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, d))))).astype(
+        np.float32)
+    return x, a
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,t,d,bt,bd", [
+    (1, 8, 128, 8, 128), (2, 64, 256, 8, 128), (3, 32, 384, 16, 128),
+])
+def test_rglru_plain_matches_pallas_and_oracle(b, t, d, bt, bd):
+    """The JAX package's kernel-test shapes (tests/test_kernels.py)."""
+    x, a = _rglru_inputs(t + d, b, t, d)
+    y, h = ops.rglru_scan(torch.from_numpy(x), torch.from_numpy(a))
+    yp, hp = jrg.rglru_scan(jnp.asarray(x), jnp.asarray(a), interpret=True,
+                            bt=bt, bd=bd)
+    yr, hr = jref.rglru_scan(jnp.asarray(x), jnp.asarray(a))
+    for want_y, want_h in ((yp, hp), (yr, hr)):
+        _close(y.numpy(), want_y, RGLRU_TOL)
+        _close(h.numpy(), want_h, RGLRU_TOL)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+
+
+@pytest.mark.parametrize("t", [1, 13, 67])
+def test_rglru_plain_t1_and_ragged_match_oracle(t):
+    """T = 1 and T that no Pallas block divides, against the oracle (its
+    ragged T falls back to one chunk); with and without h0."""
+    x, a = _rglru_inputs(t, 2, t, 96)
+    h0 = np.random.default_rng(t + 1).standard_normal((2, 96)).astype(
+        np.float32)
+    y, h = ref.rglru_scan(torch.from_numpy(x), torch.from_numpy(a))
+    yr, hr = jref.rglru_scan(jnp.asarray(x), jnp.asarray(a))
+    _close(y.numpy(), yr, RGLRU_TOL)
+    _close(h.numpy(), hr, RGLRU_TOL)
+    y, h = ref.rglru_scan(torch.from_numpy(x), torch.from_numpy(a),
+                          torch.from_numpy(h0))
+    yr, hr = jref.rglru_scan(jnp.asarray(x), jnp.asarray(a), jnp.asarray(h0))
+    _close(y.numpy(), yr, RGLRU_TOL)
+    _close(h.numpy(), hr, RGLRU_TOL)
+
+
+def test_rglru_edges_a_near_0_and_1_and_zeros():
+    x, a = _rglru_inputs(5, 2, 24, 128)
+    a[0, :8] = 1e-7                 # a ~ 0: h follows x
+    a[0, 8:16] = 1.0 - 1e-7         # a ~ 1: h holds, sqrt(1 - a^2) ~ 0
+    a[1, :4] = 1.0                  # 1 - a^2 = 0 exactly
+    x[1, 4:12] = 0.0
+    y, h = ops.rglru_scan(torch.from_numpy(x), torch.from_numpy(a))
+    yp, hp = jrg.rglru_scan(jnp.asarray(x), jnp.asarray(a), interpret=True,
+                            bt=8, bd=128)
+    _close(y.numpy(), yp, RGLRU_TOL)
+    _close(h.numpy(), hp, RGLRU_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# K12 WKV6 scan
+# --------------------------------------------------------------------------- #
+
+def _wkv6_inputs(seed, b, h, t, kd=64):
+    rng = np.random.default_rng(seed)
+    r, k, v = (0.5 * rng.standard_normal((b, h, t, kd)) for _ in range(3))
+    w = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, h, t, kd))))
+    u = 0.1 * rng.standard_normal((h, kd))
+    return tuple(z.astype(np.float32) for z in (r, k, v, w, u))
+
+
+def _wkv6_torch(args, dtype=torch.float32):
+    r, k, v, w, u = (torch.from_numpy(z) for z in args)
+    return ops.wkv6_scan(r.to(dtype), k.to(dtype), v.to(dtype), w, u)
+
+
+@pytest.mark.parametrize("b,h,t", [(1, 1, 16), (2, 3, 64)])
+def test_wkv6_plain_matches_pallas_and_oracle(b, h, t):
+    """The JAX package's kernel-test shapes (tests/test_kernels.py)."""
+    args = _wkv6_inputs(b * h + t, b, h, t)
+    y, s = _wkv6_torch(args)
+    jargs = [jnp.asarray(z) for z in args]
+    yp, sp = jwkv.wkv6_scan(*jargs, interpret=True, bt=min(16, t))
+    yr, sr = jref.wkv6_scan(*jargs)
+    for want_y, want_s in ((yp, sp), (yr, sr)):
+        _close(y.numpy(), want_y, WKV6_TOL)
+        _close(s.numpy(), want_s, WKV6_TOL)
+    assert s.dtype == torch.float32 and s.shape == (b, h, 64, 64)
+
+
+@pytest.mark.parametrize("t", [1, 21])
+def test_wkv6_plain_t1_and_ragged_match_oracle(t):
+    args = _wkv6_inputs(t, 2, 2, t)
+    y, s = _wkv6_torch(args)
+    yr, sr = jref.wkv6_scan(*[jnp.asarray(z) for z in args])
+    _close(y.numpy(), yr, WKV6_TOL)
+    _close(s.numpy(), sr, WKV6_TOL)
+    s0 = np.random.default_rng(t).standard_normal((2, 2, 64, 64)).astype(
+        np.float32)
+    y, s = ref.wkv6_scan(*(torch.from_numpy(z) for z in args),
+                         torch.from_numpy(s0))
+    yr, sr = jref.wkv6_scan(*[jnp.asarray(z) for z in args], jnp.asarray(s0))
+    _close(y.numpy(), yr, WKV6_TOL)
+    _close(s.numpy(), sr, WKV6_TOL)
+
+
+def test_wkv6_bf16_rkv_with_f32_w_matches_pallas():
+    """r, k, v in bf16 and w, u in float32, as prefill passes them: y comes
+    back in bf16, S_T in float32."""
+    args = _wkv6_inputs(3, 2, 2, 32)
+    y, s = _wkv6_torch(args, torch.bfloat16)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    r, k, v, w, u = (jnp.asarray(z) for z in args)
+    bf = jnp.bfloat16
+    yp, sp = jwkv.wkv6_scan(r.astype(bf), k.astype(bf), v.astype(bf), w, u,
+                            interpret=True, bt=16)
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(yp, np.float32),
+                               rtol=2 ** -7, atol=1e-6)
+    _close(s.numpy(), sp, WKV6_TOL)
+
+
+def test_wkv6_edges_w_near_0_and_1_and_zeros():
+    args = list(_wkv6_inputs(9, 1, 2, 16))
+    args[3][0, 0] = 1e-7            # forget everything each step
+    args[3][0, 1] = 1.0 - 1e-7      # remember everything
+    args[2][0, 0, 4:9] = 0.0        # v = 0: no new state
+    y, s = _wkv6_torch(args)
+    yp, sp = jwkv.wkv6_scan(*[jnp.asarray(z) for z in args], interpret=True,
+                            bt=16)
+    _close(y.numpy(), yp, WKV6_TOL)
+    _close(s.numpy(), sp, WKV6_TOL)

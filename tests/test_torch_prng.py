@@ -145,3 +145,44 @@ def test_normal_is_close_to_jax():
     got = prng.normal(prng.PRNGKey(0), (64, 32)).numpy()
     assert got.shape == (64, 32) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# gumbel and categorical (the serve's temperature sampling)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("seed", [0, 3, 99])
+def test_gumbel_matches_jax(seed):
+    """Same uniforms bit for bit (jax's "low" mode: u in [tiny, 1)); the
+    two logs may differ from XLA's by an ulp, so within rtol 1e-6."""
+    shape = (3, 1000)
+    got = prng.gumbel(prng.PRNGKey(seed), shape).numpy()
+    want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), shape))
+    assert got.shape == shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 12345])
+def test_categorical_matches_jax(seed):
+    logits = np.random.default_rng(seed).standard_normal((6, 500)).astype(
+        np.float32) * 3
+    key = jax.random.PRNGKey(seed)
+    want = np.asarray(jax.random.categorical(key, jnp.asarray(logits),
+                                             axis=-1))
+    got = prng.categorical(prng.PRNGKey(seed), torch.from_numpy(logits))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_categorical_key_chain_of_the_serve_loop():
+    """``key, sub = split(key)`` then ``categorical(sub, logits / 0.7)``,
+    ten steps deep."""
+    jk, tk = jax.random.PRNGKey(3), prng.PRNGKey(3)
+    rng = np.random.default_rng(1)
+    for _ in range(10):
+        logits = rng.standard_normal((2, 300)).astype(np.float32)
+        jk, jsub = jax.random.split(jk)
+        tk, tsub = prng.split(tk, 2)
+        want = np.asarray(jax.random.categorical(
+            jsub, jnp.asarray(logits) / 0.7, axis=-1))
+        got = prng.categorical(tsub, torch.from_numpy(logits) / 0.7)
+        np.testing.assert_array_equal(got.numpy(), want)
