@@ -65,11 +65,32 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    and serve, above what earlier phases hold), and the device's busy time
    and idle share under ``torch.profiler`` for one prefill and for 8
    decode steps;
-6. CUDA against CPU — the same two models at full width and reduced depth
-   (3 layers: one recurrentgemma pattern cycle; 2 for rwkv), float32 with
-   TF32 off, batch 2, prompt 128, 4 decode steps, the same weights on the
-   card and on the CPU: logits within ``CPU_LOGIT_TOL`` and greedy tokens
-   equal.
+6. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
+   way at batch 4, prompt 4608 (above gemma2's window of 4096 and
+   gemma3's 1024: the ring branch of prefill and the ring decode run on
+   their swa layers), each freed before the next.  Their prefill attends
+   through ``chunked_attention``, as the JAX package's models do, so the
+   counted run launches no kernel (K10 included).  The warm-up prefill
+   hands over the q/k/v of the layers in ``ATTN_CAPTURE``;
+7. attention — K10 (``ops.mha_attention``) against its plain version
+   ``ref.mha_attention`` in float32 and bf16 within ``ATTN_F32_TOL`` /
+   ``ATTN_BF16_TOL`` (the JAX tests' tolerances, compared in the working
+   type; the gap in bf16 ulps is printed): the JAX package's flash cases
+   (five option sets, three GQA shapes, a decode offset), every head size
+   32-256 at groups 1, 2, 4, 7 and 8, a ragged T = 1000 and a decode at
+   Tk = 4641.  Then the main path: the counters set to 0, one
+   ``ops.mha_attention`` on each captured q/k/v (5 launches), read; each
+   output held against the plain version and against the models' own
+   ``chunked_attention`` on the same q/k/v.  Times K10, the plain version
+   and, where one PyTorch call computes the same function, SDPA (causal
+   with GQA, or a boolean window mask; none with a softcap) at each
+   served shape ("main": gemma2-9b's attn layer) and at ``ATTN_LARGE``,
+   beside the bound;
+8. CUDA against CPU — the five models at full width and reduced depth
+   (``CPU_CHECK_LAYERS``: one block pattern each, gemma3's 6 layers
+   included), float32 with TF32 off, batch 2, prompt 128, 4 decode steps,
+   the same weights on the card and on the CPU: logits within
+   ``CPU_LOGIT_TOL`` and greedy tokens equal.
 
 Prints the card's name and power limit, one line per kernel and shape, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -102,14 +123,31 @@ LARGE = (4, 1 << 24)
 WKV6_YTOL = 1e-5
 SCAN_MAIN = {"K11": (8, 2560, 2560), "K12": (8, 40, 2560, 64)}
 SCAN_LARGE = {"K11": (32, 4096, 2560), "K12": (32, 40, 4096, 64)}
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2560, 32
+SERVE_GEN = 32
 SERVE_PROFILE_STEPS = 8
 SERVE_TIMED = 3               # warm prefills timed for the median
-# launches of one prefill at full depth: rwkv6-3b's 32 rwkv layers run K12,
-# recurrentgemma-2b's 18 rglru layers (26 layers, pattern rglru rglru swa)
-# run K11
-SERVE_LAUNCHES = {"rwkv6-3b": {"wkv6_scan": 32},
-                  "recurrentgemma-2b": {"rglru_scan": 18}}
+# arch -> (batch, prompt, launches of one prefill at full depth):
+# rwkv6-3b's 32 rwkv layers run K12, recurrentgemma-2b's 18 rglru layers
+# (26 layers, pattern rglru rglru swa) run K11; the dense models' prefill
+# attends through chunked_attention, as the JAX package's does, and
+# launches nothing.  Prompt 2560 is above recurrentgemma's window of 2048,
+# 4608 above gemma2's 4096 (and gemma3's 1024): the ring caches run.
+SERVE_SHAPES = {"rwkv6-3b": (8, 2560, {"wkv6_scan": 32}),
+                "recurrentgemma-2b": (8, 2560, {"rglru_scan": 18})}
+DENSE_SHAPES = {arch: (4, 4608, {})
+                for arch in ("qwen2-7b", "gemma2-9b", "gemma3-4b")}
+# K10 against its plain version, compared in the working type: the JAX
+# package's own tolerances (tests/test_kernels.py:163 and :202)
+ATTN_F32_TOL, ATTN_BF16_TOL = 2e-5, 2e-2
+BF16_OPS_PER_S = 989.4e12     # H100 SXM dense bf16 tensor cores
+# (arch, layer) whose prefill q/k/v K10 runs on: gemma2-9b's swa (window
+# 4096, softcap 50) and attn (cap 8192) layers, qwen2-7b's first layer,
+# gemma3-4b's swa (window 1024) and attn (cap 8192) layers; "main" is
+# gemma2-9b's attn layer, (4, 16, 4608, 256) with 8 KV heads
+ATTN_CAPTURE = (("gemma2-9b", 0), ("gemma2-9b", 1), ("qwen2-7b", 0),
+                ("gemma3-4b", 0), ("gemma3-4b", 5))
+ATTN_MAIN = ("gemma2-9b", 1)
+ATTN_LARGE = (1, 16, 8, 16384, 16384, 256)   # B, Hq, Hkv, Tq, Tk, Dh; bf16
 # bf16 prefill(T) + one decode step against prefill(T + 1), full width:
 # max |d| <= GAP_REL * max |logits| (bf16 activations and caches, other
 # matmul shapes on the two routes)
@@ -118,7 +156,8 @@ GAP_REL = 0.05
 # * (1 + |cpu|) (cuBLAS against CPU sums at d = 2560, and bf16 KV-cache
 # entries that round the other way)
 CPU_LOGIT_TOL = 1e-3
-CPU_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3}
+CPU_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3, "qwen2-7b": 2,
+                    "gemma2-9b": 2, "gemma3-4b": 6}
 
 
 def card_line() -> str:
@@ -143,9 +182,9 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, peak: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -386,27 +425,48 @@ def check_scan_kernels(torch, dev, recs) -> None:
         torch.cuda.empty_cache()
 
 
-def serve_phase(torch, dev) -> dict:
-    """Phase 5: both models at full width and depth through serve().
-    Returns {kernel name: {run label: launches}}."""
+def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
+    """Phases 5 and 6: each model of ``shapes`` ({arch: (batch, prompt,
+    launches of one prefill)}) at full width and depth through serve().
+    Returns ({kernel name: {run label: launches}}, {(arch, layer): (q, k,
+    v, chunked_attention's keyword arguments)}) for the (arch, layer) pairs
+    in ``capture``, taken from the warm-up prefill."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_spec
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
 
-    launches = {}
-    for arch, want in SERVE_LAUNCHES.items():
+    launches, captured = {}, {}
+    for arch, (batch, prompt_len, want) in shapes.items():
         m = get_spec(arch).model
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()     # earlier phases' tensors
         params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0))
         n_params = sum(p.numel() for p in tree_util.leaves(params))
-        toks = serve.prompts_for(m, SERVE_BATCH, SERVE_PROMPT + 1, dev)
-        prompts = toks[:, :SERVE_PROMPT]
-        serve.serve(params, m, prompts, 2)     # warm up at the serving shape
+        toks = serve.prompts_for(m, batch, prompt_len + 1, dev)
+        prompts = toks[:, :prompt_len]
+        # warm up at the serving shape; prefill's attention calls run in
+        # layer order, so call i is layer i's (every layer of the dense
+        # models attends)
+        layers_wanted = [i for a, i in capture if a == arch]
+        calls = []
+        orig_chunked = attn.chunked_attention
+
+        def capturing(q, k, v, _orig=orig_chunked, **kw):
+            if len(calls) in layers_wanted:
+                captured[(arch, len(calls))] = (q, k, v, kw)
+            calls.append(1)
+            return _orig(q, k, v, **kw)
+
+        attn.chunked_attention = capturing
+        try:
+            serve.serve(params, m, prompts, 2)
+        finally:
+            attn.chunked_attention = orig_chunked
         decode_counts = []
         orig_decode = tfm.decode_step
 
@@ -441,12 +501,12 @@ def serve_phase(torch, dev) -> dict:
             launches.setdefault(name, {})[f"serve {arch}"] = counts[name]
         finite = bool(torch.isfinite(res.prefill_logits).all()) and all(
             bool(torch.isfinite(l).all()) for l in res.logits)
-        if not finite or tuple(res.tokens.shape) != (SERVE_BATCH, SERVE_GEN):
+        if not finite or tuple(res.tokens.shape) != (batch, SERVE_GEN):
             raise AssertionError(f"{arch}: non-finite logits or tokens of "
                                  f"shape {tuple(res.tokens.shape)}")
         # the same shape again, warm: the median of SERVE_TIMED prefills
         # and of the per-step decode times (host clock, synchronised)
-        max_len = SERVE_PROMPT + SERVE_GEN + 1
+        max_len = prompt_len + SERVE_GEN + 1
         pre_ms, step_ms = [], []
         for _ in range(SERVE_TIMED):
             torch.cuda.synchronize()
@@ -463,11 +523,11 @@ def serve_phase(torch, dev) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
         pre_med = statistics.median(pre_ms)
         step_med = statistics.median(step_ms)
-        print(f"[serve] {arch}: {n_params} params bf16, batch {SERVE_BATCH} "
-              f"prompt {SERVE_PROMPT} gen {SERVE_GEN}: prefill ms median "
+        print(f"[serve] {arch}: {n_params} params bf16, batch {batch} "
+              f"prompt {prompt_len} gen {SERVE_GEN}: prefill ms median "
               f"{pre_med!r} of {pre_ms!r}; decode ms/step median {step_med!r}"
               f" (min {min(step_ms)!r}, max {max(step_ms)!r}; "
-              f"{SERVE_BATCH * 1e3 / step_med!r} tokens/s); the counted serve "
+              f"{batch * 1e3 / step_med!r} tokens/s); the counted serve "
               f"run: prefill ms {res.prefill_s * 1e3!r}, decode ms/step "
               f"{res.decode_s / SERVE_GEN * 1e3!r}; peak memory {peak} B "
               f"(max_memory_allocated over what was allocated before the "
@@ -476,9 +536,9 @@ def serve_phase(torch, dev) -> dict:
         del st, logits
 
         # prefill(T) + one decode step against prefill(T + 1)
-        max_len = SERVE_PROMPT + 2
+        max_len = prompt_len + 2
         _, st = tfm.prefill(params, m, prompts, max_len=max_len)
-        l_step, _ = tfm.decode_step(params, m, toks[:, SERVE_PROMPT], st)
+        l_step, _ = tfm.decode_step(params, m, toks[:, prompt_len], st)
         l_long, _ = tfm.prefill(params, m, toks, max_len=max_len)
         gap = float((l_step - l_long).abs().max())
         scale = float(l_long.abs().max())
@@ -497,7 +557,7 @@ def serve_phase(torch, dev) -> dict:
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             logits, st = tfm.prefill(params, m, prompts,
-                                     max_len=SERVE_PROMPT + SERVE_GEN + 1)
+                                     max_len=prompt_len + SERVE_GEN + 1)
             torch.cuda.synchronize()
             pre_wall = (time.perf_counter() - t0) * 1e3
         by_name = device_ms_by_name(prof)
@@ -526,7 +586,194 @@ def serve_phase(torch, dev) -> dict:
               f"{host}", flush=True)
         del params, res, st, logits
         torch.cuda.empty_cache()
-    return launches
+    return launches, captured
+
+
+def attention_pairs(tq: int, tk: int, causal: bool, window, q_offset: int):
+    """Visible (query, key) pairs of one (batch, head): what K10's
+    operation count depends on."""
+    total = 0
+    for i in range(tq):
+        pos = q_offset + i
+        hi = min(tk - 1, pos) if causal else tk - 1
+        lo = max(0, pos - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_bound(torch, q, k, kw) -> tuple:
+    """K10's bound: each input read once and the output written once over
+    the card's memory rate, against 4 * Dh operations a visible pair over
+    the dense bf16 tensor-core peak (float32 peak for float32 inputs)."""
+    b, hq, tq, dh = q.shape
+    tk = k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    pairs = attention_pairs(tq, tk, kw.get("causal", True), kw.get("window"),
+                            kw.get("q_offset", 0))
+    ops_ = 4 * b * hq * dh * pairs
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound_ms(nbytes, ops_, peak)
+
+
+def attention_phase(torch, dev, rec, captured: dict) -> dict:
+    """Phase 7: K10 against its plain version at the JAX package's flash
+    cases and further shapes in both dtypes; then the main path,
+    ``ops.mha_attention`` on the q/k/v the dense models' prefill computed,
+    counted, and held against the plain version and the models' own
+    ``chunked_attention``; then timed.  Returns {run label: launches}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as attn
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    tol = {torch.float32: ATTN_F32_TOL, torch.bfloat16: ATTN_BF16_TOL}
+
+    def inputs(b, hq, hkv, tq, tk, dh, dtype):
+        q = torch.randn((b, hq, tq, dh), generator=gen, device=dev)
+        k, v = (torch.randn((b, hkv, tk, dh), generator=gen, device=dev)
+                for _ in range(2))
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    def hold(label, got, want, dtype):
+        """|got - want| <= tol * (1 + |want|), compared in the working
+        type.  Returns max |d| and the largest gap in bf16 ulps of the
+        output among outputs above the tolerance in magnitude (where the
+        relative part of the bound governs)."""
+        d = (got.float() - want.float()).abs()
+        t = tol[dtype]
+        big = want.float().abs() > t
+        ulps = (float((d / bf16_ulp(torch, want))[big].max())
+                if bool(big.any()) else 0.0)
+        if bool((d > t + t * want.float().abs()).any()):
+            raise AssertionError(f"K10 {label}: max |d| {float(d.max())!r} "
+                                 f"({ulps!r} bf16 ulps) above rtol = atol = "
+                                 f"{t}")
+        return float(d.max()) if d.numel() else 0.0, ulps
+
+    # the JAX package's flash cases (tests/test_kernels.py), then every head
+    # size and group, a ragged length and a long decode
+    cases = [(f"option {kw}", (2, 4, 2, 128, 128, 64), kw) for kw in (
+        dict(causal=True), dict(causal=False), dict(causal=True, window=64),
+        dict(causal=True, softcap=30.0),
+        dict(causal=True, window=32, softcap=50.0))]
+    cases += [(f"gqa {hq}:{hkv} dh {dh}", (1, hq, hkv, 128, 128, dh),
+               dict(causal=True)) for hq, hkv, dh in ((8, 8, 32), (8, 1, 64),
+                                                      (6, 2, 128))]
+    cases.append(("decode offset 255", (2, 4, 2, 1, 256, 64),
+                  dict(causal=True, q_offset=255)))
+    cases += [(f"dh {dh} group {g}", (1, 2 * g, 2, 256, 256, dh),
+               dict(causal=True, window=100, softcap=30.0) if g % 2 else
+               dict(causal=True)) for dh in (32, 64, 128, 256)
+              for g in (1, 2, 4, 7, 8)]
+    cases.append(("ragged T=1000", (1, 8, 2, 1000, 1000, 128),
+                  dict(causal=True, window=300, softcap=50.0)))
+    cases.append(("decode Tk=4641", (4, 16, 8, 1, 4641, 256),
+                  dict(causal=True, q_offset=4640, softcap=50.0)))
+    worst = {torch.float32: (0.0, 0.0), torch.bfloat16: (0.0, 0.0)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, shape, kw in cases:
+            q, k, v = inputs(*shape, dtype)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.mha_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if got.dtype != dtype or got.shape != want.shape:
+                raise AssertionError(f"K10 {label}: {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            err = hold(f"{label} {dtype}", got, want, dtype)
+            worst[dtype] = tuple(map(max, worst[dtype], err))
+            rec.err(got.float(), want.float())
+    print(f"[attention] K10 within rtol = atol = {ATTN_F32_TOL} (float32) and "
+          f"{ATTN_BF16_TOL} (bf16) of the plain version on {len(cases)} cases "
+          f"in each dtype; max |d| (bf16 ulps of outputs above the "
+          f"tolerance): float32 "
+          f"{worst[torch.float32]!r}, bf16 {worst[torch.bfloat16]!r}",
+          flush=True)
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # the main path: ops.mha_attention on the served q/k/v, counted
+    served = sorted(captured)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    outs = [ops.mha_attention(*captured[key][:3], **captured[key][3])
+            for key in served]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expect = {**{k: 0 for k in counts}, "flash_attention": len(served)}
+    if counts != expect:
+        raise AssertionError(f"attention main path: launch counts {counts} "
+                             f"!= {expect}")
+    for key, got in zip(served, outs):
+        q, k, v, kw = captured[key]
+        want = ref.mha_attention(q, k, v, **kw)
+        e_plain = hold(f"served {key} vs plain", got, want, q.dtype)
+        rec.err(got.float(), want.float())
+        del want
+        chunked = attn.chunked_attention(q, k, v, **kw)
+        e_chunk = hold(f"served {key} vs chunked_attention", got, chunked,
+                       q.dtype)
+        print(f"[attention] served {key[0]} layer {key[1]} q {tuple(q.shape)} "
+              f"k {tuple(k.shape)} {q.dtype} {kw}: max |d| (bf16 ulps of "
+              f"outputs above the tolerance) vs "
+              f"plain {e_plain!r}, vs chunked_attention {e_chunk!r}",
+              flush=True)
+        del chunked
+    del outs
+    torch.cuda.empty_cache()
+
+    def library(q, k, v, kw):
+        """One PyTorch call for the same function, where there is one: SDPA
+        with GQA, a causal flag or a boolean window mask; none with a
+        softcap.  Timed only; the port never calls it."""
+        if kw.get("softcap") is not None:
+            return None
+        tq, tk = q.shape[2], k.shape[2]
+        w = kw.get("window")
+        if w is None or w >= tk:
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        qpos = torch.arange(tq, device=dev)[:, None]
+        kpos = torch.arange(tk, device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - w)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+
+    def timed(tag, q, k, v, kw, iters):
+        b_ms, b_by = attention_bound(torch, q, k, kw)
+        lib = library(q, k, v, kw)
+        row = {"shape": [list(q.shape), list(k.shape)], "kwargs": kw,
+               "kernel_ms": time_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, **kw), iters, 1),
+               "plain_ms": time_ms(torch, lambda: ref.mha_attention(
+                   q, k, v, **kw), 1, 1),
+               "library_ms": time_ms(torch, lib, iters, 1) if lib else None,
+               "bound_ms": b_ms, "bound_by": b_by}
+        lib_err = None
+        if lib is not None:
+            lib_err = float((lib().float() - fa.flash_attention(
+                q, k, v, **kw).float()).abs().max())
+        print(f"[attention] K10 {tag} q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"{kw}: kernel_ms={row['kernel_ms']!r} plain_ms="
+              f"{row['plain_ms']!r} library_ms={row['library_ms']!r} "
+              f"(max |SDPA - K10| {lib_err!r}) bound_ms={b_ms!r} ({b_by})",
+              flush=True)
+        torch.cuda.empty_cache()
+        return row
+
+    served_rows = {}
+    for key in served:
+        q, k, v, kw = captured[key]
+        served_rows[f"{key[0]} layer {key[1]}"] = timed(
+            f"served {key}", q, k, v, kw, 5)
+    rec.timings["main"] = served_rows[f"{ATTN_MAIN[0]} layer {ATTN_MAIN[1]}"]
+    rec.timings["served"] = served_rows
+    q, k, v = inputs(*ATTN_LARGE, torch.bfloat16)
+    rec.timings["large"] = timed("large", q, k, v, dict(causal=True), 3)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"attention main path (served q/k/v)": counts["flash_attention"]}
 
 
 def cuda_vs_cpu_phase(torch, dev) -> None:
@@ -620,6 +867,8 @@ def main() -> int:
                            tpu + "pack_codes.py:62"),
         "K9": KernelRecord("unpack_codes", csrc + "pack_codes.cu",
                            tpu + "pack_codes.py:87"),
+        "K10": KernelRecord("flash_attention", csrc + "flash_attention.cu",
+                            tpu + "flash_attention.py:86"),
         "K11": KernelRecord("rglru_scan", csrc + "rglru_scan.cu",
                             tpu + "rglru_scan.py:60"),
         "K12": KernelRecord("wkv6_scan", csrc + "wkv6.cu", tpu + "wkv6.py:62"),
@@ -1214,9 +1463,14 @@ def main() -> int:
         print(f"[profile] {name}: steady ms/round packed {p['wall_ms']!r} vs "
               f"account {a['wall_ms']!r}; {busy}", flush=True)
 
-    # ---- 4. scans, 5. serve, 6. CUDA against CPU --------------------------- #
+    # ---- 4. scans, 5.-6. serve, 7. attention, 8. CUDA against CPU ---------- #
     check_scan_kernels(torch, dev, recs)
-    launches.update(serve_phase(torch, dev))
+    launches.update(serve_phase(torch, dev, SERVE_SHAPES)[0])
+    _, captured = serve_phase(torch, dev, DENSE_SHAPES, ATTN_CAPTURE)
+    launches["flash_attention"] = attention_phase(torch, dev, recs["K10"],
+                                                  captured)
+    del captured
+    torch.cuda.empty_cache()
     cuda_vs_cpu_phase(torch, dev)
 
     kernels = []
@@ -1231,7 +1485,9 @@ def main() -> int:
             "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
             "bound_by": main_t["bound_by"],
             "library_ms": main_t["library_ms"], "shape": main_t["shape"],
-            "large": rec.timings["large"]})
+            "large": rec.timings["large"],
+            **({"served": rec.timings["served"]} if "served" in rec.timings
+               else {})})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Architecture registry, the port of ``repro.configs``:
 ``get_spec("rwkv6-3b")`` / ``--arch`` ids.
 
-The port serves the recurrent families: ``rwkv6-3b`` (K12) and
-``recurrentgemma-2b`` (K11).  Every other architecture of the reference
-raises ``NotImplementedError``.
+The port serves the recurrent families, ``rwkv6-3b`` (K12) and
+``recurrentgemma-2b`` (K11), and the dense GQA family: ``qwen2-0.5b``,
+``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b``.  Every other architecture
+of the reference raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ from repro_torch.configs.base import ArchSpec, reduced
 __all__ = ["ArchSpec", "reduced", "ARCH_IDS", "get_spec"]
 
 _MODULES = {
+    "gemma2-9b": "gemma2_9b",
+    "gemma3-4b": "gemma3_4b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "qwen2-7b": "qwen2_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-3b": "rwkv6_3b",
 }

@@ -27,7 +27,8 @@ class ArchSpec:
 def reduced(spec: ArchSpec) -> ArchSpec:
     """The family-preserving smoke-test variant: the block pattern and
     feature flags kept, one pattern cycle deep (at least 2 layers, at most
-    4), d_model 256 (128 for rwkv), head_dim 64, window 16, float32."""
+    4), d_model 256 (128 for rwkv), head_dim 64, window 16, the
+    long-context cap 16 where the full config has one, float32."""
     m = spec.model
     if m.moe is not None:
         raise not_ported("reduced MoE configs")
@@ -38,5 +39,7 @@ def reduced(spec: ArchSpec) -> ArchSpec:
         m, n_layers=n_layers, d_model=d_model, n_heads=4,
         n_kv_heads=max(1, min(m.n_kv_heads, 2)),
         head_dim=64, d_ff=512, vocab=512,
-        window=(16 if m.window else None), dtype=torch.float32)
+        window=(16 if m.window else None),
+        long_context_cap=(16 if m.long_context_cap else None),
+        dtype=torch.float32)
     return dataclasses.replace(spec, model=small)

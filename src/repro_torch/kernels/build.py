@@ -40,6 +40,7 @@ SOURCES: Dict[str, tuple] = {
     "pack_codes": (),
     "rglru_scan": ("--fmad=false",),
     "wkv6": (),
+    "flash_attention": (),
 }
 
 _LOCK = threading.Lock()

@@ -1,7 +1,8 @@
 """Kernel dispatch for the port: by tensor device, not by a global backend.
 
 The uplink's ops take row-batched ``(rows, n)`` input, one row per
-client's leaf; the model zoo's scans take the recurrences' own layouts.
+client's leaf; the model zoo's scans and attention take the recurrences'
+and heads' own layouts.
 A CPU tensor runs the plain PyTorch version; a CUDA tensor runs the
 hand-written kernel or raises (the wrapper modules beside this one decide,
 per call).  There is no switch that sends a CUDA tensor down the plain
@@ -10,9 +11,12 @@ path.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch import prng
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import pack_codes as _pack
 from repro_torch.kernels import qr_pack as _qr_pack
 from repro_torch.kernels import quantize as _quant
@@ -23,7 +27,8 @@ from repro_torch.kernels import topk_compress as _topk
 from repro_torch.kernels import wkv6 as _wkv
 
 _COUNTERS = (_topk.LAUNCHES, _quant.LAUNCHES, _sel.LAUNCHES,
-             _qr_pack.LAUNCHES, _pack.LAUNCHES, _rg.LAUNCHES, _wkv.LAUNCHES)
+             _qr_pack.LAUNCHES, _pack.LAUNCHES, _rg.LAUNCHES, _wkv.LAUNCHES,
+             _fa.LAUNCHES)
 
 
 def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -104,6 +109,19 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The RWKV6 WKV scan (K12): r, k, v, w (B, H, T, 64), u (H, 64) ->
     (y at r's dtype, S_T float32)."""
     return _wkv.wkv6_scan(r, k, v, w, u)
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention with GQA, causal mask, sliding window, query
+    offset and logit softcap (K10): q (B, Hq, Tq, Dh), k, v (B, Hkv, Tk,
+    Dh) -> (B, Hq, Tq, Dh) at q's dtype.  The counterpart of the JAX
+    package's ``ops.mha_attention``; no model calls it (they call
+    ``models.attention.chunked_attention``, as the JAX package's do)."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, softcap=softcap)
 
 
 def launch_counts() -> dict:

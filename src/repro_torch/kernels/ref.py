@@ -7,7 +7,7 @@ functions are batched over rows: each takes ``(rows, n)`` and treats each
 row as one vector (one client's leaf), with a per-row ``k`` or norm.  The
 two recurrent scans of the model zoo (:func:`rglru_scan`,
 :func:`wkv6_scan`) are plain time loops over their ``(B, ..., T, ...)``
-inputs.
+inputs; :func:`mha_attention` forms the whole (Tq, Tk) logit matrix.
 
 uint32 bit patterns are held in int64 (torch's uint32 coverage is thin):
 magnitudes have a clear sign bit, so their patterns are exact non-negative
@@ -377,3 +377,47 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys[:, :, i] = torch.einsum("bhk,bhkv->bhv", rf[:, :, i], s + uf * kv)
         s = wf[:, :, i, :, None] * s + kv
     return ys.to(r.dtype), s
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window=None, q_offset: int = 0,
+                  softcap=None) -> torch.Tensor:
+    """Naive softmax attention with GQA, causal mask, sliding window and
+    logit softcap (``repro.kernels.ref.mha_attention``), K10's oracle.
+
+    q: (B, Hq, Tq, Dh); k, v: (B, Hkv, Tk, Dh) with ``Hq % Hkv == 0``
+    (query head h reads KV head ``h // (Hq // Hkv)``).  Logits in float32,
+    divided by ``sqrt(Dh)`` in float32, then ``softcap * tanh(s /
+    softcap)``, then the mask: query i (absolute position ``q_offset + i``)
+    sees key j where ``j <= q_offset + i`` (causal) and ``j > q_offset + i
+    - window``.  A row with no visible key is 0.  Returns (B, Hq, Tq, Dh)
+    at q's dtype.  Each step after the product runs in place on the one
+    (B, Hq, Tq, Tk) float32 buffer, so the oracle holds two of them at
+    most (the softmax's output is the second).
+    """
+    b, hq, tq, dh = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    group = hq // hkv
+    kr = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    vr = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kr)
+    # true divisions by float32 scalars on the device, as XLA divides
+    f32 = dict(dtype=torch.float32, device=q.device)
+    logits.div_(torch.tensor(float(dh), **f32).sqrt())
+    if softcap is not None:
+        cap = torch.tensor(float(softcap), **f32)
+        logits.div_(cap).tanh_().mul_(cap)
+    qpos = q_offset + torch.arange(tq, device=q.device)[:, None]
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits.masked_fill_(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    probs.nan_to_num_(nan=0.0)                     # rows with no visible key
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vr).to(q.dtype)

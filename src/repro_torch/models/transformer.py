@@ -11,10 +11,13 @@ Per-layer block types (``ModelConfig.block_pattern``, cycled over layers):
 ``prefill(params, cfg, tokens, max_len)`` returns the last position's
 logits and the decode state; ``decode_step(params, cfg, token, state)``
 runs one token against it.  Parameters are the reference's nested dicts
-(same names and layouts).  Not ported yet, and raising
-``NotImplementedError``: MoE layers, M-RoPE, prefix embeddings, the other
-families' options (``_NOT_PORTED``), the training forward and loss, and the
-encoder-decoder wrapper.
+(same names and layouts).  The dense GQA family's options are here:
+q/k/v biases (qwen2), q/k RMSNorms before RoPE (gemma3), post-norms on
+the branch outputs and the final logit softcap (gemma2), and the
+long-context window cap on "attn" layers (gemma2, gemma3).  Not ported
+yet, and raising ``NotImplementedError``: MoE layers, M-RoPE
+(``_NOT_PORTED``), prefix embeddings, the training forward and loss, and
+the encoder-decoder wrapper.
 
 The reference's dtype conventions are kept: KV caches and the rglru conv
 state leave prefill in ``dtype`` (bfloat16 by default, even in a float32
@@ -50,10 +53,10 @@ class ModelConfig:
     block_pattern: tuple = ("attn",)
     window: Optional[int] = None           # for "swa" blocks
     softcap_attn: Optional[float] = None   # gemma2 attn logit cap
-    softcap_final: Optional[float] = None  # gemma2 (not ported)
-    qkv_bias: bool = False                 # qwen2 (not ported)
-    qk_norm: bool = False                  # gemma3 (not ported)
-    post_norm: bool = False                # gemma2 (not ported)
+    softcap_final: Optional[float] = None  # gemma2 final logit cap
+    qkv_bias: bool = False                 # qwen2
+    qk_norm: bool = False                  # gemma3
+    post_norm: bool = False                # gemma2 extra post-norms
     act: str = "silu"
     rope_theta: float = 10_000.0
     mrope_sections: Optional[tuple] = None  # qwen2-vl (not ported)
@@ -64,7 +67,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.float32
-    long_context_cap: Optional[int] = None  # (not ported)
+    # caps "attn" layers to a sliding window (the reference's long-context
+    # mode; its serve path leaves the published configs' caps set)
+    long_context_cap: Optional[int] = None
 
     @property
     def hd(self) -> int:
@@ -74,16 +79,17 @@ class ModelConfig:
         return self.block_pattern[i % len(self.block_pattern)]
 
     def layer_window(self, i: int) -> Optional[int]:
-        return self.window if self.block_type(i) == "swa" else None
+        bt = self.block_type(i)
+        if bt == "swa":
+            return self.window
+        if bt == "attn":
+            return self.long_context_cap
+        return None
 
 
 # options of the reference's other families; the served configs leave each
 # at its default, and any other value raises
-_NOT_PORTED = {"moe": "MoE layers", "mrope_sections": "M-RoPE",
-               "softcap_final": "the final logit softcap",
-               "qkv_bias": "q/k/v biases", "qk_norm": "q/k norms",
-               "post_norm": "post-norms",
-               "long_context_cap": "the long-context window cap"}
+_NOT_PORTED = {"moe": "MoE layers", "mrope_sections": "M-RoPE"}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -120,10 +126,18 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int) -> dict:
     p: dict = {}
     if bt in ("attn", "swa"):
         p["ln_attn"] = layers.rmsnorm_init(d, dt, dev)
-        p["q"] = layers.dense_init(gen, d, cfg.n_heads * hd, dt)
-        p["k"] = layers.dense_init(gen, d, cfg.n_kv_heads * hd, dt)
-        p["v"] = layers.dense_init(gen, d, cfg.n_kv_heads * hd, dt)
+        p["q"] = layers.dense_init(gen, d, cfg.n_heads * hd, dt,
+                                   bias=cfg.qkv_bias)
+        p["k"] = layers.dense_init(gen, d, cfg.n_kv_heads * hd, dt,
+                                   bias=cfg.qkv_bias)
+        p["v"] = layers.dense_init(gen, d, cfg.n_kv_heads * hd, dt,
+                                   bias=cfg.qkv_bias)
         p["o"] = layers.dense_init(gen, cfg.n_heads * hd, d, dt)
+        if cfg.qk_norm:
+            p["q_norm"] = layers.rmsnorm_init(hd, dt, dev)
+            p["k_norm"] = layers.rmsnorm_init(hd, dt, dev)
+        if cfg.post_norm:
+            p["ln_attn_post"] = layers.rmsnorm_init(d, dt, dev)
     elif bt == "rglru":
         p["ln_attn"] = layers.rmsnorm_init(d, dt, dev)
         p["rglru"] = rglru.rglru_init(gen, d, d, dt)
@@ -136,6 +150,8 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int) -> dict:
         raise ValueError(f"unknown block type {bt!r}")
     p["ln_mlp"] = layers.rmsnorm_init(d, dt, dev)
     p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dt)
+    if cfg.post_norm:
+        p["ln_mlp_post"] = layers.rmsnorm_init(d, dt, dev)
     return p
 
 
@@ -158,6 +174,9 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     q = _split_heads(layers.dense(p["q"], x), cfg.n_heads, hd)
     k = _split_heads(layers.dense(p["k"], x), cfg.n_kv_heads, hd)
     v = _split_heads(layers.dense(p["v"], x), cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = layers.rmsnorm(p["q_norm"], q)
+        k = layers.rmsnorm(p["k_norm"], k)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -182,9 +201,19 @@ def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _unembed(params: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return h.to(torch.float32) @ params["embed"]["embedding"].T.to(
+        logits = h.to(torch.float32) @ params["embed"]["embedding"].T.to(
             torch.float32)
-    return layers.dense(params["unembed"], h).to(torch.float32)
+    else:
+        logits = layers.dense(params["unembed"], h).to(torch.float32)
+    return layers.softcap(logits, cfg.softcap_final)
+
+
+def _post_norm(p: dict, cfg: ModelConfig, name: str,
+               y: torch.Tensor) -> torch.Tensor:
+    """gemma2's post-norm of a branch output (``ln_attn_post`` or
+    ``ln_mlp_post``).  As in the reference, an rglru layer has no
+    ``ln_attn_post`` and raises ``KeyError`` under ``post_norm``."""
+    return layers.rmsnorm(p[name], y) if cfg.post_norm else y
 
 
 def forward_hidden(*args, **kwargs):
@@ -270,9 +299,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 y = attn.decode_attention(q, st_new, window=w,
                                           softcap=cfg.softcap_attn)
             y = layers.dense(p["o"], _merge_heads(y))
-        x = x + y
+        x = x + _post_norm(p, cfg, "ln_attn_post", y)
         h = layers.rmsnorm(p["ln_mlp"], x)
-        x = x + _ffn(p, cfg, h)
+        x = x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, h))
         new_state[f"layer_{i}"] = st_new
     h = layers.rmsnorm(params["final_norm"], x)
     return _unembed(params, cfg, h)[:, 0], new_state
@@ -343,9 +372,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             else:
                 st_new = attn.update_cache(st, k, v)
             new_state[f"layer_{i}"] = st_new
-        x = x + y
+        x = x + _post_norm(p, cfg, "ln_attn_post", y)
         h = layers.rmsnorm(p["ln_mlp"], x)
-        x = x + _ffn(p, cfg, h)
+        x = x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, h))
     h = layers.rmsnorm(params["final_norm"], x)
     logits = _unembed(params, cfg, h[:, -1:])[:, 0]
     return logits, new_state

@@ -162,7 +162,7 @@ def test_launch_counters_count_cuda_launches(cuda_device):
         "topk_threshold_bits": 3, "topk_mask": 1, "l2_norm": 3,
         "quantize_qr": 1, "compact_slots": 1, "compact_code_slots": 1,
         "quantize_pack_with_uniforms": 1, "pack_codes": 2, "unpack_codes": 1,
-        "rglru_scan": 0, "wkv6_scan": 0}
+        "rglru_scan": 0, "wkv6_scan": 0, "flash_attention": 0}
 
 
 WKV6_YTOL = 1e-5

@@ -251,10 +251,12 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.rglru_scan(xs, torch.sigmoid(xs))
     r4 = xs.reshape(1, 2, 3, 64)
     ops.wkv6_scan(r4, r4, r4, torch.sigmoid(r4), torch.zeros(2, 64))
+    ops.mha_attention(r4, r4, r4, window=2, softcap=5.0)
     assert set(ops.launch_counts()) == {
         "topk_threshold_bits", "topk_mask", "l2_norm", "quantize_qr",
         "compact_slots", "compact_code_slots", "quantize_pack_with_uniforms",
-        "pack_codes", "unpack_codes", "rglru_scan", "wkv6_scan"}
+        "pack_codes", "unpack_codes", "rglru_scan", "wkv6_scan",
+        "flash_attention"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 

@@ -318,19 +318,47 @@ def _run_both(arch, backend="ref", bf16=False):
     _run_configs(*_configs(arch, bf16), backend, bf16)
 
 
-def _run_configs(jm, m, backend="ref", bf16=False):
+OPTION_LEAVES = ("q_norm", "k_norm", "ln_attn_post", "ln_mlp_post")
+
+
+def _init_with_options(jm):
+    """The JAX package's weights for ``jm``, with the option leaves that
+    init leaves at zeros or ones (the q/k/v biases, the q/k norms and the
+    post-norms) drawn from a seed instead, so that each option shows in
+    the outputs."""
     jp = jtfm.init_params(jax.random.PRNGKey(0), jm)
+    rng = np.random.default_rng(11)
+    for lp in jp["layers"].values():
+        for name in ("q", "k", "v"):
+            if "bias" in lp.get(name, {}):
+                b = lp[name]["bias"]
+                lp[name]["bias"] = jnp.asarray(
+                    0.5 * rng.standard_normal(b.shape), b.dtype)
+        for name in OPTION_LEAVES:
+            if name in lp:
+                sc = lp[name]["scale"]
+                lp[name]["scale"] = jnp.asarray(
+                    1.0 + 0.2 * rng.standard_normal(sc.shape), sc.dtype)
+    return jp
+
+
+def _run_configs(jm, m, backend="ref", bf16=False, cache_dtype="bfloat16"):
+    """Prefill and GEN greedy decode steps in both packages from the same
+    weights; ``cache_dtype`` is the KV caches' dtype (the reference's
+    default, bfloat16, unless given)."""
+    jp = _init_with_options(jm)
     tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     toks = jsynthetic.make_lm_tokens(m.vocab, BATCH, PROMPT, seed=1)
     max_len = PROMPT + GEN + 1
     prev = jops.get_backend()
     jops.set_backend(backend)
     try:
-        jl, js = jtfm.prefill(jp, jm, jnp.asarray(toks), max_len=max_len)
+        jl, js = jtfm.prefill(jp, jm, jnp.asarray(toks), max_len=max_len,
+                              dtype=getattr(jnp, cache_dtype))
     finally:
         jops.set_backend(prev)
     tl, ts = tfm.prefill(tp, m, torch.from_numpy(toks).long(),
-                         max_len=max_len)
+                         max_len=max_len, dtype=getattr(torch, cache_dtype))
     _leaf_close(tl, jl, "prefill logits", bf16)
     _states_close(ts, js, bf16)
     jtok = jnp.argmax(jl, axis=-1).astype(jnp.int32)
@@ -380,8 +408,13 @@ def test_global_attention_layers_and_attention_softcap_match_jax():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_plus_decode_equals_longer_prefill_as_in_jax(arch):
-    jm, m = _configs(arch)
-    jp = jtfm.init_params(jax.random.PRNGKey(0), jm)
+    _gap_matches(*_configs(arch))
+
+
+def _gap_matches(jm, m):
+    """prefill(T) + one decode step against prefill(T + 1): the port's gap
+    equals JAX's within 1e-5 + 0.5 * JAX's."""
+    jp = _init_with_options(jm)
     tp = _carry(jp)
     toks = jsynthetic.make_lm_tokens(m.vocab, 2, 41, seed=1)
     jl, js = jtfm.prefill(jp, jm, jnp.asarray(toks[:, :40]), max_len=48)
@@ -400,9 +433,12 @@ def test_prefill_plus_decode_equals_longer_prefill_as_in_jax(arch):
 # configs, data, convert, the serve entry
 # --------------------------------------------------------------------------- #
 
+DENSE_ARCHS = ("qwen2-0.5b", "qwen2-7b", "gemma2-9b", "gemma3-4b")
+
+
 def test_registry_and_published_dims():
-    assert set(ARCH_IDS) == set(ARCHS)
-    for arch in ARCHS:
+    assert set(ARCH_IDS) == set(ARCHS) | set(DENSE_ARCHS)
+    for arch in ARCHS + DENSE_ARCHS:
         j, t = jget_spec(arch), get_spec(arch)
         assert (t.arch_id, t.family, t.citation) == (j.arch_id, j.family,
                                                      j.citation)
@@ -413,10 +449,11 @@ def test_registry_and_published_dims():
             else:
                 assert getattr(t.model, f.name) == want, f.name
         rj, rt = jreduced(j).model, reduced(t).model
-        assert (rt.n_layers, rt.d_model, rt.window, rt.vocab) == (
-            rj.n_layers, rj.d_model, rj.window, rj.vocab)
+        assert (rt.n_layers, rt.d_model, rt.window, rt.vocab,
+                rt.long_context_cap) == (rj.n_layers, rj.d_model, rj.window,
+                                         rj.vocab, rj.long_context_cap)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_spec("qwen2-0.5b")
+        get_spec("mixtral-8x7b")
 
 
 def test_make_lm_tokens_byte_equal():
@@ -491,12 +528,25 @@ def test_serve_cli_runs_reduced_on_the_cpu(arch, capsys):
     ("softcap_final", 30.0), ("qkv_bias", True), ("qk_norm", True),
     ("post_norm", True), ("long_context_cap", 16)])
 def test_other_families_options_are_not_ported(option, value):
-    m = dataclasses.replace(_configs("recurrentgemma-2b")[1],
-                            **{option: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.init_params(m, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.prefill({}, m, torch.zeros((1, 2), dtype=torch.int64), 4)
+    """The dense family's options, once unported here, each on reduced
+    recurrentgemma against JAX: prefill and decode as in
+    :func:`test_reduced_prefill_and_decode_match_jax`.  ``post_norm`` on
+    an rglru layer raises ``KeyError('ln_attn_post')`` in both packages
+    (the reference gives rglru layers no ``ln_attn_post``), and
+    ``long_context_cap`` changes nothing where no layer is "attn"."""
+    jm, m = (dataclasses.replace(c, **{option: value})
+             for c in _configs("recurrentgemma-2b"))
+    if option != "post_norm":
+        _run_configs(jm, m)
+        return
+    toks = np.zeros((1, 8), np.int32)
+    with pytest.raises(KeyError, match="ln_attn_post"):
+        jtfm.prefill(jtfm.init_params(jax.random.PRNGKey(0), jm), jm,
+                     jnp.asarray(toks), max_len=12)
+    tp = tfm.init_params(m, torch.Generator().manual_seed(0))
+    assert "ln_mlp_post" in tp["layers"]["layer_0"]
+    with pytest.raises(KeyError, match="ln_attn_post"):
+        tfm.prefill(tp, m, torch.from_numpy(toks).long(), max_len=12)
 
 
 def test_training_and_other_families_are_not_ported():
