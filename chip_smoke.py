@@ -8,6 +8,11 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
 
 1. build — compiles ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a, one
    ``nvcc`` per source in parallel, into ``src/repro_torch/kernels/_build``;
+   prints what ``-Xptxas -v`` logged for K10's two libraries (registers,
+   spills), the wgmma kernel's dynamic shared memory at each head size and,
+   where ``cuobjdump`` is in the toolkit, the ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in its SASS, both of which must be
+   there;
 2. kernels — holds each kernel (K1 TopK threshold, K2 TopK mask, K3 l2
    norm, K4 Q_r rounding, K5 slot compaction, K6 coded slot compaction,
    K7 fused Q_r pack, K8 code pack, K9 code unpack) against its plain
@@ -72,7 +77,8 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    through ``chunked_attention``, as the JAX package's models do, so the
    counted run launches no kernel (K10 included).  The warm-up prefill
    hands over the q/k/v of the layers in ``ATTN_CAPTURE``;
-7. attention — K10 (``ops.mha_attention``) against its plain version
+7. attention — K10 (``ops.mha_attention``: bf16 on the wgmma kernel fed
+   by TMA, float32 on the SIMT kernel) against its plain version
    ``ref.mha_attention`` in float32 and bf16 within ``ATTN_F32_TOL`` /
    ``ATTN_BF16_TOL`` (the JAX tests' tolerances, compared in the working
    type; the gap in bf16 ulps is printed): the JAX package's flash cases
@@ -81,11 +87,14 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    Tk = 4641.  Then the main path: the counters set to 0, one
    ``ops.mha_attention`` on each captured q/k/v (5 launches), read; each
    output held against the plain version and against the models' own
-   ``chunked_attention`` on the same q/k/v.  Times K10, the plain version
-   and, where one PyTorch call computes the same function, SDPA (causal
-   with GQA, or a boolean window mask; none with a softcap) at each
-   served shape ("main": gemma2-9b's attn layer) and at ``ATTN_LARGE``,
-   beside the bound;
+   ``chunked_attention`` on the same q/k/v.  Times K10, the plain version,
+   the models' ``chunked_attention`` and, where one PyTorch call computes
+   the same function, SDPA (causal with GQA, or a boolean window mask;
+   none with a softcap) at each served shape ("main": gemma2-9b's attn
+   layer) and at ``ATTN_LARGE``, beside the bound; then, from the served
+   layers' times and each dense model's layer pattern, what its prefill
+   would save if it called K10 instead of ``chunked_attention`` (the route
+   stays as the JAX models have it);
 8. CUDA against CPU — the five models at full width and reduced depth
    (``CPU_CHECK_LAYERS``: one block pattern each, gemma3's 6 layers
    included), float32 with TF32 off, batch 2, prompt 128, 4 decode steps,
@@ -285,6 +294,23 @@ def device_ms_by_name(prof) -> dict:
         if ev.device_type == DeviceType.CUDA:
             out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     return out
+
+
+def device_ms_per_call(torch, fn, calls: int):
+    """Device time a call of ``fn`` takes (its kernels, copies and memsets
+    summed from ``torch.profiler``), or None where the profiler recorded
+    no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = device_ms_by_name(prof)
+    return sum(dev.values()) / calls if dev else None
 
 
 def bf16_ulp(torch, y):
@@ -589,6 +615,35 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
     return launches, captured
 
 
+def build_report(build) -> None:
+    """Phase 1's look at K10's libraries: what ``-Xptxas -v`` logged, the
+    wgmma kernel's dynamic shared memory, and its SASS's wgmma and TMA
+    instructions (which must both be there, where ``cuobjdump`` is)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for name in ("flash_attention_sm90", "flash_attention"):
+        kernel = None
+        for line in build.ptxas_log(name).splitlines():
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif kernel and ("Used" in line or "spill" in line
+                             or "C75" in line):
+                print(f"[build] ptxas {name} {kernel[-60:]}: "
+                      f"{line.split(':', 1)[-1].strip()}", flush=True)
+    print("[build] wgmma K10 dynamic shared memory a block: " + ", ".join(
+        f"Dh {dh} {fa.wgmma_smem_bytes(dh)} B" for dh in fa.HEAD_DIMS),
+        flush=True)
+    if build.cuobjdump_path() is None:
+        print("[build] cuobjdump not in the toolkit: HGMMA/UTMALDG not "
+              "counted", flush=True)
+        return
+    counts = build.sass_counts("flash_attention_sm90", ("HGMMA", "UTMALDG"))
+    print(f"[build] flash_attention_sm90 SASS: {counts}", flush=True)
+    if not (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0):
+        raise AssertionError(f"K10's bf16 library lacks wgmma or TMA: "
+                             f"{counts}")
+
+
 def attention_pairs(tq: int, tk: int, causal: bool, window, q_offset: int):
     """Visible (query, key) pairs of one (batch, head): what K10's
     operation count depends on."""
@@ -705,6 +760,7 @@ def attention_phase(torch, dev, rec, captured: dict) -> dict:
     if counts != expect:
         raise AssertionError(f"attention main path: launch counts {counts} "
                              f"!= {expect}")
+    vs_chunked = {}
     for key, got in zip(served, outs):
         q, k, v, kw = captured[key]
         want = ref.mha_attention(q, k, v, **kw)
@@ -714,6 +770,7 @@ def attention_phase(torch, dev, rec, captured: dict) -> dict:
         chunked = attn.chunked_attention(q, k, v, **kw)
         e_chunk = hold(f"served {key} vs chunked_attention", got, chunked,
                        q.dtype)
+        vs_chunked[key] = e_chunk
         print(f"[attention] served {key[0]} layer {key[1]} q {tuple(q.shape)} "
               f"k {tuple(k.shape)} {q.dtype} {kw}: max |d| (bf16 ulps of "
               f"outputs above the tolerance) vs "
@@ -748,6 +805,8 @@ def attention_phase(torch, dev, rec, captured: dict) -> dict:
                    q, k, v, **kw), iters, 1),
                "plain_ms": time_ms(torch, lambda: ref.mha_attention(
                    q, k, v, **kw), 1, 1),
+               "chunked_ms": time_ms(torch, lambda: attn.chunked_attention(
+                   q, k, v, **kw), iters, 1),
                "library_ms": time_ms(torch, lib, iters, 1) if lib else None,
                "bound_ms": b_ms, "bound_by": b_by}
         lib_err = None
@@ -756,7 +815,8 @@ def attention_phase(torch, dev, rec, captured: dict) -> dict:
                 q, k, v, **kw).float()).abs().max())
         print(f"[attention] K10 {tag} q {tuple(q.shape)} k {tuple(k.shape)} "
               f"{kw}: kernel_ms={row['kernel_ms']!r} plain_ms="
-              f"{row['plain_ms']!r} library_ms={row['library_ms']!r} "
+              f"{row['plain_ms']!r} chunked_ms={row['chunked_ms']!r} "
+              f"library_ms={row['library_ms']!r} "
               f"(max |SDPA - K10| {lib_err!r}) bound_ms={b_ms!r} ({b_by})",
               flush=True)
         torch.cuda.empty_cache()
@@ -765,15 +825,42 @@ def attention_phase(torch, dev, rec, captured: dict) -> dict:
     served_rows = {}
     for key in served:
         q, k, v, kw = captured[key]
-        served_rows[f"{key[0]} layer {key[1]}"] = timed(
-            f"served {key}", q, k, v, kw, 5)
+        row = timed(f"served {key}", q, k, v, kw, 5)
+        row["max_abs_vs_chunked"] = vs_chunked[key][0]
+        served_rows[f"{key[0]} layer {key[1]}"] = row
     rec.timings["main"] = served_rows[f"{ATTN_MAIN[0]} layer {ATTN_MAIN[1]}"]
     rec.timings["served"] = served_rows
+    prefill_question(served_rows)
     q, k, v = inputs(*ATTN_LARGE, torch.bfloat16)
     rec.timings["large"] = timed("large", q, k, v, dict(causal=True), 3)
     del q, k, v
     torch.cuda.empty_cache()
     return {"attention main path (served q/k/v)": counts["flash_attention"]}
+
+
+def prefill_question(served_rows: dict) -> None:
+    """What each dense prefill would save by calling K10 instead of
+    ``chunked_attention``: every layer timed as the captured layer of its
+    block type (swa or attn) at the serving shape, and the largest gap
+    between the two routes' outputs on those layers."""
+    from repro_torch.configs import get_spec
+
+    by_kind = {}
+    for arch, layer in ATTN_CAPTURE:
+        m = get_spec(arch).model
+        by_kind[(arch, m.block_type(layer))] = served_rows[
+            f"{arch} layer {layer}"]
+    for arch in DENSE_SHAPES:
+        m = get_spec(arch).model
+        rows = [by_kind[(arch, m.block_type(i))] for i in range(m.n_layers)]
+        chunked = sum(r["chunked_ms"] for r in rows)
+        kernel = sum(r["kernel_ms"] for r in rows)
+        err = max(r["max_abs_vs_chunked"] for r in rows)
+        print(f"[attention] prefill question: {arch}, {m.n_layers} layers at "
+              f"batch {DENSE_SHAPES[arch][0]}, prompt {DENSE_SHAPES[arch][1]}:"
+              f" chunked_attention {chunked!r} ms, K10 {kernel!r} ms; K10 "
+              f"would save {chunked - kernel!r} ms a prefill; max |K10 - "
+              f"chunked_attention| on its layers {err!r}", flush=True)
 
 
 def cuda_vs_cpu_phase(torch, dev) -> None:
@@ -844,6 +931,7 @@ def main() -> int:
     libs = build.build_all()
     print(f"[build] {len(libs)} libraries in {time.time() - t0:.1f} s: "
           + ", ".join(p.name for p in libs.values()), flush=True)
+    build_report(build)
 
     # ---- 2. kernels --------------------------------------------------------- #
     csrc = "src/repro_torch/kernels/csrc/"
@@ -867,7 +955,9 @@ def main() -> int:
                            tpu + "pack_codes.py:62"),
         "K9": KernelRecord("unpack_codes", csrc + "pack_codes.cu",
                            tpu + "pack_codes.py:87"),
-        "K10": KernelRecord("flash_attention", csrc + "flash_attention.cu",
+        # bf16 (the served layers, main and large) runs the wgmma kernel;
+        # float32 the SIMT kernel in flash_attention.cu
+        "K10": KernelRecord("flash_attention", csrc + "flash_attention_sm90.cu",
                             tpu + "flash_attention.py:86"),
         "K11": KernelRecord("rglru_scan", csrc + "rglru_scan.cu",
                             tpu + "rglru_scan.py:60"),
@@ -1140,6 +1230,14 @@ def main() -> int:
                   f"{row['kernel_ms']!r} plain_ms={row['plain_ms']!r} "
                   f"library_ms={row['library_ms']!r} bound_ms={b_ms!r} "
                   f"({b_by})", flush=True)
+            if key_ == "K3":
+                # at the main shape both calls are host-bound: their device
+                # time, from the profiler, is what the kernel itself takes
+                dev_k = device_ms_per_call(torch, kern, 50)
+                dev_l = device_ms_per_call(torch, lib, 50)
+                print(f"[kernels] K3 l2_norm {tag} {shape}: device ms a call "
+                      f"(torch.profiler) kernel {dev_k!r}, vector_norm "
+                      f"{dev_l!r}", flush=True)
         del xc, xa, u, codes, words, t6, norm6
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1479,6 +1577,8 @@ def main() -> int:
         by_run = launches.get(rec.name, {})
         kernels.append({
             "name": rec.name, "route": "cuda", "source": rec.source,
+            **({"float32_source": csrc + "flash_attention.cu"}
+               if rec.name == "flash_attention" else {}),
             "replaces": rec.replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "max_abs_err": rec.max_abs_err, "ms": main_t["kernel_ms"],

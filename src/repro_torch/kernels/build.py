@@ -41,6 +41,7 @@ SOURCES: Dict[str, tuple] = {
     "rglru_scan": ("--fmad=false",),
     "wkv6": (),
     "flash_attention": (),
+    "flash_attention_sm90": (),
 }
 
 _LOCK = threading.Lock()
@@ -117,6 +118,38 @@ def build_all() -> Dict[str, Path]:
     return paths
 
 
+def cuobjdump_path():
+    """``cuobjdump`` beside ``nvcc``, or on ``PATH``; None if neither."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "cuobjdump"
+    return str(cand) if cand.is_file() else shutil.which("cuobjdump")
+
+
+def sass_counts(name: str, opcodes) -> Dict[str, int]:
+    """How many instructions of each SASS opcode (``HGMMA``, ``UTMALDG``,
+    ...) the built library for ``csrc/<name>.cu`` holds, by ``cuobjdump
+    -sass``; builds it first if needed.  Raises :class:`BuildError` when
+    ``cuobjdump`` is missing."""
+    tool = cuobjdump_path()
+    if tool is None:
+        raise BuildError("cuobjdump not found (looked in $CUDA_HOME/bin and "
+                         "PATH)")
+    sass = subprocess.run([tool, "-sass", str(build_all()[name])],
+                          capture_output=True, text=True, check=True).stdout
+    words = [ln.split("*/", 1)[1].split() for ln in sass.splitlines()
+             if "*/" in ln and ln.lstrip().startswith("/*")]
+    ops = [w[1] if w and w[0].startswith("@") and len(w) > 1
+           else (w[0] if w else "") for w in words]
+    return {op: sum(1 for o in ops if o.split(".")[0] == op)
+            for op in opcodes}
+
+
+def ptxas_log(name: str) -> str:
+    """What ``-Xptxas=-v`` logged for ``csrc/<name>.cu`` (registers,
+    shared memory, spills per kernel)."""
+    return build_all()[name].with_suffix(".so.log").read_text()
+
+
 def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use.
 
@@ -148,13 +181,15 @@ def on_cpu(x: torch.Tensor) -> bool:
 
 def cuda_rows(x: torch.Tensor) -> torch.Tensor:
     """Validate a CUDA ``(rows, n)`` float32 or bfloat16 input; returns it
-    as contiguous float32."""
+    as contiguous float32 (``x`` itself when it already is)."""
     if x.dim() != 2:
         raise ValueError(f"expects (rows, n) input, got shape {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"expects float32 or bfloat16, got {x.dtype}")
     if not 1 <= x.shape[0] <= 65535:
         raise ValueError(f"rows must be in [1, 65535], got {x.shape[0]}")
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
     return x.to(torch.float32).contiguous()
 
 
@@ -182,7 +217,11 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 
 def stream_ptr() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream, as a raw handle.  (The
+    raw getter takes about 0.1 us where ``torch.cuda.current_stream()``,
+    which builds a Stream object, takes about 5 us: at K3's main shape that
+    is a third of the call.)"""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check(code: int, what: str, lib: ctypes.CDLL, errfn: str) -> None:

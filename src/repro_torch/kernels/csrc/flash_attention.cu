@@ -1,4 +1,5 @@
-// Forward flash attention (K10) for Hopper (sm_90a).
+// Forward flash attention (K10) for float32 inputs on Hopper (sm_90a): the
+// SIMT route.  bf16 inputs take the wgmma kernel in flash_attention_sm90.cu.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (_flash_kernel): online-softmax attention with GQA,
@@ -40,23 +41,16 @@
 // at all ends with l = 0 and is written as 0, as the oracle
 // (ref.mha_attention) has it; the Pallas kernel gives the mean of v there.
 //
-// The products are SIMT float32 FMAs for both input types (bf16 inputs are
-// converted on staging; products of bf16 values are exact in float32) and
-// P stays float32, so bf16 inputs add no rounding before the output's own.
-// The output is written at the input type.
+// The products are SIMT float32 FMAs and P stays float32: the float32
+// tolerance against the plain version (2e-5) rules out bf16 or TF32
+// tensor-core operands, which round q, k and P to 8 or 10 mantissa bits.
 //
-// Bound on an H100 SXM: the function needs 4 * Dh operations per visible
-// (q, k) pair (QK^T and PV, a multiply and an add each); at the served
-// gemma2-9b shape (4, 16, 4608, 256) with 8 KV heads, causal, that is
-// 695.9 GFLOP, 0.70 ms at the bf16 tensor-core peak of 989.4 TFLOP/s,
-// against 0.14 ms for the bytes.  This kernel runs the products on the
-// float32 SIMT pipes (67 TFLOP/s at most, 15x below the tensor cores), at
-// one block an SM for Dh >= 128 (its shared memory), with three barriers
-// a tile and no overlap of staging with compute.  wgmma on bf16 tiles fed
-// by TMA, with warp-specialised producers, is the design that reaches the
-// bound; it is later work.
+// Bound on an H100 SXM for float32 inputs: 4 * Dh operations per visible
+// (q, k) pair (QK^T and PV, a multiply and an add each) over the float32
+// SIMT peak of 67 TFLOP/s.  The kernel runs at one block an SM for Dh >= 128
+// (its shared memory), with three barriers a tile and no overlap of staging
+// with compute.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -68,15 +62,6 @@ constexpr int kBK = 64;           // keys a tile
 constexpr int kThreads = 256;     // 16 row groups x 16 lanes
 constexpr int kQS = kBQ + 4;      // row stride of Qt (padded, float4-aligned)
 constexpr int kKS = kBK + 4;      // row stride of Kt and P
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Output columns of thread tx: Dh/16 of them, in runs of kVec adjacent
 // columns (a float4, or a float2 at Dh = 32), run g at g * 16 * kVec.
@@ -97,14 +82,14 @@ constexpr size_t smem_bytes() {
 // elements, for the (b, h, t) axes; the last axis is dense.  out is a
 // dense (B, Hq, Tq, DH) tensor.  window <= 0: no window; softcap <= 0: no
 // softcap.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, int Hq, int group, int Tq, int Tk,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, int Hq, int group, int Tq, int Tk,
           long long qsb, long long qsh, long long qst, long long ksb,
           long long ksh, long long kst, long long vsb, long long vsh,
           long long vst, float scale, int causal, int window, int q_offset,
-          float softcap, T* __restrict__ out) {
+          float softcap, float* __restrict__ out) {
   using C = Cols<DH>;
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [DH][kQS]: Qt[d][r]
@@ -119,14 +104,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int hq = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = hq / group;
-  const T* qb = q + b * qsb + hq * qsh;
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
+  const float* qb = q + b * qsb + hq * qsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
 
   for (int i = tid; i < kBQ * DH; i += kThreads) {
     const int r = i / DH, d = i % DH;
     const int row = q0 + r;
-    Qt[d * kQS + r] = row < Tq ? to_f32(qb[row * qst + d]) : 0.0f;
+    Qt[d * kQS + r] = row < Tq ? qb[row * qst + d] : 0.0f;
   }
 
   // keys [k_begin, k_end) hold every key visible to some row of the block
@@ -154,8 +139,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const int key = kt + c;
       float kx = 0.0f, vx = 0.0f;
       if (key < Tk) {
-        kx = to_f32(kb[key * kst + d]);
-        vx = to_f32(vb[key * vst + d]);
+        kx = kb[key * kst + d];
+        vx = vb[key * vst + d];
       }
       Kt[d * kKS + c] = kx;
       Vs[c * DH + d] = vx;
@@ -260,50 +245,50 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + r0 + i;
     if (row >= Tq) continue;
-    T* orow = out + (((long long)b * Hq + hq) * Tq + row) * DH + tx * C::kVec;
+    float* orow =
+        out + (((long long)b * Hq + hq) * Tq + row) * DH + tx * C::kVec;
 #pragma unroll
     for (int j = 0; j < C::kPer; ++j) {
       const int col = (j / C::kVec) * 16 * C::kVec + j % C::kVec;
-      store_out(orow + col, l[i] > 0.0f ? acc[i][j] / l[i] : 0.0f);
+      orow[col] = l[i] > 0.0f ? acc[i][j] / l[i] : 0.0f;
     }
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch(const void* q, const void* k, const void* v, int B, int Hq,
            int group, int Tq, int Tk, const long long* st, float scale,
            int causal, int window, int q_offset, float softcap, void* out,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd<T, DH><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, Hq, group, Tq, Tk, st[0], st[1],
+  flash_fwd<DH><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, Hq, group, Tq, Tk, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal, window,
-      q_offset, softcap, (T*)out);
+      q_offset, softcap, (float*)out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(int Dh, const void* q, const void* k, const void* v, int B,
              int Hq, int group, int Tq, int Tk, const long long* st,
              float scale, int causal, int window, int q_offset,
              float softcap, void* out, cudaStream_t stream) {
   switch (Dh) {
     case 32:
-      return launch<T, 32>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
+      return launch<32>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
                            window, q_offset, softcap, out, stream);
     case 64:
-      return launch<T, 64>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
+      return launch<64>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
                            window, q_offset, softcap, out, stream);
     case 128:
-      return launch<T, 128>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
+      return launch<128>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
                             window, q_offset, softcap, out, stream);
     case 256:
-      return launch<T, 256>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
+      return launch<256>(q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
                             window, q_offset, softcap, out, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -318,27 +303,22 @@ const char* flash_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// K10.  q (B, Hq, Tq, Dh), k and v (B, Hq / group, Tk, Dh), all float32
-// (bf16 == 0) or all bfloat16 (bf16 == 1), read through their (b, h, t)
-// strides, nine in all: q's, then k's, then v's.  Writes out, a dense
-// (B, Hq, Tq, Dh) tensor at the input type.  Dh is 32, 64, 128 or 256;
-// window <= 0 means none, softcap <= 0 none.  Tq >= 1.
+// K10 for float32.  q (B, Hq, Tq, Dh), k and v (B, Hq / group, Tk, Dh), all
+// float32, read through their (b, h, t) strides in elements, nine in all:
+// q's, then k's, then v's.  Writes out, a dense (B, Hq, Tq, Dh) float32
+// tensor.  Dh is 32, 64, 128 or 256; window <= 0 means none, softcap <= 0
+// none.  Tq >= 1.
 int flash_attention_fwd(const void* q, const void* k, const void* v, int B,
                         int Hq, int group, int Tq, int Tk, int Dh,
                         long long qsb, long long qsh, long long qst,
                         long long ksb, long long ksh, long long kst,
                         long long vsb, long long vsh, long long vst,
                         float scale, int causal, int window, int q_offset,
-                        float softcap, int bf16, void* out,
-                        void* stream_ptr) {
+                        float softcap, void* out, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const long long st[9] = {qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst};
-  if (bf16)
-    return dispatch<__nv_bfloat16>(Dh, q, k, v, B, Hq, group, Tq, Tk, st,
-                                   scale, causal, window, q_offset, softcap,
-                                   out, stream);
-  return dispatch<float>(Dh, q, k, v, B, Hq, group, Tq, Tk, st, scale,
-                         causal, window, q_offset, softcap, out, stream);
+  return dispatch(Dh, q, k, v, B, Hq, group, Tq, Tk, st, scale, causal,
+                  window, q_offset, softcap, out, stream);
 }
 
 }  // extern "C"

@@ -13,11 +13,14 @@
 // the TPU kernel does, so K4 is bit-equal to the plain version for the
 // same norm and uniforms.
 //
-// K3 is deterministic: every block writes its partial sum (fixed strided
-// order, fixed shared-memory tree) to a scratch buffer and a second small
-// kernel sums a row's partials in index order and takes sqrtf.  Float
-// atomics would make two runs give different norms, and so different Q_r
-// trajectories.
+// K3 is one deterministic launch: every block writes its partial sum (fixed
+// strided order, float4 loads where the row allows, fixed shared-memory
+// tree) to a scratch buffer; the last block of a row to finish, which it
+// learns from an atomic counter per row after a __threadfence(), sums that
+// row's partials in index order, takes sqrtf and resets the counter to 0.
+// The order of every sum depends only on (rows, n) and whether x is 16-byte
+// aligned, never on which block finishes last.  Float atomics would make two runs give different norms,
+// and so different Q_r trajectories.
 //
 // This file is compiled with --fmad=false: K4 must keep the reference's
 // operation order (y = |x|/safe, scaled = L*y, lo = floor(scaled),
@@ -36,22 +39,40 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kChunk = 8192;   // elements per sum-of-squares block
-constexpr int kMaxPartials = 512;    // per-row block cap
+constexpr int kMaxPartials = 512;    // K3 blocks a row, at most
 constexpr int kMaxBlocks = 132 * 16;
 
-// grid: (partials per row, rows); block: kThreads.
-__global__ void sumsq_partial(const float* __restrict__ x, long long n,
-                              float* __restrict__ partial) {
+// grid: (parts, rows); block: kThreads.  vec4: rows are 16-byte aligned
+// and n % 4 == 0, so x is read as float4.  partial holds rows * parts
+// floats; count holds rows counters, 0 on entry and left at 0.
+__global__ void sumsq_norm(const float* __restrict__ x, long long n, int vec4,
+                           float* __restrict__ partial,
+                           unsigned int* __restrict__ count,
+                           float* __restrict__ norm) {
   __shared__ float sh[kThreads];
+  __shared__ float part_sh[kMaxPartials];
+  __shared__ bool last;
   const int row = blockIdx.y;
+  const int parts = gridDim.x;
   const float* xr = x + (long long)row * n;
-  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long stride = (long long)parts * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   float acc = 0.0f;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float v = xr[i];
-    acc += v * v;
+  if (vec4) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+#pragma unroll 4
+    for (long long i = first; i < n / 4; i += stride) {
+      const float4 v = x4[i];
+      acc += v.x * v.x;
+      acc += v.y * v.y;
+      acc += v.z * v.z;
+      acc += v.w * v.w;
+    }
+  } else {
+    for (long long i = first; i < n; i += stride) {
+      const float v = xr[i];
+      acc += v * v;
+    }
   }
   sh[threadIdx.x] = acc;
   __syncthreads();
@@ -59,17 +80,24 @@ __global__ void sumsq_partial(const float* __restrict__ x, long long n,
     if (threadIdx.x < w) sh[threadIdx.x] += sh[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) partial[(long long)row * gridDim.x + blockIdx.x] = sh[0];
-}
-
-// grid: ceil(rows / kThreads); one thread per row, partials in order.
-__global__ void sumsq_finish(const float* __restrict__ partial, int parts, int rows,
-                             float* __restrict__ norm) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  float s = 0.0f;
-  for (int j = 0; j < parts; ++j) s += partial[(long long)row * parts + j];
-  norm[row] = sqrtf(s);
+  if (threadIdx.x == 0) {
+    partial[(long long)row * parts + blockIdx.x] = sh[0];
+    __threadfence();
+    last = atomicAdd(&count[row], 1u) == (unsigned int)parts - 1;
+  }
+  __syncthreads();
+  if (last) {                       // gather the row's partials, then sum
+    __threadfence();                 // them in index order on one thread
+    const volatile float* pr = partial + (long long)row * parts;
+    for (int j = threadIdx.x; j < parts; j += kThreads) part_sh[j] = pr[j];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float s = 0.0f;
+      for (int j = 0; j < parts; ++j) s += part_sh[j];
+      norm[row] = sqrtf(s);
+      count[row] = 0;
+    }
+  }
 }
 
 __global__ void qr_round(const float* __restrict__ x, const float* __restrict__ u,
@@ -107,25 +135,19 @@ const char* qr_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Number of per-row partial sums K3 uses for a row of n elements; the
-// caller allocates the (rows, parts) float32 scratch.
-int qr_norm_parts(int rows, long long n) {
-  long long parts = (n + kChunk - 1) / kChunk;
-  long long cap = kMaxBlocks / (rows > 0 ? rows : 1);
-  if (cap > kMaxPartials) cap = kMaxPartials;
-  if (parts > cap) parts = cap;
-  return parts < 1 ? 1 : (int)parts;
-}
-
-// K3: norm[row] = sqrtf(sum_i x[row, i]^2), deterministic.
-int qr_l2_norm(const float* x, int rows, long long n, float* partial, int parts,
-               float* norm, void* stream_ptr) {
+// K3: norm[row] = sqrtf(sum_i x[row, i]^2), deterministic, one launch of
+// (parts, rows) blocks, 1 <= parts <= 512 (the caller's choice: about one
+// block a 8192 elements, at most 2112 blocks in all).  partial holds rows *
+// parts floats and count rows uint32 counters, zeroed once: every launch
+// leaves them at 0.
+int qr_l2_norm(const float* x, int rows, long long n, float* partial,
+               unsigned int* count, int parts, float* norm,
+               void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (parts < 1 || parts > kMaxPartials) return (int)cudaErrorInvalidValue;
+  const int vec4 = n % 4 == 0 && ((uintptr_t)x & 15) == 0;
   const dim3 grid((unsigned int)parts, (unsigned int)rows);
-  sumsq_partial<<<grid, kThreads, 0, stream>>>(x, n, partial);
-  RETURN_IF_ERROR();
-  sumsq_finish<<<(rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(partial, parts,
-                                                                          rows, norm);
+  sumsq_norm<<<grid, kThreads, 0, stream>>>(x, n, vec4, partial, count, norm);
   RETURN_IF_ERROR();
   return 0;
 }

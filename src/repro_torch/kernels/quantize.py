@@ -23,13 +23,20 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = {"l2_norm": 0, "quantize_qr": 0}
 
+# K3's scratch per (device index, stream): (uint32 counters in int32
+# containers, zeroed once and left at 0 by every launch; float32 partials).
+# A launch on another stream may run at the same time and must not share
+# the counters; launches on one stream run in order and can.
+_NORM_SCRATCH: dict = {}
+_NORM_CHUNK = 8192        # elements a K3 block, about
+_NORM_MAX_PARTS = 512     # K3 blocks a row, at most (csrc/quantize.cu)
+_NORM_MAX_BLOCKS = 132 * 16
+
 _P = ctypes.c_void_p
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.qr_norm_parts.argtypes = [ctypes.c_int, ctypes.c_longlong]
-    lib.qr_norm_parts.restype = ctypes.c_int
-    lib.qr_l2_norm.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, _P,
+    lib.qr_l2_norm.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, _P, _P,
                                ctypes.c_int, _P, _P]
     lib.qr_l2_norm.restype = ctypes.c_int
     lib.qr_quantize.argtypes = [_P, _P, _P, _P, ctypes.c_int,
@@ -43,20 +50,47 @@ def _lib() -> ctypes.CDLL:
     return build.load("quantize", _bind)
 
 
+def norm_parts(rows: int, n: int) -> int:
+    """K3's blocks a row for ``rows`` rows of ``n`` elements: one a
+    ``_NORM_CHUNK`` elements, within ``_NORM_MAX_BLOCKS`` in all and
+    ``_NORM_MAX_PARTS`` a row.  The order of K3's sums depends on it (and
+    on whether x is 16-byte aligned), never on the run."""
+    cap = min(_NORM_MAX_BLOCKS // rows, _NORM_MAX_PARTS)
+    return max(1, min(-(-n // _NORM_CHUNK), cap))
+
+
+def _norm_scratch(device: torch.device, stream: int, rows: int,
+                  n_partials: int) -> tuple:
+    """K3's counters and partials for ``stream``, grown when too small."""
+    key = (device.index, stream)
+    have = _NORM_SCRATCH.get(key)
+    if have is None or have[0].numel() < rows or have[1].numel() < n_partials:
+        old_rows, old_parts = (0, 0) if have is None else (
+            have[0].numel(), have[1].numel())
+        have = (torch.zeros(max(rows, old_rows), dtype=torch.int32,
+                            device=device),
+                torch.empty(max(n_partials, old_parts), dtype=torch.float32,
+                            device=device))
+        _NORM_SCRATCH[key] = have
+    return have
+
+
 def l2_norm(x: torch.Tensor) -> torch.Tensor:
-    """K3: per-row ``sqrt(sum x**2)`` (float32), deterministic on the card."""
+    """K3: per-row ``sqrt(sum x**2)`` (float32), deterministic on the card:
+    one launch, no scratch allocated per call."""
     if build.on_cpu(x):
         return ref.l2_norm(x)
     xf = build.cuda_rows(x)
     rows, n = xf.shape
-    norm = torch.empty(rows, dtype=torch.float32, device=xf.device)
+    norm = xf.new_empty(rows)
     if n == 0:
         return norm.zero_()
     lib = _lib()
-    parts = lib.qr_norm_parts(rows, n)
-    partial = torch.empty((rows, parts), dtype=torch.float32, device=xf.device)
-    code = lib.qr_l2_norm(build.ptr(xf), rows, n, build.ptr(partial), parts,
-                          build.ptr(norm), build.stream_ptr())
+    parts = norm_parts(rows, n)
+    stream = build.stream_ptr()
+    count, partial = _norm_scratch(norm.device, stream, rows, rows * parts)
+    code = lib.qr_l2_norm(xf.data_ptr(), rows, n, partial.data_ptr(),
+                          count.data_ptr(), parts, norm.data_ptr(), stream)
     build.check(code, "qr_l2_norm", lib, "qr_error_string")
     LAUNCHES["l2_norm"] += 1
     return norm

@@ -123,16 +123,61 @@ def normal(key, shape, device=None) -> torch.Tensor:
     return out.reshape(key_data(key).shape[:-1] + shape)
 
 
+# XLA's float32 log on the CPU: the Cephes polynomial its CPU backend
+# emits, whose machine code fuses the polynomial's multiply-adds (the six
+# inner steps, the two Horner steps in x^3 and y * x^3 + q1 * e) into FMAs.
+# Its constants are float32: each is rounded here once.
+_LOG_SQRTHF, *_LOG_P, _LOG_Q1, _LOG_Q2 = (float(np.float32(c)) for c in (
+    0.707106781186547524, 7.0376836292E-2, -1.1514610310E-1,
+    1.1676998740E-1, -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+    2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1, -2.12194440e-4,
+    0.693359375))
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding (the product of two float32
+    values is exact in float64); b and c are tensors or float32 values."""
+    b = b.double() if torch.is_tensor(b) else b
+    c = c.double() if torch.is_tensor(c) else c
+    return (a.double() * b + c).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log`` of a positive normal float32 tensor as XLA computes it
+    on the CPU, bit for bit (``torch.log`` is correctly rounded and differs
+    in about 14% of values; checked over every uniform ``gumbel`` draws and
+    the logs of those).  Inputs at or below the smallest normal give
+    ``log(tiny)``; gumbel never passes one."""
+    tiny = float(np.finfo(np.float32).tiny)
+    bits = torch.clamp(x, min=tiny).view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    low = m < _LOG_SQRTHF
+    m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.to(torch.float32)
+    x2 = m * m
+    x3 = x2 * m
+    p = _LOG_P
+    y = _fma(_fma(m, p[0], p[1]), m, p[2])
+    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
+    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _LOG_Q1 * e)
+    m = m - 0.5 * x2
+    return (m + y) + _LOG_Q2 * e
+
+
 def gumbel(key, shape, device=None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape)`` in float32, jax's default "low"
-    mode: ``-log(-log(u))`` with ``u`` uniform in [tiny, 1).  The uniforms
-    have jax's bits; ``log`` may differ from XLA's by an ulp."""
+    mode: ``-log(-log(u))`` with ``u`` uniform in [tiny, 1), bit for bit
+    with jax on the CPU (the uniforms have jax's bits and :func:`xla_log`
+    is XLA's log)."""
     shape = tuple(int(s) for s in shape)
     tiny = float(np.finfo(np.float32).tiny)
     u = uniform(key, math.prod(shape), device)
     # jax: max(tiny, u * (1 - tiny) + tiny), and 1 - tiny rounds to 1
     u = torch.clamp(u + tiny, min=tiny)
-    g = -torch.log(-torch.log(u))
+    g = -xla_log(-xla_log(u))
     return g.reshape(key_data(key).shape[:-1] + shape)
 
 

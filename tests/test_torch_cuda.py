@@ -83,6 +83,20 @@ def test_qr_kernels_match_plain(cuda_device, rows, n, r):
     assert _same_bits(out, ref.quantize_qr_with_uniforms(x, r, u, norm))
 
 
+@pytest.mark.parametrize("n", [1, 255, 50176, (1 << 24) + 3])
+def test_l2_norm_one_launch_same_bits_within_rtol(cuda_device, n):
+    """K3 is one launch a call, gives the same bits on every call (its sums
+    run in an order fixed by (rows, n)) and is within rtol 1e-5 of the
+    plain version; n = 2^24 + 3 takes the scalar (not float4) loads."""
+    x = _rows(3, n, cuda_device, n)
+    quant.LAUNCHES["l2_norm"] = 0
+    norms = [quant.l2_norm(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["l2_norm"] == 3
+    assert all(_same_bits(norms[0], z) for z in norms[1:])
+    torch.testing.assert_close(norms[0], ref.l2_norm(x), rtol=1e-5, atol=0.0)
+
+
 @pytest.mark.parametrize("rows,n,k,cap", [
     (5, 50176, 15053, 15053), (5, 10, 3, 3), (3, 1000, 100, 300),
     (3, 4097, 1, 1), (2, 33, 33, 33), (2, 1, 1, 1), (2, 5000, 2000, 100)])

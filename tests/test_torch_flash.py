@@ -13,6 +13,11 @@ divisible by its blocks).  A row with no visible key is 0 in the port and
 the oracle; the Pallas kernel, which masks with -1e30, gives the mean of v
 there.
 
+On the card bfloat16 takes the wgmma kernel fed by TMA and float32 the
+SIMT kernel; the pieces of that route that are plain Python (the dtype's
+route, the TMA eligibility check, the schedule of key tiles) are tested
+here on the CPU, the schedule against a brute-force mask.
+
 JAX is imported inside a fixture, so the ``cuda`` tests run on a card
 machine that has no JAX:
 
@@ -23,6 +28,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+
+import chip_smoke
 
 torch = pytest.importorskip("torch")
 
@@ -179,6 +186,101 @@ def test_wrapper_refuses(args, kw, err):
 
 
 # --------------------------------------------------------------------------- #
+# the card's route, in plain Python: dtype, TMA eligibility, key-tile schedule
+# --------------------------------------------------------------------------- #
+
+def test_route_by_dtype():
+    assert fa.route(torch.bfloat16) == "wgmma"
+    assert fa.route(torch.float32) == "simt"
+    with pytest.raises(TypeError):
+        fa.route(torch.float16)
+
+
+def _view(kind):
+    """(shape, strides in elements, element size, data pointer)."""
+    if kind == "dense":
+        t = torch.zeros(2, 4, 77, 128, dtype=torch.bfloat16)
+        return t.shape, t.stride(), 2, 4096
+    if kind == "split-heads":           # (B, T, H * Dh) -> (B, H, T, Dh)
+        t = torch.zeros(2, 77, 8 * 32, dtype=torch.bfloat16)
+        v = t.reshape(2, 77, 8, 32).transpose(1, 2)
+        return v.shape, v.stride(), 2, 4096
+    if kind == "size-one-axes":         # B = H = T = 1: any stride passes
+        return (1, 1, 1, 64), (3, 5, 7, 1), 2, 4096
+    if kind == "padded-rows":           # T stride 132 * 2 = 264 bytes
+        t = torch.zeros(1, 2, 50, 132, dtype=torch.bfloat16)[..., :128]
+        return t.shape, t.stride(), 2, 4096
+    if kind == "odd-heads":             # H stride 40 * 2 = 80 bytes: fine;
+        return (1, 3, 10, 32), (1240, 40, 124, 1), 2, 4096   # T: 248 no
+    if kind == "misaligned":
+        t = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+        return t.shape, t.stride(), 2, 4096 + 8
+    if kind == "expanded":              # a KV head broadcast: stride 0
+        t = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16).expand(1, 4, 8, 64)
+        return t.shape, t.stride(), 2, 4096
+    raise KeyError(kind)
+
+
+@pytest.mark.parametrize("kind,ok", [
+    ("dense", True), ("split-heads", True), ("size-one-axes", True),
+    ("padded-rows", False), ("odd-heads", False), ("misaligned", False),
+    ("expanded", False)])
+def test_tma_refusal(kind, ok):
+    why = fa.tma_refusal(*_view(kind))
+    assert (why is None) == ok, why
+
+
+def test_tma_strides_are_bytes_and_fill_size_one_axes():
+    assert fa.tma_strides((2, 4, 77, 128), (4 * 77 * 128, 77 * 128, 128, 1),
+                          2) == (2 * 4 * 77 * 128, 2 * 77 * 128, 256)
+    # B = H = T = 1: each takes the next inner axis's extent
+    assert fa.tma_strides((1, 1, 1, 64), (3, 5, 7, 1), 2) == (128, 128, 128)
+
+
+def _visible(tq, tk, causal, window, q_offset):
+    qpos = q_offset + np.arange(tq)[:, None]
+    kpos = np.arange(tk)[None, :]
+    ok = np.ones((tq, tk), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return ok
+
+
+SCHEDULES = [(128, 128, True, None, 0), (128, 128, False, None, 0),
+             (1000, 1000, True, 300, 0), (333, 333, True, None, 0),
+             (1, 4641, True, None, 4640), (64, 128, True, 20, 120),
+             (200, 200, True, 50, 0), (100, 100, True, None, 7),
+             (300, 4641, True, 1024, 4341), (70, 90, False, 33, 5),
+             (5, 0, True, None, 0)]
+
+
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("tq,tk,causal,window,q_offset", SCHEDULES)
+def test_key_tile_schedule_matches_brute_force_mask(tq, tk, causal, window,
+                                                    q_offset, dh):
+    """Each tile of 64 query rows visits exactly the key tiles (128 keys at
+    Dh 128, 64 at Dh 256) that hold a visible (query, key) pair; the
+    visible pairs are those the chip smoke's bound counts."""
+    vis = _visible(tq, tk, causal, window, q_offset)
+    assert int(vis.sum()) == chip_smoke.attention_pairs(tq, tk, causal,
+                                                        window, q_offset)
+    bk = fa.block_k(dh)
+    assert bk == (128 if dh == 128 else 64)
+    counts = fa.key_tiles_per_query_tile(tq, tk, causal, window, q_offset,
+                                         dh)
+    assert len(counts) == -(-tq // 64)
+    for qt, n in enumerate(counts):
+        rows = vis[64 * qt:64 * qt + 64]
+        want = {key // bk for key in np.nonzero(rows.any(axis=0))[0]}
+        lo, hi = fa.key_tile_range(64 * qt, tq, tk, causal, window, q_offset,
+                                   bk)
+        assert set(range(lo, hi)) == want
+        assert n == len(want)
+
+
+# --------------------------------------------------------------------------- #
 # on a card: the kernel against its plain version
 # --------------------------------------------------------------------------- #
 
@@ -237,3 +339,70 @@ def test_kernel_reads_strided_heads_in_place(cuda_device):
     want = ref.mha_attention(q, k, v, causal=True, window=40)
     torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
                                atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
+def test_bf16_kernel_every_head_size_and_group(cuda_device, dh, group):
+    """The wgmma route at every head size and GQA group, with a window and
+    a softcap on odd groups."""
+    kw = (dict(causal=True, window=100, softcap=30.0) if group % 2 else
+          dict(causal=True))
+    gen = torch.Generator(device=cuda_device).manual_seed(dh + group)
+    q = torch.randn((1, 2 * group, 256, dh), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((1, 2, 256, dh), generator=gen, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    got = ops.mha_attention(q, k, v, **kw)
+    want = ref.mha_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,tq,tk,dh,kw", [
+    (1, 8, 2, 1000, 1000, 128, dict(causal=True, window=300, softcap=50.0)),
+    (1, 4, 4, 1000, 1000, 64, dict(causal=False)),
+    (4, 16, 8, 1, 4641, 256, dict(causal=True, q_offset=4640,
+                                  softcap=50.0)),
+], ids=["ragged-window-softcap", "ragged-full", "decode-4641"])
+def test_bf16_kernel_ragged_and_long_decode(cuda_device, b, hq, hkv, tq, tk,
+                                            dh, kw):
+    gen = torch.Generator(device=cuda_device).manual_seed(tq + tk)
+    q = torch.randn((b, hq, tq, dh), generator=gen,
+                    device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((b, hkv, tk, dh), generator=gen, device=cuda_device)
+            .to(torch.bfloat16) for _ in range(2))
+    ops.reset_launch_counts()
+    got = ops.mha_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.mha_attention(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_refuses_a_view_tma_cannot_read(cuda_device):
+    """T stride 132 * 2 = 264 bytes, not a multiple of 16: refused with
+    the reason, not copied; the same view in float32 (the SIMT route) is
+    read as it is."""
+    buf = torch.randn((1, 2, 50, 132), device=cuda_device)
+    q = buf.to(torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_attention(q, q, q)
+    got = fa.flash_attention(buf[..., :128], buf[..., :128], buf[..., :128])
+    want = ref.mha_attention(buf[..., :128], buf[..., :128], buf[..., :128])
+    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_runs_on_tensor_cores_and_tma(cuda_device):
+    """The wgmma library's SASS holds HGMMA (wgmma) and UTMALDG (TMA
+    loads)."""
+    from repro_torch.kernels import build
+    if build.cuobjdump_path() is None:
+        pytest.skip("cuobjdump is not in the CUDA toolkit")
+    counts = build.sass_counts("flash_attention_sm90", ("HGMMA", "UTMALDG"))
+    assert counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, counts

@@ -160,6 +160,18 @@ def test_norm_matches_within_rtol(n):
                 rtol=NORM_RTOL)
 
 
+@pytest.mark.parametrize("rows,n", [(1, 1), (5, 50176), (4, 1 << 24),
+                                    (3, 8193), (65535, 10), (1, 1 << 30)])
+def test_norm_partition_depends_only_on_shape(rows, n):
+    """K3's blocks a row, which fix the order of its sums: one a 8192
+    elements, at most 512 a row and 2112 in all (or one a row)."""
+    parts = quant.norm_parts(rows, n)
+    assert 1 <= parts <= 512
+    assert parts == 1 or rows * parts <= 132 * 16
+    assert parts <= -(-n // 8192)
+    assert parts == quant.norm_parts(rows, n)
+
+
 @pytest.mark.parametrize("n,r", [(1000, 1), (1000, 4), (4099, 8), (128, 8),
                                  (10, 1)])
 def test_qr_bit_exact_given_norm_and_uniforms(n, r):
