@@ -18,8 +18,12 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    K7 fused Q_r pack, K8 code pack, K9 code unpack) against its plain
    PyTorch version on the card, at the main path's shapes, edge cases and
    one large shape: all bit-equal except K3, which must be within
-   ``NORM_RTOL``; K9 must invert K8.  Then times kernel, plain version and
-   the library yardstick;
+   ``NORM_RTOL``; K9 must invert K8.  K1's cases also take rows shorter
+   than a cluster's CTAs, n not a multiple of 4, per-row k of 0, 1, n-1, n
+   and beyond n, +-0 / subnormals / inf / ties, and rows at and just past
+   its clusters' shared-memory capacity; ``torch.profiler`` must see one
+   device operation a K1 call.  Then times kernel, plain version and the
+   library yardstick (K1 and K3 also by their device time a call);
 3. train — drives the quickstart configuration (MLP 784-64-64-10, 20
    Dirichlet(0.7) clients, 5 per round, batch 32, gamma = 0.1, p = 0.1)
    through ``server.run_federated`` on the card, FedComLoc-Com with
@@ -49,12 +53,16 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    train loss within ``LOSS_RTOL``;
 4. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
    at the serving shapes (8, 2560, 2560) and (8, 40, 2560, 64), T = 1,
-   odd T, B = 1, decays near 0 and 1 and zeros, and K12 also on the
-   layout prefill launches it on (bf16 ``rwkv6._heads`` views of (B, T,
-   2560) activations); K11 must be bit-equal, K12's y within
-   ``WKV6_YTOL`` of max |y| (plus one bf16 ulp in bf16), its S_T within
-   ``WKV6_YTOL`` of max |S|.  Times both at the serving and a larger
-   shape, K12 on the prefill layout;
+   odd T, B = 1, decays near 0 and 1 and zeros; K11 must be bit-equal.
+   K12's float32 route (the sequential kernel) must give S_T bit-equal
+   and y within ``WKV6_YTOL`` of max |y|.  Its bf16 route (the chunked
+   tensor-core scan, on the layout prefill launches it on: bf16
+   ``rwkv6._heads`` views of (B, T, 2560) activations) at main, T = 1, 63,
+   64, 65 and 77 and with w = 1e-7 and 1 - 1e-7 held over whole 2560-step
+   heads must be within ``WKV6_BF16_ATOL`` + ``WKV6_BF16_RTOL`` |plain|
+   (y: plus one bf16 ulp) of the plain version run in float64.  Times both
+   scans at the serving and a larger shape (K12's bf16 route on the
+   prefill layout, its float32 route at main);
 5. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
    width and depth in bf16, weights from the port's own init on the card,
    through ``launch/serve.py``'s :func:`serve`: batch 8, prompt 2560
@@ -130,6 +138,15 @@ LARGE = (4, 1 << 24)
 # K12's y and S_T against the plain version, float32: |d| <= WKV6_YTOL *
 # max |plain| (64-term sums of y run in another order than the einsum)
 WKV6_YTOL = 1e-5
+# K12's bf16 (chunked, tensor-core) route, elementwise: |d| <= ATOL + RTOL
+# * |plain| (y: plus one bf16 ulp of plain, its own rounding), the JAX
+# package's tolerance for this kernel (tests/test_kernels.py: Pallas
+# against the oracle).  "plain" is the plain version run in float64: with w
+# near 1 over 2560 steps the float32 plain version's own rounding reaches
+# past 3e-4 (about 6e-4 in y at 1024 steps on the CPU), while the chunked
+# route's products (3xTF32 for R~ S, bf16 hi + lo against bf16 v) stay
+# near 2^-21 and 2^-16 a product
+WKV6_BF16_RTOL = WKV6_BF16_ATOL = 3e-4
 SCAN_MAIN = {"K11": (8, 2560, 2560), "K12": (8, 40, 2560, 64)}
 SCAN_LARGE = {"K11": (32, 4096, 2560), "K12": (32, 40, 4096, 64)}
 SERVE_GEN = 32
@@ -296,10 +313,11 @@ def device_ms_by_name(prof) -> dict:
     return out
 
 
-def device_ms_per_call(torch, fn, calls: int):
-    """Device time a call of ``fn`` takes (its kernels, copies and memsets
-    summed from ``torch.profiler``), or None where the profiler recorded
-    no device event."""
+def device_per_call(torch, fn, calls: int):
+    """(device ms, device operations) a call of ``fn`` takes: its kernels,
+    copies and memsets from ``torch.profiler``; (None, None) where the
+    profiler recorded no device event."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -309,8 +327,11 @@ def device_ms_per_call(torch, fn, calls: int):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    dev = device_ms_by_name(prof)
-    return sum(dev.values()) / calls if dev else None
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    if not evs:
+        return None, None
+    ms = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+    return ms / calls, len(evs) / calls
 
 
 def bf16_ulp(torch, y):
@@ -375,44 +396,77 @@ def check_scan_kernels(torch, dev, recs) -> None:
         return r, k, v, w, u
 
     b, h, t, _ = SCAN_MAIN["K12"]
+    # float32: the sequential kernel, S_T bit-equal, y within WKV6_YTOL
     edge = wkv6_inputs(2, 4, 333, torch.float32)
     edge[3][0, 0] = 1e-7                         # w near 0: forget
     edge[3][0, 1] = 1.0 - 1e-7                   # w near 1: remember
     edge[2][1, 2] = 0.0                          # v = 0
     edge[0][1, 3] = 0.0                          # r = 0: y = 0
-    wkv_cases = [("main bf16 heads",
-                  wkv6_inputs(b, h, t, torch.bfloat16, heads=True)),
-                 ("main bf16", wkv6_inputs(b, h, t, torch.bfloat16)),
-                 ("main f32", wkv6_inputs(b, h, t, torch.float32)),
+    f32_cases = [("main f32", wkv6_inputs(b, h, t, torch.float32)),
                  ("T=1", wkv6_inputs(b, h, 1, torch.float32)),
-                 ("T=77 bf16", wkv6_inputs(b, h, 77, torch.bfloat16)),
                  ("B=1", wkv6_inputs(1, h, t, torch.float32)),
                  ("edges", edge)]
-    s_bits = True
-    for label, args in wkv_cases:
+    for label, args in f32_cases:
         y, s_t = wkv6.wkv6_scan(*args)
         y_r, s_r = ref.wkv6_scan(*(z.contiguous() for z in args))
         torch.cuda.synchronize()
-        s_err = float((s_t - s_r).abs().max())
-        if s_err > WKV6_YTOL * float(s_r.abs().max()):
-            raise AssertionError(f"K12 {label}: S_T off by {s_err!r}")
-        s_bits = s_bits and same_bits(s_t, s_r)
-        dy = (y.float() - y_r.float()).abs()
-        # the float32 sums may differ by the f32 tolerance; in bf16 the
-        # rounding of y can then land one bf16 ulp away
-        bound = WKV6_YTOL * float(y_r.float().abs().max())
-        if y.dtype == torch.bfloat16:
-            bound = bound + bf16_ulp(torch, y_r)
-        if bool((dy > bound).any()):
-            raise AssertionError(f"K12 {label}: y off by more than the f32 "
-                                 f"tolerance (plus one bf16 ulp in bf16): max "
-                                 f"|dy| {float(dy.max())!r}")
-        recs["K12"].err(y.float(), y_r.float())
-        recs["K12"].err(s_t, s_r)
-    print(f"[scans] K12 y within {WKV6_YTOL} of max |plain| (plus one bf16 "
-          f"ulp in bf16) on {len(wkv_cases)} cases; S_T bit-equal on all: "
-          f"{s_bits}; max abs err {recs['K12'].max_abs_err!r}", flush=True)
-    del wkv_cases, edge
+        if not same_bits(s_t, s_r):
+            raise AssertionError(f"K12 {label}: S_T differs from the plain "
+                                 f"version's bits")
+        dy = float((y - y_r).abs().max())
+        if dy > WKV6_YTOL * float(y_r.abs().max()):
+            raise AssertionError(f"K12 {label}: y off by {dy!r}")
+        recs["K12"].err(y, y_r)
+    print(f"[scans] K12 float32 route: S_T bit-equal and y within "
+          f"{WKV6_YTOL} of max |plain| on {len(f32_cases)} cases", flush=True)
+    del f32_cases, edge
+
+    # bf16: the chunked tensor-core route, held elementwise to the JAX
+    # package's tolerance against the plain version run in float64
+    def bf16_route_case(label, args):
+        y, s_t = wkv6.wkv6_scan(*args)
+        y64, s64 = ref.wkv6_scan(*(z.double() for z in args),
+                                 dtype=torch.float64)
+        torch.cuda.synchronize()
+        tol_y = (WKV6_BF16_ATOL + WKV6_BF16_RTOL * y64.abs()
+                 + bf16_ulp(torch, y64).double())
+        tol_s = WKV6_BF16_ATOL + WKV6_BF16_RTOL * s64.abs()
+        dy = (y.double() - y64).abs()
+        ds = (s_t.double() - s64).abs()
+        if bool((dy > tol_y).any()) or bool((ds > tol_s).any()):
+            raise AssertionError(
+                f"K12 {label}: bf16 route outside its tolerance: max "
+                f"|dy| / tol {float((dy / tol_y).max())!r}, max |dS| / tol "
+                f"{float((ds / tol_s).max())!r}")
+        recs["K12"].err(y.double(), y64)
+        recs["K12"].err(s_t.double(), s64)
+        return float((dy / tol_y).max()), float((ds / tol_s).max())
+
+    worst = (0.0, 0.0)
+    main_heads = wkv6_inputs(b, h, t, torch.bfloat16, heads=True)
+    held = wkv6_inputs(b, h, t, torch.bfloat16, heads=True)
+    held[3][:, 0] = 1e-7                         # forget, a whole head
+    held[3][:, 1] = 1.0 - 1e-7                   # remember, a whole head
+    bf16_cases = [("main bf16 heads", main_heads),
+                  ("main bf16", wkv6_inputs(b, h, t, torch.bfloat16))]
+    bf16_cases += [(f"T={tt} bf16 heads",
+                    wkv6_inputs(b, h, tt, torch.bfloat16, heads=True))
+                   for tt in (1, 63, 64, 65, 77)]
+    bf16_cases.append(("w=1e-7 and 1-1e-7 over 2560 steps, bf16 heads",
+                       held))
+    for label, args in bf16_cases:
+        q = bf16_route_case(label, args)
+        worst = (max(worst[0], q[0]), max(worst[1], q[1]))
+    # what the float32 plain version itself is off by where w stays near 1
+    y32, s32 = ref.wkv6_scan(*(z.contiguous() for z in held))
+    y64, s64 = ref.wkv6_scan(*(z.double() for z in held), dtype=torch.float64)
+    print(f"[scans] K12 bf16 route within |d| <= {WKV6_BF16_ATOL} + "
+          f"{WKV6_BF16_RTOL} |plain in float64| (y: + one bf16 ulp) on "
+          f"{len(bf16_cases)} cases; worst |d| / tolerance y {worst[0]!r}, "
+          f"S_T {worst[1]!r}; the float32 plain version on the held-decay "
+          f"case is itself off by max |dS| {float((s32.double() - s64).abs().max())!r}"
+          f" from float64", flush=True)
+    del bf16_cases, main_heads, held, y32, s32, y64, s64
     torch.cuda.empty_cache()
 
     for tag, shapes, iters, plain_iters, warm in (
@@ -430,14 +484,32 @@ def check_scan_kernels(torch, dev, recs) -> None:
         # reads bf16 r, k, v, f32 w and u, writes bf16 y and f32 S_T.  The
         # function's least work a (b, h, t): y = S^T r + (sum_i r_i u_i k_i)
         # v is one FMA (2 operations) a state entry plus 5 a column, and
-        # S <- diag(w) S + k v^T is 3 a state entry: 5 * 64 * 65 in all
+        # S <- diag(w) S + k v^T is 3 a state entry: 5 * 64 * 65 in all.
+        # The bf16 route does them on the tensor cores: its bound takes the
+        # bf16 tensor-core peak (the float32 one is printed beside it)
         plans["K12"] = (lambda: wkv6.wkv6_scan(*args),
                         lambda: ref.wkv6_scan(*args),
                         (3 * 2 + 4 + 2) * n + 4 * b * h * 64 * 64
                         + 4 * h * 64, 5 * 65 * n)
+        f32_ms, _ = bound_ms(plans["K12"][2], plans["K12"][3])
+        tc_ms, tc_by = bound_ms(plans["K12"][2], plans["K12"][3],
+                                BF16_OPS_PER_S)
+        if tag == "main":
+            args32 = wkv6_inputs(b, h, t, torch.float32, heads=True)
+            f32_kernel = time_ms(torch, lambda: wkv6.wkv6_scan(*args32), iters)
+            f32_bytes = (4 * 4 + 4) * n + 4 * b * h * 64 * 64 + 4 * h * 64
+            print(f"[scans] K12 float32 route (sequential kernel) main "
+                  f"{shapes['K12']}: kernel_ms={f32_kernel!r} bound_ms="
+                  f"{bound_ms(f32_bytes, 5 * 65 * n)!r}", flush=True)
+            del args32
+        print(f"[scans] K12 bf16 route {tag}: bound against the bf16 tensor "
+              f"cores {tc_ms!r} ms ({tc_by}), against float32's 67 TFLOP/s "
+              f"{f32_ms!r} ms; held to the first", flush=True)
         for key_, (kern, plain, nbytes, nops) in plans.items():
             rec = recs[key_]
-            b_ms, b_by = bound_ms(nbytes, nops)
+            b_ms, b_by = bound_ms(nbytes, nops,
+                                  BF16_OPS_PER_S if key_ == "K12"
+                                  else F32_OPS_PER_S)
             row = {"shape": list(shapes[key_]),
                    "kernel_ms": time_ms(torch, kern, iters),
                    "plain_ms": time_ms(torch, plain, plain_iters, warm),
@@ -993,6 +1065,34 @@ def main() -> int:
     topk_cases.append(("odd n=777", randn(4, 777), 77))     # scalar mask path
     topk_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 1229))
     topk_cases.append(("large", randn(*LARGE), LARGE[1] // 10))
+    # K1's one-launch cluster kernel: rows shorter than a cluster's CTAs,
+    # n not a multiple of 4 at the 16-CTA size, per-row k of 0, 1, n-1, n
+    # and beyond n, +-0 / subnormals / inf, and rows at and just past the
+    # clusters' shared-memory capacity (the longer one is read from HBM
+    # until its candidates fit)
+    for n in (1, 3, 5, 7):
+        topk_cases.append((f"n={n} below the CTAs", randn(3, n), max(1, n // 2)))
+    topk_cases.append(("odd n=50177", randn(s, 50177), 15053))
+    x = randn(5, 1000)
+    topk_cases.append(("per-row k 0 1 n-1 n >n", x,
+                       torch.tensor([0, 1, 999, 1000, 1500], device=dev)))
+    x = randn(4, 4099)
+    x[0, ::3] = 1e-40                            # subnormals
+    x[0, 1::7] = -1e-45
+    x[1, ::5] = float("inf")                     # inf beside finite values
+    x[1, 1::11] = float("-inf")
+    x[2, :2000] = 0.0                            # +0 and -0 ties
+    x[2, 2000:] = -0.0
+    x[2, 7] = 3.0
+    x[3] = 0.25                                  # every magnitude equal
+    for k in (1, 410, 4098):
+        topk_cases.append((f"special values n=4099 k={k}", x, k))
+    resident = tk.resident_max_n()
+    for n in (resident, resident + 4):
+        x = randn(2, n)
+        x[1, ::2] = 2.0                          # half the row ties
+        topk_cases.append((f"n={n} ({'at' if n == resident else 'past'} the "
+                           f"shared-memory capacity)", x, n // 10))
     for label, xc, k in topk_cases:
         t = tk.threshold_bits(xc, k)
         t_ref = ref.topk_threshold_bits(xc, k)
@@ -1007,6 +1107,17 @@ def main() -> int:
         recs["K2"].err(m.float(), m_ref.float())
     print(f"[kernels] K1/K2 bit-equal to the plain version on "
           f"{len(topk_cases)} cases", flush=True)
+    for n in (10, leaf_sizes[0], LARGE[1]):
+        xc = randn(s if n != LARGE[1] else LARGE[0], n)
+        _, ops_a_call = device_per_call(torch, lambda: tk.threshold_bits(
+            xc, max(1, n // 3)), 5)
+        if ops_a_call != 1.0:
+            raise AssertionError(f"K1 n={n}: {ops_a_call} device operations "
+                                 f"a threshold_bits call, not 1")
+    print(f"[kernels] K1 one kernel a call under torch.profiler (n = 10, "
+          f"{leaf_sizes[0]}, {LARGE[1]}); rows up to n = {resident} stay in "
+          f"shared memory", flush=True)
+    del xc
 
     qr_cases = [(f"main n={n}", randn(s, n), 8) for n in leaf_sizes]
     x = randn(3, 1001)
@@ -1230,13 +1341,14 @@ def main() -> int:
                   f"{row['kernel_ms']!r} plain_ms={row['plain_ms']!r} "
                   f"library_ms={row['library_ms']!r} bound_ms={b_ms!r} "
                   f"({b_by})", flush=True)
-            if key_ == "K3":
+            if key_ in ("K1", "K3"):
                 # at the main shape both calls are host-bound: their device
                 # time, from the profiler, is what the kernel itself takes
-                dev_k = device_ms_per_call(torch, kern, 50)
-                dev_l = device_ms_per_call(torch, lib, 50)
-                print(f"[kernels] K3 l2_norm {tag} {shape}: device ms a call "
-                      f"(torch.profiler) kernel {dev_k!r}, vector_norm "
+                dev_k = device_per_call(torch, kern, 50)[0]
+                dev_l = device_per_call(torch, lib, 50)[0]
+                print(f"[kernels] {key_} {rec.name} {tag} {shape}: device ms a "
+                      f"call (torch.profiler) kernel {dev_k!r}, "
+                      f"{'topk' if key_ == 'K1' else 'vector_norm'} "
                       f"{dev_l!r}", flush=True)
         del xc, xa, u, codes, words, t6, norm6
         torch.cuda.synchronize()

@@ -8,100 +8,302 @@
 //   K2  topk_mask (_mask_kernel): out = where(bits >= t, x, 0).
 //
 // Input is row-batched: (rows, n) float32, one row per client's leaf, with
-// a per-row k (int32 on the device) so one launch serves a whole cohort.
-// The TPU grid accumulated one histogram sequentially; here blocks run in
-// parallel, so each block builds a shared-memory histogram with shared
-// atomics and adds its non-zero bins into a global (rows, 256) histogram.
-// A one-block-per-row walk kernel then picks the digit and updates the
-// row's prefix and remaining k on the device: no host synchronisation
-// between passes.  Counts are integers, exact at any size.
+// a per-row k (int32 on the device) or one k for every row.
+//
+// K1 is one launch a call.  The TPU grid carried one histogram from grid
+// step to grid step; here each row is one thread-block cluster of 8 or 16
+// CTAs (16 where the card schedules that non-portable size) and all four
+// digits are decided inside the launch:
+//   * each CTA takes a contiguous slice of the row, reads it from HBM once
+//     with 16-byte loads where the row allows, and keeps the magnitudes'
+//     bits in shared memory (up to kListCap a CTA);
+//   * a pass histograms the slice's matching elements into the CTA's
+//     256 bins with shared atomics.  The high digit of Gaussian data falls
+//     in two or three bins, so there same-address atomics would
+//     serialise: in that pass each thread counts its first two distinct
+//     bins in registers (any other bin is one atomic) and a warp adds them
+//     at the end of the pass with one atomic per distinct bin (ballot,
+//     shuffle, __reduce_add_sync);
+//   * after one cluster barrier a pass, every CTA sums the cluster's
+//     histograms through distributed shared memory and one warp of it
+//     walks them: 8 bins a lane, a suffix scan with __shfl_down_sync, the
+//     digit counted by a warp reduction.  Each CTA walks for itself, so
+//     no second barrier hands the result round; three histogram buffers
+//     keep a fast CTA from zeroing bins a slow one still reads;
+//   * a slice too large for shared memory is read from HBM again in each
+//     pass until the elements matching the decided prefix fit (after the
+//     first or second digit at any realistic size); those are collected
+//     into shared memory while that pass reads them, and the later passes
+//     read only them.
+// Counts are integers, exact at any size, and the walk is the plain
+// version's (ref.radix_walk_step), so the result is bit-equal to it.  No
+// scratch memory: the wrapper allocates only the (rows,) output.
 //
 // Edge conventions (those of the TPU kernel): k >= n gives threshold 0
 // (every entry kept), k <= 0 gives 0xFFFFFFFF (empty support).
 //
-// Bound on an H100 SXM (3.35 TB/s): K1 reads x four times, ~4 * 4n bytes;
-// K2 reads 4n and writes 4n bytes.  At the main path's sizes (5 clients x
-// 50176 floats, about 1 MB) every pass takes well under a microsecond of
-// bandwidth, so launch latency (9 launches for K1, 1 for K2), not memory,
-// is the floor.  A single persistent pass for K1 and K2 is later work.
+// Bound on an H100 SXM (3.35 TB/s): the function must read x once (4n
+// bytes a row) and does ~16 integer operations an element.  At the main
+// path's size (5 clients x 50176 floats, about 1 MB) that is 0.0003 ms,
+// so launch latency and the six cluster barriers are the floor; a row
+// that fits the cluster's shared memory is read from HBM once.  At
+// (4, 2^24) one cluster a row reads x up to three times (the third pass
+// collects the candidates); the bound is 0.080 ms.  K2 reads 4n and
+// writes 4n bytes in one launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kBins = 256;
 constexpr int kThreads = 256;
-constexpr long long kChunk = 4096;   // elements per histogram block
 constexpr int kMaxBlocks = 132 * 16; // grid cap: 16 blocks per SM
+
+// K1: threads a CTA; shared-memory element list a CTA (u32 bit patterns,
+// 192 KB of dynamic shared memory); rows with at most kSmallRow elements
+// take clusters of 8 CTAs.
+constexpr int kSelThreads = 1024;
+constexpr int kListCap = 48 * 1024;
+constexpr long long kSmallRow = 8LL * 4096;
+constexpr int kUnroll = 2;   // float4 (or float) loads a thread a block
 
 __device__ __forceinline__ uint32_t mag_bits(float v) {
   return __float_as_uint(v) & 0x7FFFFFFFu;
 }
 
-__global__ void init_rows(const int* __restrict__ k, uint32_t* __restrict__ prefix,
-                          long long* __restrict__ k_rem, int rows) {
-  int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < rows) {
-    prefix[r] = 0u;
-    k_rem[r] = k[r];
+// A thread's two most recent bins and their counts, kept in registers:
+// the high digit of Gaussian data falls in two or three bins, so most
+// elements cost no shared atomic at all (the first two distinct bins a
+// thread meets take the slots; any other bin is added at once).
+struct BinSlots {
+  unsigned b0, c0, b1, c1;
+};
+
+__device__ __forceinline__ void slots_add(BinSlots& s, unsigned* H, unsigned bin) {
+  // branch-free but for the one atomic: lanes of a warp take different
+  // cases element by element
+  const bool m0 = bin == s.b0;
+  const bool m1 = !m0 && bin == s.b1;
+  const bool t0 = !m0 && !m1 && s.c0 == 0u;
+  const bool t1 = !m0 && !m1 && !t0 && s.c1 == 0u;
+  s.b0 = t0 ? bin : s.b0;
+  s.b1 = t1 ? bin : s.b1;
+  s.c0 += (m0 || t0) ? 1u : 0u;
+  s.c1 += (m1 || t1) ? 1u : 0u;
+  if (!(m0 || m1 || t0 || t1)) atomicAdd(&H[bin], 1u);
+}
+
+// The high digit (pass 0) goes through the register slots; later digits
+// spread over many bins, where a plain shared atomic is cheaper.
+__device__ __forceinline__ void count_bin(BinSlots& s, unsigned* H, unsigned bin, int pass) {
+  if (pass == 0) {
+    slots_add(s, H, bin);
+  } else {
+    atomicAdd(&H[bin], 1u);
   }
 }
 
-// grid: (blocks per row, rows); block: kThreads.
-__global__ void hist_pass(const float* __restrict__ x, long long n, int shift,
-                          const uint32_t* __restrict__ prefix,
-                          unsigned int* __restrict__ hist) {
-  __shared__ unsigned int sh[kBins];
-  const int row = blockIdx.y;
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) sh[i] = 0u;
-  __syncthreads();
-  const uint32_t high = (shift + 8 < 32) ? (0xFFFFFFFFu << (shift + 8)) : 0u;
-  const uint32_t want = prefix[row] & high;
-  const float* xr = x + (long long)row * n;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t b = mag_bits(xr[i]);
-    if ((b & high) == want) atomicAdd(&sh[(b >> shift) & 0xFFu], 1u);
+// Adds every lane's (bin, count) to H; every lane of the warp must call
+// it.  A bin only one lane holds is one atomic from that lane; lanes that
+// share a bin add it once, through a warp sum (ballot, shuffle,
+// __reduce_add_sync) a shared bin.
+__device__ __forceinline__ void warp_flush(unsigned* H, unsigned bin, unsigned count) {
+  const int lane = threadIdx.x & 31;
+  const unsigned act = __ballot_sync(0xFFFFFFFFu, count != 0u);
+  if (count != 0u && __popc(__match_any_sync(act, bin)) == 1) {
+    atomicAdd(&H[bin], count);
+    count = 0u;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) {
-    const unsigned int c = sh[i];
-    if (c) atomicAdd(&hist[(long long)row * kBins + i], c);
+  unsigned pending = __ballot_sync(0xFFFFFFFFu, count != 0u);
+  while (pending) {
+    const int leader = __ffs(pending) - 1;
+    const unsigned lb = __shfl_sync(0xFFFFFFFFu, bin, leader);
+    const bool mine = count != 0u && bin == lb;
+    const unsigned total = __reduce_add_sync(0xFFFFFFFFu, mine ? count : 0u);
+    if (lane == leader) atomicAdd(&H[lb], total);
+    if (mine) count = 0u;
+    pending = __ballot_sync(0xFFFFFFFFu, count != 0u);
   }
 }
 
-// grid: rows; block: kBins.  Reads and clears the row's histogram.
-__global__ void walk_pass(unsigned int* __restrict__ hist, int shift,
-                          uint32_t* __restrict__ prefix,
-                          long long* __restrict__ k_rem,
-                          const int* __restrict__ k, long long n,
-                          long long* __restrict__ thr, int last) {
-  __shared__ long long ge[kBins];
-  const int row = blockIdx.x;
-  const int t = threadIdx.x;
-  ge[t] = (long long)hist[(long long)row * kBins + t];
-  hist[(long long)row * kBins + t] = 0u;
-  __syncthreads();
-  if (t != 0) return;
-  long long acc = 0;
-  for (int d = kBins - 1; d >= 0; --d) {  // ge[d] = count(digit >= d)
-    acc += ge[d];
-    ge[d] = acc;
+// Appends b to list for every active lane (order within the list is free).
+// Every lane of the warp must call it.
+__device__ __forceinline__ void list_add(unsigned* list, unsigned* list_n, unsigned b,
+                                         bool active) {
+  const unsigned act = __ballot_sync(0xFFFFFFFFu, active);
+  if (act == 0u) return;
+  const int lane = threadIdx.x & 31;
+  unsigned base = 0u;
+  if (lane == __ffs(act) - 1) base = atomicAdd(list_n, (unsigned)__popc(act));
+  base = __shfl_sync(0xFFFFFFFFu, base, __ffs(act) - 1);
+  if (active) list[base + __popc(act & ((1u << lane) - 1u))] = b;
+}
+
+// grid: rows * C CTAs in clusters of C (one cluster a row); block:
+// kSelThreads; dynamic shared memory: the element list.  `slice` is a
+// multiple of 4; k == nullptr means every row takes k_scalar.
+__global__ void __launch_bounds__(kSelThreads)
+threshold_select(const float* __restrict__ x, const int* __restrict__ k, int k_scalar,
+                 long long n, long long slice, int vec, long long* __restrict__ thr) {
+  extern __shared__ unsigned list[];
+  // three histogram buffers: pass p fills hist[p % 3] while slower CTAs
+  // may still read pass p - 1's, and zeroes pass p + 1's
+  __shared__ unsigned hist[3][kBins];
+  __shared__ unsigned merged[kBins];
+  __shared__ unsigned ctl_prefix;
+  __shared__ int ctl_krem;
+  __shared__ unsigned list_n;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned C = cluster.num_blocks();
+  const unsigned rank = cluster.block_rank();
+  const long long row = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  const int kk = k ? k[row] : k_scalar;
+  if ((long long)kk >= n || kk <= 0) {   // the same for the whole cluster
+    if (rank == 0 && tid == 0) thr[row] = (long long)kk >= n ? 0LL : 0xFFFFFFFFLL;
+    return;
   }
-  const long long kr = k_rem[row];
-  int count = 0;  // ge is non-increasing: the digits with ge >= k_rem
-  for (int d = 0; d < kBins; ++d) count += (ge[d] >= kr) ? 1 : 0;
-  const int digit = min(max(count - 1, 0), kBins - 1);
-  const long long above = (digit < kBins - 1) ? ge[digit + 1] : 0;
-  k_rem[row] = kr - above;
-  const uint32_t p = prefix[row] | ((uint32_t)digit << shift);
-  prefix[row] = p;
-  if (last) {
-    const long long kk = k[row];
-    thr[row] = kk >= n ? 0LL : (kk <= 0 ? 0xFFFFFFFFLL : (long long)p);
+  const long long lo = (long long)rank * slice;
+  const long long hi = min(n, lo + slice);
+  const int len = hi > lo ? (int)(hi - lo) : 0;
+  const float* xr = x + row * n + lo;
+  for (int i = tid; i < kBins; i += kSelThreads) hist[0][i] = 0u;
+  if (tid == 0) list_n = 0u;
+  cluster.sync();   // every CTA has started and zeroed its first bins
+
+  unsigned prefix = 0u;
+  int k_rem = kk;
+  int matching = len;     // this CTA's elements that match the prefix
+  bool listed = false;    // they are all in `list`
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    const unsigned high = pass == 0 ? 0u : (0xFFFFFFFFu << (shift + 8));
+    unsigned* H = hist[pass % 3];
+    BinSlots sl = {0u, 0u, 0u, 0u};
+    if (listed) {
+      const int m = (int)list_n;
+      for (int i = tid; i < m; i += kSelThreads) {
+        const unsigned b = list[i];
+        if ((b & high) == prefix) count_bin(sl, H, (b >> shift) & 0xFFu, pass);
+      }
+    } else {
+      const bool collect = matching <= kListCap;   // the same for the CTA
+      if (vec) {
+        // the next block's loads are in flight while this one is counted
+        const float4* x4 = reinterpret_cast<const float4*>(xr);
+        const int n4 = len >> 2;
+        const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = u * kSelThreads + tid;
+          v[u] = i < n4 ? __ldg(x4 + i) : zero4;
+        }
+        for (int base = 0; base < n4; base += kUnroll * kSelThreads) {
+          float4 nv[kUnroll];
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int i = base + (kUnroll + u) * kSelThreads + tid;
+            nv[u] = i < n4 ? __ldg(x4 + i) : zero4;
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const bool in = base + u * kSelThreads + tid < n4;
+            const unsigned e[4] = {mag_bits(v[u].x), mag_bits(v[u].y), mag_bits(v[u].z),
+                                   mag_bits(v[u].w)};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool act = in && (e[j] & high) == prefix;
+              if (act) count_bin(sl, H, (e[j] >> shift) & 0xFFu, pass);
+              if (collect) list_add(list, &list_n, e[j], act);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) v[u] = nv[u];
+        }
+      } else {
+        for (int base = 0; base < len; base += 4 * kUnroll * kSelThreads) {
+          float v[4 * kUnroll];
+#pragma unroll
+          for (int u = 0; u < 4 * kUnroll; ++u) {
+            const int i = base + u * kSelThreads + tid;
+            v[u] = i < len ? __ldg(xr + i) : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < 4 * kUnroll; ++u) {
+            const unsigned e = mag_bits(v[u]);
+            const bool act = base + u * kSelThreads + tid < len && (e & high) == prefix;
+            if (act) count_bin(sl, H, (e >> shift) & 0xFFu, pass);
+            if (collect) list_add(list, &list_n, e, act);
+          }
+        }
+      }
+      listed = collect;
+    }
+    warp_flush(H, sl.b0, sl.c0);
+    warp_flush(H, sl.b1, sl.c1);
+    for (int i = tid; i < kBins; i += kSelThreads) hist[(pass + 1) % 3][i] = 0u;
+    cluster.sync();   // every CTA's bins for this pass are complete
+    // every CTA sums the cluster's bins through distributed shared memory
+    // and walks them itself: no second barrier to hand the result round
+    if (tid < kBins) {
+      unsigned sum = 0u;
+#pragma unroll
+      for (unsigned r = 0; r < 16; ++r)   // all loads in flight at once
+        if (r < C) sum += cluster.map_shared_rank(H, r)[tid];
+      merged[tid] = sum;
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // ge[d] = count(digit >= d); lane l holds bins 8l .. 8l+7
+      const int lane = tid;
+      unsigned h[8];
+      unsigned tot = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        h[j] = merged[8 * lane + j];
+        tot += h[j];
+      }
+      unsigned incl = tot;   // sum over lanes >= lane
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned o = __shfl_down_sync(0xFFFFFFFFu, incl, off);
+        if (lane + off < 32) incl += o;
+      }
+      unsigned ge[8];
+      unsigned acc = incl - tot;
+      int cnt = 0;
+#pragma unroll
+      for (int j = 7; j >= 0; --j) {
+        acc += h[j];
+        ge[j] = acc;
+        cnt += (long long)acc >= (long long)k_rem ? 1 : 0;
+      }
+      cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+      const int digit = min(max(cnt - 1, 0), kBins - 1);
+      // ge[digit + 1] lives in lane (digit + 1) / 8 (0 when digit = 255)
+      const int nb = digit + 1;
+      unsigned mine = 0u;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mine = (nb & 7) == j ? ge[j] : mine;
+      unsigned above = __shfl_sync(0xFFFFFFFFu, mine, (nb >> 3) & 31);
+      if (nb >= kBins) above = 0u;
+      if (lane == 0) {
+        ctl_prefix = prefix | ((unsigned)digit << shift);
+        ctl_krem = k_rem - (int)above;
+      }
+    }
+    __syncthreads();
+    prefix = ctl_prefix;
+    k_rem = ctl_krem;
+    matching = (int)H[(prefix >> shift) & 0xFFu];
   }
+  cluster.sync();   // no CTA leaves while another still reads its bins
+  if (rank == 0 && tid == 0) thr[row] = (long long)prefix;
 }
 
 __global__ void mask_vec4(const float4* __restrict__ x,
@@ -154,32 +356,65 @@ const char* topk_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// K1: thr[row] = bit pattern of the k[row]-th largest |x[row, :]|.
-// Scratch: hist (rows, 256) u32, prefix (rows,) u32, k_rem (rows,) i64.
-int topk_threshold_bits(const float* x, const int* k, int rows, long long n,
-                        unsigned int* hist, uint32_t* prefix, long long* k_rem,
+// The largest cluster K1 can use (16 where the card schedules it, else 8),
+// found once.
+int select_cluster_max() {
+  static int cached = 0;
+  if (cached) return cached;
+  cudaFuncSetAttribute(threshold_select, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kListCap * (int)sizeof(unsigned));
+  cudaFuncSetAttribute(threshold_select, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(16);
+  cfg.blockDim = dim3(kSelThreads);
+  cfg.dynamicSmemBytes = kListCap * sizeof(unsigned);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 16;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, threshold_select, &cfg);
+  cudaGetLastError();   // a refused query leaves no sticky error
+  cached = (err == cudaSuccess && clusters > 0) ? 16 : 8;
+  return cached;
+}
+
+// K1: thr[row] = bit pattern of the k-th largest |x[row, :]|, with k =
+// k[row] or, where k is null, k_scalar.  One launch; n < 2^31.
+int topk_threshold_bits(const float* x, const int* k, int k_scalar, int rows, long long n,
                         long long* thr, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(unsigned int) * kBins * (size_t)rows,
-                                    stream);
+  const int cmax = select_cluster_max();
+  const int C = n <= kSmallRow ? 8 : cmax;
+  long long slice = (n + C - 1) / C;
+  slice = (slice + 3) & ~3LL;
+  const int vec = (n % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const long long list = slice < kListCap ? slice : kListCap;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)rows * (unsigned)C);
+  cfg.blockDim = dim3(kSelThreads);
+  cfg.dynamicSmemBytes = (size_t)list * sizeof(unsigned);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, threshold_select, x, k, k_scalar, n, slice,
+                                       vec, thr);
   if (err != cudaSuccess) return (int)err;
-  init_rows<<<(rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(k, prefix, k_rem,
-                                                                       rows);
   RETURN_IF_ERROR();
-  long long per_row = (n + kChunk - 1) / kChunk;
-  long long cap = kMaxBlocks / rows;
-  if (per_row > cap) per_row = cap;
-  if (per_row < 1) per_row = 1;
-  const dim3 grid((unsigned int)per_row, (unsigned int)rows);
-  const int shifts[4] = {24, 16, 8, 0};
-  for (int p = 0; p < 4; ++p) {
-    hist_pass<<<grid, kThreads, 0, stream>>>(x, n, shifts[p], prefix, hist);
-    RETURN_IF_ERROR();
-    walk_pass<<<rows, kBins, 0, stream>>>(hist, shifts[p], prefix, k_rem, k, n, thr,
-                                          p == 3 ? 1 : 0);
-    RETURN_IF_ERROR();
-  }
   return 0;
+}
+
+// The largest n whose row slices all fit K1's shared-memory lists at once.
+long long topk_resident_max_n() {
+  return (long long)select_cluster_max() * kListCap;
 }
 
 // K2: out[row, i] = |x[row, i]| bits >= thr[row] ? x[row, i] : 0.

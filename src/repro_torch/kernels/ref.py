@@ -354,7 +354,8 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor, h0=None):
 
 
 def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor, s0=None):
+              w: torch.Tensor, u: torch.Tensor, s0=None,
+              dtype: torch.dtype = torch.float32):
     """The RWKV6 WKV recurrence (``repro.kernels.ref.wkv6_scan``), a plain
     time loop in float32::
 
@@ -363,15 +364,16 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     r, k, w: (B, H, T, K); v: (B, H, T, V); u: (H, K); s0: (B, H, K, V) or
     None (zeros).  Returns ``(y, S_T)``: y (B, H, T, V) at r's dtype and
-    S_T (B, H, K, V) float32.
+    S_T (B, H, K, V) at ``dtype``, the type the loop runs in (float64 gives
+    a yardstick for the float32 loop's own rounding).
     """
     b, h, t, _ = r.shape
     vd = v.shape[-1]
-    rf, kf, vf, wf = (z.to(torch.float32) for z in (r, k, v, w))
-    uf = u.to(torch.float32)[None, :, :, None]
-    s = (torch.zeros((b, h, r.shape[-1], vd), dtype=torch.float32,
-                     device=r.device) if s0 is None else s0.to(torch.float32))
-    ys = torch.empty((b, h, t, vd), dtype=torch.float32, device=r.device)
+    rf, kf, vf, wf = (z.to(dtype) for z in (r, k, v, w))
+    uf = u.to(dtype)[None, :, :, None]
+    s = (torch.zeros((b, h, r.shape[-1], vd), dtype=dtype,
+                     device=r.device) if s0 is None else s0.to(dtype))
+    ys = torch.empty((b, h, t, vd), dtype=dtype, device=r.device)
     for i in range(t):
         kv = kf[:, :, i, :, None] * vf[:, :, i, None, :]          # (B,H,K,V)
         ys[:, :, i] = torch.einsum("bhk,bhkv->bhv", rf[:, :, i], s + uf * kv)

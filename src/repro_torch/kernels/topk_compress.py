@@ -6,7 +6,8 @@ by the tensor's device: a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
 kernel in ``csrc/topk_compress.cu`` or raises.  bf16 input is cast to
 float32 for the kernel (an exact order-embedding of the magnitudes) and
-the mask is cast back.
+the mask is cast back.  K1 is one launch a call and allocates nothing
+but its output.
 
 ``LAUNCHES`` counts kernel launches per wrapper; only the CUDA path adds
 to it, so a CPU run leaves it at 0.
@@ -26,9 +27,11 @@ _P = ctypes.c_void_p
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.topk_threshold_bits.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong,
-                                        _P, _P, _P, _P, _P]
+    lib.topk_threshold_bits.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_longlong, _P, _P]
     lib.topk_threshold_bits.restype = ctypes.c_int
+    lib.topk_resident_max_n.argtypes = []
+    lib.topk_resident_max_n.restype = ctypes.c_longlong
     lib.topk_mask_apply.argtypes = [_P, _P, _P, ctypes.c_int,
                                     ctypes.c_longlong, _P]
     lib.topk_mask_apply.restype = ctypes.c_int
@@ -48,27 +51,32 @@ def threshold_bits(x: torch.Tensor, k) -> torch.Tensor:
         return ref.topk_threshold_bits(x, k)
     xf = build.cuda_rows(x)
     rows, n = xf.shape
-    dev = xf.device
-    if isinstance(k, torch.Tensor):
-        kk = k.to(device=dev, dtype=torch.int32).contiguous()
-    else:
-        kk = torch.full((rows,), int(k), dtype=torch.int32, device=dev)
-    if kk.shape != (rows,):
-        raise ValueError(f"k must be a scalar or ({rows},), got {tuple(kk.shape)}")
-    thr = torch.empty(rows, dtype=torch.int64, device=dev)
+    if n >= 2 ** 31:
+        raise ValueError(f"n must be below 2^31, got {n}")
+    thr = torch.empty(rows, dtype=torch.int64, device=xf.device)
     if n == 0:
         return thr.zero_()
-    hist = torch.empty((rows, 256), dtype=torch.int32, device=dev)
-    prefix = torch.empty(rows, dtype=torch.int32, device=dev)
-    k_rem = torch.empty(rows, dtype=torch.int64, device=dev)
+    if isinstance(k, torch.Tensor):
+        kk = k.to(device=xf.device, dtype=torch.int32).contiguous()
+        if kk.shape != (rows,):
+            raise ValueError(f"k must be a scalar or ({rows},), got "
+                             f"{tuple(kk.shape)}")
+        k_ptr, k_scalar = kk.data_ptr(), 0
+    else:       # any k >= n gives 0 and any k <= 0 gives 0xFFFFFFFF
+        k_ptr, k_scalar = None, max(0, min(int(k), n))
     lib = _lib()
-    code = lib.topk_threshold_bits(build.ptr(xf), build.ptr(kk), rows, n,
-                                   build.ptr(hist), build.ptr(prefix),
-                                   build.ptr(k_rem), build.ptr(thr),
-                                   build.stream_ptr())
+    code = lib.topk_threshold_bits(xf.data_ptr(), k_ptr, k_scalar, rows, n,
+                                   thr.data_ptr(), build.stream_ptr())
     build.check(code, "topk_threshold_bits", lib, "topk_error_string")
     LAUNCHES["topk_threshold_bits"] += 1
     return thr
+
+
+def resident_max_n() -> int:
+    """The largest row K1 holds in its clusters' shared memory from the
+    first pass on (longer rows are read from HBM until their candidates
+    fit); needs the card."""
+    return int(_lib().topk_resident_max_n())
 
 
 def mask_by_threshold(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,11 @@
 The port of ``repro.kernels.wkv6``.  :func:`wkv6_scan` dispatches by the
 tensor's device: a CPU tensor runs the plain time loop in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
-kernel in ``csrc/wkv6.cu`` or raises.  The kernel's state update keeps the
-plain version's operation order (S_T has its bits on the card); y's
+kernel in ``csrc/wkv6.cu`` or raises.  Two routes, by the dtype of r/k/v:
+bfloat16 (prefill's) runs the chunked scan on the tensor cores, held to
+the JAX package's tolerance for this kernel (3e-4); float32 runs the
+sequential kernel, whose state update keeps the plain
+version's operation order (S_T has its bits on the card) while y's
 64-term sums run in another order and agree within a tolerance.
 
 ``LAUNCHES`` counts kernel launches; only the CUDA path adds to it, so a
@@ -22,6 +25,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"wkv6_scan": 0}
 
 HEAD = 64     # K = V = 64: the head size every RWKV6 model here uses
+CHUNK = 16    # steps a chunk of the bf16 route (csrc/wkv6.cu)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -48,7 +52,9 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r, k, v: (B, H, T, 64) float32 or bfloat16 (all three alike); w:
     (B, H, T, 64) float32; u: (H, 64) float32.  On the card r/k/v/w may be
     strided views with a dense last dimension (``rwkv6._heads`` of a
-    (B, T, D) activation, read in place), sharing their strides.  Returns
+    (B, T, D) activation, read in place), sharing their strides; in bf16
+    their rows must be 16-byte aligned (data pointers and (b, h, t) strides
+    in multiples of 8 elements), or the call raises.  Returns
     ``(y, S_T)``: y (B, H, T, 64) at r's dtype (on the card a
     (B, H, T, 64) view of a (B, T, H, 64) tensor, so ``_unheads`` needs no
     copy) and S_T (B, H, 64, 64) float32."""
@@ -73,6 +79,14 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if z.stride(-1) != 1 or z.stride()[:3] != r.stride()[:3]:
             raise ValueError(f"{name} must have a dense last dimension and "
                              f"r's strides {r.stride()}, got {z.stride()}")
+    if r.dtype == torch.bfloat16:
+        for z, name, _ in operands:       # the chunked route's cp.async rows
+            if z.data_ptr() % 16 or any(st % 8 for st in z.stride()[:3]):
+                raise ValueError(f"{name}: the bf16 route needs 16-byte "
+                                 f"aligned rows (data_ptr and the (b, h, "
+                                 f"t) strides in multiples of 8 elements), "
+                                 f"got {z.data_ptr() % 16} and "
+                                 f"{z.stride()}")
     u = build.expect(u, "u", torch.float32, (h, HEAD), r.device)
     if not 1 <= b * h <= 2 ** 31 - 1:
         raise ValueError(f"B*H must be in [1, 2^31), got {b * h}")

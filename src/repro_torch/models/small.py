@@ -12,8 +12,7 @@ loss is each client's own gradient.
 
 from __future__ import annotations
 
-import math
-
+import numpy as np
 import torch
 from torch import nn
 
@@ -39,15 +38,15 @@ class MLP(nn.Module):
         self.dims = (in_dim, hidden, hidden, n_classes)
 
     def init(self, key, device="cuda") -> dict:
-        """He-normal weights and zero biases from ``key`` (the reference's
-        scheme and key splits; the normals are close to jax's, not bit
-        for bit — carry weights across where equality matters)."""
+        """He-normal weights and zero biases from ``key``: the reference's
+        scheme, key splits and float32 scale, bit for bit with its init
+        on the CPU."""
         keys = prng.split(prng.key_data(key), 3)
         d = self.dims
         params = {}
         for i in range(3):
             k1 = prng.split(keys[i], 2)[0]
-            scale = math.sqrt(2.0 / d[i])
+            scale = float(np.sqrt(np.float32(2.0 / d[i])))
             params[f"fc{i}"] = {
                 "w": scale * prng.normal(k1, (d[i], d[i + 1]), device=device),
                 "b": torch.zeros(d[i + 1], dtype=torch.float32,

@@ -109,20 +109,6 @@ def uniform(key, n: int, device=None) -> torch.Tensor:
     return mant.view(torch.float32) - 1.0
 
 
-def normal(key, shape, device=None) -> torch.Tensor:
-    """Standard normals by jax's erfinv route (``sqrt(2)·erfinv(u)`` with
-    ``u`` uniform in (-1, 1)).  Close to ``jax.random.normal`` but not bit
-    for bit (``erfinv`` differs by ulps); only parameter init uses it, and
-    the parity tests carry weights across instead."""
-    shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = uniform(key, n, device) * (1.0 - lo) + lo
-    u = torch.clamp(u, min=lo)
-    out = math.sqrt(2.0) * torch.erfinv(u)
-    return out.reshape(key_data(key).shape[:-1] + shape)
-
-
 # XLA's float32 log on the CPU: the Cephes polynomial its CPU backend
 # emits, whose machine code fuses the polynomial's multiply-adds (the six
 # inner steps, the two Horner steps in x^3 and y * x^3 + q1 * e) into FMAs.
@@ -165,6 +151,75 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     y = _fma(y, x3, _LOG_Q1 * e)
     m = m - 0.5 * x2
     return (m + y) + _LOG_Q2 * e
+
+
+# XLA's float32 log-plus-one on the CPU: for |x| < sqrt(2) - 1 the Cephes
+# rational approximation x - x^2/2 + x^3 P(x)/Q(x), whose two Horner
+# chains its machine code fuses into FMAs; elsewhere log(1 + x).
+_LOG1P_SMALL = float(np.float32(0.41421356237309504880))
+_LOG1P_P = tuple(float(np.float32(c)) for c in (
+    4.5270000862445199635215E-5, 4.9854102823193375972212E-1,
+    6.5787325942061044846969E0, 2.9911919328553073277375E1,
+    6.0949667980987787057556E1, 5.7112963590585538103336E1,
+    2.0039553499201281259648E1))
+_LOG1P_Q = tuple(float(np.float32(c)) for c in (
+    1.0, 1.5062909083469192043167E1, 8.3047565967967209469434E1,
+    2.2176239823732856465394E2, 3.0909872225312059774938E2,
+    2.1642788614495947685003E2, 6.0118660497603843919306E1))
+
+
+def xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log1p`` of a float32 tensor above -1 as XLA computes it on the
+    CPU, bit for bit (checked over ``-u*u`` for every uniform ``normal``
+    draws)."""
+    x2 = x * x
+    p = torch.full_like(x, _LOG1P_P[0])
+    for c in _LOG1P_P[1:]:
+        p = _fma(p, x, c)
+    q = torch.full_like(x, _LOG1P_Q[0])
+    for c in _LOG1P_Q[1:]:
+        q = _fma(q, x, c)
+    small = x + (x2 * -0.5 + (x * x2) * (p / q))
+    return torch.where(x.abs() < _LOG1P_SMALL, small, xla_log(x + 1.0))
+
+
+# lax.erf_inv for float32 as XLA expands it (Giles' single-precision
+# approximation): 9 coefficients for w < 5 and 9 for w >= 5, highest first.
+_ERFINV_LT5 = tuple(float(np.float32(c)) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941))
+_ERFINV_GE5 = tuple(float(np.float32(c)) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+_SQRT2 = float(np.float32(math.sqrt(2.0)))
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32, bit for bit with jax
+    on the CPU: ``sqrt(2)·erf_inv(u)`` with ``u`` uniform in (-1, 1) and
+    XLA's own ``erf_inv`` (``w = -log1p(-u*u)``, Giles' polynomial in
+    ``w - 2.5`` or ``sqrt(w) - 3`` with every Horner step one FMA)."""
+    shape = tuple(int(s) for s in shape)
+    out = normal_from_uniform(uniform(key, math.prod(shape), device))
+    return out.reshape(key_data(key).shape[:-1] + shape)
+
+
+def normal_from_uniform(f: torch.Tensor) -> torch.Tensor:
+    """The normals :func:`normal` makes of float32 uniforms ``f`` in
+    [0, 1)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    # jax: max(lo, f * (1 - lo) + lo), and 1 - lo rounds to 2 in float32
+    u = torch.clamp(f * 2.0 + lo, min=lo)
+    w = -xla_log1p(u * -u)
+    lt5 = w < 5.0
+    # sqrt in float64, rounded once: torch's float32 sqrt on the CPU is not
+    # correctly rounded everywhere, XLA's is
+    z = torch.where(lt5, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt5, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, z, torch.where(lt5, a, b))
+    x = torch.where(u.abs() == 1.0, u * math.inf, p * u)
+    return x * _SQRT2
 
 
 def gumbel(key, shape, device=None) -> torch.Tensor:

@@ -71,6 +71,71 @@ def test_topk_kernels_match_plain(cuda_device, rows, n, k):
     assert _same_bits(topk.mask_by_threshold(x, t), ref.mask_by_threshold(x, t))
 
 
+def _topk_edge_rows(n, device):
+    """Rows that stress K1: ties, signed zeros, subnormals, inf, Gaussian."""
+    x = _rows(5, n, device, n)
+    x[0] = 0.5                                   # all-equal magnitudes
+    x[0, ::2] = -0.5
+    x[1, : n // 2] = 0.0                         # zeros and -0.0
+    x[1, n // 2:] = -0.0
+    x[1, -1] = 1.0
+    x[2, ::3] = 1e-40                            # subnormals
+    x[2, 1::7] = -1e-45
+    x[3, ::5] = float("inf")                     # inf beside finite values
+    x[3, 1::11] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 7, 777, 4096, 50177, 50176])
+def test_topk_threshold_edge_rows_and_per_row_k(cuda_device, n):
+    """n below a cluster's CTAs (1-7), n not a multiple of 4, per-row k of
+    0, 1, n-1, n and beyond n, ties, +-0, subnormals and inf: bit-equal."""
+    x = _topk_edge_rows(n, cuda_device)
+    for k in (1, max(n - 1, 0), n // 2, 0, n, n + 5):
+        assert torch.equal(topk.threshold_bits(x, k),
+                           ref.topk_threshold_bits(x, k)), k
+    ks = torch.tensor([0, 1, max(n - 1, 0), n, n + 3], device=cuda_device)
+    assert torch.equal(topk.threshold_bits(x, ks),
+                       ref.topk_threshold_bits(x, ks))
+
+
+def test_topk_threshold_at_and_past_the_shared_memory_capacity(cuda_device):
+    """A row whose slices just fit the clusters' shared memory, one 4
+    elements past it (read from HBM until its candidates fit), and the
+    large shape: bit-equal."""
+    cap = topk.resident_max_n()
+    for n in (cap, cap + 4):
+        x = _rows(2, n, cuda_device, n)
+        x[1, ::2] = 2.0                          # half the row ties
+        for k in (n // 10, n // 2 + 1):
+            assert torch.equal(topk.threshold_bits(x, k),
+                               ref.topk_threshold_bits(x, k)), (n, k)
+    x = _rows(4, 1 << 24, cuda_device, 24)
+    k = (1 << 24) // 10
+    assert torch.equal(topk.threshold_bits(x, k),
+                       ref.topk_threshold_bits(x, k))
+
+
+@pytest.mark.parametrize("n", [10, 50176, 1 << 20])
+def test_topk_threshold_is_one_kernel_a_call(cuda_device, n):
+    """One ``threshold_bits`` call runs one kernel on the card (no memset,
+    no walk kernels) and adds one to its count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _rows(5, n, cuda_device, n)
+    k = max(1, n // 3)
+    topk.threshold_bits(x, k)
+    torch.cuda.synchronize()
+    topk.LAUNCHES["topk_threshold_bits"] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        topk.threshold_bits(x, k)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert topk.LAUNCHES["topk_threshold_bits"] == 1
+    assert len(events) == 1, [e.name for e in events]
+
+
 @pytest.mark.parametrize("rows,n,r", [(5, 50176, 8), (5, 10, 1), (3, 1001, 4)])
 def test_qr_kernels_match_plain(cuda_device, rows, n, r):
     x = _rows(rows, n, cuda_device, n + r)
@@ -206,21 +271,76 @@ def _wkv6_inputs(b, h, t, device, seed, dtype=torch.float32):
     return r.to(dtype), k.to(dtype), v.to(dtype), w, u
 
 
+def _wkv6_yardstick(args):
+    """The plain version run in float64: (y, S_T)."""
+    return ref.wkv6_scan(*(z.double() for z in args), dtype=torch.float64)
+
+
+# K12's bf16 route, elementwise: |d| <= TOL + TOL * |plain| (y also one
+# bf16 ulp of plain, its own rounding), the JAX package's tolerance for
+# this kernel (tests/test_kernels.py), as chip_smoke.py states it
+WKV6_BF16_TOL = 3e-4
+
+
+def _assert_bf16_route_close(y, s, args):
+    """The bf16 route against the plain version run in float64: over
+    thousands of steps with w near 1 the float32 plain version's own
+    rounding exceeds 3e-4."""
+    y64, s64 = _wkv6_yardstick(args)
+    _, e = torch.frexp(y64.float())
+    ulp = torch.ldexp(torch.ones_like(y64), e - 8)
+    tol_y = WKV6_BF16_TOL * (1.0 + y64.abs()) + ulp
+    assert bool(((y.double() - y64).abs() <= tol_y).all())
+    tol_s = WKV6_BF16_TOL * (1.0 + s64.abs())
+    assert bool(((s.double() - s64).abs() <= tol_s).all())
+
+
 @pytest.mark.parametrize("b,h,t,dtype", [
     (8, 40, 2560, torch.bfloat16), (1, 2, 1, torch.float32),
     (2, 3, 77, torch.float32)])
 def test_wkv6_scan_matches_plain(cuda_device, b, h, t, dtype):
+    """float32: S_T bit-equal, y within WKV6_YTOL of max |y|; bf16 (the
+    chunked route): within its tolerance of the float64 plain version."""
     args = _wkv6_inputs(b, h, t, cuda_device, t + h, dtype)
     y, s = wkv6.wkv6_scan(*args)
-    y_r, s_r = ref.wkv6_scan(*args)
     assert y.dtype == dtype and s.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        _assert_bf16_route_close(y, s, args)
+        return
+    y_r, s_r = ref.wkv6_scan(*args)
     assert _same_bits(s, s_r)
-    tol = WKV6_YTOL * float(y_r.float().abs().max())
-    if dtype == torch.float32:
-        assert float((y - y_r).abs().max()) <= tol
-    else:          # the f32 tolerance, then one bf16 rounding
-        torch.testing.assert_close(y.float(), y_r.float(), rtol=2 ** -7,
-                                   atol=tol)
+    assert float((y - y_r).abs().max()) <= (
+        WKV6_YTOL * float(y_r.float().abs().max()))
+
+
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 63, 64, 65, 77])
+def test_wkv6_bf16_route_tails_and_decays(cuda_device, t):
+    """The chunked route on ragged tails and at w = 1e-7 and 1 - 1e-7 (in
+    ``_wkv6_inputs``), several (b, h)."""
+    args = _wkv6_inputs(2, 3, t, cuda_device, 100 + t, torch.bfloat16)
+    y, s = wkv6.wkv6_scan(*args)
+    _assert_bf16_route_close(y, s, args)
+
+
+def test_wkv6_bf16_route_holds_decays_over_a_whole_head(cuda_device):
+    """w = 1e-7 (forget) and w = 1 - 1e-7 (remember) over 2560 steps."""
+    args = _wkv6_inputs(1, 4, 2560, cuda_device, 7, torch.bfloat16)
+    args[3][0, 1] = 1e-7
+    args[3][0, 2] = 1.0 - 1e-7
+    y, s = wkv6.wkv6_scan(*args)
+    _assert_bf16_route_close(y, s, args)
+
+
+def test_wkv6_bf16_route_refuses_unaligned_rows(cuda_device):
+    """Rows 8 bytes off a 16-byte boundary (strides of 68 elements)."""
+    args = _wkv6_inputs(1, 2, 40, cuda_device, 3, torch.bfloat16)
+    views = []
+    for z in args[:4]:
+        pad = torch.zeros((1, 2, 40, 68), dtype=z.dtype, device=cuda_device)
+        pad[..., 4:] = z
+        views.append(pad[..., 4:])
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv6.wkv6_scan(*views, args[4])
 
 
 def test_wkv6_reads_strided_heads_in_place(cuda_device):
@@ -238,6 +358,22 @@ def test_wkv6_reads_strided_heads_in_place(cuda_device):
     assert _same_bits(s, s_r)
     assert float((y - y_r).abs().max()) <= WKV6_YTOL * float(y_r.abs().max())
     assert y.transpose(1, 2).is_contiguous()
+
+
+def test_served_rwkv6_prefill_launches_k12_per_layer(cuda_device):
+    """rwkv6-3b at full width and depth in bf16 (the chunked route): one
+    prefill launches K12 32 times, decode none; logits finite."""
+    from repro_torch.launch import serve
+
+    m = get_spec("rwkv6-3b").model
+    params = tfm.init_params(m, torch.Generator(device=cuda_device)
+                             .manual_seed(0))
+    prompts = serve.prompts_for(m, 2, 80, cuda_device)
+    ops.reset_launch_counts()
+    res = serve.serve(params, m, prompts, 2)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["wkv6_scan"] == 32
+    assert bool(torch.isfinite(res.prefill_logits).all())
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])

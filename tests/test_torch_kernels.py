@@ -426,3 +426,91 @@ def test_wkv6_edges_w_near_0_and_1_and_zeros():
                             bt=16)
     _close(y.numpy(), yp, WKV6_TOL)
     _close(s.numpy(), sp, WKV6_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# K12's bf16 route: its chunked scheme, mirrored on the CPU
+# --------------------------------------------------------------------------- #
+
+def _bf16_parts(x):
+    """x as the kernel's bf16 high and low parts (hi + lo ~= x)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _tf32_parts(x):
+    """x as the kernel's TF32 high and low parts (``cvt.rna.tf32.f32``:
+    10 mantissa bits, ties away from zero)."""
+    def tf32(z):
+        return ((z.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def _split_mm(a, b, b_is_bf16=False):
+    """a @ b as the kernel's mma.sync take it, float32 sums (the parts'
+    products are exact in float32): against a bf16 b, a's bf16 parts; else
+    both sides' TF32 parts, hi*hi + hi*lo + lo*hi."""
+    if b_is_bf16:
+        ah, al = _bf16_parts(a)
+        return ah @ b + al @ b
+    ah, al = _tf32_parts(a)
+    bh, bl = _tf32_parts(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _wkv6_chunked_mirror(r, k, v, w, u):
+    """The bf16 route of ``csrc/wkv6.cu`` in float32 torch ops, in its
+    order: chunks of ``wkv6.CHUNK`` steps; P (products of w before t), Q
+    (after s) and D (the whole chunk) as running products; the diagonal
+    block A by running products of the key columns; y = R~ S + A V and
+    S <- diag(D) S + K~^T V with the mma's operand splits.  Test-only."""
+    from repro_torch.kernels import wkv6
+
+    b, h, t, kd = r.shape
+    S = torch.zeros((b, h, kd, kd))
+    ys = torch.zeros((b, h, t, kd))
+    uf = u[None, :, None, :]
+    for t0 in range(0, t, wkv6.CHUNK):
+        tc = min(wkv6.CHUNK, t - t0)
+        R, K, V, W = (z[:, :, t0:t0 + tc] for z in (r, k, v, w))
+        P = torch.ones_like(R)
+        for i in range(1, tc):
+            P[:, :, i] = P[:, :, i - 1] * W[:, :, i - 1]
+        D = P[:, :, tc - 1] * W[:, :, tc - 1]
+        Q = torch.ones_like(K)
+        for i in range(tc - 2, -1, -1):
+            Q[:, :, i] = Q[:, :, i + 1] * W[:, :, i + 1]
+        A = torch.zeros((b, h, tc, tc))
+        M = torch.zeros_like(K)        # the key columns, decayed to step i
+        for i in range(tc):
+            A[:, :, i, :i] = torch.einsum("bhk,bhsk->bhs", R[:, :, i],
+                                          M[:, :, :i])
+            A[:, :, i, i] = (R[:, :, i] * uf[:, :, 0] * K[:, :, i]).sum(-1)
+            M[:, :, :i] = M[:, :, :i] * W[:, :, i, None]
+            M[:, :, i] = K[:, :, i]
+        ys[:, :, t0:t0 + tc] = _split_mm(R * P, S) + _split_mm(A, V, True)
+        S = D[..., None] * S + _split_mm((K * Q).transpose(-1, -2), V, True)
+    return ys, S
+
+
+@pytest.mark.parametrize("case", ["w=1e-7 T=80", "w=1-1e-7 T=80", "T=1",
+                                  "T=63", "T=65", "T=77 B=2 H=3"])
+def test_wkv6_chunked_scheme_matches_oracle(case):
+    """The bf16 route's scheme against the JAX oracle at the JAX package's
+    tolerance (3e-4), with bf16 r/k/v: decays held at 1e-7 (the products
+    underflow to 0) and at 1 - 1e-7 over more than a 64-step chunk, ragged
+    tails, several (b, h)."""
+    shapes = {"T=1": (1, 2, 1), "T=63": (1, 2, 63), "T=65": (1, 2, 65),
+              "T=77 B=2 H=3": (2, 3, 77)}
+    b, h, t = shapes.get(case, (1, 2, 80))
+    r, k, v, w, u = (torch.from_numpy(z) for z in _wkv6_inputs(t + 5, b, h, t))
+    r, k, v = (z.to(torch.bfloat16).float() for z in (r, k, v))
+    if case.startswith("w=1e-7"):
+        w[:, 0] = 1e-7
+    elif case.startswith("w=1-1e-7"):
+        w[:, 0] = 1.0 - 1e-7
+    y, s = _wkv6_chunked_mirror(r, k, v, w, u)
+    yr, sr = jref.wkv6_scan(*[jnp.asarray(z.numpy()) for z in (r, k, v, w, u)])
+    _close(y.numpy(), yr, WKV6_TOL)
+    _close(s.numpy(), sr, WKV6_TOL)

@@ -93,8 +93,8 @@ def test_init_follows_the_reference_scheme():
     tp = small.MLP(784, HIDDEN, 10).init(prng.PRNGKey(0), device="cpu")
     for a, b in zip(jax.tree.leaves(jp), tree_util.leaves(tp)):
         assert tuple(b.shape) == a.shape and b.dtype == torch.float32
-        # erfinv-based normals: close to jax's, not bit for bit
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4)
+        # XLA's erf_inv route: jax's normals bit for bit
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
 def test_convert_round_trip():

@@ -137,14 +137,24 @@ def test_choice_validates():
         prng.choice(prng.PRNGKey(0), 3, 2, replace=True)
 
 
-def test_normal_is_close_to_jax():
-    """Only parameter init draws normals; they follow jax's erfinv route
-    closely but not bit for bit."""
-    key = jax.random.PRNGKey(0)
-    want = np.asarray(jax.random.normal(key, (64, 32)))
-    got = prng.normal(prng.PRNGKey(0), (64, 32)).numpy()
-    assert got.shape == (64, 32) and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, atol=1e-4)
+@pytest.mark.parametrize("seed,shape", [(0, (64, 32)), (3, (1000,)),
+                                        (2 ** 31 - 1, (7, 11, 13))])
+def test_normal_matches_jax(seed, shape):
+    """Parameter init draws these: jax's erf_inv route, bit for bit."""
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    got = prng.normal(prng.PRNGKey(seed), shape).numpy()
+    assert got.shape == shape and got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_normal_batches_over_leading_key_axes():
+    keys = jax.random.split(jax.random.PRNGKey(4), 3)
+    got = prng.normal(prng.key_data(np.asarray(keys)), (5, 6)).numpy()
+    assert got.shape == (3, 5, 6)
+    for i in range(3):
+        want = np.asarray(jax.random.normal(keys[i], (5, 6)))
+        np.testing.assert_array_equal(got[i].view(np.int32),
+                                      want.view(np.int32))
 
 
 # --------------------------------------------------------------------------- #
@@ -167,18 +177,17 @@ def _mismatches(a, b) -> int:
                .sum())
 
 
-# normal's mismatches in 4 x 2^16 draws (seeds 0-3), measured on jax 0.9.0
-# on the CPU: 38578, 38566, 38897, 38756, max |d| 2.17e-5.  XLA's erf_inv
-# is its own log1p and Giles polynomial with fused multiply-adds, which
-# torch.erfinv is not; the bound below is today's count.
-NORMAL_MISMATCH_BOUND = 38897
-NORMAL_MAX_ABS = 2.2e-5
+# normal's mismatches against jax in 2^16 draws, and its largest gap: both
+# 0 since normal follows XLA's own erf_inv (before that, with torch.erfinv:
+# up to 38897 draws of a seed, max |d| 2.17e-5)
+NORMAL_MISMATCH_BOUND = 0
+NORMAL_MAX_ABS = 0.0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_draws_mismatch_counts_against_jax(seed):
     """Counts the draws that differ from ``jax.random`` in 2^16: gumbel's
-    must be none, normal's at most today's count."""
+    and normal's must be none."""
     n = 1 << 16
     key = jax.random.PRNGKey(seed)
     assert _mismatches(prng.gumbel(prng.PRNGKey(seed), (n,)).numpy(),
@@ -187,6 +196,47 @@ def test_draws_mismatch_counts_against_jax(seed):
     got = prng.normal(prng.PRNGKey(seed), (n,)).numpy()
     assert _mismatches(got, want) <= NORMAL_MISMATCH_BOUND
     assert float(np.abs(got - want).max()) <= NORMAL_MAX_ABS
+
+
+_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+
+
+@jax.jit
+def _jax_normal_of_uniform(f):
+    """What ``jax.random.normal`` does with its uniforms ``f`` in [0, 1)."""
+    u = jnp.maximum(_LO, f * jnp.float32(2.0) + _LO)
+    return jnp.float32(np.sqrt(2)) * jax.lax.erf_inv(u)
+
+
+@pytest.mark.parametrize("part", range(4))
+def test_xla_log1p_and_normal_match_jax_on_every_normal_uniform(part):
+    """Every float32 uniform normal can draw (2^23 of them, in four parts):
+    ``prng.xla_log1p(-u*u)`` equals ``jnp.log1p`` and the normal equals
+    jax's bit for bit (``sqrt(2)·torch.erfinv`` differed in 38566 to 38897
+    of 2^16 draws a seed)."""
+    k = np.arange(part << 21, (part + 1) << 21, dtype=np.uint32)
+    f = (k | 0x3F800000).view(np.float32) - np.float32(1.0)
+    u = np.maximum(_LO, f * np.float32(2.0) + _LO).astype(np.float32)
+    t = (u * -u).astype(np.float32)
+    assert _mismatches(prng.xla_log1p(torch.from_numpy(t)).numpy(),
+                       jnp.log1p(jnp.asarray(t))) == 0
+    assert _mismatches(prng.normal_from_uniform(torch.from_numpy(f)).numpy(),
+                       _jax_normal_of_uniform(jnp.asarray(f))) == 0
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_mlp_init_matches_jax_bit_for_bit(seed):
+    """The port's MLP init (He-normal weights, zero biases) equals
+    ``repro.models.small``'s, leaf by leaf."""
+    from repro.models import small as jsmall
+    from repro_torch import tree as tree_util
+    from repro_torch.models import small
+
+    jp = jsmall.MLP(784, 64, 10).init(jax.random.PRNGKey(seed))
+    tp = small.MLP(784, 64, 10).init(prng.PRNGKey(seed), device="cpu")
+    for a, b in zip(jax.tree.leaves(jp), tree_util.leaves(tp)):
+        assert tuple(b.shape) == a.shape and b.dtype == torch.float32
+        assert _mismatches(b.numpy(), a) == 0
 
 
 @pytest.mark.parametrize("part", range(4))
