@@ -21,9 +21,16 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    ``NORM_RTOL``; K9 must invert K8.  K1's cases also take rows shorter
    than a cluster's CTAs, n not a multiple of 4, per-row k of 0, 1, n-1, n
    and beyond n, +-0 / subnormals / inf / ties, and rows at and just past
-   its clusters' shared-memory capacity; ``torch.profiler`` must see one
-   device operation a K1 call.  Then times kernel, plain version and the
-   library yardstick (K1 and K3 also by their device time a call);
+   its clusters' shared-memory capacity; ``threshold_mask`` (K1 and K2 in
+   one launch) must give K1's and K2's plain outputs on every one of them.
+   K6's cases also put cap inside its second and its last tile, at 0 and
+   above nnz, past an all-tie row, on a zero row, n = 50177 and 74 tiles a
+   row, each called twice (the second call reuses the tagged workspace).
+   ``torch.profiler`` must see one device operation a K1, a K6 and a
+   ``threshold_mask`` call (two past the shared-memory capacity, where it
+   takes K1 then K2).  Then times kernel, plain version and the library
+   yardstick (K1 and K3 also by their device time a call; K2 as the fused
+   launch, beside K1 then K2 and K2 alone, in turns);
 3. train — drives the quickstart configuration (MLP 784-64-64-10, 20
    Dirichlet(0.7) clients, 5 per round, batch 32, gamma = 0.1, p = 0.1)
    through ``server.run_federated`` on the card, FedComLoc-Com with
@@ -33,7 +40,9 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    0.6, and ``QuantQr(8)`` with geometric local phases, each on the
    account and on the packed wire; every launch counter is set to 0 just
    before a run and read just after, and each must equal the count the
-   batching implies.  The packed runs must ship the payload bytes the
+   batching implies (K1 and K2 run as one launch, ``topk_threshold_mask``,
+   on every TopK leaf but the packed ``topk`` codec's, which launches K1
+   and K5).  The packed runs must ship the payload bytes the
    wire format implies, and reproduce the account runs' uplink bits
    exactly and their parameters within ``PARAM_RTOL``/``PARAM_ATOL``.
    For Compose a further packed run holds, in every round, the server's
@@ -46,7 +55,8 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    train (finite losses, best accuracy above 0.2).  Then times
    steady-state rounds (wall clock, and device busy time under
    ``torch.profiler``, whose idle share is given against both the plain
-   and the profiled wall clock) and replays the first rounds of the TopK,
+   and the profiled wall clock, with the device operations and
+   ``cudaLaunchKernel`` calls a round) and replays the first rounds of the TopK,
    QuantQr, packed k25_q4 and EF runs on the CPU through the plain
    versions (k25_q4's first ``DIVERGING_REPLAY_ROUNDS``, while its loss is
    finite): cohorts, steps, bits and payload bytes must be equal, the
@@ -134,6 +144,7 @@ ROUNDS = 20
 REPLAY_ROUNDS = 3
 DIVERGING_REPLAY_ROUNDS = 6
 PROFILE_ROUNDS = 5
+FUSED_K1_K2 = "topk_threshold_mask"   # the launch counter of K1 + K2 fused
 LARGE = (4, 1 << 24)
 # K12's y and S_T against the plain version, float32: |d| <= WKV6_YTOL *
 # max |plain| (64-term sums of y run in another order than the einsum)
@@ -237,9 +248,14 @@ def profile_rounds(torch, prng, alg, params0, label: str) -> dict:
         rounds(state, key, PROFILE_ROUNDS)
         prof_wall_ms = (time.time() - t0) / PROFILE_ROUNDS * 1e3
     dev_ms = device_ms_by_name(prof)
+    dev_ops, launch_calls = round_op_counts(prof)
     print(f"[profile] {label}: steady ms/round {wall_ms!r} (under the "
-          f"profiler {prof_wall_ms!r})", flush=True)
-    out = {"wall_ms": wall_ms, "prof_wall_ms": prof_wall_ms, "busy_ms": None}
+          f"profiler {prof_wall_ms!r}); {dev_ops / PROFILE_ROUNDS!r} device "
+          f"operations and {launch_calls / PROFILE_ROUNDS!r} cudaLaunchKernel "
+          f"calls a round", flush=True)
+    out = {"wall_ms": wall_ms, "prof_wall_ms": prof_wall_ms, "busy_ms": None,
+           "device_ops": dev_ops / PROFILE_ROUNDS,
+           "launch_calls": launch_calls / PROFILE_ROUNDS}
     if not dev_ms:
         print(f"[profile] {label}: the profiler recorded no device events; "
               f"device busy time not measured", flush=True)
@@ -311,6 +327,20 @@ def device_ms_by_name(prof) -> dict:
         if ev.device_type == DeviceType.CUDA:
             out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
     return out
+
+
+def round_op_counts(prof) -> tuple:
+    """(device operations, host ``cudaLaunchKernel*`` calls) in a
+    ``torch.profiler`` run: the device's kernels, copies and memsets, and
+    the runtime calls that launched kernels."""
+    from torch.autograd import DeviceType
+    dev_ops = launch_calls = 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            dev_ops += 1
+        elif ev.name.startswith("cudaLaunchKernel"):
+            launch_calls += 1
+    return dev_ops, launch_calls
 
 
 def device_per_call(torch, fn, calls: int):
@@ -1098,25 +1128,36 @@ def main() -> int:
         t_ref = ref.topk_threshold_bits(xc, k)
         m = tk.mask_by_threshold(xc, t)
         m_ref = ref.mask_by_threshold(xc, t_ref)
+        # K1 and K2 in one launch: the threshold and the float32 rows
+        t_f, m_f = tk.threshold_mask(xc, k)
         torch.cuda.synchronize()
         if not torch.equal(t, t_ref):
             raise AssertionError(f"K1 {label}: kernel threshold differs")
         if not same_bits(m, m_ref):
             raise AssertionError(f"K2 {label}: kernel mask differs")
+        if not (torch.equal(t_f, t_ref)
+                and same_bits(m_f, m_ref.to(torch.float32))):
+            raise AssertionError(f"K1+K2 {label}: threshold_mask differs")
         recs["K1"].err(t, t_ref)
         recs["K2"].err(m.float(), m_ref.float())
-    print(f"[kernels] K1/K2 bit-equal to the plain version on "
-          f"{len(topk_cases)} cases", flush=True)
+        recs["K2"].err(m_f, m_ref.float())
+    print(f"[kernels] K1, K2 and threshold_mask (K1 + K2 in one launch) "
+          f"bit-equal to the plain versions on {len(topk_cases)} cases",
+          flush=True)
     for n in (10, leaf_sizes[0], LARGE[1]):
         xc = randn(s if n != LARGE[1] else LARGE[0], n)
-        _, ops_a_call = device_per_call(torch, lambda: tk.threshold_bits(
-            xc, max(1, n // 3)), 5)
-        if ops_a_call != 1.0:
-            raise AssertionError(f"K1 n={n}: {ops_a_call} device operations "
-                                 f"a threshold_bits call, not 1")
+        for what, fn in (("threshold_bits", tk.threshold_bits),
+                         ("threshold_mask", tk.threshold_mask)):
+            _, ops_a_call = device_per_call(
+                torch, lambda: fn(xc, max(1, n // 3)), 5)
+            want = 1.0 if what == "threshold_bits" or n <= resident else 2.0
+            if ops_a_call != want:
+                raise AssertionError(f"K1 n={n}: {ops_a_call} device "
+                                     f"operations a {what} call, not {want}")
     print(f"[kernels] K1 one kernel a call under torch.profiler (n = 10, "
-          f"{leaf_sizes[0]}, {LARGE[1]}); rows up to n = {resident} stay in "
-          f"shared memory", flush=True)
+          f"{leaf_sizes[0]}, {LARGE[1]}), threshold_mask one up to n = "
+          f"{resident} (rows that stay in shared memory), K1 then K2 past "
+          f"it", flush=True)
     del xc
 
     qr_cases = [(f"main n={n}", randn(s, n), 8) for n in leaf_sizes]
@@ -1205,23 +1246,53 @@ def main() -> int:
     code_slot_cases.append(("n=1", randn(3, 1), 1, 1, 4))   # saturates
     code_slot_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16),
                             1024, 1024, 4))
+    # K6's one launch: cap inside the second and the last tile (tiles of
+    # 4096; about 1024 survivors a tile at k = n/4), cap 0 and above nnz,
+    # an all-tie row past cap, a zero row and n not a multiple of 4 (x
+    # above), and 74 tiles a row (look-backs past 32 tiles)
+    x = randn(3, leaf_sizes[0])
+    for cap in (1500, k25._k(leaf_sizes[0]) - 100, 0):
+        code_slot_cases.append((f"n={leaf_sizes[0]} cap={cap}", x,
+                                k25._k(leaf_sizes[0]), cap, 4))
+    x = randn(4, 50177)
+    x[1] = 0.25                                  # all ties, past cap
+    x[2] = 0.0                                   # a zero row
+    x[3, 100:] = 0.0                             # 100 survivors, cap above
+    code_slot_cases.append(("n=50177 ties, zero row, cap > nnz", x, 1000,
+                            7000, 8))
+    code_slot_cases.append(("n=300000 (74 tiles)", randn(3, 300000), 75000,
+                            75000, 4))
     code_slot_cases.append(("large", randn(*LARGE), k25._k(LARGE[1]),
                             k25._k(LARGE[1]), 8))
     for label, xc, k, cap, r in code_slot_cases:
         u = torch.rand(xc.shape, generator=gen, device=dev)
         t = tk.threshold_bits(xc, k)
         norm = masked_norm(xc, t)
-        idx, codes, nnz = sk.compact_code_slots(xc, u, norm, t, r, cap)
         idx_r, codes_r, nnz_r = ref.compact_code_slots(xc, u, norm, t, r, cap)
-        torch.cuda.synchronize()
-        if not (torch.equal(idx, idx_r) and torch.equal(codes, codes_r)
-                and torch.equal(nnz, nnz_r)):
-            raise AssertionError(f"K6 {label}: kernel coded slots differ")
+        for _ in range(2):     # the second call reuses the tagged workspace
+            idx, codes, nnz = sk.compact_code_slots(xc, u, norm, t, r, cap)
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, idx_r) and torch.equal(codes, codes_r)
+                    and torch.equal(nnz, nnz_r)):
+                raise AssertionError(f"K6 {label}: kernel coded slots differ")
         recs["K6"].err(idx, idx_r)
         recs["K6"].err(codes, codes_r)
         del u
     print(f"[kernels] K6 bit-equal to the plain version on "
-          f"{len(code_slot_cases)} cases", flush=True)
+          f"{len(code_slot_cases)} cases, each called twice", flush=True)
+    for n in (10, leaf_sizes[0], LARGE[1]):
+        rows = s if n != LARGE[1] else LARGE[0]
+        xc, u = randn(rows, n), torch.rand(rows, n, generator=gen, device=dev)
+        t = tk.threshold_bits(xc, max(1, n // 4))
+        norm = masked_norm(xc, t)
+        _, ops_a_call = device_per_call(torch, lambda: sk.compact_code_slots(
+            xc, u, norm, t, 4, max(1, n // 4)), 5)
+        if ops_a_call != 1.0:
+            raise AssertionError(f"K6 n={n}: {ops_a_call} device operations "
+                                 f"a call, not 1")
+    print(f"[kernels] K6 one kernel a call under torch.profiler (n = 10, "
+          f"{leaf_sizes[0]}, {LARGE[1]})", flush=True)
+    del xc, u
 
     # K7: (label, x, r), norm from K3
     pack_qr_cases = [(f"main n={n}", randn(s, n), 8) for n in leaf_sizes]
@@ -1295,9 +1366,12 @@ def main() -> int:
                    lambda: ref.topk_threshold_bits(xc, k),
                    lambda: torch.topk(xa, k, dim=1, sorted=False),
                    4 * nx + 12 * rows, 16 * nx),
-            "K2": (lambda: tk.mask_by_threshold(xc, t),
-                   lambda: ref.mask_by_threshold(xc, t), None,
-                   8 * nx + 8 * rows, 2 * nx),
+            # the route the main path takes: K1 and K2 in one launch; reads
+            # x, writes thr and the masked rows
+            "K2": (lambda: tk.threshold_mask(xc, k),
+                   lambda: ref.mask_by_threshold(
+                       xc, ref.topk_threshold_bits(xc, k)), None,
+                   8 * nx + 12 * rows, 18 * nx),
             "K3": (lambda: qk.l2_norm(xc), lambda: ref.l2_norm(xc),
                    lambda: torch.linalg.vector_norm(xc, dim=1),
                    4 * nx + 4 * rows, 2 * nx),
@@ -1350,6 +1424,25 @@ def main() -> int:
                       f"call (torch.profiler) kernel {dev_k!r}, "
                       f"{'topk' if key_ == 'K1' else 'vector_norm'} "
                       f"{dev_l!r}", flush=True)
+            if key_ == "K2":
+                # the fused launch against K2's standalone kernel and the
+                # two launches it replaces, in turns
+                two = lambda: tk.mask_by_threshold(xc, tk.threshold_bits(xc, k))
+                alone = lambda: tk.mask_by_threshold(xc, t)
+                turns = {"fused": [], "K1 then K2": [], "K2 alone": []}
+                for name_ in ("fused", "K1 then K2", "K2 alone") * 2:
+                    fn = {"fused": kern, "K1 then K2": two,
+                          "K2 alone": alone}[name_]
+                    turns[name_].append(time_ms(torch, fn, iters))
+                row["standalone_ms"] = min(turns["K2 alone"])
+                row["k1_then_k2_ms"] = min(turns["K1 then K2"])
+                row["fused_ms"] = min(turns["fused"])
+                dev_f, ops_f = device_per_call(torch, kern, 50)
+                dev_2, ops_2 = device_per_call(torch, two, 50)
+                print(f"[kernels] K2 {tag} {shape}: ms in turns {turns!r}; "
+                      f"device ms a call (torch.profiler) threshold_mask "
+                      f"{dev_f!r} in {ops_f!r} operations, K1 then K2 "
+                      f"{dev_2!r} in {ops_2!r}", flush=True)
         del xc, xa, u, codes, words, t6, norm6
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1375,25 +1468,26 @@ def main() -> int:
     one_client = tree_util.map(lambda p: p.detach(), params0)
     per_run = ROUNDS * len(leaf_sizes)
     zero = {name: 0 for name in ops.launch_counts()}
-    k1, k2, k3, k4, k5, k6, k7, k8, k9 = (recs[f"K{i}"].name
-                                          for i in range(1, 10))
+    k1, _, k3, k4, k5, k6, k7, k8, k9 = (recs[f"K{i}"].name
+                                         for i in range(1, 10))
+    k1k2 = FUSED_K1_K2        # K1 and K2 in one launch
     double = ("k25_q4", "k50_q16")
     diverging = ("k25_q4",)       # the JAX package diverges there as well
     # name -> (compressor, config overrides, {wire: kernels the run
     # launches once per leaf per round}); Int8Sync calls no kernel
     train_runs = {
-        "TopK": (TopK(0.3), {}, {"account": (k1, k2), "packed": (k1, k5)}),
+        "TopK": (TopK(0.3), {}, {"account": (k1k2,), "packed": (k1, k5)}),
         "QuantQr": (QuantQr(8), {}, {"account": (k3, k4),
                                      "packed": (k3, k7, k9)}),
         "k25_q4": (Compose(TopK(0.25), QuantQr(4)), {},
-                   {"account": (k1, k2, k3, k4),
-                    "packed": (k1, k3, k6, k8, k9)}),
+                   {"account": (k1k2, k3, k4),
+                    "packed": (k1k2, k3, k6, k8, k9)}),
         "k50_q16": (Compose(TopK(0.5), QuantQr(16)), {},
-                    {"account": (k1, k2, k3, k4),
-                     "packed": (k1, k3, k6, k8, k9)}),
+                    {"account": (k1k2, k3, k4),
+                     "packed": (k1k2, k3, k6, k8, k9)}),
         "Int8Sync": (Int8Sync(), {}, {"account": (), "packed": ()}),
         "ef_mom": (TopK(0.1), {"error_feedback": True, "server_momentum": 0.6},
-                   {"account": (k1, k2), "packed": (k1, k5)}),
+                   {"account": (k1k2,), "packed": (k1, k5)}),
         "qr8_geometric": (QuantQr(8), {"local_steps": "geometric"},
                           {"account": (k3, k4), "packed": (k3, k7, k9)}),
     }
@@ -1687,10 +1781,25 @@ def main() -> int:
     for rec in recs.values():
         main_t = rec.timings["main"]
         by_run = launches.get(rec.name, {})
+        if rec.name == "topk_mask":
+            # K2 runs inside K1's launch on the main path (threshold_mask);
+            # its standalone kernel serves a threshold computed elsewhere
+            by_run = {**{f"{label} (fused)": c for label, c in
+                         launches.get(FUSED_K1_K2, {}).items()}, **by_run}
+        if not sum(by_run.values()):
+            raise AssertionError(f"{rec.name}: launched no time on the main "
+                                 f"path")
         kernels.append({
             "name": rec.name, "route": "cuda", "source": rec.source,
             **({"float32_source": csrc + "flash_attention.cu"}
                if rec.name == "flash_attention" else {}),
+            **({"routes": {
+                "fused": "threshold_select with K2's epilogue "
+                         "(topk_compress.threshold_mask), timed as ms",
+                "standalone": "mask_vec4 / mask_scalar "
+                              "(topk_compress.mask_by_threshold), timed as "
+                              "standalone_ms"}}
+               if rec.name == "topk_mask" else {}),
             "replaces": rec.replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "max_abs_err": rec.max_abs_err, "ms": main_t["kernel_ms"],

@@ -209,11 +209,11 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
            device: torch.device) -> torch.Tensor:
     """Check a kernel operand's dtype, shape and device; returns it
     contiguous."""
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+    if t.dtype != dtype or t.shape != shape or t.device != device:
         raise ValueError(f"{name} must be a {dtype} {tuple(shape)} tensor on "
                          f"{device}, got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")
-    return t.contiguous()
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def stream_ptr() -> int:

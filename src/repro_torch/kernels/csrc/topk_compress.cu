@@ -5,7 +5,8 @@
 //       passes over bitcast_u32(|x|), each restricted to the elements whose
 //       already-decided high bits match the prefix, walked to the exact bit
 //       pattern of the k-th largest |x| (ties included);
-//   K2  topk_mask (_mask_kernel): out = where(bits >= t, x, 0).
+//   K2  topk_mask (_mask_kernel): out = where(bits >= t, x, 0), in K1's
+//       launch or on its own (below).
 //
 // Input is row-batched: (rows, n) float32, one row per client's leaf, with
 // a per-row k (int32 on the device) or one k for every row.
@@ -39,17 +40,35 @@
 // version's (ref.radix_walk_step), so the result is bit-equal to it.  No
 // scratch memory: the wrapper allocates only the (rows,) output.
 //
+// K2 runs in the same launch where the caller asks for the masked rows
+// (topk_threshold_bits with out != null; the wrapper's threshold_mask).
+// Every CTA knows the threshold once it has walked the last digit, so
+// each writes its own slice of where(bits >= t, x, 0) right after its
+// walk, before the barrier that ends the launch, re-reading the slice
+// with 16-byte loads and stores where the row allows.  The slice was read
+// a moment before: at the main path's size the whole of x (about 1 MB)
+// is in L2.  (The element list in shared memory cannot serve: it holds
+// magnitudes, without signs and in no index order, and a second copy of
+// the slice in index order would not fit beside it at 48 K elements.)  Rows
+// whose k >= n or k <= 0 leave at once with threshold 0 or 0xFFFFFFFF and
+// still write their slice: x itself, or zeros.  The standalone K2 kernel
+// (mask_vec4 / mask_scalar) stays for a threshold computed elsewhere, and
+// for rows longer than the clusters' shared memory, where the fused
+// launch re-reads x from HBM on 64 SMs at (4, 2^24) and K1 then K2 on
+// every SM measured faster (PERF.md).
+//
 // Edge conventions (those of the TPU kernel): k >= n gives threshold 0
 // (every entry kept), k <= 0 gives 0xFFFFFFFF (empty support).
 //
-// Bound on an H100 SXM (3.35 TB/s): the function must read x once (4n
-// bytes a row) and does ~16 integer operations an element.  At the main
-// path's size (5 clients x 50176 floats, about 1 MB) that is 0.0003 ms,
-// so launch latency and the six cluster barriers are the floor; a row
-// that fits the cluster's shared memory is read from HBM once.  At
-// (4, 2^24) one cluster a row reads x up to three times (the third pass
-// collects the candidates); the bound is 0.080 ms.  K2 reads 4n and
-// writes 4n bytes in one launch.
+// Bound on an H100 SXM (3.35 TB/s): K1 must read x once (4n bytes a row)
+// and does ~16 integer operations an element.  At the main path's size
+// (5 clients x 50176 floats, about 1 MB) that is 0.0003 ms, so launch
+// latency and the six cluster barriers are the floor; a row that fits the
+// cluster's shared memory is read from HBM once.  At (4, 2^24) one
+// cluster a row reads x up to three times (the third pass collects the
+// candidates); the bound is 0.080 ms.  K1 with K2 reads 4n and writes 4n
+// bytes (0.0006 ms at main); the mask adds one pass over the slices from
+// L2 to K1's launch, and no launch.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -146,9 +165,40 @@ __device__ __forceinline__ void list_add(unsigned* list, unsigned* list_n, unsig
 // grid: rows * C CTAs in clusters of C (one cluster a row); block:
 // kSelThreads; dynamic shared memory: the element list.  `slice` is a
 // multiple of 4; k == nullptr means every row takes k_scalar.
+// Writes this CTA's slice of the masked row, where(bits >= t, x, 0), with
+// 16-byte loads and stores where the row allows.  The slice was read a
+// moment before, so at the main path's sizes it comes from L2.
+__device__ __forceinline__ void write_masked_slice(const float* __restrict__ xr,
+                                                   float* __restrict__ outr, int len,
+                                                   int vec, unsigned t) {
+  const int tid = threadIdx.x;
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    float4* o4 = reinterpret_cast<float4*>(outr);
+    const int n4 = len >> 2;
+#pragma unroll 4
+    for (int i = tid; i < n4; i += kSelThreads) {
+      const float4 v = __ldg(x4 + i);
+      float4 o;
+      o.x = mag_bits(v.x) >= t ? v.x : 0.0f;
+      o.y = mag_bits(v.y) >= t ? v.y : 0.0f;
+      o.z = mag_bits(v.z) >= t ? v.z : 0.0f;
+      o.w = mag_bits(v.w) >= t ? v.w : 0.0f;
+      o4[i] = o;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = tid; i < len; i += kSelThreads) {
+      const float v = __ldg(xr + i);
+      outr[i] = mag_bits(v) >= t ? v : 0.0f;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kSelThreads)
 threshold_select(const float* __restrict__ x, const int* __restrict__ k, int k_scalar,
-                 long long n, long long slice, int vec, long long* __restrict__ thr) {
+                 long long n, long long slice, int vec, long long* __restrict__ thr,
+                 float* __restrict__ out) {
   extern __shared__ unsigned list[];
   // three histogram buffers: pass p fills hist[p % 3] while slower CTAs
   // may still read pass p - 1's, and zeroes pass p + 1's
@@ -163,14 +213,16 @@ threshold_select(const float* __restrict__ x, const int* __restrict__ k, int k_s
   const long long row = blockIdx.x / C;
   const int tid = threadIdx.x;
   const int kk = k ? k[row] : k_scalar;
-  if ((long long)kk >= n || kk <= 0) {   // the same for the whole cluster
-    if (rank == 0 && tid == 0) thr[row] = (long long)kk >= n ? 0LL : 0xFFFFFFFFLL;
-    return;
-  }
   const long long lo = (long long)rank * slice;
   const long long hi = min(n, lo + slice);
   const int len = hi > lo ? (int)(hi - lo) : 0;
   const float* xr = x + row * n + lo;
+  if ((long long)kk >= n || kk <= 0) {   // the same for the whole cluster
+    const unsigned t = (long long)kk >= n ? 0u : 0xFFFFFFFFu;
+    if (rank == 0 && tid == 0) thr[row] = (long long)t;
+    if (out) write_masked_slice(xr, out + row * n + lo, len, vec, t);
+    return;
+  }
   for (int i = tid; i < kBins; i += kSelThreads) hist[0][i] = 0u;
   if (tid == 0) list_n = 0u;
   cluster.sync();   // every CTA has started and zeroed its first bins
@@ -302,6 +354,9 @@ threshold_select(const float* __restrict__ x, const int* __restrict__ k, int k_s
     k_rem = ctl_krem;
     matching = (int)H[(prefix >> shift) & 0xFFu];
   }
+  // every CTA knows the threshold: the mask needs no barrier, and writing
+  // it here overlaps the slower CTAs' last walk
+  if (out) write_masked_slice(xr, out + row * n + lo, len, vec, prefix);
   cluster.sync();   // no CTA leaves while another still reads its bins
   if (rank == 0 && tid == 0) thr[row] = (long long)prefix;
 }
@@ -383,15 +438,17 @@ int select_cluster_max() {
 }
 
 // K1: thr[row] = bit pattern of the k-th largest |x[row, :]|, with k =
-// k[row] or, where k is null, k_scalar.  One launch; n < 2^31.
+// k[row] or, where k is null, k_scalar; and, where out is not null, K2 in
+// the same launch: out[row, i] = |x[row, i]| bits >= thr[row] ? x[row, i]
+// : 0.  One launch; n < 2^31.
 int topk_threshold_bits(const float* x, const int* k, int k_scalar, int rows, long long n,
-                        long long* thr, void* stream_ptr) {
+                        long long* thr, float* out, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int cmax = select_cluster_max();
   const int C = n <= kSmallRow ? 8 : cmax;
   long long slice = (n + C - 1) / C;
   slice = (slice + 3) & ~3LL;
-  const int vec = (n % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const int vec = (n % 4 == 0) && ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
   const long long list = slice < kListCap ? slice : kListCap;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)rows * (unsigned)C);
@@ -406,7 +463,7 @@ int topk_threshold_bits(const float* x, const int* k, int k_scalar, int rows, lo
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, threshold_select, x, k, k_scalar, n, slice,
-                                       vec, thr);
+                                       vec, thr, out);
   if (err != cudaSuccess) return (int)err;
   RETURN_IF_ERROR();
   return 0;

@@ -20,7 +20,6 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import pack_codes as _pack
 from repro_torch.kernels import qr_pack as _qr_pack
 from repro_torch.kernels import quantize as _quant
-from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import select_slots as _sel
 from repro_torch.kernels import topk_compress as _topk
@@ -32,8 +31,9 @@ _COUNTERS = (_topk.LAUNCHES, _quant.LAUNCHES, _sel.LAUNCHES,
 
 
 def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Keep each row's ``k`` largest-magnitude entries (K1 + K2); at
-    ``k >= n`` the rows are returned as they are, with no launch."""
+    """Keep each row's ``k`` largest-magnitude entries (K1 and K2 in one
+    launch); at ``k >= n`` the rows are returned as they are, with no
+    launch."""
     if int(k) >= x.shape[-1]:
         return x
     return _topk.topk_mask(x, int(k))
@@ -69,21 +69,20 @@ def quantize_pack(x: torch.Tensor, r: int, keys: torch.Tensor):
 def topk_qr_slots(x: torch.Tensor, k: int, cap: int, r: int,
                   keys: torch.Tensor):
     """TopK -> Q_r -> packed slots, the ``topk_qr`` codec's encode (K1
-    threshold, K3 norm of the masked rows, K6 coded slots, K8 pack).
+    threshold and K2 masked rows in one launch, K3 norm of the masked rows,
+    K6 coded slots, K8 pack).
 
     Row ``i`` draws its uniforms over the full n as
-    ``jax.random.uniform(keys[i], (n,))``; the masked rows are a plain
-    ``where`` (as the reference takes them), so the norm has the bits the
-    account path's K3 gives over K2's output.  Returns ``(idx, words,
-    norm, nnz)``: ``cap`` int32 slot indices per row (sentinel ``n``), the
-    survivors' (1+r)-bit codes in ``ceil(cap/32) * (1+r)`` words, the
-    masked rows' norms and each row's survivor count."""
+    ``jax.random.uniform(keys[i], (n,))``; the masked rows are the float32
+    ``where(bits >= t, x, 0)`` the reference takes, so the norm has the
+    bits the account path's K3 gives over the TopK mask.  Returns ``(idx,
+    words, norm, nnz)``: ``cap`` int32 slot indices per row (sentinel
+    ``n``), the survivors' (1+r)-bit codes in ``ceil(cap/32) * (1+r)``
+    words, the masked rows' norms and each row's survivor count."""
     k, cap, r = int(k), int(cap), int(r)
     u = prng.uniform(keys, x.shape[-1], device=x.device)
-    t = _topk.threshold_bits(x, k)
-    xf = x.to(torch.float32)
-    keep = ref.mag_bits(x) >= t[:, None]
-    norm = _quant.l2_norm(torch.where(keep, xf, torch.zeros_like(xf)))
+    t, masked = _topk.threshold_mask(x, k)
+    norm = _quant.l2_norm(masked)
     idx, codes, nnz = _sel.compact_code_slots(x, u, norm, t, r, cap)
     return idx, _pack.pack_codes(codes, 1 + r), norm, nnz
 

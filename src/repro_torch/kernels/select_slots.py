@@ -2,14 +2,18 @@
 and plain versions.
 
 The port of ``repro.kernels.select_slots.compact_slots`` and
-``compact_code_slots``.  Both take
-row-batched ``(rows, n)`` input (one row per client's leaf) with one
-threshold per row (K1's bit pattern) and dispatches by the tensor's
-device: a CPU tensor runs the plain version in
+``compact_code_slots``.  Both take row-batched ``(rows, n)`` input (one
+row per client's leaf) with one threshold per row (K1's bit pattern) and
+dispatch by the tensor's device: a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
 kernel in ``csrc/select_slots.cu`` or raises.  bf16 input is compared on
 its float32 magnitude bits (an exact order-embedding); K5 casts its values
 back.
+
+K5 is three launches (count, scan, write) and a scratch of tile counts
+each call.  K6 is one launch, a single pass with a decoupled look-back over
+tiles: it allocates only its outputs (in one block) and keeps its tile
+descriptors in a workspace per (device, stream) that no call clears.
 
 ``LAUNCHES`` counts kernel launches; only the CUDA path adds to it, so a
 CPU run leaves it at 0.
@@ -26,6 +30,17 @@ from repro_torch.kernels.qr_pack import MAX_R
 
 LAUNCHES = {"compact_slots": 0, "compact_code_slots": 0}
 
+# K6's workspace per (device index, stream): [int64 tensor holding uint64s,
+# launches since its descriptors were last zeroed].  Entry 0 is the ticket
+# word (the launch epoch, and the tickets taken: 0 after every launch);
+# then one descriptor a tile, tagged by the epoch so that nothing is
+# cleared between calls.  A launch on another stream may run at the same
+# time and must not share them; launches on one stream run in order and can.
+_CODE_WORKSPACE: dict = {}
+# The workspace is zeroed again before the 31-bit epoch could come round to
+# a stale descriptor's.
+_EPOCH_REFRESH = 1 << 30
+
 _P = ctypes.c_void_p
 
 
@@ -35,9 +50,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.compact_slots.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong,
                                   ctypes.c_int, _P, _P, _P, _P, _P]
     lib.compact_slots.restype = ctypes.c_int
+    lib.code_slots_tiles.argtypes = [ctypes.c_longlong]
+    lib.code_slots_tiles.restype = ctypes.c_longlong
     lib.compact_code_slots.argtypes = [_P, _P, _P, _P, ctypes.c_int,
                                        ctypes.c_longlong, ctypes.c_float,
-                                       ctypes.c_int, _P, _P, _P, _P, _P]
+                                       ctypes.c_int, _P, _P, _P]
     lib.compact_code_slots.restype = ctypes.c_int
     lib.slots_error_string.argtypes = [ctypes.c_int]
     lib.slots_error_string.restype = ctypes.c_char_p
@@ -45,6 +62,20 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _lib() -> ctypes.CDLL:
     return build.load("select_slots", _bind)
+
+
+def _code_workspace(device: torch.device, stream: int,
+                    n_desc: int) -> torch.Tensor:
+    """K6's ticket word and ``n_desc`` descriptors for ``stream``: grown
+    (zeroed) when too few, and zeroed after ``_EPOCH_REFRESH`` launches."""
+    key = (device.index, stream)
+    ws = _CODE_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < 1 + n_desc or ws[1] >= _EPOCH_REFRESH:
+        size = 1 + n_desc if ws is None else max(1 + n_desc, ws[0].numel())
+        ws = [torch.zeros(size, dtype=torch.int64, device=device), 0]
+        _CODE_WORKSPACE[key] = ws
+    ws[1] += 1
+    return ws[0]
 
 
 def compact_slots(x: torch.Tensor, thr: torch.Tensor, cap: int):
@@ -104,19 +135,21 @@ def compact_code_slots(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
     u = build.expect(u, "u", torch.float32, (rows, n), dev)
     norm = build.expect(norm, "norm", torch.float32, (rows,), dev)
     thr = build.expect(thr, "thr", torch.int64, (rows,), dev)
-    idx = torch.empty((rows, cap), dtype=torch.int32, device=dev)
-    codes = torch.empty((rows, cap), dtype=torch.int32, device=dev)
-    nnz = torch.zeros(rows, dtype=torch.int32, device=dev)
+    # one allocation for the three outputs, which the kernel writes whole
+    rc = rows * cap
+    out = torch.empty(2 * rc + rows, dtype=torch.int32, device=dev)
+    idx = out.as_strided((rows, cap), (cap, 1), 0)
+    codes = out.as_strided((rows, cap), (cap, 1), rc)
+    nnz = out.as_strided((rows,), (1,), 2 * rc)
     if n == 0:
-        return idx.fill_(0), codes.zero_(), nnz
+        return idx.fill_(0), codes.zero_(), nnz.zero_()
     lib = _lib()
-    scratch = torch.empty((rows, lib.slots_tiles(n)), dtype=torch.int32,
-                          device=dev)
-    code = lib.compact_code_slots(build.ptr(xf), build.ptr(u), build.ptr(norm),
-                                  build.ptr(thr), rows, n, float(2 ** r), cap,
-                                  build.ptr(scratch), build.ptr(nnz),
-                                  build.ptr(idx), build.ptr(codes),
-                                  build.stream_ptr())
+    stream = build.stream_ptr()
+    ws = _code_workspace(dev, stream, rows * lib.code_slots_tiles(n))
+    code = lib.compact_code_slots(xf.data_ptr(), u.data_ptr(),
+                                  norm.data_ptr(), thr.data_ptr(), rows, n,
+                                  float(2 ** r), cap, ws.data_ptr(),
+                                  out.data_ptr(), stream)
     build.check(code, "compact_code_slots", lib, "slots_error_string")
     LAUNCHES["compact_code_slots"] += 1
     return idx, codes, nnz

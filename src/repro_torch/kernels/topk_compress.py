@@ -1,16 +1,19 @@
 """TopK radix threshold (K1) and mask (K2): wrappers and plain versions.
 
-The port of ``repro.kernels.topk_compress``.  Both functions take
+The port of ``repro.kernels.topk_compress``.  The functions take
 row-batched ``(rows, n)`` input (one row per client's leaf) and dispatch
 by the tensor's device: a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
 kernel in ``csrc/topk_compress.cu`` or raises.  bf16 input is cast to
-float32 for the kernel (an exact order-embedding of the magnitudes) and
-the mask is cast back.  K1 is one launch a call and allocates nothing
-but its output.
+float32 for the kernel (an exact order-embedding of the magnitudes).  K1
+is one launch a call and allocates nothing but its output;
+:func:`threshold_mask` (and so :func:`topk_mask`) runs K2 inside K1's
+launch, and :func:`mask_by_threshold` is K2 alone, for a threshold
+computed elsewhere.
 
-``LAUNCHES`` counts kernel launches per wrapper; only the CUDA path adds
-to it, so a CPU run leaves it at 0.
+``LAUNCHES`` counts kernel launches per wrapper (``topk_threshold_mask``
+for K1 and K2 in one launch); only the CUDA path adds to it, so a CPU run
+leaves it at 0.
 """
 
 from __future__ import annotations
@@ -21,14 +24,18 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"topk_threshold_bits": 0, "topk_mask": 0}
+LAUNCHES = {"topk_threshold_bits": 0, "topk_mask": 0,
+            "topk_threshold_mask": 0}
+
+# resident_max_n(), asked of the card once
+_RESIDENT_MAX_N = None
 
 _P = ctypes.c_void_p
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.topk_threshold_bits.argtypes = [_P, _P, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_longlong, _P, _P]
+                                        ctypes.c_longlong, _P, _P, _P]
     lib.topk_threshold_bits.restype = ctypes.c_int
     lib.topk_resident_max_n.argtypes = []
     lib.topk_resident_max_n.restype = ctypes.c_longlong
@@ -43,19 +50,10 @@ def _lib() -> ctypes.CDLL:
     return build.load("topk_compress", _bind)
 
 
-def threshold_bits(x: torch.Tensor, k) -> torch.Tensor:
-    """K1: per-row bit pattern (int64 holding uint32) of the k-th largest
-    ``|x|``; ``k`` is an int or a per-row tensor.  ``k >= n`` gives 0 and
-    ``k <= 0`` gives ``0xFFFFFFFF``."""
-    if build.on_cpu(x):
-        return ref.topk_threshold_bits(x, k)
-    xf = build.cuda_rows(x)
+def _select(xf: torch.Tensor, k, thr: torch.Tensor, out) -> None:
+    """Launches K1 on float32 rows ``xf`` (n > 0) into ``thr``, and K2 in
+    the same launch where ``out`` (float32, xf's shape) is given."""
     rows, n = xf.shape
-    if n >= 2 ** 31:
-        raise ValueError(f"n must be below 2^31, got {n}")
-    thr = torch.empty(rows, dtype=torch.int64, device=xf.device)
-    if n == 0:
-        return thr.zero_()
     if isinstance(k, torch.Tensor):
         kk = k.to(device=xf.device, dtype=torch.int32).contiguous()
         if kk.shape != (rows,):
@@ -66,17 +64,67 @@ def threshold_bits(x: torch.Tensor, k) -> torch.Tensor:
         k_ptr, k_scalar = None, max(0, min(int(k), n))
     lib = _lib()
     code = lib.topk_threshold_bits(xf.data_ptr(), k_ptr, k_scalar, rows, n,
-                                   thr.data_ptr(), build.stream_ptr())
+                                   thr.data_ptr(),
+                                   None if out is None else out.data_ptr(),
+                                   build.stream_ptr())
     build.check(code, "topk_threshold_bits", lib, "topk_error_string")
+
+
+def _cuda_input(x: torch.Tensor) -> torch.Tensor:
+    xf = build.cuda_rows(x)
+    if xf.shape[1] >= 2 ** 31:
+        raise ValueError(f"n must be below 2^31, got {xf.shape[1]}")
+    return xf
+
+
+def threshold_bits(x: torch.Tensor, k) -> torch.Tensor:
+    """K1: per-row bit pattern (int64 holding uint32) of the k-th largest
+    ``|x|``; ``k`` is an int or a per-row tensor.  ``k >= n`` gives 0 and
+    ``k <= 0`` gives ``0xFFFFFFFF``."""
+    if build.on_cpu(x):
+        return ref.topk_threshold_bits(x, k)
+    xf = _cuda_input(x)
+    thr = torch.empty(xf.shape[0], dtype=torch.int64, device=xf.device)
+    if xf.shape[1] == 0:
+        return thr.zero_()
+    _select(xf, k, thr, None)
     LAUNCHES["topk_threshold_bits"] += 1
     return thr
+
+
+def threshold_mask(x: torch.Tensor, k):
+    """K1 and K2 in one launch: ``(thr, masked)``, each row's threshold bit
+    pattern as :func:`threshold_bits` gives it and the float32 rows
+    ``where(bits >= thr[row], x, 0)`` (ties at the threshold kept; ``k >=
+    n`` keeps the row, ``k <= 0`` zeroes it).
+
+    Rows longer than :func:`resident_max_n` take K1 then K2's standalone
+    kernel: there K1's clusters (one a row) read x from HBM again for the
+    mask, and K2 alone streams it on every SM, which measured faster."""
+    if build.on_cpu(x):
+        thr = ref.topk_threshold_bits(x, k)
+        return thr, ref.mask_by_threshold(x, thr).to(torch.float32)
+    xf = _cuda_input(x)
+    if xf.shape[1] > resident_max_n():
+        thr = threshold_bits(xf, k)
+        return thr, mask_by_threshold(xf, thr)
+    thr = torch.empty(xf.shape[0], dtype=torch.int64, device=xf.device)
+    out = torch.empty(xf.shape, dtype=torch.float32, device=xf.device)
+    if xf.shape[1] == 0:
+        return thr.zero_(), out
+    _select(xf, k, thr, out)
+    LAUNCHES["topk_threshold_mask"] += 1
+    return thr, out
 
 
 def resident_max_n() -> int:
     """The largest row K1 holds in its clusters' shared memory from the
     first pass on (longer rows are read from HBM until their candidates
     fit); needs the card."""
-    return int(_lib().topk_resident_max_n())
+    global _RESIDENT_MAX_N
+    if _RESIDENT_MAX_N is None:
+        _RESIDENT_MAX_N = int(_lib().topk_resident_max_n())
+    return _RESIDENT_MAX_N
 
 
 def mask_by_threshold(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -98,6 +146,7 @@ def mask_by_threshold(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
 
 
 def topk_mask(x: torch.Tensor, k) -> torch.Tensor:
-    """K1 then K2: zero all but each row's k largest-magnitude entries
-    (ties at the threshold kept; ``k >= n`` keeps every entry)."""
-    return mask_by_threshold(x, threshold_bits(x, k))
+    """K1 and K2 in one launch (:func:`threshold_mask`): zero all but each
+    row's k largest-magnitude entries, in x's dtype (ties at the threshold
+    kept; ``k >= n`` keeps every entry)."""
+    return threshold_mask(x, k)[1].to(x.dtype)

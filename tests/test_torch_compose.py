@@ -168,6 +168,182 @@ def test_compact_code_slots_reads_u_at_the_survivor_index():
     assert codes[0].tolist() == [2, 2]
 
 
+# --------------------------------------------------------------------------- #
+# K6's one-launch scheme, mirrored on the CPU
+# --------------------------------------------------------------------------- #
+
+LB_ROUNDS = 4          # float4s a thread a tile (csrc/select_slots.cu)
+LB_WINDOW = 32         # descriptors a look-back step reads, one a lane
+LB_FLAG_AGGREGATE, LB_FLAG_PREFIX = 1, 2
+
+
+def _qr_code32(xv, uv, safe, levels: int):
+    """The kernel's ``qr_code`` in float32, operation by operation."""
+    f32 = np.float32
+    y = f32(abs(xv)) / f32(safe)
+    scaled = f32(levels) * y
+    lo = np.floor(scaled)
+    frac = scaled - lo
+    code = int(lo + (f32(1.0) if uv < frac else f32(0.0)))
+    code = min(code, levels - 1)
+    return code + levels if xv < 0 else code
+
+
+def _k6_lookback_mirror(x, u, norm, thr, r: int, cap: int, warps: int = 8,
+                        resolve: str = "ticket"):
+    """K6's one-launch kernel (``code_slots_lookback``) step by step on the
+    CPU: tiles of ``warps`` x 32 threads x 4 rounds x 4 elements; in round
+    j thread t holds elements 4 (j threads + t) + 0..3 of its tile, so
+    index order is (round, warp, lane, element); a byte-packed lane scan
+    and a (round, warp) scan give each survivor its place in the tile; a
+    tile publishes its count (its inclusive prefix if it is its row's
+    first), then looks back over its row's earlier tiles 32 at a time
+    (nearest first) until one has published its prefix, publishes its own
+    and writes its survivors below cap (staged in index order, so as one
+    run); the row's last tile writes nnz and the sentinels.
+
+    Every tile publishes before any looks back, and the look-backs run in
+    ticket order or (``resolve="reverse"``) in reverse, where each must
+    walk back over aggregates only.  Entries the kernel would not write
+    stay at -1."""
+    rows, n = x.shape
+    threads = 32 * warps
+    tile_len = threads * 4 * LB_ROUNDS
+    tiles = max(1, -(-n // tile_len))
+    levels = 2 ** r
+    idx = np.full((rows, cap), -1, np.int64)
+    codes = np.full((rows, cap), -1, np.int64)
+    nnz = np.full(rows, -1, np.int64)
+    desc = {}
+    state = {}
+    for tile in range(rows * tiles):                     # ticket order
+        row, tr = divmod(tile, tiles)
+        base = tr * tile_len
+        bits = np.abs(x[row]).view(np.int32).astype(np.int64)
+        t = int(thr[row])
+        keep = np.zeros((LB_ROUNDS, threads, 4), bool)
+        elem = np.zeros((LB_ROUNDS, threads, 4), np.int64)
+        for j in range(LB_ROUNDS):
+            for th in range(threads):
+                for e in range(4):
+                    i = base + 4 * (j * threads + th) + e
+                    elem[j, th, e] = i
+                    keep[j, th, e] = i < n and bits[i] >= t and bits[i] != 0
+        # lane offsets, a byte a round, by an inclusive warp scan
+        packed = np.zeros(threads, np.int64)
+        for j in range(LB_ROUNDS):
+            packed |= keep[j].sum(axis=1).astype(np.int64) << (8 * j)
+        lane_off = np.zeros(threads, np.int64)
+        warp_count = np.zeros((LB_ROUNDS, warps), np.int64)
+        for w in range(warps):
+            incl = np.cumsum(packed[32 * w:32 * w + 32])
+            assert all(((incl >> (8 * j)) & 0xFF).max() <= 128
+                       for j in range(LB_ROUNDS))
+            lane_off[32 * w:32 * w + 32] = incl - packed[32 * w:32 * w + 32]
+            for j in range(LB_ROUNDS):
+                warp_count[j, w] = (incl[-1] >> (8 * j)) & 0xFF
+        counts = warp_count.reshape(-1)                  # (round, warp)
+        off = (np.cumsum(counts) - counts).reshape(LB_ROUNDS, warps)
+        total = int(counts.sum())
+        desc[tile] = ((LB_FLAG_PREFIX, total) if tr == 0
+                      else (LB_FLAG_AGGREGATE, total))
+        state[tile] = (row, tr, keep, elem, lane_off, off, total)
+    order = sorted(state) if resolve == "ticket" else sorted(state)[::-1]
+    for tile in order:
+        row, tr, keep, elem, lane_off, off, total = state[tile]
+        prefix = 0
+        if tr > 0:
+            first, look = tile - tr, tile - 1
+            while True:
+                window = [desc[p] if p >= first else (LB_FLAG_PREFIX, 0)
+                          for p in range(look, look - LB_WINDOW, -1)]
+                assert all(flag != 0 for flag, _ in window)
+                at = [i for i, (flag, _) in enumerate(window)
+                      if flag == LB_FLAG_PREFIX]
+                if at:
+                    prefix += sum(v for _, v in window[:at[0] + 1])
+                    break
+                prefix += sum(v for _, v in window)
+                look -= LB_WINDOW
+            desc[tile] = (LB_FLAG_PREFIX, prefix + total)
+        nr = float(norm[row])
+        safe = np.float32(nr if nr > 0 else 1.0)
+        for j in range(LB_ROUNDS):
+            for th in range(keep.shape[1]):
+                pos = (prefix + int(off[j, th // 32])
+                       + int((lane_off[th] >> (8 * j)) & 0xFF))
+                for e in range(4):
+                    if keep[j, th, e]:
+                        if pos < cap:
+                            i = int(elem[j, th, e])
+                            idx[row, pos] = i
+                            codes[row, pos] = _qr_code32(x[row, i], u[row, i],
+                                                         safe, levels)
+                        pos += 1
+        if tr == tiles - 1:
+            count = prefix + total
+            nnz[row] = count
+            idx[row, min(count, cap):] = n
+            codes[row, min(count, cap):] = 0
+    return idx, codes, nnz
+
+
+def _k6_mirror_rows(case: str):
+    """(x, u, k, cap, r, warps) of the phase-2 cases of K6's one launch."""
+    x = _x(3, 9000, 21)
+    u = _u(3, 9000, 22)
+    if case == "cap in the second tile":            # tiles of 4096
+        return x, u, 4000, 5000, 4, 8
+    if case == "cap in the last tile":
+        return x, u, 4000, 3900, 16, 8
+    if case == "cap 0":
+        return x, u, 100, 0, 4, 8
+    if case == "cap above nnz, zero row, all ties":
+        x = _x(4, 5003, 23)                         # n not a multiple of 4
+        u = _u(4, 5003, 24)
+        x[0, 40:] = 0.0                              # 40 survivors < cap
+        x[1] = 0.0                                   # no survivor
+        x[2] = 0.5                                   # all ties: overflow
+        x[2, ::2] = -0.5
+        x[3, 7] = 1e4                                # saturates the top level
+        return x, u, 100, 4500, 8, 8
+    if case == "many tiles":                        # 512-element tiles: 137
+        n = 70000
+        x = _x(2, n, 26)
+        x[1, 3000:] = 0.25                           # ties across tiles
+        return x, _u(2, n, 25), 17500, 17500, 4, 1
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("resolve", ["ticket", "reverse"])
+@pytest.mark.parametrize("case", [
+    "cap in the second tile", "cap in the last tile", "cap 0",
+    "cap above nnz, zero row, all ties", "many tiles"])
+def test_k6_lookback_mirror_matches_pallas(case, resolve):
+    """The CPU mirror of K6's one-launch scheme (tile order by ticket,
+    look-back 32 tiles at a time, sentinels from the row's last tile)
+    writes every entry, bit for bit the port's plain K6 and the reference's
+    Pallas K6 in interpret mode (which takes no cap of 0): an ordering bug
+    shows here before the card."""
+    x, u, k, cap, r, warps = _k6_mirror_rows(case)
+    tx = torch.from_numpy(x)
+    thr = ref.topk_threshold_bits(tx, k)
+    norm = ref.l2_norm(ref.mask_by_threshold(tx, thr))
+    idx, codes, nnz = _k6_lookback_mirror(x, u, norm.numpy(), thr.numpy(), r,
+                                          cap, warps, resolve)
+    assert (idx >= 0).all() and (codes >= 0).all() and (nnz >= 0).all()
+    want = ref.compact_code_slots(tx, torch.from_numpy(u), norm, thr, r, cap)
+    assert np.array_equal(idx, want[0].numpy())
+    assert np.array_equal(codes, ref.as_u32(want[1]).numpy())
+    assert np.array_equal(nnz, want[2].numpy())
+    for row in range(x.shape[0] if cap else 0):
+        widx, wcodes = jsel.compact_code_slots(
+            jnp.asarray(x[row]), jnp.asarray(u[row]), jnp.float32(norm[row]),
+            jnp.uint32(int(thr[row])), r, cap, interpret=True)
+        np.testing.assert_array_equal(idx[row], np.asarray(widx))
+        np.testing.assert_array_equal(codes[row], np.asarray(wcodes))
+
+
 @pytest.mark.parametrize("n,density,r", [(4096, 0.25, 4), (640, 0.5, 16),
                                          (10, 0.25, 4), (777, 0.1, 8)])
 def test_topk_qr_slots_match_jnp_oracle(n, density, r):
@@ -209,6 +385,24 @@ def test_ops_topk_qr_slots_draws_the_reference_uniforms():
                              torch.from_numpy(u))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,k,r", [(1000, 250, 4), (777, 388, 16),
+                                   (50176, 12544, 4), (64, 64, 8), (10, 1, 1)])
+def test_ops_topk_qr_slots_equals_the_plain_chain(n, k, r):
+    """``ops.topk_qr_slots`` takes the threshold and the masked rows from
+    one ``threshold_mask`` call: bit for bit ``ref.topk_qr_slots`` (K1, the
+    ``where``, K3, K6, K8) on the same uniforms, k = n included."""
+    x = _x(3, n, n + k)
+    x[0, :7] = 0.0
+    x[0, 7:9] = -0.0
+    jkeys = jax.random.split(jax.random.PRNGKey(n + r), 3)
+    keys = torch.from_numpy(np.asarray(jkeys).astype(np.int64))
+    got = ops.topk_qr_slots(torch.from_numpy(x), k, k, r, keys)
+    u = prng.uniform(keys, n)
+    want = ref.topk_qr_slots(torch.from_numpy(x), k, k, r, u)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------- #

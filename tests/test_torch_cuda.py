@@ -5,9 +5,9 @@ the port only (no JAX), so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1, K2, K4, K5, K6, K7, K8, K9 and K11 must be bit-equal to the plain
-versions; K3 within rtol 1e-5 (float32 sums in another order) and
-bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
+K1, K2 (alone and in K1's launch, ``threshold_mask``), K4, K5, K6, K7,
+K8, K9 and K11 must be bit-equal to the plain versions; K3 within rtol
+1e-5 (float32 sums in another order) and bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
 update keeps the plain version's operation order) and y within
 ``WKV6_YTOL`` of max |y| in float32 (64-term sums in another order), plus
 one bf16 rounding in bf16.  One reduced prefill on the card launches K11
@@ -238,10 +238,157 @@ def test_launch_counters_count_cuda_launches(cuda_device):
     ops.topk_qr_slots(x, 10, 10, 4, keys)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
-        "topk_threshold_bits": 3, "topk_mask": 1, "l2_norm": 3,
-        "quantize_qr": 1, "compact_slots": 1, "compact_code_slots": 1,
-        "quantize_pack_with_uniforms": 1, "pack_codes": 2, "unpack_codes": 1,
-        "rglru_scan": 0, "wkv6_scan": 0, "flash_attention": 0}
+        "topk_threshold_bits": 1, "topk_mask": 0, "topk_threshold_mask": 2,
+        "l2_norm": 3, "quantize_qr": 1, "compact_slots": 1,
+        "compact_code_slots": 1, "quantize_pack_with_uniforms": 1,
+        "pack_codes": 2, "unpack_codes": 1, "rglru_scan": 0, "wkv6_scan": 0,
+        "flash_attention": 0}
+
+
+def _device_ops(fn):
+    """The device operations (kernels, copies, memsets) of one call of
+    ``fn``, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 777, 4096, 50176, 50177])
+def test_threshold_mask_matches_plain(cuda_device, n):
+    """K1 and K2 in one launch: the threshold and the float32 masked rows
+    bit-equal to the plain versions on ties, +-0, subnormals, inf, n not a
+    multiple of 4, k of 0, 1, n - 1, n and beyond n, and per-row k."""
+    x = _topk_edge_rows(n, cuda_device)
+    ks = [1, max(n - 1, 0), n // 2, 0, n, n + 5,
+          torch.tensor([0, 1, max(n - 1, 0), n, n + 3], device=cuda_device)]
+    for k in ks:
+        thr, masked = topk.threshold_mask(x, k)
+        want = ref.topk_threshold_bits(x, k)
+        assert torch.equal(thr, want)
+        assert masked.dtype == torch.float32
+        assert _same_bits(masked, ref.mask_by_threshold(x, want))
+
+
+def test_threshold_mask_bf16_and_past_the_shared_memory_capacity(cuda_device):
+    """bf16 rows come back as float32 masked rows (``topk_mask`` casts them
+    back); rows past the clusters' shared memory take K1 then K2."""
+    x = _rows(3, 4099, cuda_device, 5).to(torch.bfloat16)
+    thr, masked = topk.threshold_mask(x, 410)
+    assert torch.equal(thr, ref.topk_threshold_bits(x, 410))
+    assert _same_bits(masked, ref.mask_by_threshold(x, thr).float())
+    assert torch.equal(topk.topk_mask(x, 410).float(), masked)
+    n = topk.resident_max_n() + 4
+    x = _rows(2, n, cuda_device, 6)
+    ops.reset_launch_counts()
+    thr, masked = topk.threshold_mask(x, n // 10)
+    torch.cuda.synchronize()
+    assert torch.equal(thr, ref.topk_threshold_bits(x, n // 10))
+    assert _same_bits(masked, ref.mask_by_threshold(x, thr))
+    counts = ops.launch_counts()
+    assert (counts["topk_threshold_bits"], counts["topk_mask"],
+            counts["topk_threshold_mask"]) == (1, 1, 0)
+
+
+@pytest.mark.parametrize("n", [10, 50176])
+def test_threshold_mask_is_one_kernel_a_call(cuda_device, n):
+    """One ``threshold_mask`` call runs one kernel on the card and adds one
+    to its own count."""
+    x = _rows(5, n, cuda_device, n)
+    topk.LAUNCHES["topk_threshold_mask"] = 0
+    names = _device_ops(lambda: topk.threshold_mask(x, max(1, n // 3)))
+    assert topk.LAUNCHES["topk_threshold_mask"] == 2
+    assert len(names) == 1, names
+
+
+def _k6_case(case, device):
+    """(x, k, cap, r) of K6's one-launch cases: tiles of 4096 elements."""
+    if case == "cap in the second tile":
+        return _rows(3, 50176, device, 11), 12544, 1500, 4
+    if case == "cap in the last tile":
+        return _rows(3, 50176, device, 12), 12544, 12444, 16
+    if case == "cap 0":
+        return _rows(3, 50176, device, 13), 12544, 0, 4
+    if case == "ties, zero row, cap above nnz, n = 50177":
+        x = _rows(4, 50177, device, 14)
+        x[1] = 0.25                              # all ties, past cap
+        x[2] = 0.0                               # no survivor
+        x[3, 100:] = 0.0                         # 100 survivors
+        return x, 1000, 7000, 8
+    if case == "74 tiles":
+        return _rows(3, 300000, device, 15), 75000, 75000, 4
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "cap in the second tile", "cap in the last tile", "cap 0",
+    "ties, zero row, cap above nnz, n = 50177", "74 tiles"])
+def test_compact_code_slots_one_launch_cases(cuda_device, case):
+    """K6's one launch bit-equal to the plain version where cap falls in
+    its second and last tile, at 0 and above nnz, past an all-tie row, on
+    a zero row and over 74 tiles a row; twice, the second call on the
+    workspace the first tagged."""
+    x, k, cap, r = _k6_case(case, cuda_device)
+    u = torch.rand(x.shape, device=cuda_device)
+    t = topk.threshold_bits(x, k)
+    norm = quant.l2_norm(ref.mask_by_threshold(x, t))
+    want = ref.compact_code_slots(x, u, norm, t, r, cap)
+    for _ in range(2):
+        got = sel.compact_code_slots(x, u, norm, t, r, cap)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [10, 50176])
+def test_compact_code_slots_is_one_kernel_a_call(cuda_device, n):
+    """One K6 call runs one kernel on the card: no fill, no scratch."""
+    x = _rows(5, n, cuda_device, n)
+    u = torch.rand(x.shape, device=cuda_device)
+    cap = max(1, n // 4)
+    t = topk.threshold_bits(x, cap)
+    norm = quant.l2_norm(ref.mask_by_threshold(x, t))
+    sel.LAUNCHES["compact_code_slots"] = 0
+    names = _device_ops(lambda: sel.compact_code_slots(x, u, norm, t, 4, cap))
+    assert sel.LAUNCHES["compact_code_slots"] == 2
+    assert len(names) == 1, names
+
+
+def test_packed_k25_q4_round_launch_counts(cuda_device):
+    """One FedComLoc-Com round with Compose(TopK(0.25), QuantQr(4)) on the
+    packed wire launches, once a leaf: K1 + K2 in one launch, K3, K6, K8
+    (encode) and K9 (decode); nothing else."""
+    from repro_torch import prng
+    from repro_torch.compress import Compose, QuantQr, TopK
+    from repro_torch.core import fed_data
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.data import dirichlet, synthetic
+    from repro_torch.models import small
+
+    ds = synthetic.make_mnist_like(n_train=800, n_test=100)
+    parts = dirichlet.dirichlet_partition(ds.y_train, n_clients=20,
+                                          alpha=0.7, seed=0)
+    model = small.MLP(784, 64, 10)
+    data = fed_data.from_numpy_partition(ds.x_train, ds.y_train, parts,
+                                         device="cuda")
+    cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=5,
+                          batch_size=32, variant="com")
+    alg = FedComLoc(small.cross_entropy_loss(model.apply), data, cfg,
+                    Compose(TopK(0.25), QuantQr(4)), wire="packed")
+    state = alg.init(model.init(prng.PRNGKey(0), device=cuda_device))
+    ops.reset_launch_counts()
+    alg.round(state, prng.PRNGKey(1))
+    torch.cuda.synchronize()
+    leaves = 6
+    want = {name: 0 for name in ops.launch_counts()}
+    want.update({"topk_threshold_mask": leaves, "l2_norm": leaves,
+                 "compact_code_slots": leaves, "pack_codes": leaves,
+                 "unpack_codes": leaves})
+    assert ops.launch_counts() == want
 
 
 WKV6_YTOL = 1e-5

@@ -142,6 +142,66 @@ def test_mask_bf16_matches_oracle():
         _bits_equal(got[r].float().numpy(), want)
 
 
+def _pallas_threshold_and_mask(xr: np.ndarray, k: int):
+    """The reference's K1 and K2 (Pallas, interpret mode) on one row; its
+    mask cast to float32 (exact from bf16)."""
+    xj = jnp.asarray(xr)
+    t = int(jtopk.threshold_bits(xj, k, interpret=True))
+    m = np.asarray(jtopk.topk_mask(xj, k, interpret=True).astype(jnp.float32))
+    return t, m
+
+
+@pytest.mark.parametrize("n,k", [
+    (128, 1), (1000, 100), (777, 77), (4099, 410), (64, 0), (64, -2),
+    (64, 64), (64, 90)])
+def test_threshold_mask_matches_pallas(n, k):
+    """K1 and K2 in one entry: the threshold bit patterns and the float32
+    masked rows equal the reference's two Pallas kernels (interpret mode),
+    k <= 0 (all zeros) and k >= n (the row itself) included."""
+    x = _rows(3 * n + k, 3, n)
+    x[0, :5] = 0.0
+    x[0, 5:9] = -0.0
+    thr, masked = topk.threshold_mask(torch.from_numpy(x), k)
+    assert thr.dtype == torch.int64 and masked.dtype == torch.float32
+    for r in range(3):
+        t, m = _pallas_threshold_and_mask(x[r], k)
+        assert int(thr[r]) == t
+        _bits_equal(masked[r].numpy(), m)
+
+
+def test_threshold_mask_per_row_k_matches_pallas():
+    """A per-row k of 0, 1, n - 1, n and beyond n in one call."""
+    n = 333
+    x = _rows(12, 5, n)
+    x[2, ::3] = 0.5                              # ties at the threshold
+    ks = [0, 1, n - 1, n, n + 40]
+    thr, masked = topk.threshold_mask(torch.from_numpy(x), torch.tensor(ks))
+    for r, k in enumerate(ks):
+        t, m = _pallas_threshold_and_mask(x[r], k)
+        assert int(thr[r]) == t
+        _bits_equal(masked[r].numpy(), m)
+
+
+@pytest.mark.parametrize("k", [1, 77, 776, 0, 777])
+def test_threshold_mask_bf16_matches_pallas(k):
+    """bf16 rows: the masked rows come back in float32, bit for bit the
+    reference's bf16 mask cast up; ``topk_mask`` casts them back to bf16."""
+    x32 = _rows(13 + k, 3, 777)
+    xt = torch.from_numpy(x32).to(torch.bfloat16)
+    xb = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    thr, masked = topk.threshold_mask(xt, k)
+    assert masked.dtype == torch.float32
+    for r in range(3):
+        assert int(thr[r]) == int(jtopk.threshold_bits(xb[r], k,
+                                                       interpret=True))
+        want = np.asarray(jtopk.topk_mask(xb[r], k, interpret=True).astype(
+            jnp.float32))
+        _bits_equal(masked[r].numpy(), want)
+    back = topk.topk_mask(xt, k)
+    assert back.dtype == torch.bfloat16
+    assert torch.equal(back.float(), masked)
+
+
 # --------------------------------------------------------------------------- #
 # K3 norm / K4 Q_r
 # --------------------------------------------------------------------------- #
@@ -265,7 +325,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.wkv6_scan(r4, r4, r4, torch.sigmoid(r4), torch.zeros(2, 64))
     ops.mha_attention(r4, r4, r4, window=2, softcap=5.0)
     assert set(ops.launch_counts()) == {
-        "topk_threshold_bits", "topk_mask", "l2_norm", "quantize_qr",
+        "topk_threshold_bits", "topk_mask", "topk_threshold_mask", "l2_norm",
+        "quantize_qr",
         "compact_slots", "compact_code_slots", "quantize_pack_with_uniforms",
         "pack_codes", "unpack_codes", "rglru_scan", "wkv6_scan",
         "flash_attention"}
