@@ -23,14 +23,21 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    and beyond n, +-0 / subnormals / inf / ties, and rows at and just past
    its clusters' shared-memory capacity; ``threshold_mask`` (K1 and K2 in
    one launch) must give K1's and K2's plain outputs on every one of them.
-   K6's cases also put cap inside its second and its last tile, at 0 and
-   above nnz, past an all-tie row, on a zero row, n = 50177 and 74 tiles a
-   row, each called twice (the second call reuses the tagged workspace).
-   ``torch.profiler`` must see one device operation a K1, a K6 and a
-   ``threshold_mask`` call (two past the shared-memory capacity, where it
-   takes K1 then K2).  Then times kernel, plain version and the library
-   yardstick (K1 and K3 also by their device time a call; K2 as the fused
-   launch, beside K1 then K2 and K2 alone, in turns);
+   K4 is held by both entries: reading u, and drawing u itself with
+   threefry (key words at and above 2^31, n = 1, n = 2^24 + 3, 40 rows)
+   against ``prng.uniform`` + the plain version.  K5's and K6's cases also
+   put cap inside their second and last tile, at 0 and above nnz, past an
+   all-tie row, on a zero row, n = 50177 and 74 tiles a row, each called
+   twice (the second call reuses the tagged workspace).
+   ``torch.profiler`` must see one device operation a K1, a keyed K4, a
+   K5, a K6 and a ``threshold_mask`` call (two past the shared-memory
+   capacity, where it takes K1 then K2) and two an ``ops.quantize_qr``
+   (K3, K4).  Then times kernel, plain version and the library yardstick
+   (K1 and K3 also by their device time a call; K2 as the fused launch,
+   beside K1 then K2 and K2 alone, in turns; K4's keyed entry, its memory
+   entry and the whole ``ops.quantize_qr`` against the chain it replaced,
+   in turns, with the keyed bound's bytes and integer terms, the latter
+   from the uniform's own operations, the SASS's count beside it);
 3. train — drives the quickstart configuration (MLP 784-64-64-10, 20
    Dirichlet(0.7) clients, 5 per round, batch 32, gamma = 0.1, p = 0.1)
    through ``server.run_federated`` on the card, FedComLoc-Com with
@@ -42,7 +49,8 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    before a run and read just after, and each must equal the count the
    batching implies (K1 and K2 run as one launch, ``topk_threshold_mask``,
    on every TopK leaf but the packed ``topk`` codec's, which launches K1
-   and K5).  The packed runs must ship the payload bytes the
+   and K5; the account Q_r runs launch the keyed K4 and make no bulk
+   ``prng.uniform`` draw).  The packed runs must ship the payload bytes the
    wire format implies, and reproduce the account runs' uplink bits
    exactly and their parameters within ``PARAM_RTOL``/``PARAM_ATOL``.
    For Compose a further packed run holds, in every round, the server's
@@ -717,13 +725,17 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
     return launches, captured
 
 
-def build_report(build) -> None:
-    """Phase 1's look at K10's libraries: what ``-Xptxas -v`` logged, the
-    wgmma kernel's dynamic shared memory, and its SASS's wgmma and TMA
-    instructions (which must both be there, where ``cuobjdump`` is)."""
+def build_report(build):
+    """Phase 1's look at the libraries: what ``-Xptxas -v`` logged for
+    K10's, K4's and K5/K6's, the wgmma kernel's dynamic shared memory, and
+    its SASS's wgmma and TMA instructions (which must both be there, where
+    ``cuobjdump`` is).  Returns the keyed K4's integer instructions by
+    opcode (its float4 instance's SASS, 4 elements a thread), a diagnostic
+    beside the bound, or None without ``cuobjdump``."""
     from repro_torch.kernels import flash_attention as fa
 
-    for name in ("flash_attention_sm90", "flash_attention"):
+    for name in ("flash_attention_sm90", "flash_attention", "quantize",
+                 "select_slots"):
         kernel = None
         for line in build.ptxas_log(name).splitlines():
             if "Compiling entry function" in line:
@@ -736,14 +748,45 @@ def build_report(build) -> None:
         f"Dh {dh} {fa.wgmma_smem_bytes(dh)} B" for dh in fa.HEAD_DIMS),
         flush=True)
     if build.cuobjdump_path() is None:
-        print("[build] cuobjdump not in the toolkit: HGMMA/UTMALDG not "
-              "counted", flush=True)
-        return
+        print("[build] cuobjdump not in the toolkit: HGMMA/UTMALDG and the "
+              "keyed K4's integer instructions not counted", flush=True)
+        return None
     counts = build.sass_counts("flash_attention_sm90", ("HGMMA", "UTMALDG"))
     print(f"[build] flash_attention_sm90 SASS: {counts}", flush=True)
     if not (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0):
         raise AssertionError(f"K10's bf16 library lacks wgmma or TMA: "
                              f"{counts}")
+    ints = build.sass_counts("quantize", build.INT_OPCODES,
+                             match=("qr_round", "ILb1ELb1E"))
+    print(f"[build] keyed K4 (float4 instance, 4 elements a thread) SASS "
+          f"integer instructions {ints}: {sum(ints.values()) / 4!r} an "
+          f"element, {sum(v for op, v in ints.items() if op != 'IMAD') / 4!r}"
+          f" off the IMAD pipe (diagnostic: the bound counts the "
+          f"function's {threefry_pipe_ops()!r})", flush=True)
+    return ints
+
+
+# The least per-pipe integer work of one uniform (threefry.cuh): the 20
+# rounds' rotates (SHF) and xors (LOP3), then hi ^ lo, >> 9 and
+# | 0x3F800000, run only on the ALU pipe; the 31 adds (20 rounds, 5
+# injections of two words, the counter word; the key schedule is once a
+# thread) may issue there or as IMAD on the FMA pipe, 64 lanes an SM each.
+THREEFRY_ALU_OPS = 20 + 20 + 3
+THREEFRY_ADDS = 20 + 2 * 5 + 1
+
+
+def threefry_pipe_ops() -> float:
+    """Operations an element on the busier of the two integer pipes, with
+    the adds spread as evenly as the ALU-only work allows."""
+    return max(THREEFRY_ALU_OPS, (THREEFRY_ALU_OPS + THREEFRY_ADDS) / 2)
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0])
 
 
 def attention_pairs(tq: int, tk: int, causal: bool, window, q_offset: int):
@@ -1033,7 +1076,15 @@ def main() -> int:
     libs = build.build_all()
     print(f"[build] {len(libs)} libraries in {time.time() - t0:.1f} s: "
           + ", ".join(p.name for p in libs.values()), flush=True)
-    build_report(build)
+    ints = build_report(build)
+    # The keyed K4's integer work an element, counted from the function,
+    # not from the kernel's SASS (printed above only as a diagnostic).
+    k4_int_ops = threefry_pipe_ops()
+    # INT32 peak: 132 SMs x 64 lanes x the max SM clock, a pipe
+    int_peak = 132 * 64 * max_sm_clock_mhz() * 1e6
+    print(f"[build] INT32 peak {int_peak!r} operations/s a pipe (132 SMs x "
+          f"64 lanes x max SM clock); keyed K4 bound by {k4_int_ops!r} "
+          f"operations an element on the busier pipe", flush=True)
 
     # ---- 2. kernels --------------------------------------------------------- #
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1083,6 +1134,15 @@ def main() -> int:
     def same_bits(a, b) -> bool:
         view = torch.int16 if a.element_size() == 2 else torch.int32
         return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+    def wide_keys(rows, seed):
+        """(rows, 2) key data on the host, as the compressors pass it; row
+        0's words at and above 2^31, row 1's at 2^32 - 1."""
+        keys = prng.split(prng.PRNGKey(seed), rows)
+        keys[0] = torch.tensor([2 ** 31, 2 ** 31 + 12345])
+        if rows > 1:
+            keys[1] = torch.tensor([2 ** 32 - 1, 2 ** 32 - 1])
+        return keys
 
     topk_cases = [(f"main n={n}", randn(s, n), topk._k(n)) for n in leaf_sizes]
     x = randn(3, 1000)
@@ -1169,13 +1229,22 @@ def main() -> int:
         qr_cases.append((f"edge n=1001 r={r}", x, r))
     qr_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 4))
     qr_cases.append(("large", randn(*LARGE), 8))
-    for label, xc, r in qr_cases:
+    # the keyed entry's own edges: n = 1, n past 2^24 and not a multiple of
+    # 4, 40 rows (past the 32 whose key words ride in the launch)
+    qr_cases.append(("n=1", randn(3, 1), 8))
+    qr_cases.append(("n=2^24+3", randn(2, (1 << 24) + 3), 8))
+    qr_cases.append(("40 rows", randn(40, 1000), 4))
+    for i, (label, xc, r) in enumerate(qr_cases):
         u = torch.rand(xc.shape, generator=gen, device=dev)
+        keys = wide_keys(xc.shape[0], i)
         norm = qk.l2_norm(xc)
         again = qk.l2_norm(xc)
         norm_ref = ref.l2_norm(xc)
         out = qk.quantize_qr_with_uniforms(xc, r, u, norm)
         out_ref = ref.quantize_qr_with_uniforms(xc, r, u, norm)
+        keyed = qk.quantize_qr_keyed(xc, r, keys, norm)
+        keyed_ref = ref.quantize_qr_with_uniforms(
+            xc, r, prng.uniform(keys, xc.shape[1], device=dev), norm)
         torch.cuda.synchronize()
         if not torch.equal(norm, again):
             raise AssertionError(f"K3 {label}: two runs gave different norms")
@@ -1184,10 +1253,34 @@ def main() -> int:
                                  f"rtol {NORM_RTOL}")
         if not same_bits(out, out_ref):
             raise AssertionError(f"K4 {label}: kernel output differs")
+        if not same_bits(keyed, keyed_ref):
+            raise AssertionError(f"K4 keyed {label}: kernel output differs "
+                                 f"from prng.uniform + the plain version")
         recs["K3"].err(norm, norm_ref)
         recs["K4"].err(out.float(), out_ref.float())
-    print(f"[kernels] K4 bit-equal and K3 within rtol {NORM_RTOL} (and "
-          f"deterministic) on {len(qr_cases)} cases", flush=True)
+        recs["K4"].err(keyed.float(), keyed_ref.float())
+    print(f"[kernels] K4 (both entries: reading u, and drawing it with "
+          f"threefry against prng.uniform, key words >= 2^31) bit-equal and "
+          f"K3 within rtol {NORM_RTOL} (and deterministic) on "
+          f"{len(qr_cases)} cases", flush=True)
+    for n in (10, leaf_sizes[0], LARGE[1]):
+        rows = s if n != LARGE[1] else LARGE[0]
+        xc, keys = randn(rows, n), wide_keys(rows, n)
+        norm = qk.l2_norm(xc)
+        _, ops_a_call = device_per_call(
+            torch, lambda: qk.quantize_qr_keyed(xc, 8, keys, norm), 5)
+        if ops_a_call != 1.0:
+            raise AssertionError(f"K4 keyed n={n}: {ops_a_call} device "
+                                 f"operations a call, not 1")
+        _, ops_a_call = device_per_call(
+            torch, lambda: ops.quantize_qr(xc, 8, keys), 5)
+        if ops_a_call != 2.0:
+            raise AssertionError(f"ops.quantize_qr n={n}: {ops_a_call} device "
+                                 f"operations a call, not 2 (K3, K4)")
+    print(f"[kernels] K4 keyed one kernel a call, ops.quantize_qr two (K3, K4) "
+          f"under torch.profiler (n = 10, {leaf_sizes[0]}, {LARGE[1]})",
+          flush=True)
+    del xc
 
     # K5: (label, x, k, cap); the threshold comes from K1
     slot_cases = [(f"main n={n}", randn(s, n), topk._k(n), topk._k(n))
@@ -1206,18 +1299,46 @@ def main() -> int:
     slot_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 1229,
                        1229))
     slot_cases.append(("large", randn(*LARGE), LARGE[1] // 10, LARGE[1] // 10))
+    # the look-back's edges (tiles of 4096): cap inside the second and the
+    # last tile, cap 0 and above nnz, an all-tie row past cap, a zero row,
+    # n not a multiple of 4, 74 tiles a row (look-backs past 32 tiles), an
+    # odd number of tiles
+    x = randn(3, leaf_sizes[0])
+    for cap in (1500, topk._k(leaf_sizes[0]) - 100, 0):
+        slot_cases.append((f"n={leaf_sizes[0]} cap={cap}", x,
+                           topk._k(leaf_sizes[0]), cap))
+    x = randn(4, 50177)
+    x[1] = 0.25                                  # all ties, past cap
+    x[2] = 0.0                                   # a zero row
+    x[3, 100:] = 0.0                             # 100 survivors, cap above
+    slot_cases.append(("n=50177 ties, zero row, cap > nnz", x, 1000, 7000))
+    slot_cases.append(("n=300000 (74 tiles)", randn(3, 300000), 90000, 90000))
+    slot_cases.append(("n=12288 (3 tiles a row)", randn(5, 12288), 3686, 3686))
     for label, xc, k, cap in slot_cases:
         t = tk.threshold_bits(xc, k)
-        idx, vals, nnz = sk.compact_slots(xc, t, cap)
         idx_r, vals_r, nnz_r = ref.compact_slots(xc, t, cap)
-        torch.cuda.synchronize()
-        if not (torch.equal(idx, idx_r) and torch.equal(nnz, nnz_r)
-                and same_bits(vals, vals_r)):
-            raise AssertionError(f"K5 {label}: kernel slots differ")
+        for _ in range(2):     # the second call reuses the tagged workspace
+            idx, vals, nnz = sk.compact_slots(xc, t, cap)
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, idx_r) and torch.equal(nnz, nnz_r)
+                    and same_bits(vals, vals_r)):
+                raise AssertionError(f"K5 {label}: kernel slots differ")
         recs["K5"].err(idx, idx_r)
         recs["K5"].err(vals.float(), vals_r.float())
     print(f"[kernels] K5 bit-equal to the plain version on "
-          f"{len(slot_cases)} cases", flush=True)
+          f"{len(slot_cases)} cases, each called twice", flush=True)
+    for n in (10, leaf_sizes[0], LARGE[1]):
+        rows = s if n != LARGE[1] else LARGE[0]
+        xc = randn(rows, n)
+        t = tk.threshold_bits(xc, max(1, n // 4))
+        _, ops_a_call = device_per_call(
+            torch, lambda: sk.compact_slots(xc, t, max(1, n // 4)), 5)
+        if ops_a_call != 1.0:
+            raise AssertionError(f"K5 n={n}: {ops_a_call} device operations "
+                                 f"a call, not 1")
+    print(f"[kernels] K5 one kernel a call under torch.profiler (n = 10, "
+          f"{leaf_sizes[0]}, {LARGE[1]})", flush=True)
+    del xc
 
     # K6: (label, x, k, cap, r); threshold from K1, masked norm from K3
     def masked_norm(xc, t):
@@ -1350,6 +1471,7 @@ def main() -> int:
         xc = randn(rows, n)
         xa = xc.abs()
         u = torch.rand(shape, generator=gen, device=dev)
+        keys = wide_keys(rows, n)
         k = topk._k(n)
         t = tk.threshold_bits(xc, k)
         norm = qk.l2_norm(xc)
@@ -1375,9 +1497,13 @@ def main() -> int:
             "K3": (lambda: qk.l2_norm(xc), lambda: ref.l2_norm(xc),
                    lambda: torch.linalg.vector_norm(xc, dim=1),
                    4 * nx + 4 * rows, 2 * nx),
-            "K4": (lambda: qk.quantize_qr_with_uniforms(xc, 8, u, norm),
-                   lambda: ref.quantize_qr_with_uniforms(xc, 8, u, norm),
-                   None, 12 * nx + 4 * rows, 10 * nx),
+            # the main path's entry: draws u with threefry; reads x, norm
+            # and the keys, writes out; bound by the bytes or by the
+            # uniform's integer operations on the busier integer pipe
+            "K4": (lambda: qk.quantize_qr_keyed(xc, 8, keys, norm),
+                   lambda: ref.quantize_qr_with_uniforms(
+                       xc, 8, prng.uniform(keys, n, device=dev), norm),
+                   None, 8 * nx + 4 * rows + 8 * rows, k4_int_ops * nx),
             # reads x and thr, writes cap (idx, value) slots and nnz
             "K5": (lambda: sk.compact_slots(xc, t, k),
                    lambda: ref.compact_slots(xc, t, k), None,
@@ -1403,7 +1529,8 @@ def main() -> int:
         tag = "main" if shape != LARGE else "large"
         for key_, (kern, plain, lib, nbytes, nops) in plans.items():
             rec = recs[key_]
-            b_ms, b_by = bound_ms(nbytes, nops)
+            b_ms, b_by = bound_ms(nbytes, nops,
+                                  int_peak if key_ == "K4" else F32_OPS_PER_S)
             row = {"shape": list(shape),
                    "kernel_ms": time_ms(torch, kern, iters),
                    "plain_ms": time_ms(torch, plain, max(2, iters // 10)),
@@ -1424,6 +1551,43 @@ def main() -> int:
                       f"call (torch.profiler) kernel {dev_k!r}, "
                       f"{'topk' if key_ == 'K1' else 'vector_norm'} "
                       f"{dev_l!r}", flush=True)
+            if key_ == "K4":
+                # the memory entry (the JAX function's counterpart), and the
+                # whole main-path call against the chain it replaces
+                # (prng.uniform's torch ops, K3, K4 reading u), in turns
+                mem = lambda: qk.quantize_qr_with_uniforms(xc, 8, u, norm)
+                before = lambda: qk.quantize_qr_with_uniforms(
+                    xc, 8, prng.uniform(keys, n, device=dev), qk.l2_norm(xc))
+                after = lambda: ops.quantize_qr(xc, 8, keys)
+                turns = {"keyed": [], "memory": [],
+                         "ops.quantize_qr before": [],
+                         "ops.quantize_qr after": []}
+                fns = {"keyed": kern, "memory": mem,
+                       "ops.quantize_qr before": before,
+                       "ops.quantize_qr after": after}
+                for name_ in list(turns) + list(turns)[::-1]:
+                    its = (max(2, iters // 10)
+                           if name_ == "ops.quantize_qr before" else iters)
+                    turns[name_].append(time_ms(torch, fns[name_], its))
+                t_bytes = (8 * nx + 12 * rows) / HBM_BYTES_PER_S * 1e3
+                t_int = k4_int_ops * nx / int_peak * 1e3
+                t_sass = (sum(ints.values()) / 4 * nx / int_peak * 1e3
+                          if ints else None)
+                m_ms, m_by = bound_ms(12 * nx + 4 * rows, 10 * nx)
+                row["keyed_bound_terms_ms"] = {
+                    "bytes": t_bytes, "integer_operations": t_int,
+                    "sass_integer_instructions_one_pipe": t_sass}
+                row["memory_ms"] = min(turns["memory"])
+                row["memory_bound_ms"] = m_ms
+                row["ops_quantize_qr_ms"] = {
+                    "before": min(turns["ops.quantize_qr before"]),
+                    "after": min(turns["ops.quantize_qr after"])}
+                print(f"[kernels] K4 {tag} {shape}: ms in turns {turns!r}; "
+                      f"keyed bound terms: bytes {t_bytes!r} ms, integer "
+                      f"operations {t_int!r} ms ({k4_int_ops!r} an element on "
+                      f"the busier pipe; diagnostic: the SASS's integer "
+                      f"instructions all on one pipe {t_sass!r} ms); "
+                      f"memory entry bound {m_ms!r} ms ({m_by})", flush=True)
             if key_ == "K2":
                 # the fused launch against K2's standalone kernel and the
                 # two launches it replaces, in turns
@@ -1516,15 +1680,30 @@ def main() -> int:
         del alg.round
         return alg, hist, per_round
 
+    # bulk prng.uniform draws (n > 1: the torch threefry over a leaf) a run;
+    # geometric phases draw single uniforms for their step counts
+    bulk_draws = [0]
+    orig_uniform = prng.uniform
+
+    def counting_uniform(key_, n_, device=None):
+        if int(n_) > 1:
+            bulk_draws[0] += 1
+        return orig_uniform(key_, n_, device)
+
     for name, (comp, over, used_by_wire) in train_runs.items():
         for mode, used in used_by_wire.items():
             label = f"{name} {mode}"
             expect = {**zero, **{k: per_run for k in used}}
             torch.cuda.synchronize()
             ops.reset_launch_counts()
+            bulk_draws[0] = 0
+            prng.uniform = counting_uniform
             t0 = time.time()
-            alg, hist, per_round = run_once(comp, config(**over), mode)
-            torch.cuda.synchronize()
+            try:
+                alg, hist, per_round = run_once(comp, config(**over), mode)
+                torch.cuda.synchronize()
+            finally:
+                prng.uniform = orig_uniform
             wall = time.time() - t0
             counts = ops.launch_counts()
             payload = sum(m.get("uplink_payload_bytes", 0.0) for m in per_round)
@@ -1538,6 +1717,14 @@ def main() -> int:
             if counts != expect:
                 raise AssertionError(f"{label}: launch counts {counts} != "
                                      f"{expect}")
+            if k4 in used:
+                # the account Q_r runs: K4 draws its own uniforms
+                if bulk_draws[0]:
+                    raise AssertionError(f"{label}: {bulk_draws[0]} bulk "
+                                         f"prng.uniform draws; the keyed K4 "
+                                         f"draws none")
+                print(f"[train] {label}: {k4} launched {counts[k4]} times "
+                      f"(keyed), no bulk prng.uniform draw", flush=True)
             for k in used:
                 launches.setdefault(k, {})[label] = counts[k]
             finite = all(map(lambda v: v == v and abs(v) != float("inf"),

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``lib<name>-<hash>.so`` for ``sm_90a``; the hash covers the
-source and the flags, so an edited kernel is rebuilt and a built one is
-reused.  All missing libraries are compiled together, one ``nvcc`` process
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+kernel is rebuilt and a built one is reused.  All missing libraries are compiled together, one ``nvcc`` process
 per source, at the first call that needs any of them.  The output goes
 under ``kernels/_build/`` beside the sources, which ``.gitignore`` lists.
 A failed build raises :class:`BuildError` with the compiler's output;
@@ -76,7 +76,9 @@ def _flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the headers (csrc/*.cuh) are part of every source's hash
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
@@ -125,21 +127,33 @@ def cuobjdump_path():
     return str(cand) if cand.is_file() else shutil.which("cuobjdump")
 
 
-def sass_counts(name: str, opcodes) -> Dict[str, int]:
+#: SASS opcodes of the integer pipes, for counting a kernel's integer
+#: operations (the keyed K4's threefry)
+INT_OPCODES = ("IADD3", "LOP3", "SHF", "IMAD", "LEA", "ISETP", "SEL", "PRMT",
+               "IMNMX", "IABS", "POPC", "FLO", "BMSK", "SGXT", "SHL", "SHR")
+
+
+def sass_counts(name: str, opcodes, match: tuple = ()) -> Dict[str, int]:
     """How many instructions of each SASS opcode (``HGMMA``, ``UTMALDG``,
     ...) the built library for ``csrc/<name>.cu`` holds, by ``cuobjdump
-    -sass``; builds it first if needed.  Raises :class:`BuildError` when
-    ``cuobjdump`` is missing."""
+    -sass``, in the kernels whose (mangled) names hold every string of
+    ``match`` (all kernels if it is empty); builds it first if needed.
+    Raises :class:`BuildError` when ``cuobjdump`` is missing."""
     tool = cuobjdump_path()
     if tool is None:
         raise BuildError("cuobjdump not found (looked in $CUDA_HOME/bin and "
                          "PATH)")
     sass = subprocess.run([tool, "-sass", str(build_all()[name])],
                           capture_output=True, text=True, check=True).stdout
-    words = [ln.split("*/", 1)[1].split() for ln in sass.splitlines()
-             if "*/" in ln and ln.lstrip().startswith("/*")]
-    ops = [w[1] if w and w[0].startswith("@") and len(w) > 1
-           else (w[0] if w else "") for w in words]
+    ops, keep = [], not match
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            keep = all(m in fn for m in match)
+        elif keep and "*/" in ln and ln.lstrip().startswith("/*"):
+            w = ln.split("*/", 1)[1].split()
+            ops.append(w[1] if w and w[0].startswith("@") and len(w) > 1
+                       else (w[0] if w else ""))
     return {op: sum(1 for o in ops if o.split(".")[0] == op)
             for op in opcodes}
 

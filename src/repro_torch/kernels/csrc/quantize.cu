@@ -8,10 +8,17 @@
 //       y = |x| / norm, L = 2^r, and 0 where norm == 0.
 //
 // Input is row-batched: (rows, n) float32, one row per client's leaf, with
-// one norm per row.  The uniforms are drawn outside (jax's threefry
-// stream, reproduced bit for bit by repro_torch.prng) and streamed in, as
-// the TPU kernel does, so K4 is bit-equal to the plain version for the
-// same norm and uniforms.
+// one norm per row.  K4 has two entries, one kernel body:
+//   * qr_quantize reads the uniforms u (rows, n), as the TPU kernel does:
+//     bit-equal to the plain version for the same norm and uniforms;
+//   * qr_quantize_keyed draws them itself, row i's as
+//     jax.random.uniform(key_i, (n,)) with threefry2x32 in registers
+//     (threefry.cuh), bit for bit the stream repro_torch.prng draws with
+//     torch ops.  The main path (ops.quantize_qr) calls it, so a leaf's Q_r
+//     is K3 and K4 alone, where the torch draw took ~177 device operations.
+//     Up to 32 rows' key words ride in the launch's parameters (no copy).
+// K4 is a 2-D grid of (row, 1024-element block of the row), four
+// consecutive elements a thread, moved as float4 where the row allows.
 //
 // K3 is one deterministic launch: every block writes its partial sum (fixed
 // strided order, float4 loads where the row allows, fixed shared-memory
@@ -29,18 +36,25 @@
 // IEEE division and sqrtf are required.
 //
 // Bound on an H100 SXM (3.35 TB/s): K3 reads 4n bytes; K4 reads 8n (x and
-// u) and writes 4n bytes.  At the main path's sizes (5 clients x 50176
-// floats, about 1 MB) launch latency, not bandwidth, is the floor.  Drawing
-// the uniforms in-kernel with threefry (saving 4n bytes) is later work.
+// u) and writes 4n bytes; keyed, it reads 4n and writes 4n, and the
+// uniform takes 43 operations an element on the ALU pipe (20 rotates and
+// 20 xors over the rounds, then xor, shift and or) and 31 adds that may
+// issue there or as IMAD on the FMA pipe (64 lanes an SM each), so at
+// (4, 2^24) the integer pipe, not the bytes, may bound it.  At
+// the main path's sizes (5 clients x 50176 floats, about 1 MB) launch
+// latency, not bandwidth, is the floor.  PERF.md has the times and both
+// terms of the keyed bound, on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, tools/k4_k5_ablation.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxPartials = 512;    // K3 blocks a row, at most
-constexpr int kMaxBlocks = 132 * 16;
 
 // grid: (parts, rows); block: kThreads.  vec4: rows are 16-byte aligned
 // and n % 4 == 0, so x is read as float4.  partial holds rows * parts
@@ -100,25 +114,85 @@ __global__ void sumsq_norm(const float* __restrict__ x, long long n, int vec4,
   }
 }
 
-__global__ void qr_round(const float* __restrict__ x, const float* __restrict__ u,
-                         const float* __restrict__ norm, float* __restrict__ out,
-                         long long n, long long total, float levels) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const float nr = norm[i / n];
-    const float xv = x[i];
-    const float safe = nr > 0.0f ? nr : 1.0f;
-    const float y = fabsf(xv) / safe;
+// Where K4's key words come from: a (rows, 2) int64 tensor on the device
+// (`dev`), or, when `dev` is null, these words, passed by value in the
+// launch's parameters (rows <= kKeysByValue).
+constexpr int kKeysByValue = 32;
+struct QrKeys {
+  const long long* dev;
+  uint32_t word[2 * kKeysByValue];
+};
+
+// grid: (ceil(n / (4 kThreads)), rows); block: kThreads.  Thread t of
+// block b holds elements 4 (b kThreads + t) + 0..3 of row blockIdx.y.
+// kKeyed: u is drawn here, jax.random.uniform(keys[row], (n,)) bit for
+// bit; else it is read from u.  kVec: x, u and out are 16-byte aligned and
+// n % 4 == 0, so they move as float4.
+template <bool kKeyed, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+qr_round(const float* __restrict__ x, const float* __restrict__ u,
+         const __grid_constant__ QrKeys keys, const float* __restrict__ norm,
+         float* __restrict__ out, long long n, float levels) {
+  const long long row = blockIdx.y;
+  const long long e0 = 4LL * ((long long)blockIdx.x * kThreads + threadIdx.x);
+  if (e0 >= n) return;
+  const long long at = row * n + e0;
+  float xv[4], uv[4];
+  if (kVec) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x + at));
+    xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xv[e] = e0 + e < n ? __ldg(x + at + e) : 0.0f;
+  }
+  if (kKeyed) {
+    const uint32_t k0 = keys.dev ? (uint32_t)keys.dev[2 * row] : keys.word[2 * row];
+    const uint32_t k1 = keys.dev ? (uint32_t)keys.dev[2 * row + 1] : keys.word[2 * row + 1];
+    const ThreefrySchedule ks = threefry_schedule(k0, k1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) uv[e] = threefry_uniform(ks, (uint32_t)(e0 + e));
+  } else if (kVec) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(u + at));
+    uv[0] = v.x; uv[1] = v.y; uv[2] = v.z; uv[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) uv[e] = e0 + e < n ? __ldg(u + at + e) : 0.0f;
+  }
+  const float nr = norm[row];
+  const float safe = nr > 0.0f ? nr : 1.0f;
+  float o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float y = fabsf(xv[e]) / safe;
     const float scaled = levels * y;
     const float lo = floorf(scaled);
     const float frac = scaled - lo;
-    const float xi = (lo + (u[i] < frac ? 1.0f : 0.0f)) / levels;
+    const float xi = (lo + (uv[e] < frac ? 1.0f : 0.0f)) / levels;
     // jnp.sign: +-1, and x itself at +-0 (and NaN)
-    const float sgn = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : xv);
-    const float o = nr * sgn * xi;
-    out[i] = nr > 0.0f ? o : 0.0f;
+    const float sgn = xv[e] > 0.0f ? 1.0f : (xv[e] < 0.0f ? -1.0f : xv[e]);
+    const float q = nr * sgn * xi;
+    o[e] = nr > 0.0f ? q : 0.0f;
   }
+  if (kVec) {
+    *reinterpret_cast<float4*>(out + at) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (e0 + e < n) out[at + e] = o[e];
+  }
+}
+
+template <bool kKeyed>
+int launch_round(const float* x, const float* u, const QrKeys& keys, const float* norm,
+                 float* out, int rows, long long n, float levels, cudaStream_t stream) {
+  const dim3 grid((unsigned)((n + 4LL * kThreads - 1) / (4LL * kThreads)), (unsigned)rows);
+  const bool vec = n % 4 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)out & 15) == 0 &&
+                   (kKeyed || ((uintptr_t)u & 15) == 0);
+  if (vec)
+    qr_round<kKeyed, true><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, out, n, levels);
+  else
+    qr_round<kKeyed, false><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, out, n, levels);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -152,19 +226,32 @@ int qr_l2_norm(const float* x, int rows, long long n, float* partial,
   return 0;
 }
 
-// K4: Q_r of every row against its norm, with uniforms u (rows, n) and
-// levels = 2^r.
+// K4 reading its uniforms: Q_r of every row against its norm, with u
+// (rows, n) and levels = 2^r.
 int qr_quantize(const float* x, const float* u, const float* norm, float* out, int rows,
                 long long n, float levels, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const long long total = (long long)rows * n;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  qr_round<<<(unsigned int)blocks, kThreads, 0, stream>>>(x, u, norm, out, n, total,
-                                                          levels);
-  RETURN_IF_ERROR();
-  return 0;
+  QrKeys none = {};
+  return launch_round<false>(x, u, none, norm, out, rows, n, levels,
+                             (cudaStream_t)stream_ptr);
+}
+
+// K4 drawing its uniforms: row i's are jax.random.uniform(key_i, (n,)), n <
+// 2^32, key_i = (keys[2 i], keys[2 i + 1]) (int64 holding uint32).  keys_dev
+// is the (rows, 2) key data on the device; when it is null, keys_host holds
+// them on the host (rows <= 32) and they travel in the launch's
+// parameters.
+int qr_quantize_keyed(const float* x, const long long* keys_dev, const long long* keys_host,
+                      const float* norm, float* out, int rows, long long n, float levels,
+                      void* stream_ptr) {
+  if (n >= (1LL << 32)) return (int)cudaErrorInvalidValue;
+  QrKeys keys = {};
+  keys.dev = keys_dev;
+  if (keys_dev == nullptr) {
+    if (rows > kKeysByValue || keys_host == nullptr) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < 2 * rows; ++i) keys.word[i] = (uint32_t)keys_host[i];
+  }
+  return launch_round<true>(x, nullptr, keys, norm, out, rows, n, levels,
+                            (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

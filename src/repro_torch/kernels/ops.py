@@ -41,9 +41,9 @@ def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def quantize_qr(x: torch.Tensor, r: int, keys: torch.Tensor) -> torch.Tensor:
     """Q_r of each row (K3 norm + K4 rounding) with row ``i``'s uniforms
-    drawn as ``jax.random.uniform(keys[i], (n,))`` on x's device."""
-    u = prng.uniform(keys, x.shape[-1], device=x.device)
-    return _quant.quantize_qr_with_uniforms(x, r, u, _quant.l2_norm(x))
+    ``jax.random.uniform(keys[i], (n,))``, which K4 draws in the kernel (on
+    the CPU, :func:`prng.uniform` draws them for the plain version)."""
+    return _quant.quantize_qr_keyed(x, r, keys, _quant.l2_norm(x))
 
 
 def topk_slots(x: torch.Tensor, k: int, cap: int):

@@ -5,9 +5,12 @@ The port of ``repro.kernels.quantize``.  Both functions take row-batched
 ``(rows, n)`` input (one row per client's leaf) and dispatch by the
 tensor's device: a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
-kernel in ``csrc/quantize.cu`` or raises.  K4 takes the norm and the
-uniforms as inputs, so kernel and plain version are bit-equal given the
-same norm and uniforms.
+kernel in ``csrc/quantize.cu`` or raises.  K4 takes the norm as an input
+and has two entries: :func:`quantize_qr_with_uniforms` reads the uniforms
+(the JAX function's counterpart), :func:`quantize_qr_keyed` draws them in
+the kernel from the rows' threefry keys, bit for bit
+``jax.random.uniform``'s.  Both are bit-equal to the plain version given
+the same norm and uniforms.
 
 ``LAUNCHES`` counts kernel launches per wrapper; only the CUDA path adds
 to it, so a CPU run leaves it at 0.
@@ -19,8 +22,10 @@ import ctypes
 
 import torch
 
+from repro_torch import prng
 from repro_torch.kernels import build, ref
 
+# "quantize_qr" counts both of K4's entries
 LAUNCHES = {"l2_norm": 0, "quantize_qr": 0}
 
 # K3's scratch per (device index, stream): (uint32 counters in int32
@@ -31,6 +36,8 @@ _NORM_SCRATCH: dict = {}
 _NORM_CHUNK = 8192        # elements a K3 block, about
 _NORM_MAX_PARTS = 512     # K3 blocks a row, at most (csrc/quantize.cu)
 _NORM_MAX_BLOCKS = 132 * 16
+# rows whose key words K4 takes in its launch parameters (csrc/quantize.cu)
+_KEYS_BY_VALUE = 32
 
 _P = ctypes.c_void_p
 
@@ -42,6 +49,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qr_quantize.argtypes = [_P, _P, _P, _P, ctypes.c_int,
                                 ctypes.c_longlong, ctypes.c_float, _P]
     lib.qr_quantize.restype = ctypes.c_int
+    lib.qr_quantize_keyed.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int,
+                                      ctypes.c_longlong, ctypes.c_float, _P]
+    lib.qr_quantize_keyed.restype = ctypes.c_int
     lib.qr_error_string.argtypes = [ctypes.c_int]
     lib.qr_error_string.restype = ctypes.c_char_p
 
@@ -117,5 +127,47 @@ def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
                            build.ptr(out), rows, n, float(2 ** r),
                            build.stream_ptr())
     build.check(code, "qr_quantize", lib, "qr_error_string")
+    LAUNCHES["quantize_qr"] += 1
+    return out.to(x.dtype)
+
+
+def quantize_qr_keyed(x: torch.Tensor, r: int, keys: torch.Tensor,
+                      norm: torch.Tensor) -> torch.Tensor:
+    """K4 drawing its own uniforms: Q_r of each row against ``norm[row]``
+    with row ``i``'s uniforms ``jax.random.uniform(keys[i], (n,))``, in x's
+    dtype.  ``keys`` is the ``(rows, 2)`` int64 key data holding uint32
+    words, on the host or on x's device.
+
+    Up to ``_KEYS_BY_VALUE`` rows of host keys travel in the launch's
+    parameters, so the call is one device operation; more rows, or keys
+    elsewhere, take one copy to x's device."""
+    if build.on_cpu(x):
+        return ref.quantize_qr_with_uniforms(
+            x, r, prng.uniform(keys, x.shape[-1]), norm)
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    r = int(r)
+    if not 1 <= r <= 126:
+        raise ValueError(f"r must be in [1, 126], got {r}")
+    if n >= 2 ** 32:
+        raise ValueError(f"n must be below 2**32, got {n}")
+    if keys.dtype != torch.int64 or tuple(keys.shape) != (rows, 2):
+        raise ValueError(f"keys must be int64 ({rows}, 2) key data, got "
+                         f"{keys.dtype} {tuple(keys.shape)}")
+    norm = build.expect(norm, "norm", torch.float32, (rows,), xf.device)
+    out = torch.empty_like(xf)
+    if n == 0:
+        return out.to(x.dtype)
+    lib = _lib()
+    if keys.device.type == "cpu" and rows <= _KEYS_BY_VALUE:
+        keys = keys.contiguous()
+        dev_ptr, host_ptr = None, keys.data_ptr()
+    else:
+        keys = keys.to(xf.device).contiguous()
+        dev_ptr, host_ptr = keys.data_ptr(), None
+    code = lib.qr_quantize_keyed(xf.data_ptr(), dev_ptr, host_ptr,
+                                 norm.data_ptr(), out.data_ptr(), rows, n,
+                                 float(2 ** r), build.stream_ptr())
+    build.check(code, "qr_quantize_keyed", lib, "qr_error_string")
     LAUNCHES["quantize_qr"] += 1
     return out.to(x.dtype)

@@ -10,10 +10,11 @@ kernel in ``csrc/select_slots.cu`` or raises.  bf16 input is compared on
 its float32 magnitude bits (an exact order-embedding); K5 casts its values
 back.
 
-K5 is three launches (count, scan, write) and a scratch of tile counts
-each call.  K6 is one launch, a single pass with a decoupled look-back over
-tiles: it allocates only its outputs (in one block) and keeps its tile
-descriptors in a workspace per (device, stream) that no call clears.
+K5 and K6 are one kernel, a single pass with a decoupled look-back over
+tiles, instanced on its payload (K5: the survivor's value; K6: its Q_r
+code): each call is one launch, allocates only its outputs (in one block)
+and keeps its tile descriptors in a workspace per (device, stream) that
+the two share and no call clears.
 
 ``LAUNCHES`` counts kernel launches; only the CUDA path adds to it, so a
 CPU run leaves it at 0.
@@ -30,13 +31,15 @@ from repro_torch.kernels.qr_pack import MAX_R
 
 LAUNCHES = {"compact_slots": 0, "compact_code_slots": 0}
 
-# K6's workspace per (device index, stream): [int64 tensor holding uint64s,
-# launches since its descriptors were last zeroed].  Entry 0 is the ticket
-# word (the launch epoch, and the tickets taken: 0 after every launch);
-# then one descriptor a tile, tagged by the epoch so that nothing is
-# cleared between calls.  A launch on another stream may run at the same
-# time and must not share them; launches on one stream run in order and can.
-_CODE_WORKSPACE: dict = {}
+# K5's and K6's workspace per (device index, stream): [int64 tensor
+# holding uint64s, launches since its descriptors were last zeroed].
+# Entry 0 is the ticket word (the launch epoch, and the tickets taken: 0
+# after every launch); then one descriptor a tile, tagged by the epoch so
+# that nothing is cleared between calls.  Launches on one stream run in
+# order, and each leaves the ticket at 0 taken with a new epoch, so a K5
+# and a K6 launch can follow each other on one workspace.  A launch on
+# another stream may run at the same time and must not share it.
+_WORKSPACE: dict = {}
 # The workspace is zeroed again before the 31-bit epoch could come round to
 # a stale descriptor's.
 _EPOCH_REFRESH = 1 << 30
@@ -48,10 +51,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.slots_tiles.argtypes = [ctypes.c_longlong]
     lib.slots_tiles.restype = ctypes.c_longlong
     lib.compact_slots.argtypes = [_P, _P, ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_int, _P, _P, _P, _P, _P]
+                                  ctypes.c_int, _P, _P, _P]
     lib.compact_slots.restype = ctypes.c_int
-    lib.code_slots_tiles.argtypes = [ctypes.c_longlong]
-    lib.code_slots_tiles.restype = ctypes.c_longlong
     lib.compact_code_slots.argtypes = [_P, _P, _P, _P, ctypes.c_int,
                                        ctypes.c_longlong, ctypes.c_float,
                                        ctypes.c_int, _P, _P, _P]
@@ -64,18 +65,27 @@ def _lib() -> ctypes.CDLL:
     return build.load("select_slots", _bind)
 
 
-def _code_workspace(device: torch.device, stream: int,
-                    n_desc: int) -> torch.Tensor:
-    """K6's ticket word and ``n_desc`` descriptors for ``stream``: grown
+def _workspace(device: torch.device, stream: int, n_desc: int) -> torch.Tensor:
+    """The ticket word and ``n_desc`` descriptors for ``stream``: grown
     (zeroed) when too few, and zeroed after ``_EPOCH_REFRESH`` launches."""
     key = (device.index, stream)
-    ws = _CODE_WORKSPACE.get(key)
+    ws = _WORKSPACE.get(key)
     if ws is None or ws[0].numel() < 1 + n_desc or ws[1] >= _EPOCH_REFRESH:
         size = 1 + n_desc if ws is None else max(1 + n_desc, ws[0].numel())
         ws = [torch.zeros(size, dtype=torch.int64, device=device), 0]
-        _CODE_WORKSPACE[key] = ws
+        _WORKSPACE[key] = ws
     ws[1] += 1
     return ws[0]
+
+
+def _outputs(rows: int, cap: int, device: torch.device):
+    """One int32 block for a call's three outputs, which the kernel writes
+    whole: ``(block, idx, words, nnz)``, the last three views of it."""
+    rc = rows * cap
+    out = torch.empty(2 * rc + rows, dtype=torch.int32, device=device)
+    return (out, out.as_strided((rows, cap), (cap, 1), 0),
+            out.as_strided((rows, cap), (cap, 1), rc),
+            out.as_strided((rows,), (1,), 2 * rc))
 
 
 def compact_slots(x: torch.Tensor, thr: torch.Tensor, cap: int):
@@ -92,20 +102,17 @@ def compact_slots(x: torch.Tensor, thr: torch.Tensor, cap: int):
     cap = int(cap)
     if not 0 <= cap < 2 ** 31 or n >= 2 ** 31:
         raise ValueError(f"cap and n must fit int32, got cap={cap}, n={n}")
-    thr = build.expect(thr, "thr", torch.int64, (rows,), xf.device)
     dev = xf.device
-    idx = torch.empty((rows, cap), dtype=torch.int32, device=dev)
-    vals = torch.empty((rows, cap), dtype=torch.float32, device=dev)
-    nnz = torch.zeros(rows, dtype=torch.int32, device=dev)
+    thr = build.expect(thr, "thr", torch.int64, (rows,), dev)
+    out, idx, words, nnz = _outputs(rows, cap, dev)
+    vals = words.view(torch.float32)
     if n == 0:
-        return idx.fill_(0), vals.zero_().to(x.dtype), nnz
+        return idx.fill_(0), vals.zero_().to(x.dtype), nnz.zero_()
     lib = _lib()
-    scratch = torch.empty((rows, lib.slots_tiles(n)), dtype=torch.int32,
-                          device=dev)
-    code = lib.compact_slots(build.ptr(xf), build.ptr(thr), rows, n, cap,
-                             build.ptr(scratch), build.ptr(nnz),
-                             build.ptr(idx), build.ptr(vals),
-                             build.stream_ptr())
+    stream = build.stream_ptr()
+    ws = _workspace(dev, stream, rows * lib.slots_tiles(n))
+    code = lib.compact_slots(xf.data_ptr(), thr.data_ptr(), rows, n, cap,
+                             ws.data_ptr(), out.data_ptr(), stream)
     build.check(code, "compact_slots", lib, "slots_error_string")
     LAUNCHES["compact_slots"] += 1
     return idx, vals.to(x.dtype), nnz
@@ -135,17 +142,12 @@ def compact_code_slots(x: torch.Tensor, u: torch.Tensor, norm: torch.Tensor,
     u = build.expect(u, "u", torch.float32, (rows, n), dev)
     norm = build.expect(norm, "norm", torch.float32, (rows,), dev)
     thr = build.expect(thr, "thr", torch.int64, (rows,), dev)
-    # one allocation for the three outputs, which the kernel writes whole
-    rc = rows * cap
-    out = torch.empty(2 * rc + rows, dtype=torch.int32, device=dev)
-    idx = out.as_strided((rows, cap), (cap, 1), 0)
-    codes = out.as_strided((rows, cap), (cap, 1), rc)
-    nnz = out.as_strided((rows,), (1,), 2 * rc)
+    out, idx, codes, nnz = _outputs(rows, cap, dev)
     if n == 0:
         return idx.fill_(0), codes.zero_(), nnz.zero_()
     lib = _lib()
     stream = build.stream_ptr()
-    ws = _code_workspace(dev, stream, rows * lib.code_slots_tiles(n))
+    ws = _workspace(dev, stream, rows * lib.slots_tiles(n))
     code = lib.compact_code_slots(xf.data_ptr(), u.data_ptr(),
                                   norm.data_ptr(), thr.data_ptr(), rows, n,
                                   float(2 ** r), cap, ws.data_ptr(),

@@ -169,12 +169,13 @@ def test_compact_code_slots_reads_u_at_the_survivor_index():
 
 
 # --------------------------------------------------------------------------- #
-# K6's one-launch scheme, mirrored on the CPU
+# K5's and K6's one-launch scheme, mirrored on the CPU
 # --------------------------------------------------------------------------- #
 
 LB_ROUNDS = 4          # float4s a thread a tile (csrc/select_slots.cu)
 LB_WINDOW = 32         # descriptors a look-back step reads, one a lane
 LB_FLAG_AGGREGATE, LB_FLAG_PREFIX = 1, 2
+LB_RESOLVE = ["ticket", "reverse", "shuffled"]
 
 
 def _qr_code32(xv, uv, safe, levels: int):
@@ -189,34 +190,51 @@ def _qr_code32(xv, uv, safe, levels: int):
     return code + levels if xv < 0 else code
 
 
-def _k6_lookback_mirror(x, u, norm, thr, r: int, cap: int, warps: int = 8,
-                        resolve: str = "ticket"):
-    """K6's one-launch kernel (``code_slots_lookback``) step by step on the
-    CPU: tiles of ``warps`` x 32 threads x 4 rounds x 4 elements; in round
-    j thread t holds elements 4 (j threads + t) + 0..3 of its tile, so
-    index order is (round, warp, lane, element); a byte-packed lane scan
-    and a (round, warp) scan give each survivor its place in the tile; a
-    tile publishes its count (its inclusive prefix if it is its row's
-    first), then looks back over its row's earlier tiles 32 at a time
-    (nearest first) until one has published its prefix, publishes its own
-    and writes its survivors below cap (staged in index order, so as one
-    run); the row's last tile writes nnz and the sentinels.
+def _value_payload(x):
+    """K5's payload: the survivor's float32 bits, as uint32."""
+    return lambda row, i: int(np.float32(x[row, i]).view(np.uint32))
 
-    Every tile publishes before any looks back, and the look-backs run in
-    ticket order or (``resolve="reverse"``) in reverse, where each must
-    walk back over aggregates only.  Entries the kernel would not write
-    stay at -1."""
+
+def _code_payload(x, u, norm, r: int):
+    """K6's payload: the survivor's (1+r)-bit Q_r code against its row's
+    masked norm, with the uniform at its own index."""
+    def code(row, i):
+        nr = float(norm[row])
+        safe = np.float32(nr if nr > 0 else 1.0)
+        return _qr_code32(x[row, i], u[row, i], safe, 2 ** r)
+    return code
+
+
+def _lookback_mirror(x, thr, cap: int, payload, warps: int = 8,
+                     resolve: str = "ticket"):
+    """The one-launch kernel of K5 and K6 (``slots_lookback``) step by step
+    on the CPU, for either payload (``payload(row, i)``, the 32-bit word a
+    survivor carries): tiles of ``warps`` x 32 threads x 4 rounds x 4
+    elements, one a block, numbered over all rows; in round j thread t
+    holds elements 4 (j threads + t) + 0..3 of its tile, so index order is
+    (round, warp, lane, element); a byte-packed lane scan and a (round,
+    warp) scan give each survivor its place in the tile.  Every tile
+    publishes its count (its inclusive prefix if it is its row's first),
+    then looks back over its row's earlier tiles 32 at a time (nearest
+    first) until one has published its prefix, and publishes its own.  A
+    tile writes its survivors below cap (staged in index order, so as one
+    run); the row's last tile writes nnz and the sentinels (index n,
+    payload 0).
+
+    Every tile publishes before any looks back, and the tiles resolve in
+    ticket order, in reverse (each must walk back over aggregates only), or
+    in a seeded shuffle (``resolve="shuffled"``).  Entries the kernel would
+    not write stay at -1."""
     rows, n = x.shape
     threads = 32 * warps
     tile_len = threads * 4 * LB_ROUNDS
     tiles = max(1, -(-n // tile_len))
-    levels = 2 ** r
     idx = np.full((rows, cap), -1, np.int64)
-    codes = np.full((rows, cap), -1, np.int64)
+    words = np.full((rows, cap), -1, np.int64)
     nnz = np.full(rows, -1, np.int64)
     desc = {}
     state = {}
-    for tile in range(rows * tiles):                     # ticket order
+    for tile in range(rows * tiles):
         row, tr = divmod(tile, tiles)
         base = tr * tile_len
         bits = np.abs(x[row]).view(np.int32).astype(np.int64)
@@ -248,7 +266,11 @@ def _k6_lookback_mirror(x, u, norm, thr, r: int, cap: int, warps: int = 8,
         desc[tile] = ((LB_FLAG_PREFIX, total) if tr == 0
                       else (LB_FLAG_AGGREGATE, total))
         state[tile] = (row, tr, keep, elem, lane_off, off, total)
-    order = sorted(state) if resolve == "ticket" else sorted(state)[::-1]
+    order = list(range(len(state)))
+    if resolve == "reverse":
+        order.reverse()
+    elif resolve == "shuffled":
+        np.random.default_rng(len(order)).shuffle(order)
     for tile in order:
         row, tr, keep, elem, lane_off, off, total = state[tile]
         prefix = 0
@@ -266,8 +288,6 @@ def _k6_lookback_mirror(x, u, norm, thr, r: int, cap: int, warps: int = 8,
                 prefix += sum(v for _, v in window)
                 look -= LB_WINDOW
             desc[tile] = (LB_FLAG_PREFIX, prefix + total)
-        nr = float(norm[row])
-        safe = np.float32(nr if nr > 0 else 1.0)
         for j in range(LB_ROUNDS):
             for th in range(keep.shape[1]):
                 pos = (prefix + int(off[j, th // 32])
@@ -277,19 +297,18 @@ def _k6_lookback_mirror(x, u, norm, thr, r: int, cap: int, warps: int = 8,
                         if pos < cap:
                             i = int(elem[j, th, e])
                             idx[row, pos] = i
-                            codes[row, pos] = _qr_code32(x[row, i], u[row, i],
-                                                         safe, levels)
+                            words[row, pos] = payload(row, i)
                         pos += 1
         if tr == tiles - 1:
             count = prefix + total
             nnz[row] = count
             idx[row, min(count, cap):] = n
-            codes[row, min(count, cap):] = 0
-    return idx, codes, nnz
+            words[row, min(count, cap):] = 0
+    return idx, words, nnz
 
 
 def _k6_mirror_rows(case: str):
-    """(x, u, k, cap, r, warps) of the phase-2 cases of K6's one launch."""
+    """(x, u, k, cap, r, warps) of the phase-2 cases of the one launch."""
     x = _x(3, 9000, 21)
     u = _u(3, 9000, 22)
     if case == "cap in the second tile":            # tiles of 4096
@@ -312,16 +331,22 @@ def _k6_mirror_rows(case: str):
         x = _x(2, n, 26)
         x[1, 3000:] = 0.25                           # ties across tiles
         return x, _u(2, n, 25), 17500, 17500, 4, 1
+    if case == "n = 1":
+        return _x(3, 1, 27), _u(3, 1, 28), 1, 1, 4, 8
+    if case == "odd n, cap above k":
+        return _x(3, 777, 29), _u(3, 777, 30), 77, 100, 8, 8
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("resolve", ["ticket", "reverse"])
-@pytest.mark.parametrize("case", [
-    "cap in the second tile", "cap in the last tile", "cap 0",
-    "cap above nnz, zero row, all ties", "many tiles"])
+MIRROR_CASES = ["cap in the second tile", "cap in the last tile", "cap 0",
+                "cap above nnz, zero row, all ties", "many tiles"]
+
+
+@pytest.mark.parametrize("resolve", LB_RESOLVE)
+@pytest.mark.parametrize("case", MIRROR_CASES)
 def test_k6_lookback_mirror_matches_pallas(case, resolve):
-    """The CPU mirror of K6's one-launch scheme (tile order by ticket,
-    look-back 32 tiles at a time, sentinels from the row's last tile)
+    """The CPU mirror of K6's one-launch scheme (tiles resolved in ticket
+    order, in reverse or shuffled, look-back 32 tiles at a time, sentinels from the row's last tile)
     writes every entry, bit for bit the port's plain K6 and the reference's
     Pallas K6 in interpret mode (which takes no cap of 0): an ordering bug
     shows here before the card."""
@@ -329,8 +354,9 @@ def test_k6_lookback_mirror_matches_pallas(case, resolve):
     tx = torch.from_numpy(x)
     thr = ref.topk_threshold_bits(tx, k)
     norm = ref.l2_norm(ref.mask_by_threshold(tx, thr))
-    idx, codes, nnz = _k6_lookback_mirror(x, u, norm.numpy(), thr.numpy(), r,
-                                          cap, warps, resolve)
+    idx, codes, nnz = _lookback_mirror(
+        x, thr.numpy(), cap, _code_payload(x, u, norm.numpy(), r), warps,
+        resolve)
     assert (idx >= 0).all() and (codes >= 0).all() and (nnz >= 0).all()
     want = ref.compact_code_slots(tx, torch.from_numpy(u), norm, thr, r, cap)
     assert np.array_equal(idx, want[0].numpy())
@@ -342,6 +368,31 @@ def test_k6_lookback_mirror_matches_pallas(case, resolve):
             jnp.uint32(int(thr[row])), r, cap, interpret=True)
         np.testing.assert_array_equal(idx[row], np.asarray(widx))
         np.testing.assert_array_equal(codes[row], np.asarray(wcodes))
+
+
+@pytest.mark.parametrize("resolve", LB_RESOLVE)
+@pytest.mark.parametrize("case", MIRROR_CASES + ["n = 1", "odd n, cap above k"])
+def test_k5_lookback_mirror_matches_pallas(case, resolve):
+    """The same mirror with K5's payload (the survivor's float32 bits):
+    every entry written, bit for bit the port's plain K5 and the
+    reference's Pallas K5 in interpret mode (which takes no cap of 0)."""
+    x, _, k, cap, _, warps = _k6_mirror_rows(case)
+    tx = torch.from_numpy(x)
+    thr = ref.topk_threshold_bits(tx, k)
+    idx, words, nnz = _lookback_mirror(x, thr.numpy(), cap, _value_payload(x),
+                                       warps, resolve)
+    assert (idx >= 0).all() and (words >= 0).all() and (nnz >= 0).all()
+    want_idx, want_vals, want_nnz = ref.compact_slots(tx, thr, cap)
+    assert np.array_equal(idx, want_idx.numpy())
+    assert np.array_equal(words, want_vals.numpy().view(np.uint32))
+    assert np.array_equal(nnz, want_nnz.numpy())
+    for row in range(x.shape[0] if cap else 0):
+        widx, wvals = jsel.compact_slots(jnp.asarray(x[row]),
+                                         jnp.uint32(int(thr[row])), cap,
+                                         interpret=True)
+        np.testing.assert_array_equal(idx[row], np.asarray(widx))
+        np.testing.assert_array_equal(words[row],
+                                      np.asarray(wvals).view(np.uint32))
 
 
 @pytest.mark.parametrize("n,density,r", [(4096, 0.25, 4), (640, 0.5, 16),

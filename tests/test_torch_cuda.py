@@ -5,8 +5,9 @@ the port only (no JAX), so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1, K2 (alone and in K1's launch, ``threshold_mask``), K4, K5, K6, K7,
-K8, K9 and K11 must be bit-equal to the plain versions; K3 within rtol
+K1, K2 (alone and in K1's launch, ``threshold_mask``), K4 (reading its
+uniforms, and drawing them with threefry against the torch draw), K5, K6,
+K7, K8, K9 and K11 must be bit-equal to the plain versions; K3 within rtol
 1e-5 (float32 sums in another order) and bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
 update keeps the plain version's operation order) and y within
 ``WKV6_YTOL`` of max |y| in float32 (64-term sums in another order), plus
@@ -136,7 +137,8 @@ def test_topk_threshold_is_one_kernel_a_call(cuda_device, n):
     assert len(events) == 1, [e.name for e in events]
 
 
-@pytest.mark.parametrize("rows,n,r", [(5, 50176, 8), (5, 10, 1), (3, 1001, 4)])
+@pytest.mark.parametrize("rows,n,r", [(5, 50176, 8), (5, 10, 1), (3, 1001, 4),
+                                      (2, (1 << 24) + 3, 8), (3, 1, 16)])
 def test_qr_kernels_match_plain(cuda_device, rows, n, r):
     x = _rows(rows, n, cuda_device, n + r)
     x[1] = 0.0                                   # norm 0 -> all zero
@@ -146,6 +148,113 @@ def test_qr_kernels_match_plain(cuda_device, rows, n, r):
     torch.testing.assert_close(norm, ref.l2_norm(x), rtol=1e-5, atol=0.0)
     out = quant.quantize_qr_with_uniforms(x, r, u, norm)
     assert _same_bits(out, ref.quantize_qr_with_uniforms(x, r, u, norm))
+
+
+def _keys(rows, seed, high=True):
+    """(rows, 2) int64 key data on the host; with ``high``, row 0's words
+    are at and above 2^31 and row 1's at 2^32 - 1."""
+    from repro_torch import prng
+    keys = prng.split(prng.PRNGKey(seed), rows)
+    if high:
+        keys[0] = torch.tensor([2 ** 31, 2 ** 31 + 12345])
+        if rows > 1:
+            keys[1] = torch.tensor([2 ** 32 - 1, 2 ** 32 - 1])
+    return keys
+
+
+def _keyed_plain(x, r, keys, norm):
+    """The plain chain the keyed K4 replaces: the torch threefry draw, then
+    the plain Q_r."""
+    from repro_torch import prng
+    u = prng.uniform(keys, x.shape[1], device=x.device)
+    return ref.quantize_qr_with_uniforms(x, r, u, norm)
+
+
+@pytest.mark.parametrize("rows,n,r", [
+    (5, 1, 8), (3, 1001, 4), (5, 50176, 8), (2, (1 << 24) + 3, 8),
+    (3, 4096, 1), (3, 1002, 16)])
+def test_quantize_qr_keyed_matches_plain_chain(cuda_device, rows, n, r):
+    """K4 drawing its uniforms: bit-equal to prng.uniform + the plain Q_r,
+    with key words at and above 2^31, a zero row (norm 0), n = 1, n not a
+    multiple of 4 and past 2^24."""
+    x = _rows(rows, n, cuda_device, n + r)
+    x[-1] = 0.0                                  # norm 0 -> all zero
+    keys = _keys(rows, n + r)
+    norm = quant.l2_norm(x)
+    out = quant.quantize_qr_keyed(x, r, keys, norm)
+    assert _same_bits(out, _keyed_plain(x, r, keys, norm))
+
+
+def test_quantize_qr_keyed_bf16_device_keys_many_rows_and_offsets(cuda_device):
+    """bf16 rows (cast back), keys already on the card, 40 rows (past the
+    32 whose keys ride in the launch: one copy), and a row view that is not
+    16-byte aligned (the scalar path): bit-equal to the plain chain."""
+    x = _rows(5, 4096, cuda_device, 1).to(torch.bfloat16)
+    keys = _keys(5, 1)
+    norm = quant.l2_norm(x)
+    out = quant.quantize_qr_keyed(x, 4, keys, norm)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16),
+                       _keyed_plain(x, 4, keys, norm).view(torch.int16))
+    x = _rows(40, 1000, cuda_device, 2)
+    norm = quant.l2_norm(x)
+    for k in (_keys(40, 2), _keys(40, 3).to(cuda_device)):
+        assert _same_bits(quant.quantize_qr_keyed(x, 8, k, norm),
+                          _keyed_plain(x, 8, k.cpu(), norm))
+    big = _rows(3, 1001, cuda_device, 3)
+    x = big[:, 1:]                               # rows 4 bytes off alignment
+    norm = quant.l2_norm(x)
+    keys = _keys(3, 4)
+    assert _same_bits(quant.quantize_qr_keyed(x, 8, keys, norm),
+                      _keyed_plain(x.contiguous(), 8, keys, norm))
+
+
+@pytest.mark.parametrize("rows,n", [(5, 1001), (3, 4096)])
+def test_quantize_qr_entries_agree_and_count(cuda_device, rows, n):
+    """The memory entry fed the uniforms the keyed entry draws gives the
+    same bits; both add to the one counter ``quantize_qr``."""
+    from repro_torch import prng
+    x = _rows(rows, n, cuda_device, n)
+    keys = _keys(rows, n)
+    norm = quant.l2_norm(x)
+    u = prng.uniform(keys, n, device=cuda_device)
+    quant.LAUNCHES["quantize_qr"] = 0
+    a = quant.quantize_qr_keyed(x, 8, keys, norm)
+    b = quant.quantize_qr_with_uniforms(x, 8, u, norm)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["quantize_qr"] == 2
+    assert _same_bits(a, b)
+
+
+@pytest.mark.parametrize("n", [10, 50176, 1 << 24])
+def test_quantize_qr_keyed_is_one_kernel_a_call(cuda_device, n):
+    """One keyed K4 call with host keys of 5 rows runs one kernel on the
+    card: the key words ride in the launch, no copy."""
+    rows = 5 if n != 1 << 24 else 4
+    x = _rows(rows, n, cuda_device, n)
+    keys = _keys(rows, n)
+    norm = quant.l2_norm(x)
+    quant.LAUNCHES["quantize_qr"] = 0
+    names = _device_ops(lambda: quant.quantize_qr_keyed(x, 8, keys, norm))
+    assert quant.LAUNCHES["quantize_qr"] == 2
+    assert len(names) == 1, names
+
+
+def test_ops_quantize_qr_draws_no_torch_uniforms(cuda_device, monkeypatch):
+    """On a CUDA tensor ``ops.quantize_qr`` is K3 and the keyed K4: at most
+    those and one key copy on the card, and no ``prng.uniform`` call."""
+    from repro_torch import prng
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("prng.uniform called on the CUDA path")
+
+    x = _rows(5, 50176, cuda_device, 7)
+    keys = _keys(5, 7, high=False)
+    want = _keyed_plain(x, 8, keys, quant.l2_norm(x))
+    monkeypatch.setattr(prng, "uniform", refuse)
+    names = _device_ops(lambda: ops.quantize_qr(x, 8, keys))
+    assert len(names) <= 3, names
+    assert _same_bits(ops.quantize_qr(x, 8, keys), want)
 
 
 @pytest.mark.parametrize("n", [1, 255, 50176, (1 << 24) + 3])
@@ -164,7 +273,8 @@ def test_l2_norm_one_launch_same_bits_within_rtol(cuda_device, n):
 
 @pytest.mark.parametrize("rows,n,k,cap", [
     (5, 50176, 15053, 15053), (5, 10, 3, 3), (3, 1000, 100, 300),
-    (3, 4097, 1, 1), (2, 33, 33, 33), (2, 1, 1, 1), (2, 5000, 2000, 100)])
+    (3, 4097, 1, 1), (2, 33, 33, 33), (2, 1, 1, 1), (2, 5000, 2000, 100),
+    (3, 8193, 4000, 4000), (4, 1 << 24, 5033164, 5033164)])
 def test_compact_slots_matches_plain(cuda_device, rows, n, k, cap):
     x = _rows(rows, n, cuda_device, n + cap)
     x[0, : n // 3] = 0.0                         # underfull support
@@ -236,10 +346,12 @@ def test_launch_counters_count_cuda_launches(cuda_device):
     ops.pack_codes(torch.zeros((4, 256), dtype=torch.int32,
                                device=cuda_device), 5)
     ops.topk_qr_slots(x, 10, 10, 4, keys)
+    quant.quantize_qr_with_uniforms(x, 4, torch.rand_like(x),
+                                    quant.l2_norm(x))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "topk_threshold_bits": 1, "topk_mask": 0, "topk_threshold_mask": 2,
-        "l2_norm": 3, "quantize_qr": 1, "compact_slots": 1,
+        "l2_norm": 4, "quantize_qr": 2, "compact_slots": 1,
         "compact_code_slots": 1, "quantize_pack_with_uniforms": 1,
         "pack_codes": 2, "unpack_codes": 1, "rglru_scan": 0, "wkv6_scan": 0,
         "flash_attention": 0}
@@ -306,8 +418,9 @@ def test_threshold_mask_is_one_kernel_a_call(cuda_device, n):
     assert len(names) == 1, names
 
 
-def _k6_case(case, device):
-    """(x, k, cap, r) of K6's one-launch cases: tiles of 4096 elements."""
+def _lookback_case(case, device):
+    """(x, k, cap, r) of K5's and K6's one-launch cases: tiles of 4096
+    elements (K5 takes two a block)."""
     if case == "cap in the second tile":
         return _rows(3, 50176, device, 11), 12544, 1500, 4
     if case == "cap in the last tile":
@@ -333,7 +446,7 @@ def test_compact_code_slots_one_launch_cases(cuda_device, case):
     its second and last tile, at 0 and above nnz, past an all-tie row, on
     a zero row and over 74 tiles a row; twice, the second call on the
     workspace the first tagged."""
-    x, k, cap, r = _k6_case(case, cuda_device)
+    x, k, cap, r = _lookback_case(case, cuda_device)
     u = torch.rand(x.shape, device=cuda_device)
     t = topk.threshold_bits(x, k)
     norm = quant.l2_norm(ref.mask_by_threshold(x, t))
@@ -342,6 +455,43 @@ def test_compact_code_slots_one_launch_cases(cuda_device, case):
         got = sel.compact_code_slots(x, u, norm, t, r, cap)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [
+    "cap in the second tile", "cap in the last tile", "cap 0",
+    "ties, zero row, cap above nnz, n = 50177", "74 tiles", "bf16"])
+def test_compact_slots_one_launch_cases(cuda_device, case):
+    """K5's one launch bit-equal to the plain version on K6's look-back
+    cases and on bf16 rows (values cast back); twice, with a K6 launch on
+    the shared workspace between the two."""
+    if case == "bf16":
+        x, k, cap = _rows(3, 9000, cuda_device, 16).to(torch.bfloat16), 2700, 2700
+    else:
+        x, k, cap, _ = _lookback_case(case, cuda_device)
+    t = topk.threshold_bits(x, k)
+    want = ref.compact_slots(x, t, cap)
+    u = torch.rand(x.shape, device=cuda_device)
+    norm = quant.l2_norm(ref.mask_by_threshold(x, t).float())
+    for _ in range(2):
+        got = sel.compact_slots(x, t, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        assert got[1].dtype == x.dtype
+        assert torch.equal(got[1].float().view(torch.int32),
+                           want[1].float().view(torch.int32))
+        sel.compact_code_slots(x, u, norm, t, 4, cap)
+
+
+@pytest.mark.parametrize("n", [10, 50176, 1 << 24])
+def test_compact_slots_is_one_kernel_a_call(cuda_device, n):
+    """One K5 call runs one kernel on the card: no fill, no scratch."""
+    rows = 5 if n != 1 << 24 else 4
+    x = _rows(rows, n, cuda_device, n)
+    cap = max(1, n // 4)
+    t = topk.threshold_bits(x, cap)
+    sel.LAUNCHES["compact_slots"] = 0
+    names = _device_ops(lambda: sel.compact_slots(x, t, cap))
+    assert sel.LAUNCHES["compact_slots"] == 2
+    assert len(names) == 1, names
 
 
 @pytest.mark.parametrize("n", [10, 50176])
@@ -388,6 +538,51 @@ def test_packed_k25_q4_round_launch_counts(cuda_device):
     want.update({"topk_threshold_mask": leaves, "l2_norm": leaves,
                  "compact_code_slots": leaves, "pack_codes": leaves,
                  "unpack_codes": leaves})
+    assert ops.launch_counts() == want
+
+
+@pytest.mark.parametrize("comp_name,mode", [("QuantQr(8)", "account"),
+                                            ("TopK(0.3)", "packed")])
+def test_round_launch_counts_and_no_torch_uniforms(cuda_device, monkeypatch,
+                                                   comp_name, mode):
+    """One round of QuantQr(8) on the account wire launches K3 and the keyed
+    K4 once a leaf and calls no ``prng.uniform``; TopK(0.3) on the packed
+    wire launches K1 and K5 once a leaf."""
+    from repro_torch import prng
+    from repro_torch.compress import QuantQr, TopK
+    from repro_torch.core import fed_data
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.data import dirichlet, synthetic
+    from repro_torch.models import small
+
+    ds = synthetic.make_mnist_like(n_train=800, n_test=100)
+    parts = dirichlet.dirichlet_partition(ds.y_train, n_clients=20,
+                                          alpha=0.7, seed=0)
+    model = small.MLP(784, 64, 10)
+    data = fed_data.from_numpy_partition(ds.x_train, ds.y_train, parts,
+                                         device="cuda")
+    cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=5,
+                          batch_size=32, variant="com")
+    comp = {"QuantQr(8)": QuantQr(8), "TopK(0.3)": TopK(0.3)}[comp_name]
+    alg = FedComLoc(small.cross_entropy_loss(model.apply), data, cfg, comp,
+                    wire=mode)
+    state = alg.init(model.init(prng.PRNGKey(0), device=cuda_device))
+    uniform = prng.uniform
+
+    def host_only(key, n, device=None):
+        assert n == 1, "a bulk prng.uniform draw in the round"
+        return uniform(key, n, device)
+
+    monkeypatch.setattr(prng, "uniform", host_only)
+    ops.reset_launch_counts()
+    alg.round(state, prng.PRNGKey(1))
+    torch.cuda.synchronize()
+    leaves = 6
+    want = {name: 0 for name in ops.launch_counts()}
+    if mode == "account":
+        want.update({"l2_norm": leaves, "quantize_qr": leaves})
+    else:
+        want.update({"topk_threshold_bits": leaves, "compact_slots": leaves})
     assert ops.launch_counts() == want
 
 

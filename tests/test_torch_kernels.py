@@ -304,6 +304,47 @@ def test_ops_quantize_draws_reference_uniforms():
                 jref.quantize_qr_with_uniforms(xj, 8, u)), rtol=1e-5, atol=1e-6)
 
 
+MLP_LEAF_SIZES = (784 * 64, 64, 64 * 64, 64, 64 * 10, 10)
+
+
+@pytest.mark.parametrize("r", [1, 4, 8])
+@pytest.mark.parametrize("n", MLP_LEAF_SIZES,
+                         ids=["fc0_w", "fc0_b", "fc1_w", "fc1_b", "fc2_w",
+                              "fc2_b"])
+def test_ops_quantize_qr_matches_pallas_quantize_qr(n, r):
+    """``ops.quantize_qr`` on the CPU against the reference's
+    ``quantize_qr(x, r, key)`` (its K3 and K4 in interpret mode, uniforms
+    from ``jax.random.uniform(key, (n,))``) at each of the quickstart MLP's
+    leaf sizes.  Given the Pallas norm, the keyed K4 entry is bit for bit
+    the reference's; ``ops.quantize_qr`` (the port's own norm) is too where
+    the two norms are equal, and elsewhere bit for bit the plain chain fed
+    its norm and JAX's uniforms; its norm is within ``NORM_RTOL``."""
+    x = _rows(n + r, 2, n)
+    jkeys = jax.random.split(jax.random.PRNGKey(n * r), 2)
+    keys = torch.from_numpy(np.asarray(jkeys).astype(np.int64))
+    got = ops.quantize_qr(torch.from_numpy(x), r, keys).numpy()
+    norms = quant.l2_norm(torch.from_numpy(x)).numpy()
+    for row in range(2):
+        xj = jnp.asarray(x[row])
+        want = np.asarray(jquant.quantize_qr(xj, r, jkeys[row], interpret=True))
+        pnorm = np.float32(jquant.l2_norm(xj, interpret=True))
+        np.testing.assert_allclose(norms[row], pnorm, rtol=NORM_RTOL)
+        keyed = quant.quantize_qr_keyed(
+            torch.from_numpy(x[row:row + 1]), r, keys[row:row + 1],
+            torch.from_numpy(np.array([pnorm], np.float32))).numpy()[0]
+        _bits_equal(keyed, want)
+        if norms[row] == pnorm:
+            _bits_equal(got[row], want)
+        else:
+            # the norms differ in the last bit: the composed entry is held
+            # against the plain chain fed its own norm and JAX's uniforms
+            u = torch.from_numpy(np.asarray(
+                jax.random.uniform(jkeys[row], (n,), dtype=jnp.float32)))
+            _bits_equal(got[row], ref.quantize_qr_with_uniforms(
+                torch.from_numpy(x[row:row + 1]), r, u[None],
+                torch.from_numpy(norms[row:row + 1])).numpy()[0])
+
+
 # --------------------------------------------------------------------------- #
 # dispatch and counters
 # --------------------------------------------------------------------------- #

@@ -279,3 +279,80 @@ def test_categorical_key_chain_of_the_serve_loop():
             jsub, jnp.asarray(logits) / 0.7, axis=-1))
         got = prng.categorical(tsub, torch.from_numpy(logits) / 0.7)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+# --------------------------------------------------------------------------- #
+# csrc/threefry.cuh's formulation, mirrored in numpy uint32
+# --------------------------------------------------------------------------- #
+
+_U32 = np.uint32
+# key words at and above 2^31 come through the kernel as uint32
+CUH_KEYS = [(0, 42), (2 ** 31, 2 ** 31 + 12345), (2 ** 32 - 1, 2 ** 32 - 1),
+            (0xDEADBEEF, 0x80000000)]
+# counters of the first elements and across 2^24 (n = 2^24 + 4096)
+CUH_N = (1 << 24) + 4096
+CUH_COUNTERS = np.concatenate([np.arange(4099), np.arange((1 << 24) - 4096,
+                                                          CUH_N)]).astype(_U32)
+
+
+def _funnel_rotl(v: np.ndarray, r: int) -> np.ndarray:
+    """``__funnelshift_l(v, v, r)``: v's 64-bit concatenation with itself,
+    shifted left by r, high word."""
+    return (v << _U32(r)) | (v >> _U32(32 - r))
+
+
+def _threefry_cuh(k0: int, k1: int, counters: np.ndarray):
+    """threefry.cuh's threefry2x32(key, (0, i)) in numpy uint32: the key
+    schedule (k2 and the five injections) taken once, then for each
+    counter x0 = k0, x1 = i + k1 and four groups of rounds between the
+    injections, with funnel-shift rotations; adds wrap mod 2^32."""
+    ks = (_U32(k0), _U32(k1), _U32(k0) ^ _U32(k1) ^ _U32(0x1BD11BDA))
+    a = [ks[(i + 1) % 3] for i in range(5)]
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    with np.errstate(over="ignore"):
+        b = [ks[(i + 2) % 3] + _U32(i + 1) for i in range(5)]
+        x0 = np.full(counters.shape, ks[0], _U32)
+        x1 = counters.astype(_U32) + ks[1]
+        for i in range(5):
+            for r in rot[i % 2]:
+                x0 = x0 + x1
+                x1 = _funnel_rotl(x1, r) ^ x0
+            x0 = x0 + a[i]
+            x1 = x1 + b[i]
+    return x0, x1
+
+
+def _uniform_cuh(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """threefry_uniform: ((hi ^ lo) >> 9) | 0x3F800000 as float, minus 1."""
+    return (((hi ^ lo) >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - \
+        np.float32(1.0)
+
+
+@pytest.mark.parametrize("k0,k1", CUH_KEYS)
+def test_threefry_cuh_mirror_matches_jax_bits(k0, k1):
+    """The kernel header's formulation gives ``jax.random.bits(key,
+    (n,))`` bit for bit, key words at and above 2^31, counters across
+    2^24."""
+    key = jnp.asarray(np.array([k0, k1], np.uint32))
+    want = np.asarray(jax.random.bits(key, (CUH_N,)))[CUH_COUNTERS]
+    hi, lo = _threefry_cuh(k0, k1, CUH_COUNTERS)
+    np.testing.assert_array_equal(hi ^ lo, want)
+    torch_hi, torch_lo = prng.threefry2x32(
+        torch.tensor(k0), torch.tensor(k1), torch.tensor(0),
+        torch.from_numpy(CUH_COUNTERS.astype(np.int64)))
+    np.testing.assert_array_equal(hi, torch_hi.numpy().astype(_U32))
+    np.testing.assert_array_equal(lo, torch_lo.numpy().astype(_U32))
+
+
+@pytest.mark.parametrize("k0,k1", CUH_KEYS)
+def test_threefry_cuh_mirror_uniform_matches_jax(k0, k1):
+    """threefry_uniform is ``jax.random.uniform(key, (n,))`` bit for bit,
+    as ``prng.uniform`` is."""
+    key = jnp.asarray(np.array([k0, k1], np.uint32))
+    want = np.asarray(jax.random.uniform(key, (CUH_N,)))[CUH_COUNTERS]
+    got = _uniform_cuh(*_threefry_cuh(k0, k1, CUH_COUNTERS))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(_U32), want.view(_U32))
+    np.testing.assert_array_equal(
+        got[:4099].view(_U32),
+        prng.uniform(torch.tensor([k0, k1]), 4099).numpy().view(_U32))

@@ -43,19 +43,19 @@ VARIANTS = {"as built": [], "window 128": ["-DABL_PER_LANE=4"],
             "no writes": ["-DABL_NO_WRITES=1"], "no u": ["-DABL_NO_U=1"],
             "any occupancy": ["-DABL_BLOCKS_PER_SM=1"]}
 HOOKS = [
-    ("constexpr int kLbBlocksPerSm = 4;",
-     "constexpr int kLbBlocksPerSm = ABL_BLOCKS_PER_SM;"),
+    ("constexpr int kCodeBlocksPerSm = 4;",
+     "constexpr int kCodeBlocksPerSm = ABL_BLOCKS_PER_SM;"),
     ("constexpr int kPerLane = 1;", "constexpr int kPerLane = ABL_PER_LANE;"),
     ("          if (__all_sync(kFull, ready)) break;\n",
      "          if (__all_sync(kFull, ready)) break;\n"
      "          if (ABL_BACKOFF_NS) __nanosleep(ABL_BACKOFF_NS);\n"),
     ("    if (tr > 0) {\n      // look back",
      "    if (!ABL_NO_LOOKBACK && tr > 0) {\n      // look back"),
-    ("  for (unsigned i = tid; i < m; i += kLbThreads) {",
-     "  for (unsigned i = tid; i < (ABL_NO_WRITES ? 0u : m); i += kLbThreads) {"),
-    ("      const float4 v = nib ? __ldg(reinterpret_cast<const float4*>(ur + e0))",
-     "      const float4 v = (ABL_NO_U ? 0u : nib)\n"
-     "                           ? __ldg(reinterpret_cast<const float4*>(ur + e0))"),
+    ("  const unsigned m = total < room ? total : room;",
+     "  const unsigned m = ABL_NO_WRITES ? 0u : (total < room ? total : room);"),
+    ("        const float4 v = nib ? __ldg(reinterpret_cast<const float4*>(ur + e0))",
+     "        const float4 v = (ABL_NO_U ? 0u : nib)\n"
+     "                             ? __ldg(reinterpret_cast<const float4*>(ur + e0))"),
 ]
 PRELUDE = ("#ifndef ABL_BLOCKS_PER_SM\n#define ABL_BLOCKS_PER_SM 4\n#endif\n"
            "#ifndef ABL_PER_LANE\n#define ABL_PER_LANE 1\n#endif\n"

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
 """Device operations and ``cudaLaunchKernel`` calls in a steady quickstart
-round, for a checkout of the port.
+round, and the time of the two uplink entry points that the rounds call,
+for a checkout of the port.
 
     python3 tools/round_ops.py [--src DIR]
 
 Needs one CUDA card and ``nvcc``.  Builds the quickstart configuration of
 ``chip_smoke.py``'s phase 3 (MLP 784-64-64-10, 20 Dirichlet(0.7) clients,
 5 a round, batch 32, gamma = p = 0.1) and runs FedComLoc-Com with
-``TopK(0.3)`` on the account wire and ``Compose(TopK(0.5), QuantQr(16))``
-(k50_q16) on the packed wire: 3 warm-up rounds, then 5 under
-``torch.profiler``.  Prints, a round: the device operations (kernels,
-copies, memsets), the host's ``cudaLaunchKernel*`` calls and the device's
-busy ms; and the card's name and power limit.  ``--src`` imports the port
-from another checkout's ``src/`` (a parent commit unpacked with ``git
-archive``, say), so two trees can be compared in one call on one card.
+``TopK(0.3)`` on the account and on the packed wire, ``QuantQr(8)`` on the
+account wire and ``Compose(TopK(0.5), QuantQr(16))`` (k50_q16) on the
+packed wire: 3 warm-up rounds, then 5 under ``torch.profiler``.  Prints, a
+round: the device operations (kernels, copies, memsets), the host's
+``cudaLaunchKernel*`` calls and the device's busy ms.  Then times, with
+CUDA events, the whole calls ``ops.quantize_qr(x, 8, keys)`` (the account
+Q_r leaf: uniforms, K3 and K4) and ``ops.topk_slots(x, k, k)`` (the packed
+``topk`` leaf: K1 and K5, k = 0.3 n), and the wrappers of K5 (cap k), K4
+reading its uniforms (r = 8) and K6 (cap n / 4; r = 4, at 2^24 r = 8), at
+(5, 50176) and (4, 2^24), with keys made on the host as the compressors
+make them; and prints the card's name and power limit.  ``--src`` imports the port from another checkout's
+``src/`` (a parent commit unpacked with ``git archive``, say), so two trees
+can be compared in one call on one card.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -45,6 +53,10 @@ def main() -> int:
     from repro_torch.core import fed_data
     from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
     from repro_torch.data import dirichlet, synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import quantize as quant
+    from repro_torch.kernels import select_slots as sel
+    from repro_torch.kernels import topk_compress as topk
     from repro_torch.models import small
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -65,6 +77,8 @@ def main() -> int:
     params0 = model.init(prng.PRNGKey(0), device=dev)
     for label, comp, wire in (
             ("TopK account", TopK(0.3), "account"),
+            ("TopK packed", TopK(0.3), "packed"),
+            ("QuantQr account", QuantQr(8), "account"),
             ("k50_q16 packed", Compose(TopK(0.5), QuantQr(16)), "packed")):
         alg = FedComLoc(loss_fn, data, cfg, comp, wire=wire)
         state, key = alg.init(params0), prng.PRNGKey(2)
@@ -72,6 +86,12 @@ def main() -> int:
             key, sub = prng.split(key, 2)
             state, _ = alg.round(state, sub)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILED):           # unprofiled, then profiled
+            key, sub = prng.split(key, 2)
+            state, _ = alg.round(state, sub)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / PROFILED * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(PROFILED):
@@ -88,8 +108,46 @@ def main() -> int:
                 launches += 1
         print(f"[round_ops] {label}: {dev_ops / PROFILED!r} device operations, "
               f"{launches / PROFILED!r} cudaLaunchKernel calls, device busy "
-              f"{busy_us / 1e3 / PROFILED!r} ms a round", flush=True)
+              f"{busy_us / 1e3 / PROFILED!r} ms a round; wall {wall_ms!r} ms a "
+              f"round unprofiled", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for rows, n, iters in ((5, 50176, 200), (4, 1 << 24, 10)):
+        x = torch.randn((rows, n), generator=gen, device=dev)
+        keys = prng.split(prng.PRNGKey(3), rows)      # (rows, 2) on the host
+        k = int(0.3 * n)
+        t = topk.threshold_bits(x, k)
+        u = prng.uniform(keys, n, device=dev)
+        norm = quant.l2_norm(x)
+        cap6, r6 = n // 4, (4 if n == 50176 else 8)
+        t6 = topk.threshold_bits(x, cap6)
+        norm6 = quant.l2_norm(ref.mask_by_threshold(x, t6))
+        for label, fn in (
+                ("ops.quantize_qr", lambda: ops.quantize_qr(x, 8, keys)),
+                ("ops.topk_slots", lambda: ops.topk_slots(x, k, k)),
+                ("K5 compact_slots", lambda: sel.compact_slots(x, t, k)),
+                ("K4 quantize_qr_with_uniforms",
+                 lambda: quant.quantize_qr_with_uniforms(x, 8, u, norm)),
+                ("K6 compact_code_slots", lambda: sel.compact_code_slots(
+                    x, u, norm6, t6, r6, cap6))):
+            print(f"[round_ops] {label} {(rows, n)}: {time_ms(torch, fn, iters)!r} "
+                  f"ms a call", flush=True)
+        del x, u
     return 0
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    """CUDA-event ms a call of ``fn``, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
 
 
 if __name__ == "__main__":
