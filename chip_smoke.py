@@ -23,21 +23,30 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    and beyond n, +-0 / subnormals / inf / ties, and rows at and just past
    its clusters' shared-memory capacity; ``threshold_mask`` (K1 and K2 in
    one launch) must give K1's and K2's plain outputs on every one of them.
-   K4 is held by both entries: reading u, and drawing u itself with
-   threefry (key words at and above 2^31, n = 1, n = 2^24 + 3, 40 rows)
-   against ``prng.uniform`` + the plain version.  K5's and K6's cases also
+   K4 and K7 are held by both entries: reading u, and drawing u itself
+   with threefry (key words at and above 2^31, n = 1, n = 2^24 + 3, 40
+   rows) against ``prng.uniform`` + the plain version.  K9 by both
+   entries: the codes, and the codes decoded to Q_r values against the
+   plain chain (``ref.qr_values`` of K9's plain version), with a sign over
+   level 0 heading every row (-0.0) and zero- and NaN-norm rows (+0.0).
+   K5's and K6's cases also
    put cap inside their second and last tile, at 0 and above nnz, past an
    all-tie row, on a zero row, n = 50177 and 74 tiles a row, each called
    twice (the second call reuses the tagged workspace).
    ``torch.profiler`` must see one device operation a K1, a keyed K4, a
-   K5, a K6 and a ``threshold_mask`` call (two past the shared-memory
-   capacity, where it takes K1 then K2) and two an ``ops.quantize_qr``
-   (K3, K4).  Then times kernel, plain version and the library yardstick
+   K5, a K6, a keyed K7, a K9 (either entry) and a ``threshold_mask`` call
+   (two past the shared-memory capacity, where it takes K1 then K2) and
+   two an ``ops.quantize_qr`` (K3, K4) and an ``ops.quantize_pack`` (K3,
+   K7).  Then times kernel, plain version and the library yardstick
    (K1 and K3 also by their device time a call; K2 as the fused launch,
    beside K1 then K2 and K2 alone, in turns; K4's keyed entry, its memory
    entry and the whole ``ops.quantize_qr`` against the chain it replaced,
    in turns, with the keyed bound's bytes and integer terms, the latter
-   from the uniform's own operations, the SASS's count beside it);
+   from the uniform's own operations, the SASS's count beside it; K7's
+   keyed entry, its memory entry and the whole ``ops.quantize_pack``
+   against the chain it replaced, in turns, likewise; K9's values entry,
+   its codes entry and the chain the values entry replaced, in turns; the
+   keyed K7 and both K9 entries also by their device time a call);
 3. train — drives the quickstart configuration (MLP 784-64-64-10, 20
    Dirichlet(0.7) clients, 5 per round, batch 32, gamma = 0.1, p = 0.1)
    through ``server.run_federated`` on the card, FedComLoc-Com with
@@ -49,8 +58,11 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    before a run and read just after, and each must equal the count the
    batching implies (K1 and K2 run as one launch, ``topk_threshold_mask``,
    on every TopK leaf but the packed ``topk`` codec's, which launches K1
-   and K5; the account Q_r runs launch the keyed K4 and make no bulk
-   ``prng.uniform`` draw).  The packed runs must ship the payload bytes the
+   and K5; the account Q_r runs launch the keyed K4, the packed QuantQr
+   runs K3, the keyed K7 and K9's values entry, the packed Compose runs
+   K9's values entry; the runs with a keyed entry make no bulk
+   ``prng.uniform`` draw, and with fixed local phases no call at all).
+   The packed runs must ship the payload bytes the
    wire format implies, and reproduce the account runs' uplink bits
    exactly and their parameters within ``PARAM_RTOL``/``PARAM_ATOL``.
    For Compose a further packed run holds, in every round, the server's
@@ -153,6 +165,8 @@ REPLAY_ROUNDS = 3
 DIVERGING_REPLAY_ROUNDS = 6
 PROFILE_ROUNDS = 5
 FUSED_K1_K2 = "topk_threshold_mask"   # the launch counter of K1 + K2 fused
+KEYED_K7 = "quantize_pack_keyed"       # ... of K7 drawing its uniforms
+VALUES_K9 = "unpack_qr_values"         # ... of K9 decoding to Q_r values
 LARGE = (4, 1 << 24)
 # K12's y and S_T against the plain version, float32: |d| <= WKV6_YTOL *
 # max |plain| (64-term sums of y run in another order than the einsum)
@@ -351,25 +365,30 @@ def round_op_counts(prof) -> tuple:
     return dev_ops, launch_calls
 
 
-def device_per_call(torch, fn, calls: int):
+def device_per_call(torch, fn, calls: int, windows: int = 3):
     """(device ms, device operations) a call of ``fn`` takes: its kernels,
     copies and memsets from ``torch.profiler``; (None, None) where the
-    profiler recorded no device event."""
+    profiler recorded no device event.  The profiler can drop a device
+    record, never add one, so of ``windows`` windows of ``calls`` calls the
+    one with the most device events is kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    if not evs:
-        return None, None
-    ms = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
-    return ms / calls, len(evs) / calls
+    best = (None, None)
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+        if evs and (best[1] is None or len(evs) / calls > best[1]):
+            best = (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+                    / calls, len(evs) / calls)
+    return best
 
 
 def bf16_ulp(torch, y):
@@ -727,7 +746,8 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
 
 def build_report(build):
     """Phase 1's look at the libraries: what ``-Xptxas -v`` logged for
-    K10's, K4's and K5/K6's, the wgmma kernel's dynamic shared memory, and
+    K10's, K4's, K5/K6's, K7's and K8/K9's, the wgmma kernel's dynamic
+    shared memory, and
     its SASS's wgmma and TMA instructions (which must both be there, where
     ``cuobjdump`` is).  Returns the keyed K4's integer instructions by
     opcode (its float4 instance's SASS, 4 elements a thread), a diagnostic
@@ -735,7 +755,7 @@ def build_report(build):
     from repro_torch.kernels import flash_attention as fa
 
     for name in ("flash_attention_sm90", "flash_attention", "quantize",
-                 "select_slots"):
+                 "select_slots", "qr_pack", "pack_codes"):
         kernel = None
         for line in build.ptxas_log(name).splitlines():
             if "Compiling entry function" in line:
@@ -1427,25 +1447,45 @@ def main() -> int:
     pack_qr_cases.append(("n=1", randn(3, 1), 8))  # |x| = norm: saturates
     pack_qr_cases.append(("bf16 n=4096", randn(s, 4096, torch.bfloat16), 4))
     pack_qr_cases.append(("large", randn(*LARGE), 8))
-    for label, xc, r in pack_qr_cases:
+    # the keyed entry's own edges: n past 2^24 and not a multiple of 4, 40
+    # rows (past the 32 whose key words ride in the launch)
+    pack_qr_cases.append(("n=2^24+3", randn(2, (1 << 24) + 3), 8))
+    pack_qr_cases.append(("40 rows", randn(40, 1000), 4))
+    for i, (label, xc, r) in enumerate(pack_qr_cases):
         u = torch.rand(xc.shape, generator=gen, device=dev)
+        keys = wide_keys(xc.shape[0], 100 + i)
         norm = qk.l2_norm(xc)
         words = qp.quantize_pack_with_uniforms(xc, r, u, norm)
         words_ref = ref.quantize_pack_with_uniforms(xc, r, u, norm)
+        keyed = qp.quantize_pack_keyed(xc, r, keys, norm)
+        keyed_ref = ref.quantize_pack_with_uniforms(
+            xc, r, prng.uniform(keys, xc.shape[1], device=dev), norm)
         torch.cuda.synchronize()
         if not torch.equal(words, words_ref):
             raise AssertionError(f"K7 {label}: kernel words differ")
+        if not torch.equal(keyed, keyed_ref):
+            raise AssertionError(f"K7 keyed {label}: kernel words differ "
+                                 f"from prng.uniform + the plain version")
         recs["K7"].err(words, words_ref)
-    print(f"[kernels] K7 bit-equal to the plain version on "
-          f"{len(pack_qr_cases)} cases", flush=True)
+        recs["K7"].err(keyed, keyed_ref)
+    print(f"[kernels] K7 (both entries: reading u, and drawing it with "
+          f"threefry against prng.uniform, key words >= 2^31) bit-equal to "
+          f"the plain version on {len(pack_qr_cases)} cases", flush=True)
 
-    # K8 and K9: (label, codes, b); K9 must invert K8
+    # K8 and K9: (label, codes, b); K9 must invert K8, and its values entry
+    # (r = b - 1) must equal the plain chain, K9's plain version then
+    # ref.qr_values, against positive norms, a zero and a NaN one
     code_cases = [(f"main n={n}", rand_codes(s, n, 9), 9) for n in leaf_sizes]
     for n, b in ((1, 1), (33, 32), (1000, 1), (1000, 32), (4095, 17)):
         code_cases.append((f"edge n={n} b={b}", rand_codes(3, n, b), b))
+    code_cases.append(("n=2083 b=5", rand_codes(3, 2083, 5), 5))
     code_cases.append(("large", rand_codes(*LARGE, 9), 9))
+    neg_zeros = 0
     for label, codes, b in code_cases:
-        n = codes.shape[1]
+        rows, n = codes.shape
+        r = b - 1
+        if b > 1:                  # sign bit over level 0 heads every row
+            codes[:, 0] = -(1 << 31) if r == 31 else 1 << r
         words = pk.pack_codes(codes, b)
         words_ref = ref.pack_codes(codes, b)
         back = pk.unpack_codes(words, b, n)
@@ -1459,8 +1499,50 @@ def main() -> int:
             raise AssertionError(f"K9(K8(c)) != c at {label}")
         recs["K8"].err(words, words_ref)
         recs["K9"].err(back, back_ref)
+        if b == 1:                 # r = 0: no Q_r code
+            continue
+        norm = torch.rand(rows, generator=gen, device=dev) + 0.5
+        norm[1] = 0.0              # zero and NaN norms: +0.0 throughout
+        norm[2] = float("nan")
+        vals = pk.unpack_qr_values(words, r, n, norm)
+        vals_ref = ref.qr_values(back_ref, norm, r)
+        torch.cuda.synchronize()
+        if not same_bits(vals, vals_ref):
+            raise AssertionError(f"K9 values {label}: kernel values differ "
+                                 f"from the plain chain")
+        if not (torch.signbit(vals[0, 0]) and vals[0, 0] == 0):
+            raise AssertionError(f"K9 values {label}: sign over level 0 "
+                                 f"is not -0.0")
+        if torch.signbit(vals[1:3]).any() or vals[1:3].any():
+            raise AssertionError(f"K9 values {label}: a zero or NaN norm's "
+                                 f"row is not +0.0")
+        neg_zeros += int((torch.signbit(vals) & (vals == 0)).sum())
+        recs["K9"].err(vals, vals_ref)
     print(f"[kernels] K8/K9 bit-equal to the plain versions and K9(K8(c)) == "
-          f"c on {len(code_cases)} cases", flush=True)
+          f"c on {len(code_cases)} cases; K9's values entry bit-equal to the "
+          f"plain chain on the {len(code_cases) - 2} with b > 1 ({neg_zeros} "
+          f"-0.0 values, +0.0 on zero- and NaN-norm rows)", flush=True)
+    for n in (10, leaf_sizes[0], LARGE[1]):
+        rows = s if n != LARGE[1] else LARGE[0]
+        xc, keys = randn(rows, n), wide_keys(rows, n)
+        norm = qk.l2_norm(xc)
+        words = qp.quantize_pack_keyed(xc, 8, keys, norm)
+        for what, fn, want in (
+                ("keyed K7", lambda: qp.quantize_pack_keyed(xc, 8, keys, norm),
+                 1.0),
+                ("K9 unpack_codes", lambda: pk.unpack_codes(words, 9, n), 1.0),
+                ("K9 unpack_qr_values",
+                 lambda: pk.unpack_qr_values(words, 8, n, norm), 1.0),
+                ("ops.quantize_pack (K3, K7)",
+                 lambda: ops.quantize_pack(xc, 8, keys), 2.0)):
+            _, ops_a_call = device_per_call(torch, fn, 5)
+            if ops_a_call != want:
+                raise AssertionError(f"{what} n={n}: {ops_a_call} device "
+                                     f"operations a call, not {want}")
+    print(f"[kernels] keyed K7 and both K9 entries one kernel a call, "
+          f"ops.quantize_pack two (K3, K7) under torch.profiler (n = 10, "
+          f"{leaf_sizes[0]}, {LARGE[1]})", flush=True)
+    del xc, words
     del (topk_cases, qr_cases, slot_cases, code_slot_cases, pack_qr_cases,
          code_cases)
     torch.cuda.empty_cache()
@@ -1508,16 +1590,23 @@ def main() -> int:
             "K5": (lambda: sk.compact_slots(xc, t, k),
                    lambda: ref.compact_slots(xc, t, k), None,
                    4 * nx + 8 * rows + 8 * rows * k + 4 * rows, 3 * nx),
-            # reads x, u and norm, writes the words
-            "K7": (lambda: qp.quantize_pack_with_uniforms(xc, 8, u, norm),
-                   lambda: ref.quantize_pack_with_uniforms(xc, 8, u, norm),
-                   None, 8 * nx + 4 * rows + wbytes, 17 * nx),
+            # the main path's entry: draws u with threefry; reads x, norm
+            # and the keys, writes the words; bound by the bytes or by the
+            # uniform's integer operations on the busier integer pipe
+            "K7": (lambda: qp.quantize_pack_keyed(xc, 8, keys, norm),
+                   lambda: ref.quantize_pack_with_uniforms(
+                       xc, 8, prng.uniform(keys, n, device=dev), norm),
+                   None, 4 * nx + 4 * rows + 8 * rows + wbytes,
+                   k4_int_ops * nx),
             "K8": (lambda: pk.pack_codes(codes, 9),
                    lambda: ref.pack_codes(codes, 9), None,
                    4 * nx + wbytes, 9 * nx),
-            "K9": (lambda: pk.unpack_codes(words, 9, n),
-                   lambda: ref.unpack_codes(words, 9, n), None,
-                   wbytes + 4 * nx, 9 * nx),
+            # the main path's entry: the words decoded to Q_r values; reads
+            # the words and norm, writes the values
+            "K9": (lambda: pk.unpack_qr_values(words, 8, n, norm),
+                   lambda: ref.qr_values(ref.unpack_codes(words, 9, n), norm,
+                                         8), None,
+                   wbytes + 4 * rows + 4 * nx, 9 * nx),
             # reads x, u at the survivors, thr and norm; writes cap
             # (idx, code) slots and nnz
             "K6": (lambda: sk.compact_code_slots(xc, u, norm6, t6, r6, cap6),
@@ -1529,8 +1618,8 @@ def main() -> int:
         tag = "main" if shape != LARGE else "large"
         for key_, (kern, plain, lib, nbytes, nops) in plans.items():
             rec = recs[key_]
-            b_ms, b_by = bound_ms(nbytes, nops,
-                                  int_peak if key_ == "K4" else F32_OPS_PER_S)
+            b_ms, b_by = bound_ms(nbytes, nops, int_peak if key_ in (
+                "K4", "K7") else F32_OPS_PER_S)
             row = {"shape": list(shape),
                    "kernel_ms": time_ms(torch, kern, iters),
                    "plain_ms": time_ms(torch, plain, max(2, iters // 10)),
@@ -1588,6 +1677,63 @@ def main() -> int:
                       f"the busier pipe; diagnostic: the SASS's integer "
                       f"instructions all on one pipe {t_sass!r} ms); "
                       f"memory entry bound {m_ms!r} ms ({m_by})", flush=True)
+            if key_ == "K7":
+                # the memory entry (the JAX function's counterpart), and the
+                # whole main-path call against the chain it replaces
+                # (prng.uniform's torch ops, K3, K7 reading u), in turns
+                mem = lambda: qp.quantize_pack_with_uniforms(xc, 8, u, norm)
+                before = lambda: qp.quantize_pack_with_uniforms(
+                    xc, 8, prng.uniform(keys, n, device=dev), qk.l2_norm(xc))
+                after = lambda: ops.quantize_pack(xc, 8, keys)
+                fns = {"keyed": kern, "memory": mem,
+                       "ops.quantize_pack before": before,
+                       "ops.quantize_pack after": after}
+                turns = {name_: [] for name_ in fns}
+                for name_ in list(turns) + list(turns)[::-1]:
+                    its = (max(2, iters // 10)
+                           if name_ == "ops.quantize_pack before" else iters)
+                    turns[name_].append(time_ms(torch, fns[name_], its))
+                t_bytes = (4 * nx + 12 * rows + wbytes) / HBM_BYTES_PER_S * 1e3
+                t_int = k4_int_ops * nx / int_peak * 1e3
+                m_ms, m_by = bound_ms(8 * nx + 4 * rows + wbytes, 17 * nx)
+                dev_k = device_per_call(torch, kern, 50)[0]
+                dev_m = device_per_call(torch, mem, 50)[0]
+                row["keyed_bound_terms_ms"] = {
+                    "bytes": t_bytes, "integer_operations": t_int}
+                row["keyed_ms_in_turns"] = min(turns["keyed"])
+                row["memory_ms"] = min(turns["memory"])
+                row["memory_bound_ms"] = m_ms
+                row["device_ms_a_call"] = {"keyed": dev_k, "memory": dev_m}
+                row["ops_quantize_pack_ms"] = {
+                    "before": min(turns["ops.quantize_pack before"]),
+                    "after": min(turns["ops.quantize_pack after"])}
+                print(f"[kernels] K7 {tag} {shape}: ms in turns {turns!r}; "
+                      f"device ms a call (torch.profiler) keyed {dev_k!r}, "
+                      f"memory {dev_m!r}; keyed bound terms: bytes "
+                      f"{t_bytes!r} ms, integer operations {t_int!r} ms; "
+                      f"memory entry bound {m_ms!r} ms ({m_by})", flush=True)
+            if key_ == "K9":
+                # the codes entry (the JAX function's counterpart), and the
+                # values entry against the chain it replaces (K9's codes,
+                # then the plain decode's torch ops), in turns
+                codes_fn = lambda: pk.unpack_codes(words, 9, n)
+                chain = lambda: ref.qr_values(pk.unpack_codes(words, 9, n),
+                                              norm, 8)
+                fns = {"values": kern, "codes": codes_fn,
+                       "codes + qr_values": chain}
+                turns = {name_: [] for name_ in fns}
+                for name_ in list(turns) + list(turns)[::-1]:
+                    turns[name_].append(time_ms(torch, fns[name_], iters))
+                dev_v = device_per_call(torch, kern, 50)[0]
+                dev_c = device_per_call(torch, codes_fn, 50)[0]
+                row["values_ms_in_turns"] = min(turns["values"])
+                row["codes_ms"] = min(turns["codes"])
+                row["codes_bound_ms"] = bound_ms(wbytes + 4 * nx, 9 * nx)[0]
+                row["chain_ms"] = min(turns["codes + qr_values"])
+                row["device_ms_a_call"] = {"values": dev_v, "codes": dev_c}
+                print(f"[kernels] K9 {tag} {shape}: ms in turns {turns!r}; "
+                      f"device ms a call (torch.profiler) values {dev_v!r}, "
+                      f"codes {dev_c!r}", flush=True)
             if key_ == "K2":
                 # the fused launch against K2's standalone kernel and the
                 # two launches it replaces, in turns
@@ -1632,9 +1778,10 @@ def main() -> int:
     one_client = tree_util.map(lambda p: p.detach(), params0)
     per_run = ROUNDS * len(leaf_sizes)
     zero = {name: 0 for name in ops.launch_counts()}
-    k1, _, k3, k4, k5, k6, k7, k8, k9 = (recs[f"K{i}"].name
-                                         for i in range(1, 10))
+    k1, _, k3, k4, k5, k6, _, k8, _ = (recs[f"K{i}"].name
+                                       for i in range(1, 10))
     k1k2 = FUSED_K1_K2        # K1 and K2 in one launch
+    k7, k9 = KEYED_K7, VALUES_K9   # the main path's K7 and K9 entries
     double = ("k25_q4", "k50_q16")
     diverging = ("k25_q4",)       # the JAX package diverges there as well
     # name -> (compressor, config overrides, {wire: kernels the run
@@ -1680,12 +1827,14 @@ def main() -> int:
         del alg.round
         return alg, hist, per_round
 
-    # bulk prng.uniform draws (n > 1: the torch threefry over a leaf) a run;
-    # geometric phases draw single uniforms for their step counts
-    bulk_draws = [0]
+    # prng.uniform calls a run, and the bulk ones among them (n > 1: the
+    # torch threefry over a leaf); geometric phases draw single uniforms for
+    # their step counts
+    bulk_draws, all_draws = [0], [0]
     orig_uniform = prng.uniform
 
     def counting_uniform(key_, n_, device=None):
+        all_draws[0] += 1
         if int(n_) > 1:
             bulk_draws[0] += 1
         return orig_uniform(key_, n_, device)
@@ -1696,7 +1845,7 @@ def main() -> int:
             expect = {**zero, **{k: per_run for k in used}}
             torch.cuda.synchronize()
             ops.reset_launch_counts()
-            bulk_draws[0] = 0
+            bulk_draws[0] = all_draws[0] = 0
             prng.uniform = counting_uniform
             t0 = time.time()
             try:
@@ -1717,14 +1866,21 @@ def main() -> int:
             if counts != expect:
                 raise AssertionError(f"{label}: launch counts {counts} != "
                                      f"{expect}")
-            if k4 in used:
-                # the account Q_r runs: K4 draws its own uniforms
-                if bulk_draws[0]:
-                    raise AssertionError(f"{label}: {bulk_draws[0]} bulk "
-                                         f"prng.uniform draws; the keyed K4 "
-                                         f"draws none")
-                print(f"[train] {label}: {k4} launched {counts[k4]} times "
-                      f"(keyed), no bulk prng.uniform draw", flush=True)
+            for keyed in (k4, k7):
+                if keyed not in used:
+                    continue
+                # the Q_r runs but Compose's packed ones: K4 or K7 draws
+                # its own uniforms; with fixed local phases nothing else
+                # calls prng.uniform
+                fixed = over.get("local_steps") != "geometric"
+                if bulk_draws[0] or (fixed and all_draws[0]):
+                    raise AssertionError(
+                        f"{label}: {all_draws[0]} prng.uniform calls, "
+                        f"{bulk_draws[0]} of them bulk; the keyed {keyed} "
+                        f"draws its own")
+                print(f"[train] {label}: {keyed} launched {counts[keyed]} "
+                      f"times (keyed), {all_draws[0]} prng.uniform calls, "
+                      f"none bulk", flush=True)
             for k in used:
                 launches.setdefault(k, {})[label] = counts[k]
             finite = all(map(lambda v: v == v and abs(v) != float("inf"),
@@ -1964,15 +2120,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     cuda_vs_cpu_phase(torch, dev)
 
+    # kernel -> (the counter of its main-path entry, the tag of its runs)
+    entries = {"topk_mask": (FUSED_K1_K2, "fused"),
+               "quantize_pack_with_uniforms": (KEYED_K7, "keyed"),
+               "unpack_codes": (VALUES_K9, "values")}
     kernels = []
     for rec in recs.values():
         main_t = rec.timings["main"]
         by_run = launches.get(rec.name, {})
-        if rec.name == "topk_mask":
-            # K2 runs inside K1's launch on the main path (threshold_mask);
-            # its standalone kernel serves a threshold computed elsewhere
-            by_run = {**{f"{label} (fused)": c for label, c in
-                         launches.get(FUSED_K1_K2, {}).items()}, **by_run}
+        if rec.name in entries:
+            # K2 runs inside K1's launch on the main path (threshold_mask),
+            # K7 as its keyed entry, K9 as its values entry; the other
+            # entry serves a caller that has the threshold, u or wants
+            # the codes
+            counter, tag = entries[rec.name]
+            by_run = {**{f"{label} ({tag})": c for label, c in
+                         launches.get(counter, {}).items()}, **by_run}
         if not sum(by_run.values()):
             raise AssertionError(f"{rec.name}: launched no time on the main "
                                  f"path")
@@ -1987,6 +2150,19 @@ def main() -> int:
                               "(topk_compress.mask_by_threshold), timed as "
                               "standalone_ms"}}
                if rec.name == "topk_mask" else {}),
+            **({"routes": {
+                "keyed": "qr_pack_tiles<true, *> (qr_pack.quantize_pack_keyed, "
+                         "ops.quantize_pack), the main path's, timed as ms",
+                "memory": "qr_pack_tiles<false, *> "
+                          "(qr_pack.quantize_pack_with_uniforms), timed as "
+                          "memory_ms"}}
+               if rec.name == "quantize_pack_with_uniforms" else {}),
+            **({"routes": {
+                "values": "unpack_tiles<true, *> (pack_codes.unpack_qr_values, "
+                          "ops.unpack_qr_values), the main path's, timed as ms",
+                "codes": "unpack_tiles<false, *> (pack_codes.unpack_codes), "
+                         "timed as codes_ms"}}
+               if rec.name == "unpack_codes" else {}),
             "replaces": rec.replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "max_abs_err": rec.max_abs_err, "ms": main_t["kernel_ms"],

@@ -234,18 +234,6 @@ def _scatter_units(entries, unit_sizes, dtype):
     return [flat[:, off:off + n] for off, n in zip(offs, unit_sizes)]
 
 
-def _qr_values(codes: torch.Tensor, norm: torch.Tensor, r: int):
-    """Decode each row's (1+r)-bit codes to float32 values against the
-    row's norm, in the transform's operation order."""
-    levels = float(2 ** r)
-    m = (codes & (2 ** r - 1)).to(torch.float32)
-    one = torch.ones((), dtype=torch.float32, device=codes.device)
-    sgn = torch.where(((codes >> r) & 1) != 0, -one, one)
-    nrm = norm[:, None]
-    out = nrm * sgn * (m / levels)
-    return torch.where(nrm > 0, out, torch.zeros_like(out))
-
-
 def encode(comp: Optional[Compressor], stacked: PyTree,
            keys: Optional[torch.Tensor] = None
            ) -> Tuple[Payload, BitsReport]:
@@ -348,15 +336,14 @@ def decode(payload: Payload) -> PyTree:
         if spec.codec == "topk":
             entries = payload.data
         else:
-            entries = [(idx, _qr_values(
-                kops.unpack_codes(words, 1 + spec.r, cap), norm, spec.r))
-                for (idx, words, norm), cap in zip(payload.data, spec.caps)]
+            entries = [(idx, kops.unpack_qr_values(words, spec.r, cap, norm))
+                       for (idx, words, norm), cap in zip(payload.data,
+                                                          spec.caps)]
         dtype = functools.reduce(torch.promote_types,
                                  [v.dtype for _, v in entries])
         units = _scatter_units(entries, sizes, dtype)
     elif spec.codec == "qr":
-        units = [_qr_values(kops.unpack_codes(words, 1 + spec.r, n),
-                            norm, spec.r)
+        units = [kops.unpack_qr_values(words, spec.r, n, norm)
                  for (words, norm), n in zip(payload.data, sizes)]
     elif spec.codec == "int8":
         units = [q.to(torch.float32).reshape(q.shape[0], -1) * sc[:, None]

@@ -230,6 +230,29 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
     return t if t.is_contiguous() else t.contiguous()
 
 
+#: Rows of host key words a keyed kernel takes in its launch parameters
+#: (``kKeysByValue`` in ``csrc/threefry.cuh``).
+KEYS_BY_VALUE = 32
+
+
+def key_args(keys: torch.Tensor, rows: int, device: torch.device) -> tuple:
+    """``(keys, device pointer, host pointer)`` for a keyed kernel's C
+    entry (``threefry_keys`` in ``csrc/threefry.cuh``).  ``keys`` is the
+    ``(rows, 2)`` int64 key data holding uint32 words.  Up to
+    ``KEYS_BY_VALUE`` rows on the host go by host pointer and travel in the
+    launch's parameters, so the call is one device operation; more rows, or
+    keys elsewhere, take one copy to ``device``.  The returned tensor must
+    outlive the launch."""
+    if keys.dtype != torch.int64 or tuple(keys.shape) != (rows, 2):
+        raise ValueError(f"keys must be int64 ({rows}, 2) key data, got "
+                         f"{keys.dtype} {tuple(keys.shape)}")
+    if keys.device.type == "cpu" and rows <= KEYS_BY_VALUE:
+        keys = keys.contiguous()
+        return keys, None, keys.data_ptr()
+    keys = keys.to(device).contiguous()
+    return keys, keys.data_ptr(), None
+
+
 def stream_ptr() -> int:
     """The current device's current CUDA stream, as a raw handle.  (The
     raw getter takes about 0.1 us where ``torch.cuda.current_stream()``,

@@ -9,20 +9,45 @@
 // Input is row-batched: (rows, n) codes or (rows, ceil(n/32) * b) words,
 // one row per client's leaf, uint32 bit patterns in int32 containers.
 //
-// The TPU kernel shifted, masked and summed (8, 128) blocks on the vector
-// unit.  Here one warp owns one group of 32 codes: lane l holds code 32j+l,
-// and for each bit plane t, __ballot_sync(full, (c >> t) & 1) is exactly
-// word j*b + t.  Lane t keeps plane t, so the b words of a group leave as
-// one coalesced store.  Unpacking inverts it: lanes t < b load the group's
-// b words once, and each plane is broadcast with __shfl_sync; lane l
-// gathers bit l of every plane.  Lanes past n hold code 0, which is the
-// reference's zero padding.
+// K8: one warp owns one group of 32 codes: lane l holds code 32j+l, and for
+// each bit plane t, __ballot_sync(full, (c >> t) & 1) is exactly word
+// j*b + t.  Lane t keeps plane t, so the b words of a group leave as one
+// coalesced store.  Lanes past n hold code 0, the reference's zero padding.
+//
+// K9 has two entries built from one kernel template, unpack_tiles:
+//   * unpack_codes writes the codes (the JAX function's counterpart);
+//   * unpack_qr_values writes, for b = 1 + r, the Q_r values the codes
+//     stand for, norm[row] * sgn * (m / 2^r) where norm[row] > 0 and +0
+//     elsewhere (m = code & (2^r - 1), sgn = -1 where bit r is set): the
+//     `qr` and `topk_qr` codecs' decode in one launch, so the codes never
+//     reach device memory.  The product is the plain chain's single
+//     rounding (m / 2^r is exact), and a sign bit over level 0 gives -0.0.
+// Layout: a tile is 1024 codes (32 groups), one a block at a time; warp w
+// owns the 128-code span w of the tile, and lane l codes 4l..4l+3 of it,
+// which are bits 4(l%8)..4(l%8)+3 of each of group 4w + l/8's b words.
+// The block is persistent over its row's tiles (grid: (tiles a row, at
+// most what one wave holds, rows): no division).  A lane reads its group's
+// b words straight from global memory: b independent 4-byte loads (a
+// warp's load of plane t touches its four groups' word t; L1 serves the
+// lanes that share a group), all in flight at once, for 8 blocks x 256
+// lanes an SM; a barrier a tile keeps a block's warps on one tile.
+// (Staging the tiles into shared memory with cp.async measured no faster
+// at (4, 2^24) and slower at the main shape: PERF.md,
+// tools/k7_k9_ablation.py.)  A lane turns the nibble of plane t into its
+// four codes' bit t with one multiply (nib * (0x204081 << s) &
+// (0x01010101 << s) puts nibble bit e at byte e, bit s = t % 8), ORs it
+// into the byte-sliced accumulator t / 8, and four byte permutes a code
+// make the codes; they leave as one 16-byte store a lane where the row
+// allows (n % 4 == 0 and a 16-byte aligned output), else as 4-byte
+// stores.
 //
 // Bound on an H100 SXM (3.35 TB/s): K8 reads 4n bytes and writes
-// 4 * ceil(n/32) * b; K9 the reverse.  At the main path's sizes (5 clients
-// x 50176 codes, 9 bits: 1 MB of codes, 282 KB of words) launch latency is
-// the floor.  Fusing the unpack with the decode's value mapping and
-// scatter is later work.
+// 4 * ceil(n/32) * b; K9 the reverse (both entries write 4n).  At (4, 2^24),
+// b = 9 that is 0.10267 ms, the stores 78% of it; the decode is ~4 integer
+// operations a plane for four codes, 0.036 ms of the ALU pipe at b = 9.  At
+// the main path's sizes (5 clients x 50176 codes) launch latency is the
+// floor.  PERF.md has the times on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, tools/k7_k9_ablation.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,8 +56,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr long long kMaxBlocks = 132 * 16;
+constexpr int kSms = 132;                         // H100 SXM
+constexpr long long kMaxBlocks = kSms * 16;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// K9's tiles
+constexpr int kTileCodes = 1024;                  // kWarps spans of 128
+constexpr int kTileGroups = kTileCodes / 32;
+constexpr int kUnpackBlocksPerSm = 8;
 
 // One warp per group; groups = rows * n32, walked warp-strided.
 __global__ void pack_planes(const uint32_t* __restrict__ codes, long long n,
@@ -55,23 +86,77 @@ __global__ void pack_planes(const uint32_t* __restrict__ codes, long long n,
   }
 }
 
-__global__ void unpack_planes(const uint32_t* __restrict__ words, long long n,
-                              long long n32, int b, long long groups,
-                              uint32_t* __restrict__ codes) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long g = warp; g < groups; g += stride) {
-    const long long row = g / n32;
-    const long long j = g - row * n32;
-    const uint32_t mine = lane < b ? words[g * b + lane] : 0u;
-    uint32_t c = 0u;
-    for (int t = 0; t < b; ++t) {
-      const uint32_t plane = __shfl_sync(kFull, mine, t);
-      c |= ((plane >> lane) & 1u) << t;
+// grid: (blocks a row, rows); block: kThreads.  Block x of row y decodes
+// tiles x, x + gridDim.x, ... of the row.  kValues: out is float32 Q_r
+// values at r = b - 1 against norm[row]; else uint32 codes.  kVec: n % 4
+// == 0 and out is 16-byte aligned, so each lane's four outputs leave as
+// one 16-byte store.
+template <bool kValues, bool kVec>
+__global__ void __launch_bounds__(kThreads, kUnpackBlocksPerSm)
+unpack_tiles(const uint32_t* __restrict__ words, long long n, long long n32, int b,
+             int tiles, const float* __restrict__ norm, void* __restrict__ out) {
+  const long long row = blockIdx.y;
+  const uint32_t* wrow = words + row * n32 * b;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = 4 * warp + (lane >> 3);          // the lane's group in the tile
+  const int shift = 4 * (lane & 7);               // its nibble in each word
+  float nr = 0.0f, ns = 0.0f, scale = 0.0f;
+  uint32_t mag = 0u;
+  if (kValues) {
+    const int r = b - 1;
+    nr = norm[row];
+    ns = -nr;
+    scale = __uint_as_float((uint32_t)(127 - r) << 23);   // 2^-r, exact
+    mag = (1u << r) - 1u;
+  }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // Keeps the block's warps on one tile, so its 4 KB of output leave
+    // together (measured faster at (4, 2^24): tools/k7_k9_ablation.py).
+    __syncthreads();
+    const long long e0 = (long long)tile * kTileCodes + 128 * warp + 4 * lane;
+    if (e0 < n) {
+      const uint32_t* sw = wrow + ((long long)tile * kTileGroups + gl) * b;
+      uint32_t acc[4] = {0u, 0u, 0u, 0u};           // byte e: code e's bits 8j..
+#pragma unroll
+      for (int t = 0; t < 32; ++t) {
+        if (t >= b) break;
+        const uint32_t nib = (sw[t] >> shift) & 0xFu;
+        acc[t >> 3] |= (nib * (0x00204081u << (t & 7))) & (0x01010101u << (t & 7));
+      }
+      const uint32_t p01 = __byte_perm(acc[0], acc[1], 0x5140);
+      const uint32_t q01 = __byte_perm(acc[0], acc[1], 0x7362);
+      const uint32_t p23 = __byte_perm(acc[2], acc[3], 0x5140);
+      const uint32_t q23 = __byte_perm(acc[2], acc[3], 0x7362);
+      const uint32_t c[4] = {__byte_perm(p01, p23, 0x5410), __byte_perm(p01, p23, 0x7632),
+                             __byte_perm(q01, q23, 0x5410), __byte_perm(q01, q23, 0x7632)};
+      const long long at = row * n + e0;
+      if (kValues) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float q = __fmul_rn((c[e] >> (b - 1)) & 1u ? ns : nr,
+                                    __fmul_rn((float)(c[e] & mag), scale));
+          v[e] = nr > 0.0f ? q : 0.0f;
+        }
+        float* o = static_cast<float*>(out);
+        if (kVec) {
+          *reinterpret_cast<float4*>(o + at) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (e0 + e < n) o[at + e] = v[e];
+        }
+      } else {
+        uint32_t* o = static_cast<uint32_t*>(out);
+        if (kVec) {
+          *reinterpret_cast<uint4*>(o + at) = make_uint4(c[0], c[1], c[2], c[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (e0 + e < n) o[at + e] = c[e];
+        }
+      }
     }
-    const long long i = j * 32 + lane;
-    if (i < n) codes[row * n + i] = c;
   }
 }
 
@@ -79,6 +164,27 @@ int blocks_for(long long groups) {
   long long blocks = (groups + kWarps - 1) / kWarps;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   return blocks < 1 ? 1 : (int)blocks;
+}
+
+template <bool kValues>
+int launch_unpack(const uint32_t* words, int rows, long long n, int b, const float* norm,
+                  void* out, cudaStream_t stream) {
+  const long long n32 = (n + 31) / 32;
+  const long long tiles = (n + kTileCodes - 1) / kTileCodes;
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  // one wave: kUnpackBlocksPerSm blocks an SM over all rows, at least one a row
+  long long per_row = (long long)kSms * kUnpackBlocksPerSm / rows;
+  if (per_row < 1) per_row = 1;
+  if (per_row > tiles) per_row = tiles;
+  const dim3 grid((unsigned)per_row, (unsigned)rows);
+  const bool vec = n % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  if (vec)
+    unpack_tiles<kValues, true><<<grid, kThreads, 0, stream>>>(words, n, n32, b, (int)tiles,
+                                                               norm, out);
+  else
+    unpack_tiles<kValues, false><<<grid, kThreads, 0, stream>>>(words, n, n32, b, (int)tiles,
+                                                                norm, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -107,16 +213,20 @@ int pack_codes(const uint32_t* codes, int rows, long long n, int b, uint32_t* wo
   return 0;
 }
 
-// K9: codes (rows, n) from words (rows, ceil(n/32) * b), 1 <= b <= 32.
+// K9: codes (rows, n) from words (rows, ceil(n/32) * b), 1 <= b <= 32; words
+// 4-byte aligned.
 int unpack_codes(const uint32_t* words, int rows, long long n, int b, uint32_t* codes,
                  void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const long long n32 = (n + 31) / 32;
-  const long long groups = (long long)rows * n32;
-  unpack_planes<<<blocks_for(groups), kThreads, 0, stream>>>(words, n, n32, b, groups,
-                                                             codes);
-  RETURN_IF_ERROR();
-  return 0;
+  if (b < 1 || b > 32) return (int)cudaErrorInvalidValue;
+  return launch_unpack<false>(words, rows, n, b, nullptr, codes, (cudaStream_t)stream_ptr);
+}
+
+// K9 decoding to Q_r values: out (rows, n) float32 from words (rows,
+// ceil(n/32) * (1 + r)) and norm (rows,), 1 <= r <= 31.
+int unpack_qr_values(const uint32_t* words, int rows, long long n, int r, const float* norm,
+                     float* out, void* stream_ptr) {
+  if (r < 1 || r > 31) return (int)cudaErrorInvalidValue;
+  return launch_unpack<true>(words, rows, n, 1 + r, norm, out, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

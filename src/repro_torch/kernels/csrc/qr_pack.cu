@@ -7,15 +7,30 @@
 //       y = |x| / norm, L = 2^r), packed straight into bit-plane words:
 //       word j*b + t holds bit t of group j's 32 codes, b = 1 + r.
 //
-// Input is row-batched: x and u (rows, n) float32, one norm per row (from
-// K3, so the packed round draws the account round's levels), r <= 16.
-// The dense codes never reach device memory.
+// Input is row-batched: x (rows, n) float32, one norm per row (from K3, so
+// the packed round draws the account round's levels), r <= 16.  The dense
+// codes never reach device memory.  Two entries, one kernel template:
+//   * qr_pack_codes reads the uniforms u (rows, n), as the TPU kernel does:
+//     bit-equal to the plain version for the same norm and uniforms;
+//   * qr_pack_codes_keyed draws them itself, row i's as
+//     jax.random.uniform(key_i, (n,)) with threefry2x32 in registers
+//     (threefry.cuh), bit for bit the stream repro_torch.prng draws with
+//     torch ops.  The main path (ops.quantize_pack, the `qr` codec's
+//     encode) calls it, so a packed Q_r leaf is K3 and K7 alone.  Up to 32
+//     rows' key words ride in the launch's parameters (no copy).
 //
-// One warp owns one group of 32 scalars: lane l computes the code of
-// element 32j + l (code 0 past n, the reference's zero padding), and for
-// each bit plane t, __ballot_sync(full, (c >> t) & 1) is exactly word
-// j*b + t.  Lane t keeps plane t, so a group's b words leave as one
-// coalesced store.
+// Layout (K9's, csrc/pack_codes.cu): a block is a 1024-element tile of a
+// row (grid: (tiles, rows), no division); warp w owns the 128-element span
+// w of it, and lane l elements 4l..4l+3, loaded as one float4 where the
+// row allows (n % 4 == 0, 16-byte aligned).  Those four codes are bits
+// 4k..4k+3 (k = l % 8) of each of group 4w + l/8's b words.  For each byte
+// slice j of the codes (planes 8j..8j+7): three byte permutes gather the
+// four codes' byte j into one word A (byte e = code e's), four delta swaps
+// transpose it so that nibble s holds plane 8j+s's four bits, and three
+// butterfly steps over the group's 8 lanes (rotate, __shfl_xor_sync,
+// bitwise select) transpose the 8 x 8 nibbles, after which lane k holds
+// word t = 8j + k of its group whole and stores it if t < b.  Lanes past n
+// hold code 0, the reference's zero padding.
 //
 // This file is compiled with --fmad=false and without fast math: the code
 // must keep the reference's operation order (y = |x| / safe with an IEEE
@@ -23,51 +38,142 @@
 // saturate, OR in the sign), and an FMA in scaled - lo would change the
 // rounding's bits.
 //
-// Bound on an H100 SXM (3.35 TB/s): reads 8n bytes (x and u), writes
-// 4 * ceil(n/32) * (1+r).  At the main path's sizes (5 clients x 50176
-// floats) launch latency is the floor.  Drawing the uniforms in-kernel
-// (saving 4n bytes) is later work.
+// Bound on an H100 SXM (3.35 TB/s): reading u, 8n bytes in and 4 *
+// ceil(n/32) * (1+r) out (0.18280 ms at (4, 2^24), r = 8); keyed, 4n in,
+// the same out (0.10267 ms), and the uniform's 43 operations an element on
+// the ALU pipe (threefry.cuh, PERF.md §6) take 0.17252 ms there, so the
+// keyed entry is bound by the integer pipe, as the keyed K4 is.  The pack
+// adds ~28 integer operations a slice for four codes.  At the main path's
+// sizes (5 clients x 50176 floats) launch latency is the floor.  PERF.md
+// has the times on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+// tools/k7_k9_ablation.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr long long kMaxBlocks = 132 * 16;
+constexpr int kTile = 4 * kThreads;          // elements a block
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__global__ void qr_pack(const float* __restrict__ x, const float* __restrict__ u,
-                        const float* __restrict__ norm, long long n, long long n32,
-                        int r, float levels, long long groups,
-                        uint32_t* __restrict__ words) {
-  const int b = 1 + r;
-  const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long g = warp; g < groups; g += stride) {
-    const long long row = g / n32;
-    const long long i = (g - row * n32) * 32 + lane;
-    uint32_t c = 0u;
-    if (i < n) {
-      const float xv = x[row * n + i];
-      const float nr = norm[row];
-      const float safe = nr > 0.0f ? nr : 1.0f;
-      const float y = fabsf(xv) / safe;
+template <int kDelta>
+__device__ __forceinline__ uint32_t delta_swap(uint32_t x, uint32_t mask) {
+  const uint32_t t = (x ^ (x >> kDelta)) & mask;
+  return x ^ t ^ (t << kDelta);
+}
+
+// Bit 8e + s of a (code e's bit s of the slice) to bit 4s + e: the 5-bit
+// index rotated by two, as four swaps of index bits (1,0), (2,1), (3,0),
+// (4,1).
+__device__ __forceinline__ uint32_t bytes_to_nibbles(uint32_t a) {
+  a = delta_swap<1>(a, 0x22222222u);
+  a = delta_swap<2>(a, 0x0C0C0C0Cu);
+  a = delta_swap<7>(a, 0x00AA00AAu);
+  return delta_swap<14>(a, 0x0000CCCCu);
+}
+
+// One butterfly step of the 8 x 8 nibble transpose over a group's lanes:
+// lanes k and k ^ d swap the nibbles s with bit d of s unlike bit d of k.
+template <int kD>
+__device__ __forceinline__ uint32_t nibble_step(uint32_t x, int k) {
+  constexpr uint32_t kLow = kD == 4 ? 0x0000FFFFu : (kD == 2 ? 0x00FF00FFu : 0x0F0F0F0Fu);
+  const bool high = (k & kD) != 0;
+  const uint32_t sent = __funnelshift_l(x, x, high ? 4 * kD : 32 - 4 * kD);
+  const uint32_t got = __shfl_xor_sync(kFull, sent, kD);
+  const uint32_t keep = high ? ~kLow : kLow;
+  return (x & keep) | (got & ~keep);
+}
+
+// grid: (ceil(n / kTile), rows); block: kThreads.  kKeyed: u is drawn here,
+// jax.random.uniform(keys[row], (n,)) bit for bit; else it is read from u.
+// kVec: x (and u) are 16-byte aligned and n % 4 == 0, so they move as
+// float4.
+template <bool kKeyed, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+qr_pack_tiles(const float* __restrict__ x, const float* __restrict__ u,
+              const __grid_constant__ ThreefryKeys keys, const float* __restrict__ norm,
+              uint32_t* __restrict__ words, long long n, long long n32, int r,
+              float levels) {
+  const long long row = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, k = lane & 7;
+  const long long span = (long long)blockIdx.x * kTile + 128 * warp;
+  if (span >= n) return;                    // the whole warp: no shuffle waits
+  const long long e0 = span + 4 * lane;
+  const long long at = row * n + e0;
+  float xv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, uv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (e0 < n) {
+    if (kVec) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(x + at));
+      xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xv[e] = e0 + e < n ? __ldg(x + at + e) : 0.0f;
+    }
+    if (kKeyed) {
+      const ThreefrySchedule ks = threefry_row_schedule(keys, row);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) uv[e] = threefry_uniform(ks, (uint32_t)(e0 + e));
+    } else if (kVec) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(u + at));
+      uv[0] = v.x; uv[1] = v.y; uv[2] = v.z; uv[3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) uv[e] = e0 + e < n ? __ldg(u + at + e) : 0.0f;
+    }
+  }
+  const float nr = norm[row];
+  const float safe = nr > 0.0f ? nr : 1.0f;
+  uint32_t c[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    c[e] = 0u;
+    if (e0 + e < n) {
+      const float y = fabsf(xv[e]) / safe;
       const float scaled = levels * y;
       const float lo = floorf(scaled);
-      float level = lo + (u[row * n + i] < scaled - lo ? 1.0f : 0.0f);
+      float level = lo + (uv[e] < scaled - lo ? 1.0f : 0.0f);
       level = fminf(level, levels - 1.0f);  // saturate the top level 2^r
-      c = (uint32_t)level | (xv < 0.0f ? (1u << r) : 0u);
+      c[e] = (uint32_t)level | (xv[e] < 0.0f ? (1u << r) : 0u);
     }
-    uint32_t mine = 0u;
-    for (int t = 0; t < b; ++t) {
-      const uint32_t plane = __ballot_sync(kFull, (c >> t) & 1u);
-      if (lane == t) mine = plane;
-    }
-    if (lane < b) words[g * b + lane] = mine;
   }
+  const int b = 1 + r;
+  const long long group = (span >> 5) + (lane >> 3);
+  uint32_t* wg = words + row * n32 * b + group * b;
+  const bool stores = group < n32;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {              // b <= 17: three byte slices
+    if (8 * j >= b) break;
+    const unsigned sel = (unsigned)j | ((unsigned)(4 + j) << 4);
+    uint32_t a = __byte_perm(__byte_perm(c[0], c[1], sel), __byte_perm(c[2], c[3], sel),
+                             0x5410);
+    a = bytes_to_nibbles(a);
+    a = nibble_step<4>(a, k);
+    a = nibble_step<2>(a, k);
+    a = nibble_step<1>(a, k);
+    if (stores && 8 * j + k < b) wg[8 * j + k] = a;
+  }
+}
+
+template <bool kKeyed>
+int launch_pack(const float* x, const float* u, const ThreefryKeys& keys, const float* norm,
+                uint32_t* words, int rows, long long n, int r, cudaStream_t stream) {
+  const long long tiles = (n + kTile - 1) / kTile;
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)rows);
+  const long long n32 = (n + 31) / 32;
+  const float levels = (float)(1u << r);
+  const bool vec = n % 4 == 0 && ((uintptr_t)x & 15) == 0 &&
+                   (kKeyed || ((uintptr_t)u & 15) == 0);
+  if (vec)
+    qr_pack_tiles<kKeyed, true><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, words, n,
+                                                               n32, r, levels);
+  else
+    qr_pack_tiles<kKeyed, false><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, words, n,
+                                                                n32, r, levels);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -78,19 +184,27 @@ const char* qr_pack_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// K7: words (rows, ceil(n/32) * (1+r)) from x, u (rows, n) and norm (rows,).
+// K7 reading its uniforms: words (rows, ceil(n/32) * (1+r)) from x, u
+// (rows, n) and norm (rows,), 1 <= r <= 16.
 int qr_pack_codes(const float* x, const float* u, const float* norm, int rows,
                   long long n, int r, uint32_t* words, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const long long n32 = (n + 31) / 32;
-  const long long groups = (long long)rows * n32;
-  long long blocks = (groups + kWarps - 1) / kWarps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;
-  qr_pack<<<(unsigned int)blocks, kThreads, 0, stream>>>(
-      x, u, norm, n, n32, r, (float)(1u << r), groups, words);
-  cudaError_t err = cudaGetLastError();
-  return err == cudaSuccess ? 0 : (int)err;
+  if (r < 1 || r > 16) return (int)cudaErrorInvalidValue;
+  const ThreefryKeys none = {};
+  return launch_pack<false>(x, u, none, norm, words, rows, n, r, (cudaStream_t)stream_ptr);
+}
+
+// K7 drawing its uniforms: row i's are jax.random.uniform(key_i, (n,)), n <
+// 2^32, key_i = (keys[2 i], keys[2 i + 1]) (int64 holding uint32).  keys_dev
+// is the (rows, 2) key data on the device; when it is null, keys_host holds
+// them on the host (rows <= 32) and they travel in the launch's
+// parameters.
+int qr_pack_codes_keyed(const float* x, const long long* keys_dev, const long long* keys_host,
+                        const float* norm, int rows, long long n, int r, uint32_t* words,
+                        void* stream_ptr) {
+  if (r < 1 || r > 16 || n >= (1LL << 32)) return (int)cudaErrorInvalidValue;
+  ThreefryKeys keys;
+  if (!threefry_keys(keys_dev, keys_host, rows, keys)) return (int)cudaErrorInvalidValue;
+  return launch_pack<true>(x, nullptr, keys, norm, words, rows, n, r, (cudaStream_t)stream_ptr);
 }
 
 }  // extern "C"

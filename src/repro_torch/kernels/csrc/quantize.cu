@@ -114,15 +114,6 @@ __global__ void sumsq_norm(const float* __restrict__ x, long long n, int vec4,
   }
 }
 
-// Where K4's key words come from: a (rows, 2) int64 tensor on the device
-// (`dev`), or, when `dev` is null, these words, passed by value in the
-// launch's parameters (rows <= kKeysByValue).
-constexpr int kKeysByValue = 32;
-struct QrKeys {
-  const long long* dev;
-  uint32_t word[2 * kKeysByValue];
-};
-
 // grid: (ceil(n / (4 kThreads)), rows); block: kThreads.  Thread t of
 // block b holds elements 4 (b kThreads + t) + 0..3 of row blockIdx.y.
 // kKeyed: u is drawn here, jax.random.uniform(keys[row], (n,)) bit for
@@ -131,7 +122,7 @@ struct QrKeys {
 template <bool kKeyed, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 qr_round(const float* __restrict__ x, const float* __restrict__ u,
-         const __grid_constant__ QrKeys keys, const float* __restrict__ norm,
+         const __grid_constant__ ThreefryKeys keys, const float* __restrict__ norm,
          float* __restrict__ out, long long n, float levels) {
   const long long row = blockIdx.y;
   const long long e0 = 4LL * ((long long)blockIdx.x * kThreads + threadIdx.x);
@@ -146,9 +137,7 @@ qr_round(const float* __restrict__ x, const float* __restrict__ u,
     for (int e = 0; e < 4; ++e) xv[e] = e0 + e < n ? __ldg(x + at + e) : 0.0f;
   }
   if (kKeyed) {
-    const uint32_t k0 = keys.dev ? (uint32_t)keys.dev[2 * row] : keys.word[2 * row];
-    const uint32_t k1 = keys.dev ? (uint32_t)keys.dev[2 * row + 1] : keys.word[2 * row + 1];
-    const ThreefrySchedule ks = threefry_schedule(k0, k1);
+    const ThreefrySchedule ks = threefry_row_schedule(keys, row);
 #pragma unroll
     for (int e = 0; e < 4; ++e) uv[e] = threefry_uniform(ks, (uint32_t)(e0 + e));
   } else if (kVec) {
@@ -183,7 +172,7 @@ qr_round(const float* __restrict__ x, const float* __restrict__ u,
 }
 
 template <bool kKeyed>
-int launch_round(const float* x, const float* u, const QrKeys& keys, const float* norm,
+int launch_round(const float* x, const float* u, const ThreefryKeys& keys, const float* norm,
                  float* out, int rows, long long n, float levels, cudaStream_t stream) {
   const dim3 grid((unsigned)((n + 4LL * kThreads - 1) / (4LL * kThreads)), (unsigned)rows);
   const bool vec = n % 4 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)out & 15) == 0 &&
@@ -230,7 +219,7 @@ int qr_l2_norm(const float* x, int rows, long long n, float* partial,
 // (rows, n) and levels = 2^r.
 int qr_quantize(const float* x, const float* u, const float* norm, float* out, int rows,
                 long long n, float levels, void* stream_ptr) {
-  QrKeys none = {};
+  const ThreefryKeys none = {};
   return launch_round<false>(x, u, none, norm, out, rows, n, levels,
                              (cudaStream_t)stream_ptr);
 }
@@ -244,12 +233,8 @@ int qr_quantize_keyed(const float* x, const long long* keys_dev, const long long
                       const float* norm, float* out, int rows, long long n, float levels,
                       void* stream_ptr) {
   if (n >= (1LL << 32)) return (int)cudaErrorInvalidValue;
-  QrKeys keys = {};
-  keys.dev = keys_dev;
-  if (keys_dev == nullptr) {
-    if (rows > kKeysByValue || keys_host == nullptr) return (int)cudaErrorInvalidValue;
-    for (int i = 0; i < 2 * rows; ++i) keys.word[i] = (uint32_t)keys_host[i];
-  }
+  ThreefryKeys keys;
+  if (!threefry_keys(keys_dev, keys_host, rows, keys)) return (int)cudaErrorInvalidValue;
   return launch_round<true>(x, nullptr, keys, norm, out, rows, n, levels,
                             (cudaStream_t)stream_ptr);
 }

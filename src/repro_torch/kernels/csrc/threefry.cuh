@@ -1,4 +1,5 @@
-// jax's threefry2x32 counter hash and its uniform draw, in registers.
+// jax's threefry2x32 counter hash and its uniform draw, in registers, and
+// the key words a keyed kernel (K4's and K7's keyed entries) takes.
 //
 // jax.random.uniform(key, (n,)) in jax's partitionable threefry mode (the
 // default since jax 0.5) is, for element i < 2^32:
@@ -66,4 +67,36 @@ __device__ __forceinline__ float threefry_uniform(const ThreefrySchedule& s, uin
   uint32_t hi, lo;
   threefry2x32(s, 0u, i, hi, lo);
   return __uint_as_float(((hi ^ lo) >> 9) | 0x3F800000u) - 1.0f;
+}
+
+// Where a keyed kernel's key words come from: a (rows, 2) int64 tensor on
+// the device (`dev`), or, when `dev` is null, these words, passed by value
+// in the launch's parameters (rows <= kKeysByValue; build.KEYS_BY_VALUE on
+// the Python side).  A kernel takes it as a __grid_constant__ parameter.
+constexpr int kKeysByValue = 32;
+struct ThreefryKeys {
+  const long long* dev;
+  uint32_t word[2 * kKeysByValue];
+};
+
+// The keys of a C entry's arguments: key_i = (keys[2 i], keys[2 i + 1])
+// (int64 holding uint32) of keys_dev on the device or, when it is null, of
+// keys_host on the host, copied into the launch's parameters.  False where
+// neither can serve (host keys of more than kKeysByValue rows, or none).
+inline bool threefry_keys(const long long* keys_dev, const long long* keys_host, int rows,
+                          ThreefryKeys& keys) {
+  keys = {};
+  keys.dev = keys_dev;
+  if (keys_dev != nullptr) return true;
+  if (rows > kKeysByValue || keys_host == nullptr) return false;
+  for (int i = 0; i < 2 * rows; ++i) keys.word[i] = (uint32_t)keys_host[i];
+  return true;
+}
+
+// Row `row`'s key schedule.
+__device__ __forceinline__ ThreefrySchedule threefry_row_schedule(const ThreefryKeys& keys,
+                                                                  long long row) {
+  const uint32_t k0 = keys.dev ? (uint32_t)keys.dev[2 * row] : keys.word[2 * row];
+  const uint32_t k1 = keys.dev ? (uint32_t)keys.dev[2 * row + 1] : keys.word[2 * row + 1];
+  return threefry_schedule(k0, k1);
 }

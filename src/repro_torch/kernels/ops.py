@@ -59,11 +59,12 @@ def quantize_pack(x: torch.Tensor, r: int, keys: torch.Tensor):
     """Q_r quantize + bit-plane pack, the ``qr`` codec's encode (K3 norm +
     K7 codes).  Returns ``(words, norm)``: each row's (1+r)-bit codes in
     ``ceil(n/32) * (1+r)`` words and its l2 norm.  Uniforms and norm are
-    those :func:`quantize_qr` uses, so the decode equals the transform
-    except where a code saturates at ``2**r - 1``."""
-    u = prng.uniform(keys, x.shape[-1], device=x.device)
+    those :func:`quantize_qr` uses (K7 draws the uniforms in the kernel; on
+    the CPU, :func:`prng.uniform` draws them for the plain version), so the
+    decode equals the transform except where a code saturates at
+    ``2**r - 1``."""
     norm = _quant.l2_norm(x)
-    return _qr_pack.quantize_pack_with_uniforms(x, r, u, norm), norm
+    return _qr_pack.quantize_pack_keyed(x, r, keys, norm), norm
 
 
 def topk_qr_slots(x: torch.Tensor, k: int, cap: int, r: int,
@@ -95,6 +96,14 @@ def pack_codes(codes: torch.Tensor, b: int) -> torch.Tensor:
 def unpack_codes(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
     """Inverse of :func:`pack_codes`: each row's ``n`` b-bit codes (K9)."""
     return _pack.unpack_codes(words, b, n)
+
+
+def unpack_qr_values(words: torch.Tensor, r: int, n: int,
+                     norm: torch.Tensor) -> torch.Tensor:
+    """Each row's ``n`` (1+r)-bit codes decoded to float32 Q_r values
+    against ``norm[row]`` (K9's values entry, one launch), the ``qr`` and
+    ``topk_qr`` codecs' decode."""
+    return _pack.unpack_qr_values(words, r, n, norm)
 
 
 def rglru_scan(x: torch.Tensor, a: torch.Tensor):

@@ -1,13 +1,16 @@
 """Bit-plane pack (K8) and unpack (K9) of b-bit codes: wrappers and plain
 versions.
 
-The port of ``repro.kernels.pack_codes``.  Both functions take
+The port of ``repro.kernels.pack_codes``.  The functions take
 row-batched input (one row per client's leaf) and dispatch by the
 tensor's device: a CPU tensor runs the plain version in
 :mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
 kernel in ``csrc/pack_codes.cu`` or raises.  Codes and words are uint32
 bit patterns in int32 containers.  Layout: word ``j*b + t`` holds bit
-``t`` of group ``j``'s 32 codes.
+``t`` of group ``j``'s 32 codes.  K9 has two entries: :func:`unpack_codes`
+(the JAX function's counterpart) and :func:`unpack_qr_values`, which
+decodes the words straight to the Q_r values they stand for (the ``qr``
+and ``topk_qr`` codecs' decode) in the same launch.
 
 ``LAUNCHES`` counts kernel launches per wrapper; only the CUDA path adds
 to it, so a CPU run leaves it at 0.
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"pack_codes": 0, "unpack_codes": 0}
+LAUNCHES = {"pack_codes": 0, "unpack_codes": 0, "unpack_qr_values": 0}
 
 _P = ctypes.c_void_p
 
@@ -30,6 +33,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     for fn in (lib.pack_codes, lib.unpack_codes):
         fn.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P, _P]
         fn.restype = ctypes.c_int
+    lib.unpack_qr_values.argtypes = [_P, ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_int, _P, _P, _P]
+    lib.unpack_qr_values.restype = ctypes.c_int
     lib.pack_error_string.argtypes = [ctypes.c_int]
     lib.pack_error_string.restype = ctypes.c_char_p
 
@@ -57,16 +63,21 @@ def pack_codes(codes: torch.Tensor, b: int) -> torch.Tensor:
     return words
 
 
+def _cuda_words(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
+    w = build.cuda_codes(words)
+    if w.shape[1] != -(-n // 32) * b:
+        raise ValueError(f"expected {-(-n // 32) * b} words for n={n}, b={b}, "
+                         f"got {w.shape[1]}")
+    return w
+
+
 def unpack_codes(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
     """K9: each row's ``n`` b-bit codes from its ``ceil(n/32) * b`` words."""
     if build.on_cpu(words):
         return ref.unpack_codes(words, b, n)
     b, n = ref.check_width(b), int(n)
-    w = build.cuda_codes(words)
+    w = _cuda_words(words, b, n)
     rows = w.shape[0]
-    if w.shape[1] != -(-n // 32) * b:
-        raise ValueError(f"expected {-(-n // 32) * b} words for n={n}, b={b}, "
-                         f"got {w.shape[1]}")
     codes = torch.empty((rows, n), dtype=torch.int32, device=w.device)
     if n == 0:
         return codes
@@ -76,3 +87,28 @@ def unpack_codes(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
     build.check(code, "unpack_codes", lib, "pack_error_string")
     LAUNCHES["unpack_codes"] += 1
     return codes
+
+
+def unpack_qr_values(words: torch.Tensor, r: int, n: int,
+                     norm: torch.Tensor) -> torch.Tensor:
+    """K9 decoding to Q_r values: each row's ``n`` (1+r)-bit codes from its
+    ``ceil(n/32) * (1+r)`` words, as the float32 values
+    ``ref.qr_values(codes, norm, r)`` gives, in one launch (the codes stay
+    in registers)."""
+    if build.on_cpu(words):
+        return ref.qr_values(ref.unpack_codes(words, 1 + int(r), n), norm, r)
+    r, n = int(r), int(n)
+    if not 1 <= r <= 31:
+        raise ValueError(f"r must be in [1, 31], got {r}")
+    w = _cuda_words(words, 1 + r, n)
+    rows = w.shape[0]
+    norm = build.expect(norm, "norm", torch.float32, (rows,), w.device)
+    out = torch.empty((rows, n), dtype=torch.float32, device=w.device)
+    if n == 0:
+        return out
+    lib = _lib()
+    code = lib.unpack_qr_values(build.ptr(w), rows, n, r, build.ptr(norm),
+                                build.ptr(out), build.stream_ptr())
+    build.check(code, "unpack_qr_values", lib, "pack_error_string")
+    LAUNCHES["unpack_qr_values"] += 1
+    return out

@@ -36,8 +36,6 @@ _NORM_SCRATCH: dict = {}
 _NORM_CHUNK = 8192        # elements a K3 block, about
 _NORM_MAX_PARTS = 512     # K3 blocks a row, at most (csrc/quantize.cu)
 _NORM_MAX_BLOCKS = 132 * 16
-# rows whose key words K4 takes in its launch parameters (csrc/quantize.cu)
-_KEYS_BY_VALUE = 32
 
 _P = ctypes.c_void_p
 
@@ -138,7 +136,7 @@ def quantize_qr_keyed(x: torch.Tensor, r: int, keys: torch.Tensor,
     dtype.  ``keys`` is the ``(rows, 2)`` int64 key data holding uint32
     words, on the host or on x's device.
 
-    Up to ``_KEYS_BY_VALUE`` rows of host keys travel in the launch's
+    Up to ``build.KEYS_BY_VALUE`` rows of host keys travel in the launch's
     parameters, so the call is one device operation; more rows, or keys
     elsewhere, take one copy to x's device."""
     if build.on_cpu(x):
@@ -151,20 +149,12 @@ def quantize_qr_keyed(x: torch.Tensor, r: int, keys: torch.Tensor,
         raise ValueError(f"r must be in [1, 126], got {r}")
     if n >= 2 ** 32:
         raise ValueError(f"n must be below 2**32, got {n}")
-    if keys.dtype != torch.int64 or tuple(keys.shape) != (rows, 2):
-        raise ValueError(f"keys must be int64 ({rows}, 2) key data, got "
-                         f"{keys.dtype} {tuple(keys.shape)}")
     norm = build.expect(norm, "norm", torch.float32, (rows,), xf.device)
     out = torch.empty_like(xf)
     if n == 0:
         return out.to(x.dtype)
     lib = _lib()
-    if keys.device.type == "cpu" and rows <= _KEYS_BY_VALUE:
-        keys = keys.contiguous()
-        dev_ptr, host_ptr = None, keys.data_ptr()
-    else:
-        keys = keys.to(xf.device).contiguous()
-        dev_ptr, host_ptr = keys.data_ptr(), None
+    keys, dev_ptr, host_ptr = build.key_args(keys, rows, xf.device)
     code = lib.qr_quantize_keyed(xf.data_ptr(), dev_ptr, host_ptr,
                                  norm.data_ptr(), out.data_ptr(), rows, n,
                                  float(2 ** r), build.stream_ptr())

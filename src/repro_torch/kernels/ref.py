@@ -276,6 +276,21 @@ def unpack_codes(words: torch.Tensor, b: int, n: int) -> torch.Tensor:
     return to_i32(codes.reshape(rows, n32 * 32)[:, :n])
 
 
+def qr_values(codes: torch.Tensor, norm: torch.Tensor, r: int) -> torch.Tensor:
+    """The plain version of K9's values entry: each row's (1+r)-bit codes
+    as float32 values against the row's norm, in the transform's operation
+    order (``repro.compress.wire._qr_values``): ``norm * sgn * (m / 2**r)``
+    where ``norm > 0``, else 0.  A sign bit over level 0 gives -0.0."""
+    r = int(r)
+    levels = float(2 ** r)
+    m = (codes & (2 ** r - 1)).to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=codes.device)
+    sgn = torch.where(((codes >> r) & 1) != 0, -one, one)
+    nrm = norm[:, None]
+    out = nrm * sgn * (m / levels)
+    return torch.where(nrm > 0, out, torch.zeros_like(out))
+
+
 def quantize_pack_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
                                 norm: torch.Tensor) -> torch.Tensor:
     """K7's plain version: Q_r codes straight to bit-plane words,

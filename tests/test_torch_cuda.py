@@ -5,9 +5,10 @@ the port only (no JAX), so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1, K2 (alone and in K1's launch, ``threshold_mask``), K4 (reading its
-uniforms, and drawing them with threefry against the torch draw), K5, K6,
-K7, K8, K9 and K11 must be bit-equal to the plain versions; K3 within rtol
+K1, K2 (alone and in K1's launch, ``threshold_mask``), K4 and K7 (reading
+their uniforms, and drawing them with threefry against the torch draw),
+K5, K6, K8, K9 (codes, and decoded to Q_r values) and K11 must be
+bit-equal to the plain versions; K3 within rtol
 1e-5 (float32 sums in another order) and bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
 update keeps the plain version's operation order) and y within
 ``WKV6_YTOL`` of max |y| in float32 (64-term sums in another order), plus
@@ -314,6 +315,146 @@ def test_pack_unpack_match_plain_and_invert(cuda_device, rows, n, b):
     assert torch.equal(back, codes)
 
 
+def _keyed_pack_plain(x, r, keys, norm):
+    """The plain chain the keyed K7 replaces: the torch threefry draw, then
+    the plain K7."""
+    from repro_torch import prng
+    u = prng.uniform(keys, x.shape[1], device=x.device)
+    return ref.quantize_pack_with_uniforms(x, r, u, norm)
+
+
+@pytest.mark.parametrize("rows,n,r", [
+    (5, 1, 8), (3, 1001, 4), (5, 50176, 8), (2, (1 << 24) + 3, 8),
+    (3, 4096, 1), (3, 1002, 16), (4, 130, 16)])
+def test_quantize_pack_keyed_matches_plain_chain(cuda_device, rows, n, r):
+    """K7 drawing its uniforms: bit-equal to prng.uniform + the plain K7,
+    with key words at and above 2^31, a zero row (norm 0), a saturating
+    entry, n = 1, n not a multiple of 4 or 32 and past 2^24."""
+    x = _rows(rows, n, cuda_device, n + r)
+    x[-1] = 0.0                                  # norm 0 -> all codes 0
+    x[0, n // 2] = 1e6                           # saturates the top level
+    keys = _keys(rows, n + r)
+    norm = quant.l2_norm(x)
+    words = qr_pack.quantize_pack_keyed(x, r, keys, norm)
+    assert torch.equal(words, _keyed_pack_plain(x, r, keys, norm))
+
+
+def test_quantize_pack_keyed_device_keys_many_rows_and_offsets(cuda_device):
+    """Keys already on the card, 40 rows (past the 32 whose keys ride in the
+    launch: one copy), bf16 rows, and a row view that is not 16-byte
+    aligned (the scalar path): bit-equal to the plain chain; the memory
+    entry fed the keyed entry's uniforms gives the same words."""
+    from repro_torch import prng
+    x = _rows(40, 1000, cuda_device, 2)
+    norm = quant.l2_norm(x)
+    for k in (_keys(40, 2), _keys(40, 3).to(cuda_device)):
+        assert torch.equal(qr_pack.quantize_pack_keyed(x, 8, k, norm),
+                           _keyed_pack_plain(x, 8, k.cpu(), norm))
+    x = _rows(5, 4096, cuda_device, 1).to(torch.bfloat16)
+    keys = _keys(5, 1)
+    norm = quant.l2_norm(x)
+    assert torch.equal(qr_pack.quantize_pack_keyed(x, 4, keys, norm),
+                       _keyed_pack_plain(x, 4, keys, norm))
+    big = _rows(3, 1001, cuda_device, 3)
+    x = big[:, 1:]                               # rows 4 bytes off alignment
+    norm = quant.l2_norm(x)
+    keys = _keys(3, 4)
+    u = prng.uniform(keys, 1000, device=cuda_device)
+    words = qr_pack.quantize_pack_keyed(x, 8, keys, norm)
+    assert torch.equal(words, _keyed_pack_plain(x.contiguous(), 8, keys, norm))
+    assert torch.equal(words, qr_pack.quantize_pack_with_uniforms(
+        x, 8, u, norm))
+
+
+def _value_rows(rows, n, r, device, seed):
+    """(rows, n) (1+r)-bit codes with every sign over level 0 and the top
+    level in row 0's head, packed; norms positive, 0 and NaN."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    codes = torch.randint(0, 1 << (1 + r), (rows, n), generator=gen,
+                          device=device, dtype=torch.int64)
+    head = torch.tensor([0, 1 << r, 1, (1 << r) | 1, (1 << r) - 1,
+                         (2 << r) - 1], dtype=torch.int64, device=device)
+    m = min(n, head.numel())
+    codes[0, :m] = head[:m]
+    codes = ref.to_i32(codes)
+    norm = torch.rand(rows, generator=gen, device=device) + 0.5
+    if rows > 1:
+        norm[1] = 0.0
+    if rows > 2:
+        norm[2] = float("nan")
+    return pack.pack_codes(codes, 1 + r), norm
+
+
+@pytest.mark.parametrize("rows,n,r", [
+    (5, 50176, 8), (5, 10, 8), (3, 1, 4), (3, 1001, 1), (3, 4096, 16),
+    (2, 33, 31), (3, 2083, 4), (4, 1 << 24, 8)])
+def test_unpack_qr_values_matches_plain(cuda_device, rows, n, r):
+    """K9 decoding to values: bit-equal to the plain chain (K9's plain
+    version, then ``ref.qr_values``), -0.0 included, on n = 1, ragged n,
+    r = 1 to 31 and a long row; +0.0 where the norm is 0 or NaN."""
+    words, norm = _value_rows(rows, n, r, cuda_device, n + r)
+    got = pack.unpack_qr_values(words, r, n, norm)
+    want = ref.qr_values(ref.unpack_codes(words, 1 + r, n), norm, r)
+    assert got.dtype == torch.float32 and _same_bits(got, want)
+    if n > 1:
+        assert torch.signbit(got[0, 1]) and got[0, 1] == 0
+    if rows > 2:
+        assert not torch.signbit(got[1:3]).any() and not got[1:3].any()
+
+
+def test_unpack_entries_take_misaligned_words(cuda_device):
+    """Word rows that start off a 16-byte boundary (a view one word in, and
+    n32 * b not a multiple of 4): both K9 entries stay bit-equal to their
+    plain versions."""
+    words, norm = _value_rows(3, 2083, 8, cuda_device, 5)
+    assert words.shape[1] % 4 == 2               # rows 8 bytes apart from 16
+    want_codes = ref.unpack_codes(words, 9, 2083)
+    want = ref.qr_values(want_codes, norm, 8)
+    for lead in (1, 2, 3):
+        buf = torch.zeros(words.numel() + lead, dtype=torch.int32,
+                          device=cuda_device)
+        buf[lead:] = words.reshape(-1)
+        w = buf[lead:].view(words.shape)         # contiguous, `lead` words in
+        assert torch.equal(pack.unpack_codes(w, 9, 2083), want_codes)
+        assert _same_bits(pack.unpack_qr_values(w, 8, 2083, norm), want)
+
+
+@pytest.mark.parametrize("n", [10, 50176, 1 << 24])
+def test_k7_k9_entries_are_one_kernel_a_call(cuda_device, n):
+    """The keyed K7 (host keys of 5 rows ride in the launch), both K9
+    entries and ``ops.unpack_qr_values`` run one kernel on the card a call;
+    ``ops.quantize_pack`` two (K3, keyed K7)."""
+    rows = 5 if n != 1 << 24 else 4
+    x = _rows(rows, n, cuda_device, n)
+    keys = _keys(rows, n)
+    norm = quant.l2_norm(x)
+    words = qr_pack.quantize_pack_keyed(x, 8, keys, norm)
+    for fn in (lambda: qr_pack.quantize_pack_keyed(x, 8, keys, norm),
+               lambda: pack.unpack_codes(words, 9, n),
+               lambda: pack.unpack_qr_values(words, 8, n, norm),
+               lambda: ops.unpack_qr_values(words, 8, n, norm)):
+        names = _device_ops(fn)
+        assert len(names) == 1, names
+    assert len(_device_ops(lambda: ops.quantize_pack(x, 8, keys))) == 2
+
+
+def test_ops_quantize_pack_draws_no_torch_uniforms(cuda_device, monkeypatch):
+    """On a CUDA tensor ``ops.quantize_pack`` is K3 and the keyed K7, calls
+    no ``prng.uniform``, and gives the plain chain's words and norm."""
+    from repro_torch import prng
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("prng.uniform called on the CUDA path")
+
+    x = _rows(5, 50176, cuda_device, 7)
+    keys = _keys(5, 7, high=False)
+    norm = quant.l2_norm(x)
+    want = _keyed_pack_plain(x, 8, keys, norm)
+    monkeypatch.setattr(prng, "uniform", refuse)
+    words, got_norm = ops.quantize_pack(x, 8, keys)
+    assert torch.equal(words, want) and torch.equal(got_norm, norm)
+
+
 @pytest.mark.parametrize("rows,n,k,cap,r", [
     (5, 50176, 12544, 12544, 4), (5, 50176, 25088, 25088, 16),
     (5, 10, 2, 2, 4), (3, 1000, 100, 250, 8), (3, 777, 77, 77, 16),
@@ -341,19 +482,22 @@ def test_launch_counters_count_cuda_launches(cuda_device):
     ops.topk_mask(x, 10)
     ops.quantize_qr(x, 4, keys)
     ops.topk_slots(x, 10, 10)
-    words, _ = ops.quantize_pack(x, 4, keys)
+    words, norm = ops.quantize_pack(x, 4, keys)
     ops.unpack_codes(words, 5, 256)
+    ops.unpack_qr_values(words, 4, 256, norm)
     ops.pack_codes(torch.zeros((4, 256), dtype=torch.int32,
                                device=cuda_device), 5)
     ops.topk_qr_slots(x, 10, 10, 4, keys)
     quant.quantize_qr_with_uniforms(x, 4, torch.rand_like(x),
                                     quant.l2_norm(x))
+    qr_pack.quantize_pack_with_uniforms(x, 4, torch.rand_like(x), norm)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "topk_threshold_bits": 1, "topk_mask": 0, "topk_threshold_mask": 2,
         "l2_norm": 4, "quantize_qr": 2, "compact_slots": 1,
         "compact_code_slots": 1, "quantize_pack_with_uniforms": 1,
-        "pack_codes": 2, "unpack_codes": 1, "rglru_scan": 0, "wkv6_scan": 0,
+        "quantize_pack_keyed": 1, "pack_codes": 2, "unpack_codes": 1,
+        "unpack_qr_values": 1, "rglru_scan": 0, "wkv6_scan": 0,
         "flash_attention": 0}
 
 
@@ -511,7 +655,7 @@ def test_compact_code_slots_is_one_kernel_a_call(cuda_device, n):
 def test_packed_k25_q4_round_launch_counts(cuda_device):
     """One FedComLoc-Com round with Compose(TopK(0.25), QuantQr(4)) on the
     packed wire launches, once a leaf: K1 + K2 in one launch, K3, K6, K8
-    (encode) and K9 (decode); nothing else."""
+    (encode) and K9's values entry (decode); nothing else."""
     from repro_torch import prng
     from repro_torch.compress import Compose, QuantQr, TopK
     from repro_torch.core import fed_data
@@ -537,17 +681,19 @@ def test_packed_k25_q4_round_launch_counts(cuda_device):
     want = {name: 0 for name in ops.launch_counts()}
     want.update({"topk_threshold_mask": leaves, "l2_norm": leaves,
                  "compact_code_slots": leaves, "pack_codes": leaves,
-                 "unpack_codes": leaves})
+                 "unpack_qr_values": leaves})
     assert ops.launch_counts() == want
 
 
 @pytest.mark.parametrize("comp_name,mode", [("QuantQr(8)", "account"),
-                                            ("TopK(0.3)", "packed")])
+                                            ("TopK(0.3)", "packed"),
+                                            ("QuantQr(8)", "packed")])
 def test_round_launch_counts_and_no_torch_uniforms(cuda_device, monkeypatch,
                                                    comp_name, mode):
     """One round of QuantQr(8) on the account wire launches K3 and the keyed
-    K4 once a leaf and calls no ``prng.uniform``; TopK(0.3) on the packed
-    wire launches K1 and K5 once a leaf."""
+    K4 once a leaf, on the packed wire K3, the keyed K7 and K9's values
+    entry once a leaf, and neither calls ``prng.uniform``; TopK(0.3) on the
+    packed wire launches K1 and K5 once a leaf."""
     from repro_torch import prng
     from repro_torch.compress import QuantQr, TopK
     from repro_torch.core import fed_data
@@ -581,6 +727,9 @@ def test_round_launch_counts_and_no_torch_uniforms(cuda_device, monkeypatch,
     want = {name: 0 for name in ops.launch_counts()}
     if mode == "account":
         want.update({"l2_norm": leaves, "quantize_qr": leaves})
+    elif comp_name == "QuantQr(8)":
+        want.update({"l2_norm": leaves, "quantize_pack_keyed": leaves,
+                     "unpack_qr_values": leaves})
     else:
         want.update({"topk_threshold_bits": leaves, "compact_slots": leaves})
     assert ops.launch_counts() == want

@@ -356,8 +356,9 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.topk_mask(x, 10)
     ops.quantize_qr(x, 4, keys)
     ops.topk_slots(x, 10, 10)
-    words, _ = ops.quantize_pack(x, 4, keys)
+    words, norm = ops.quantize_pack(x, 4, keys)
     ops.unpack_codes(words, 5, 256)
+    ops.unpack_qr_values(words, 4, 256, norm)
     ops.pack_codes(torch.zeros((3, 256), dtype=torch.int32), 5)
     ops.topk_qr_slots(x, 10, 10, 4, keys)
     xs = torch.from_numpy(_rows(11, 2, 3 * 64)).reshape(2, 3, 64)
@@ -369,8 +370,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
         "topk_threshold_bits", "topk_mask", "topk_threshold_mask", "l2_norm",
         "quantize_qr",
         "compact_slots", "compact_code_slots", "quantize_pack_with_uniforms",
-        "pack_codes", "unpack_codes", "rglru_scan", "wkv6_scan",
-        "flash_attention"}
+        "quantize_pack_keyed", "pack_codes", "unpack_codes",
+        "unpack_qr_values", "rglru_scan", "wkv6_scan", "flash_attention"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 

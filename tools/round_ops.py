@@ -8,17 +8,21 @@ for a checkout of the port.
 Needs one CUDA card and ``nvcc``.  Builds the quickstart configuration of
 ``chip_smoke.py``'s phase 3 (MLP 784-64-64-10, 20 Dirichlet(0.7) clients,
 5 a round, batch 32, gamma = p = 0.1) and runs FedComLoc-Com with
-``TopK(0.3)`` on the account and on the packed wire, ``QuantQr(8)`` on the
-account wire and ``Compose(TopK(0.5), QuantQr(16))`` (k50_q16) on the
-packed wire: 3 warm-up rounds, then 5 under ``torch.profiler``.  Prints, a
-round: the device operations (kernels, copies, memsets), the host's
+``TopK(0.3)`` on the account and on the packed wire, ``QuantQr(8)`` on
+both wires, ``QuantQr(8)`` with geometric local phases on the packed wire
+and ``Compose(TopK(0.5), QuantQr(16))`` (k50_q16) on the packed wire: 3
+warm-up rounds, then 5 under ``torch.profiler``.  Prints, a round: the
+device operations (kernels, copies, memsets), the host's
 ``cudaLaunchKernel*`` calls and the device's busy ms.  Then times, with
 CUDA events, the whole calls ``ops.quantize_qr(x, 8, keys)`` (the account
-Q_r leaf: uniforms, K3 and K4) and ``ops.topk_slots(x, k, k)`` (the packed
-``topk`` leaf: K1 and K5, k = 0.3 n), and the wrappers of K5 (cap k), K4
-reading its uniforms (r = 8) and K6 (cap n / 4; r = 4, at 2^24 r = 8), at
-(5, 50176) and (4, 2^24), with keys made on the host as the compressors
-make them; and prints the card's name and power limit.  ``--src`` imports the port from another checkout's
+Q_r leaf: uniforms, K3 and K4), ``ops.quantize_pack(x, 8, keys)`` (the
+packed ``qr`` leaf's encode: uniforms, K3 and K7), ``wire.decode`` of a
+one-leaf ``QuantQr(8)`` payload (the ``qr`` decode: K9 and the values)
+and ``ops.topk_slots(x, k, k)`` (the packed ``topk`` leaf: K1 and K5, k =
+0.3 n), and the wrappers of K5 (cap k), K4 reading its uniforms (r = 8)
+and K6 (cap n / 4; r = 4, at 2^24 r = 8), at (5, 50176) and (4, 2^24),
+with keys made on the host as the compressors make them; and prints the
+card's name and power limit.  ``--src`` imports the port from another checkout's
 ``src/`` (a parent commit unpacked with ``git archive``, say), so two trees
 can be compared in one call on one card.
 """
@@ -49,7 +53,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch import prng
-    from repro_torch.compress import Compose, QuantQr, TopK
+    from repro_torch.compress import Compose, QuantQr, TopK, wire
     from repro_torch.core import fed_data
     from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
     from repro_torch.data import dirichlet, synthetic
@@ -75,12 +79,18 @@ def main() -> int:
     cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=5,
                           batch_size=32, variant="com")
     params0 = model.init(prng.PRNGKey(0), device=dev)
-    for label, comp, wire in (
-            ("TopK account", TopK(0.3), "account"),
-            ("TopK packed", TopK(0.3), "packed"),
-            ("QuantQr account", QuantQr(8), "account"),
-            ("k50_q16 packed", Compose(TopK(0.5), QuantQr(16)), "packed")):
-        alg = FedComLoc(loss_fn, data, cfg, comp, wire=wire)
+    geometric = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20,
+                                clients_per_round=5, batch_size=32,
+                                variant="com", local_steps="geometric")
+    for label, comp, mode, cfg_ in (
+            ("TopK account", TopK(0.3), "account", cfg),
+            ("TopK packed", TopK(0.3), "packed", cfg),
+            ("QuantQr account", QuantQr(8), "account", cfg),
+            ("QuantQr packed", QuantQr(8), "packed", cfg),
+            ("QuantQr geometric packed", QuantQr(8), "packed", geometric),
+            ("k50_q16 packed", Compose(TopK(0.5), QuantQr(16)), "packed",
+             cfg)):
+        alg = FedComLoc(loss_fn, data, cfg_, comp, wire=mode)
         state, key = alg.init(params0), prng.PRNGKey(2)
         for _ in range(WARMUP):
             key, sub = prng.split(key, 2)
@@ -121,8 +131,11 @@ def main() -> int:
         cap6, r6 = n // 4, (4 if n == 50176 else 8)
         t6 = topk.threshold_bits(x, cap6)
         norm6 = quant.l2_norm(ref.mask_by_threshold(x, t6))
+        payload, _ = wire.encode(QuantQr(8), {"w": x}, keys)
         for label, fn in (
                 ("ops.quantize_qr", lambda: ops.quantize_qr(x, 8, keys)),
+                ("ops.quantize_pack", lambda: ops.quantize_pack(x, 8, keys)),
+                ("wire.decode qr", lambda: wire.decode(payload)),
                 ("ops.topk_slots", lambda: ops.topk_slots(x, k, k)),
                 ("K5 compact_slots", lambda: sel.compact_slots(x, t, k)),
                 ("K4 quantize_qr_with_uniforms",
@@ -131,7 +144,7 @@ def main() -> int:
                     x, u, norm6, t6, r6, cap6))):
             print(f"[round_ops] {label} {(rows, n)}: {time_ms(torch, fn, iters)!r} "
                   f"ms a call", flush=True)
-        del x, u
+        del x, u, payload
     return 0
 
 
