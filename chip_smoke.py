@@ -18,9 +18,11 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    K7 fused Q_r pack, K8 code pack, K9 code unpack) against its plain
    PyTorch version on the card, at the main path's shapes, edge cases and
    one large shape: all bit-equal except K3, which must be within
-   ``NORM_RTOL``; K9 must invert K8.  K1's cases also take rows shorter
-   than a cluster's CTAs, n not a multiple of 4, per-row k of 0, 1, n-1, n
-   and beyond n, +-0 / subnormals / inf / ties, and rows at and just past
+   ``NORM_RTOL``; K9 must invert K8 (K8 on b = 1..32, codes with bits
+   above b, rows 1-3 codes off a 16-byte boundary).  K1's cases also take
+   rows shorter than a cluster's CTAs, n not a multiple of 4, per-row k of
+   0, 1, n-1, n and beyond n, +-0 / subnormals / inf / ties, and rows at
+   and just past
    its clusters' shared-memory capacity; ``threshold_mask`` (K1 and K2 in
    one launch) must give K1's and K2's plain outputs on every one of them.
    K4 and K7 are held by both entries: reading u, and drawing u itself
@@ -83,7 +85,11 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    train loss within ``LOSS_RTOL``;
 4. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
    at the serving shapes (8, 2560, 2560) and (8, 40, 2560, 64), T = 1,
-   odd T, B = 1, decays near 0 and 1 and zeros; K11 must be bit-equal.
+   odd T, B = 1, decays near 0 and 1 and zeros; K11 must be bit-equal,
+   also at D = 2579, 2562 and 40 (not a multiple of a block's channels,
+   D % 4 != 0), T not a multiple of its 32- or 8-step batches, B*D of
+   three warps, on both instances, and with odd D or views 4 bytes off
+   where the channel-pair instance would run.
    K12's float32 route (the sequential kernel) must give S_T bit-equal
    and y within ``WKV6_YTOL`` of max |y|.  Its bf16 route (the chunked
    tensor-core scan, on the layout prefill launches it on: bf16
@@ -410,10 +416,13 @@ def check_scan_kernels(torch, dev, recs) -> None:
         return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
                                                   b.view(torch.int32))
 
-    def rglru_inputs(b, t, d):
-        x = torch.randn((b, t, d), generator=gen, device=dev)
-        a = torch.rand((b, t, d), generator=gen, device=dev)
-        return x, a
+    def rglru_inputs(b, t, d, off=0):
+        """off > 0: contiguous views ``off`` floats past an allocation's
+        start (not 8-byte aligned at odd off)."""
+        n = b * t * d
+        x = torch.randn(n + off, generator=gen, device=dev)[off:]
+        a = torch.rand(n + off, generator=gen, device=dev)[off:]
+        return x.view(b, t, d), a.view(b, t, d)
 
     b, t, d = SCAN_MAIN["K11"]
     edge = rglru_inputs(2, 333, d)
@@ -421,11 +430,26 @@ def check_scan_kernels(torch, dev, recs) -> None:
     edge[1][0, :, 64:128] = 1.0 - 1e-7           # a near 1
     edge[1][1, :, :8] = 1.0                      # 1 - a^2 == 0
     edge[0][1, :, 8:64] = 0.0                    # zeros
+    # the slab kernel's edges: D not a multiple of a block's channels and
+    # D % 4 != 0, T not a multiple of its 32- or 8-step batches, fewer
+    # warps than one wave (B*D = 96: three), both instances (a channel a
+    # lane, 32 steps: main; channel pairs, 8 steps: past 12 warps an SM,
+    # the large shape), and an odd D or an unaligned view there, which
+    # takes a channel a lane
     rg_cases = [("main", *rglru_inputs(b, t, d)),
                 ("T=1", *rglru_inputs(b, 1, d)),
                 ("T=37", *rglru_inputs(b, 37, d)),
                 ("B=1", *rglru_inputs(1, t, d)),
-                ("edges", *edge)]
+                ("edges", *edge),
+                ("D=2579 T=2565", *rglru_inputs(2, 2565, 2579)),
+                ("D=40 T=47", *rglru_inputs(3, 47, 40)),
+                ("B=1 D=96 T=333", *rglru_inputs(1, 333, 96)),
+                ("B=32 T=81 (channel pairs)", *rglru_inputs(32, 81, d)),
+                ("B=32 D=2562 T=19 (channel pairs)",
+                 *rglru_inputs(32, 19, 2562)),
+                ("B=32 D=2579 T=9", *rglru_inputs(32, 9, 2579)),
+                ("B=32 T=19, views 4 bytes off",
+                 *rglru_inputs(32, 19, d, off=1))]
     for label, x, a in rg_cases:
         y, h = rg.rglru_scan(x, a)
         y_r, h_r = ref.rglru_scan(x, a)
@@ -436,7 +460,9 @@ def check_scan_kernels(torch, dev, recs) -> None:
         recs["K11"].err(y, y_r)
         recs["K11"].err(h, h_r)
     print(f"[scans] K11 bit-equal to the plain version on {len(rg_cases)} "
-          f"cases", flush=True)
+          f"cases (D % 32 != 0, D % 4 != 0, ragged T, B*D under a wave, "
+          f"both instances, odd D and unaligned views past 12 warps an SM)",
+          flush=True)
     del rg_cases, edge
 
     def wkv6_inputs(b, h, t, dtype, heads=False):
@@ -746,7 +772,7 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
 
 def build_report(build):
     """Phase 1's look at the libraries: what ``-Xptxas -v`` logged for
-    K10's, K4's, K5/K6's, K7's and K8/K9's, the wgmma kernel's dynamic
+    K10's, K4's, K5/K6's, K7's, K8/K9's and K11's, the wgmma kernel's dynamic
     shared memory, and
     its SASS's wgmma and TMA instructions (which must both be there, where
     ``cuobjdump`` is).  Returns the keyed K4's integer instructions by
@@ -755,7 +781,7 @@ def build_report(build):
     from repro_torch.kernels import flash_attention as fa
 
     for name in ("flash_attention_sm90", "flash_attention", "quantize",
-                 "select_slots", "qr_pack", "pack_codes"):
+                 "select_slots", "qr_pack", "pack_codes", "rglru_scan"):
         kernel = None
         for line in build.ptxas_log(name).splitlines():
             if "Compiling entry function" in line:
@@ -1476,9 +1502,21 @@ def main() -> int:
     # (r = b - 1) must equal the plain chain, K9's plain version then
     # ref.qr_values, against positive norms, a zero and a NaN one
     code_cases = [(f"main n={n}", rand_codes(s, n, 9), 9) for n in leaf_sizes]
-    for n, b in ((1, 1), (33, 32), (1000, 1), (1000, 32), (4095, 17)):
+    for n, b in ((1, 1), (33, 32), (1000, 1), (1000, 32), (4095, 17),
+                 (4096, 8), (50176, 1), (50176, 17), (50176, 32)):
         code_cases.append((f"edge n={n} b={b}", rand_codes(3, n, b), b))
     code_cases.append(("n=2083 b=5", rand_codes(3, 2083, 5), 5))
+    # K8 ignores a code's bits at and above b (all 32 bits random here);
+    # rows whose start is 1-3 codes past a 16-byte boundary (a contiguous
+    # view at a storage offset), n % 4 != 0: K8's 4-byte loads
+    for n, b in ((12545, 5), (1000, 8), (4097, 17), (50176, 9)):
+        code_cases.append((f"bits above b n={n} b={b}",
+                           rand_codes(3, n, 32), b))
+    for off, n, b in ((1, 12545, 5), (2, 1003, 17), (3, 4099, 32),
+                      (1, 50177, 9)):
+        flat = rand_codes(1, 3 * n + off, 32 if off == 3 else b)[0]
+        code_cases.append((f"offset {off} n={n} b={b}",
+                           flat[off:].view(3, n), b))
     code_cases.append(("large", rand_codes(*LARGE, 9), 9))
     neg_zeros = 0
     for label, codes, b in code_cases:
@@ -1495,8 +1533,10 @@ def main() -> int:
             raise AssertionError(f"K8 {label}: kernel words differ")
         if not torch.equal(back, back_ref):
             raise AssertionError(f"K9 {label}: kernel codes differ")
-        if not torch.equal(back, codes):
-            raise AssertionError(f"K9(K8(c)) != c at {label}")
+        if not torch.equal(back, ref.to_i32(ref.as_u32(codes)
+                                            & ((1 << b) - 1))):
+            raise AssertionError(f"K9(K8(c)) != c at {label} (c's bits "
+                                 f"below b)")
         recs["K8"].err(words, words_ref)
         recs["K9"].err(back, back_ref)
         if b == 1:                 # r = 0: no Q_r code
@@ -1519,9 +1559,11 @@ def main() -> int:
         neg_zeros += int((torch.signbit(vals) & (vals == 0)).sum())
         recs["K9"].err(vals, vals_ref)
     print(f"[kernels] K8/K9 bit-equal to the plain versions and K9(K8(c)) == "
-          f"c on {len(code_cases)} cases; K9's values entry bit-equal to the "
-          f"plain chain on the {len(code_cases) - 2} with b > 1 ({neg_zeros} "
-          f"-0.0 values, +0.0 on zero- and NaN-norm rows)", flush=True)
+          f"c on {len(code_cases)} cases (b = 1..32, bits above b, rows 1-3 "
+          f"codes off a 16-byte boundary); K9's values entry bit-equal to "
+          f"the plain chain on the {len(code_cases) - 3} with b > 1 "
+          f"({neg_zeros} -0.0 values, +0.0 on zero- and NaN-norm rows)",
+          flush=True)
     for n in (10, leaf_sizes[0], LARGE[1]):
         rows = s if n != LARGE[1] else LARGE[0]
         xc, keys = randn(rows, n), wide_keys(rows, n)
@@ -2163,6 +2205,16 @@ def main() -> int:
                 "codes": "unpack_tiles<false, *> (pack_codes.unpack_codes), "
                          "timed as codes_ms"}}
                if rec.name == "unpack_codes" else {}),
+            **({"routes": {
+                "tiles": "pack_tiles<*> (1024-code tiles, the register pack "
+                         "of csrc/bitplane.cuh shared with K7), every shape"}}
+               if rec.name == "pack_codes" else {}),
+            **({"routes": {
+                "slabs": "rglru_slabs<1, 32> (a channel a lane, 32-step "
+                         "batches: up to 12 warps an SM, main), "
+                         "rglru_slabs<2, 8> (channel pairs, 8-step batches: "
+                         "past it, large); two-warp blocks, every shape"}}
+               if rec.name == "rglru_scan" else {}),
             "replaces": rec.replaces, "launches": sum(by_run.values()),
             "launches_by_run": by_run,
             "max_abs_err": rec.max_abs_err, "ms": main_t["kernel_ms"],

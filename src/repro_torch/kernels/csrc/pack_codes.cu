@@ -9,10 +9,21 @@
 // Input is row-batched: (rows, n) codes or (rows, ceil(n/32) * b) words,
 // one row per client's leaf, uint32 bit patterns in int32 containers.
 //
-// K8: one warp owns one group of 32 codes: lane l holds code 32j+l, and for
-// each bit plane t, __ballot_sync(full, (c >> t) & 1) is exactly word
-// j*b + t.  Lane t keeps plane t, so the b words of a group leave as one
-// coalesced store.  Lanes past n hold code 0, the reference's zero padding.
+// Both kernels take one lane layout (K7's too, csrc/qr_pack.cu): a tile is
+// 1024 codes (32 groups); warp w owns the 128-code span w of the tile, and
+// lane l codes 4l..4l+3 of it, which are bits 4(l%8)..4(l%8)+3 of each of
+// group 4w + l/8's b words.
+//
+// K8 (pack_tiles) is K7's kernel without the quantisation: a block is a
+// tile of a row (grid: (tiles, rows), no division); each lane loads its
+// four codes as one 16-byte load where the row allows (n % 4 == 0 and a
+// 16-byte aligned input), else as 4-byte loads, and packs them in
+// registers with bitplane::pack_words (csrc/bitplane.cuh: byte permutes,
+// delta swaps and a butterfly nibble transpose over the group's 8 lanes),
+// four byte slices, so b runs to 32; lane k stores word 8j + k of its group
+// when 8j + k < b.  Bits of a code at or above b are ignored, as the TPU
+// kernel ignores them; lanes past n hold code 0, the reference's zero
+// padding.
 //
 // K9 has two entries built from one kernel template, unpack_tiles:
 //   * unpack_codes writes the codes (the JAX function's counterpart);
@@ -22,10 +33,7 @@
 //     `qr` and `topk_qr` codecs' decode in one launch, so the codes never
 //     reach device memory.  The product is the plain chain's single
 //     rounding (m / 2^r is exact), and a sign bit over level 0 gives -0.0.
-// Layout: a tile is 1024 codes (32 groups), one a block at a time; warp w
-// owns the 128-code span w of the tile, and lane l codes 4l..4l+3 of it,
-// which are bits 4(l%8)..4(l%8)+3 of each of group 4w + l/8's b words.
-// The block is persistent over its row's tiles (grid: (tiles a row, at
+// K9's block is persistent over its row's tiles (grid: (tiles a row, at
 // most what one wave holds, rows): no division).  A lane reads its group's
 // b words straight from global memory: b independent 4-byte loads (a
 // warp's load of plane t touches its four groups' word t; L1 serves the
@@ -43,47 +51,51 @@
 //
 // Bound on an H100 SXM (3.35 TB/s): K8 reads 4n bytes and writes
 // 4 * ceil(n/32) * b; K9 the reverse (both entries write 4n).  At (4, 2^24),
-// b = 9 that is 0.10267 ms, the stores 78% of it; the decode is ~4 integer
-// operations a plane for four codes, 0.036 ms of the ALU pipe at b = 9.  At
+// b = 9 that is 0.10267 ms (K9's stores, K8's loads 78% of it); K9's decode
+// is ~4 integer operations a plane for four codes, 0.036 ms of the ALU
+// pipe at b = 9, K8's pack ~28 a byte slice for four codes.  At
 // the main path's sizes (5 clients x 50176 codes) launch latency is the
 // floor.  PERF.md has the times on an NVIDIA H100 80GB HBM3 at 700 W
-// (chip_smoke.py, tools/k7_k9_ablation.py).
+// (chip_smoke.py, tools/k7_k9_ablation.py, tools/k8_k11_ablation.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitplane.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSms = 132;                         // H100 SXM
-constexpr long long kMaxBlocks = kSms * 16;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// K9's tiles
-constexpr int kTileCodes = 1024;                  // kWarps spans of 128
+constexpr int kTileCodes = 4 * kThreads;          // 8 spans of 128
 constexpr int kTileGroups = kTileCodes / 32;
 constexpr int kUnpackBlocksPerSm = 8;
 
-// One warp per group; groups = rows * n32, walked warp-strided.
-__global__ void pack_planes(const uint32_t* __restrict__ codes, long long n,
-                            long long n32, int b, long long groups,
-                            uint32_t* __restrict__ words) {
-  const int lane = threadIdx.x & 31;
-  const long long warp = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long g = warp; g < groups; g += stride) {
-    const long long row = g / n32;
-    const long long j = g - row * n32;
-    const long long i = j * 32 + lane;
-    const uint32_t c = i < n ? codes[row * n + i] : 0u;
-    uint32_t mine = 0u;
-    for (int t = 0; t < b; ++t) {
-      const uint32_t plane = __ballot_sync(kFull, (c >> t) & 1u);
-      if (lane == t) mine = plane;
+// grid: (ceil(n / kTileCodes), rows); block: kThreads.  kVec: n % 4 == 0
+// and codes is 16-byte aligned, so each lane's four codes arrive as one
+// 16-byte load.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+pack_tiles(const uint32_t* __restrict__ codes, long long n, long long n32, int b,
+           uint32_t* __restrict__ words) {
+  const long long row = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long span = (long long)blockIdx.x * kTileCodes + 128 * warp;
+  if (span >= n) return;                    // the whole warp: no shuffle waits
+  const long long e0 = span + 4 * lane;
+  const long long at = row * n + e0;
+  uint32_t c[4] = {0u, 0u, 0u, 0u};
+  if (e0 < n) {
+    if (kVec) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(codes + at));
+      c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[e] = e0 + e < n ? __ldg(codes + at + e) : 0u;
     }
-    if (lane < b) words[g * b + lane] = mine;
   }
+  const long long group = (span >> 5) + (lane >> 3);
+  bitplane::pack_words<4>(c, b, lane & 7, group < n32, words + row * n32 * b + group * b);
 }
 
 // grid: (blocks a row, rows); block: kThreads.  Block x of row y decodes
@@ -160,12 +172,6 @@ unpack_tiles(const uint32_t* __restrict__ words, long long n, long long n32, int
   }
 }
 
-int blocks_for(long long groups) {
-  long long blocks = (groups + kWarps - 1) / kWarps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
 template <bool kValues>
 int launch_unpack(const uint32_t* words, int rows, long long n, int b, const float* norm,
                   void* out, cudaStream_t stream) {
@@ -189,12 +195,6 @@ int launch_unpack(const uint32_t* words, int rows, long long n, int b, const flo
 
 }  // namespace
 
-#define RETURN_IF_ERROR()                          \
-  do {                                             \
-    cudaError_t err_ = cudaGetLastError();         \
-    if (err_ != cudaSuccess) return (int)err_;     \
-  } while (0)
-
 extern "C" {
 
 const char* pack_error_string(int code) {
@@ -204,13 +204,17 @@ const char* pack_error_string(int code) {
 // K8: words (rows, ceil(n/32) * b) from codes (rows, n), 1 <= b <= 32.
 int pack_codes(const uint32_t* codes, int rows, long long n, int b, uint32_t* words,
                void* stream_ptr) {
+  if (b < 1 || b > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const long long n32 = (n + 31) / 32;
-  const long long groups = (long long)rows * n32;
-  pack_planes<<<blocks_for(groups), kThreads, 0, stream>>>(codes, n, n32, b, groups,
-                                                           words);
-  RETURN_IF_ERROR();
-  return 0;
+  const long long tiles = (n + kTileCodes - 1) / kTileCodes;
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (unsigned)rows);
+  if (n % 4 == 0 && ((uintptr_t)codes & 15) == 0)
+    pack_tiles<true><<<grid, kThreads, 0, stream>>>(codes, n, n32, b, words);
+  else
+    pack_tiles<false><<<grid, kThreads, 0, stream>>>(codes, n, n32, b, words);
+  return (int)cudaGetLastError();
 }
 
 // K9: codes (rows, n) from words (rows, ceil(n/32) * b), 1 <= b <= 32; words

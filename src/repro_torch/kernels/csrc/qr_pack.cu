@@ -19,18 +19,14 @@
 //     encode) calls it, so a packed Q_r leaf is K3 and K7 alone.  Up to 32
 //     rows' key words ride in the launch's parameters (no copy).
 //
-// Layout (K9's, csrc/pack_codes.cu): a block is a 1024-element tile of a
-// row (grid: (tiles, rows), no division); warp w owns the 128-element span
-// w of it, and lane l elements 4l..4l+3, loaded as one float4 where the
-// row allows (n % 4 == 0, 16-byte aligned).  Those four codes are bits
-// 4k..4k+3 (k = l % 8) of each of group 4w + l/8's b words.  For each byte
-// slice j of the codes (planes 8j..8j+7): three byte permutes gather the
-// four codes' byte j into one word A (byte e = code e's), four delta swaps
-// transpose it so that nibble s holds plane 8j+s's four bits, and three
-// butterfly steps over the group's 8 lanes (rotate, __shfl_xor_sync,
-// bitwise select) transpose the 8 x 8 nibbles, after which lane k holds
-// word t = 8j + k of its group whole and stores it if t < b.  Lanes past n
-// hold code 0, the reference's zero padding.
+// Layout (K8's and K9's, csrc/pack_codes.cu): a block is a 1024-element
+// tile of a row (grid: (tiles, rows), no division); warp w owns the
+// 128-element span w of it, and lane l elements 4l..4l+3, loaded as one
+// float4 where the row allows (n % 4 == 0, 16-byte aligned).  The lane's
+// four codes are packed in registers by bitplane::pack_words
+// (csrc/bitplane.cuh, shared with K8: byte permutes, delta swaps and a
+// butterfly nibble transpose over the group's 8 lanes), three byte slices
+// for b <= 17.  Lanes past n hold code 0, the reference's zero padding.
 //
 // This file is compiled with --fmad=false and without fast math: the code
 // must keep the reference's operation order (y = |x| / safe with an IEEE
@@ -51,41 +47,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitplane.cuh"
 #include "threefry.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 4 * kThreads;          // elements a block
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-template <int kDelta>
-__device__ __forceinline__ uint32_t delta_swap(uint32_t x, uint32_t mask) {
-  const uint32_t t = (x ^ (x >> kDelta)) & mask;
-  return x ^ t ^ (t << kDelta);
-}
-
-// Bit 8e + s of a (code e's bit s of the slice) to bit 4s + e: the 5-bit
-// index rotated by two, as four swaps of index bits (1,0), (2,1), (3,0),
-// (4,1).
-__device__ __forceinline__ uint32_t bytes_to_nibbles(uint32_t a) {
-  a = delta_swap<1>(a, 0x22222222u);
-  a = delta_swap<2>(a, 0x0C0C0C0Cu);
-  a = delta_swap<7>(a, 0x00AA00AAu);
-  return delta_swap<14>(a, 0x0000CCCCu);
-}
-
-// One butterfly step of the 8 x 8 nibble transpose over a group's lanes:
-// lanes k and k ^ d swap the nibbles s with bit d of s unlike bit d of k.
-template <int kD>
-__device__ __forceinline__ uint32_t nibble_step(uint32_t x, int k) {
-  constexpr uint32_t kLow = kD == 4 ? 0x0000FFFFu : (kD == 2 ? 0x00FF00FFu : 0x0F0F0F0Fu);
-  const bool high = (k & kD) != 0;
-  const uint32_t sent = __funnelshift_l(x, x, high ? 4 * kD : 32 - 4 * kD);
-  const uint32_t got = __shfl_xor_sync(kFull, sent, kD);
-  const uint32_t keep = high ? ~kLow : kLow;
-  return (x & keep) | (got & ~keep);
-}
 
 // grid: (ceil(n / kTile), rows); block: kThreads.  kKeyed: u is drawn here,
 // jax.random.uniform(keys[row], (n,)) bit for bit; else it is read from u.
@@ -143,18 +111,7 @@ qr_pack_tiles(const float* __restrict__ x, const float* __restrict__ u,
   const long long group = (span >> 5) + (lane >> 3);
   uint32_t* wg = words + row * n32 * b + group * b;
   const bool stores = group < n32;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {              // b <= 17: three byte slices
-    if (8 * j >= b) break;
-    const unsigned sel = (unsigned)j | ((unsigned)(4 + j) << 4);
-    uint32_t a = __byte_perm(__byte_perm(c[0], c[1], sel), __byte_perm(c[2], c[3], sel),
-                             0x5410);
-    a = bytes_to_nibbles(a);
-    a = nibble_step<4>(a, k);
-    a = nibble_step<2>(a, k);
-    a = nibble_step<1>(a, k);
-    if (stores && 8 * j + k < b) wg[8 * j + k] = a;
-  }
+  bitplane::pack_words<3>(c, b, k, stores, wg);   // b <= 17: three byte slices
 }
 
 template <bool kKeyed>

@@ -7,11 +7,32 @@
 //
 // The TPU kernel walks a sequential (B, D/bd, T/bt) grid and keeps h in
 // VMEM scratch between time blocks.  Here one thread owns one (b, d)
-// channel and loops over T with h in a register.  Neighbouring threads
-// take neighbouring d, so every load of x_t, a_t and every store of y_t is
-// one coalesced 128-byte line per warp.  The loop is unrolled by kUnroll:
-// the kUnroll independent (x, a) loads are issued before the dependent
-// chain of h updates that consumes them.
+// channel and loops over T with h in a register; each channel's steps run
+// in order, so the rounding is the plain version's.
+//
+// What bounds it is bytes in flight, not the chain: 2560 steps of one
+// FMUL and one FADD take ~10 us, the bytes 0.188 ms.  At ~0.85 us of DRAM
+// latency, 3.35 TB/s needs ~3 MB in flight chip-wide, ~24 KB an SM.  The
+// first design (a thread a channel, 256-thread blocks, 8 steps unrolled)
+// put 80 blocks on 80 of the 132 SMs at the serving shape (8, 2560, 2560)
+// and had ~1.3 MB in flight.  So:
+//   * blocks are two warps, each lane one channel (a warp a 32-channel
+//     slab: every load of x_t, a_t and store of y_t is one 128-byte line),
+//     640 warps over all 132 SMs at the serving shape;
+//   * each thread keeps the next U steps' x and a loading while it runs
+//     the current U (registers, double-buffered): at U = 32, 64 loads of
+//     128 bytes a warp in flight, 5.2 MB chip-wide;
+//   * past 12 warps an SM (the large shape (32, 4096, 2560) has 19.4),
+//     depth is not short, and wider lines pay more: each lane takes a
+//     channel pair (8-byte loads and stores, 256 bytes a warp access) and
+//     8-step batches;
+//   * loads and stores stream (evict-first): nothing is read twice.
+// tools/k8_k11_ablation.py timed the choices (PERF.md): the batch depth,
+// the channels a lane and a block, the cache hints, and a shared-memory
+// ring that TMA fills (no faster at main, slower at large, and limited to
+// D % 4 == 0).  Any B, T and D run here: odd D or a misaligned view takes
+// one channel a lane, a ragged T ends with a plain loop, and the lanes
+// past D return before the loop (nothing is shared between lanes).
 //
 // This file is compiled with --fmad=false and keeps the reference's
 // operation order: gx = sqrtf(fmaxf(1 - a*a, 0)) * x, then h = a*h + gx,
@@ -23,62 +44,120 @@
 // and h_T (B, D) float32.
 //
 // Bound on an H100 SXM (3.35 TB/s): 12 bytes a (b, t, d) element (x, a in,
-// y out), 629 MB at the serving shape (8, 2560, 2560), 0.19 ms; 6 flops an
-// element (0.039 GFLOP) are far below the float32 peak.  B*D = 20 480
-// threads are only 80 blocks of 256, fewer than the 132 SMs, so the
-// kernel is bound by the latency of its serial chain, not by bytes.  A
-// chunked two-pass scan over T (chunk-local scans in parallel, then the
-// carried h applied through the cumulative products of a) is later work.
+// y out), 629 MB at the serving shape, 0.18783 ms; 7 flops an element are
+// far below the float32 peak.  PERF.md has the times on an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py, tools/k8_k11_ablation.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 8;
+constexpr int kSms = 132;                   // H100 SXM
+constexpr int kWarps = 2;                   // warps a block
+// Up to this many warps an SM at one channel a thread, the lanes run one
+// channel and 32-step batches; past it, channel pairs and 8-step batches
+constexpr int kFewWarpsPerSm = 12;
 
-// grid: (ceil(D / kThreads), B); block: kThreads.
-__global__ void __launch_bounds__(kThreads)
-rglru_fwd(const float* __restrict__ x, const float* __restrict__ a, int T,
-          int D, float* __restrict__ y, float* __restrict__ h_out) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = __ldcs(p);
+  } else {
+    const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  }
+}
+
+// y is not read again by this kernel: streaming (evict-first) stores
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 1)
+    __stcs(p, v[0]);
+  else
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+}
+
+__device__ __forceinline__ float rglru_step(float h, float x, float a) {
+  const float gx = sqrtf(fmaxf(1.0f - a * a, 0.0f)) * x;
+  return a * h + gx;
+}
+
+// grid: (ceil(D / (32 kWarps V)), B); block: 32 kWarps threads, V
+// neighbouring channels each (V = 2: D even and x, a, y 8-byte aligned).
+// A thread keeps the next U steps' x and a loading while it runs the
+// current U.
+template <int V, int U>
+__global__ void __launch_bounds__(32 * kWarps)
+rglru_slabs(const float* __restrict__ x, const float* __restrict__ a, int T, int D,
+            float* __restrict__ y, float* __restrict__ h_out) {
+  const int d = (blockIdx.x * (32 * kWarps) + threadIdx.x) * V;
   if (d >= D) return;
   const long long base = (long long)blockIdx.y * T * D + d;
-  float h = 0.0f;
-  int t = 0;
-  for (; t + kUnroll <= T; t += kUnroll) {
-    float xs[kUnroll], as[kUnroll];
+  const float* xp = x + base;
+  const float* ap = a + base;
+  float* yp = y + base;
+  const int whole = T - T % U;
+  float xn[U][V], an[U][V];                 // the next U steps, loading
+  if (whole > 0) {
 #pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      const long long off = base + (long long)(t + i) * D;
-      xs[i] = x[off];
-      as[i] = a[off];
-    }
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      const float gx = sqrtf(fmaxf(1.0f - as[i] * as[i], 0.0f)) * xs[i];
-      h = as[i] * h + gx;
-      y[base + (long long)(t + i) * D] = h;
+    for (int i = 0; i < U; ++i) {
+      load_vec<V>(xp + (long long)i * D, xn[i]);
+      load_vec<V>(ap + (long long)i * D, an[i]);
     }
   }
-  for (; t < T; ++t) {
-    const long long off = base + (long long)t * D;
-    const float at = a[off];
-    const float gx = sqrtf(fmaxf(1.0f - at * at, 0.0f)) * x[off];
-    h = at * h + gx;
-    y[off] = h;
+  float h[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) h[e] = 0.0f;
+  for (int t = 0; t < whole; t += U) {
+    float xs[U][V], as[U][V];
+#pragma unroll
+    for (int i = 0; i < U; ++i)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        xs[i][e] = xn[i][e];
+        as[i][e] = an[i][e];
+      }
+    if (t + U < whole) {
+      const long long next = (long long)(t + U) * D;
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        load_vec<V>(xp + next + (long long)i * D, xn[i]);
+        load_vec<V>(ap + next + (long long)i * D, an[i]);
+      }
+    }
+    float* yq = yp + (long long)t * D;
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) h[e] = rglru_step(h[e], xs[i][e], as[i][e]);
+      store_vec<V>(yq + (long long)i * D, h);
+    }
   }
-  h_out[(long long)blockIdx.y * D + d] = h;
+  for (int t = whole; t < T; ++t) {          // a ragged T's last steps
+    const long long off = (long long)t * D;
+    float xv[V], av[V];
+    load_vec<V>(xp + off, xv);
+    load_vec<V>(ap + off, av);
+#pragma unroll
+    for (int e = 0; e < V; ++e) h[e] = rglru_step(h[e], xv[e], av[e]);
+    store_vec<V>(yp + off, h);
+  }
+#pragma unroll
+  for (int e = 0; e < V; ++e) h_out[(long long)blockIdx.y * D + d + e] = h[e];
+}
+
+template <int V, int U>
+int launch(const float* x, const float* a, int B, int T, int D, float* y, float* h_out,
+           cudaStream_t stream) {
+  const int per_block = 32 * kWarps * V;
+  const dim3 grid((unsigned)((D + per_block - 1) / per_block), (unsigned)B);
+  rglru_slabs<V, U><<<grid, 32 * kWarps, 0, stream>>>(x, a, T, D, y, h_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
-
-#define RETURN_IF_ERROR()                          \
-  do {                                             \
-    cudaError_t err_ = cudaGetLastError();         \
-    if (err_ != cudaSuccess) return (int)err_;     \
-  } while (0)
 
 extern "C" {
 
@@ -87,14 +166,16 @@ const char* rglru_error_string(int code) {
 }
 
 // K11.  x, a: (B, T, D) float32 contiguous; writes y (B, T, D) and
-// h_T (B, D), float32.  1 <= B <= 65535, T >= 1.
+// h_T (B, D), float32.  1 <= B <= 65535, T >= 1, D >= 1.
 int rglru_scan(const float* x, const float* a, int B, int T, int D, float* y,
                float* h_out, void* stream_ptr) {
+  if (B < 1 || B > 65535 || T < 1 || D < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  dim3 grid((D + kThreads - 1) / kThreads, B);
-  rglru_fwd<<<grid, kThreads, 0, stream>>>(x, a, T, D, y, h_out);
-  RETURN_IF_ERROR();
-  return 0;
+  const bool pairs = D % 2 == 0 && (((uintptr_t)x | (uintptr_t)a | (uintptr_t)y) & 7) == 0;
+  const long long warps = (long long)B * ((D + 31) / 32);   // at one channel a thread
+  if (pairs && warps > (long long)kSms * kFewWarpsPerSm)
+    return launch<2, 8>(x, a, B, T, D, y, h_out, stream);
+  return launch<1, 32>(x, a, B, T, D, y, h_out, stream);
 }
 
 }  // extern "C"

@@ -301,18 +301,30 @@ def test_quantize_pack_matches_plain(cuda_device, rows, n, r):
                        ref.quantize_pack_with_uniforms(x, r, u, norm))
 
 
-@pytest.mark.parametrize("rows,n,b", [(5, 50176, 9), (3, 1, 1), (3, 31, 5),
-                                      (3, 33, 17), (2, 4096, 32), (2, 1000, 9)])
-def test_pack_unpack_match_plain_and_invert(cuda_device, rows, n, b):
-    gen = torch.Generator(device=cuda_device).manual_seed(n * b)
-    codes = torch.randint(-2 ** 31, 2 ** 31, (rows, n), generator=gen,
-                          device=cuda_device, dtype=torch.int64)
-    codes = ref.to_i32(ref.as_u32(codes) & ((1 << b) - 1))
+@pytest.mark.parametrize("rows,n,b,high,off", [
+    (5, 50176, 9, False, 0), (3, 1, 1, False, 0), (3, 31, 5, False, 0),
+    (3, 33, 17, False, 0), (2, 4096, 32, False, 0), (2, 1000, 9, False, 0),
+    (3, 4096, 8, False, 0), (3, 50176, 1, False, 0), (3, 1000, 8, True, 0),
+    (3, 4097, 17, True, 0), (2, 50176, 9, True, 0), (3, 12545, 5, False, 1),
+    (3, 1003, 17, True, 2), (2, 4099, 32, True, 3), (3, 1001, 1, True, 1)])
+def test_pack_unpack_match_plain_and_invert(cuda_device, rows, n, b, high,
+                                            off):
+    """K8 and K9 bit-equal to the plain versions and K9(K8(c)) == c's bits
+    below b: b from 1 to 32; codes with bits set at and above b (high: all
+    32 bits random; K8 ignores the upper ones); rows starting ``off`` codes
+    past a 16-byte boundary with n % 4 != 0 (a contiguous view at a storage
+    offset: K8's 4-byte loads)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n * b + off)
+    flat = torch.randint(-2 ** 31, 2 ** 31, (rows * n + off,), generator=gen,
+                         device=cuda_device, dtype=torch.int64)
+    keep = (1 << 32) - 1 if high else (1 << b) - 1
+    codes = ref.to_i32(ref.as_u32(flat) & keep)[off:].view(rows, n)
+    assert codes.data_ptr() % 16 == 4 * off
     words = pack.pack_codes(codes, b)
     assert torch.equal(words, ref.pack_codes(codes, b))
     back = pack.unpack_codes(words, b, n)
     assert torch.equal(back, ref.unpack_codes(words, b, n))
-    assert torch.equal(back, codes)
+    assert torch.equal(back, ref.to_i32(ref.as_u32(codes) & ((1 << b) - 1)))
 
 
 def _keyed_pack_plain(x, r, keys, norm):
@@ -738,11 +750,22 @@ def test_round_launch_counts_and_no_torch_uniforms(cuda_device, monkeypatch,
 WKV6_YTOL = 1e-5
 
 
-@pytest.mark.parametrize("b,t,d", [(8, 2560, 2560), (1, 1, 96), (3, 37, 300)])
-def test_rglru_scan_bit_equal_to_plain(cuda_device, b, t, d):
+@pytest.mark.parametrize("b,t,d,off", [
+    (8, 2560, 2560, 0), (1, 1, 96, 0), (3, 37, 300, 0), (2, 2565, 2579, 0),
+    (4, 1, 2562, 0), (3, 47, 40, 0), (1, 2560, 2560, 0), (32, 81, 2560, 0),
+    (32, 19, 2562, 0), (32, 9, 2579, 0), (32, 19, 2560, 1)])
+def test_rglru_scan_bit_equal_to_plain(cuda_device, b, t, d, off):
+    """Bit-equal y and h_T at the serving shape and at the slab kernel's
+    edges: D not a multiple of 32 and D % 4 != 0, T = 1 and T not a
+    multiple of its 32- or 8-step batches, B = 1 at D = 2560 (80 warps,
+    under a wave), B = 32 (past 12 warps an SM: channel pairs), and there
+    an odd D or views ``off`` floats past their allocation (not 8-byte
+    aligned), which take a channel a lane."""
     gen = torch.Generator(device=cuda_device).manual_seed(t + d)
-    x = torch.randn((b, t, d), generator=gen, device=cuda_device)
-    a = torch.rand((b, t, d), generator=gen, device=cuda_device)
+    n = b * t * d
+    x = torch.randn(n + off, generator=gen, device=cuda_device)[off:]
+    a = torch.rand(n + off, generator=gen, device=cuda_device)[off:]
+    x, a = x.view(b, t, d), a.view(b, t, d)
     a[0, :, :8] = 1e-7                           # a ~ 0
     a[0, :, 8:16] = 1.0 - 1e-7                   # a ~ 1
     x[-1, :, :4] = 0.0

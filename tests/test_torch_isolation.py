@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX (``jax``, ``jaxlib``) or the JAX package
-(``repro``, ``repro.*``).  Walks each file's syntax tree, so an import
-inside a function counts too."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no script of ``tools/`` imports JAX (``jax``,
+``jaxlib``) or the JAX package (``repro``, ``repro.*``).  Walks each
+file's syntax tree, so an import inside a function counts too."""
 
 import ast
 from pathlib import Path
@@ -11,7 +11,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _imports(tree: ast.AST):
@@ -25,6 +25,7 @@ def _imports(tree: ast.AST):
 
 def test_the_port_has_modules_to_check():
     assert len(FILES) > 30 and (ROOT / "chip_smoke.py").is_file()
+    assert ROOT / "tools" / "k8_k11_ablation.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES,

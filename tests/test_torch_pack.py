@@ -11,11 +11,14 @@ K9's values entry and the lane layout both kernels share.
   ``qr`` and ``topk_qr`` payloads.
 * A numpy mirror of the CUDA kernels' layout (``csrc/qr_pack.cu`` and
   ``csrc/pack_codes.cu``): 1024-code tiles of 8 warps x 128-code spans, 4
-  consecutive codes a lane; K7's byte permutes, delta swaps and butterfly
-  nibble transpose over a group's 8 lanes, and K9's per-lane reads of its
+  consecutive codes a lane; the register pack K7 and K8 share
+  (``csrc/bitplane.cuh``: byte permutes, delta swaps and butterfly nibble
+  transpose over a group's 8 lanes), and K9's per-lane reads of its
   group's words, per-plane multiply into byte-sliced accumulators and byte
   permutes, against ``ref.pack_codes``, ``ref.unpack_codes`` and
-  ``ref.qr_values`` for every b in 1..32.
+  ``ref.qr_values`` for every b in 1..32; and the mirrored pack against
+  the Pallas ``pack_codes`` in interpret mode on K6-shaped (rows, cap)
+  slot codes with bits set above b.
 """
 
 import pytest
@@ -233,9 +236,11 @@ def _bytes_to_nibbles(a):
 
 
 def mirror_k7_pack(codes: np.ndarray, b: int) -> np.ndarray:
-    """K7's pack (``qr_pack_tiles``) on (rows, n) uint codes < 2^b: the
-    grid's tiles and warps as array axes, lanes as the last axis, each
-    ``__shfl_xor_sync`` an index over it."""
+    """The bit-plane pack of K7 (``qr_pack_tiles``) and K8
+    (``pack_tiles``), ``bitplane::pack_words`` in ``csrc/bitplane.cuh``, on
+    (rows, n) uint32 codes (bits at and above b are ignored, as the kernels
+    ignore them): the grid's tiles and warps as array axes, lanes as the
+    last axis, each ``__shfl_xor_sync`` an index over it."""
     rows, n = codes.shape
     n32, tiles = -(-n // 32), -(-n // TILE)
     c = np.zeros((rows, tiles * TILE), np.uint64)
@@ -328,3 +333,27 @@ def test_lane_layout_mirror_matches_plain(b):
             want = ref.qr_values(tcodes, torch.from_numpy(norm), b - 1)
             np.testing.assert_array_equal(
                 _bits(mirror_k9_unpack(wmem, b, n, norm)), _bits(want))
+
+
+# K6's slot-code rows as the topk_qr codec packs them: (clients, cap) with
+# cap = TopK(d)._k(n) over the quickstart leaves, k25_q4 (b = 5) and
+# k50_q16 (b = 17), plus other widths
+K6_SLOT_ROWS = [(12544, 5), (1024, 5), (160, 5), (16, 5), (2, 5),
+                (25088, 17), (2048, 17), (320, 17), (32, 17), (5, 17),
+                (12544, 1), (1024, 9), (160, 32)]
+
+
+@pytest.mark.parametrize("cap,b", K6_SLOT_ROWS)
+def test_mirrored_pack_matches_pallas_on_slot_codes(cap, b):
+    """The mirrored K7/K8 pack of (3, cap) codes with all 32 bits random
+    equals the Pallas ``pack_codes`` in interpret mode, row by row (both
+    ignore the bits at and above b)."""
+    rng = np.random.default_rng(cap * 33 + b)
+    codes = rng.integers(0, 2 ** 32, (3, cap), dtype=np.uint64)
+    words = mirror_k7_pack(codes, b)
+    assert words.shape == (3, -(-cap // 32) * b)
+    for row in range(3):
+        want = jpack.pack_codes(jnp.asarray(codes[row].astype(np.uint32)), b,
+                                interpret=True)
+        np.testing.assert_array_equal(words[row].astype(np.uint32),
+                                      np.asarray(want))

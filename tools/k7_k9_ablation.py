@@ -350,8 +350,7 @@ def build_variants(build, name: str, src: str, hooks, variants,
         for line in log.splitlines():
             if "Function properties for" in line:
                 kernel = line.split("for", 1)[1].strip()
-            elif kernel and ("Used" in line or "spill" in line) and (
-                    "pack_planes" not in kernel):
+            elif kernel and ("Used" in line or "spill" in line):
                 print(f"[ablation] ptxas {name} {v} {kernel[-40:]}: "
                       f"{line.split(':', 1)[-1].strip()}", flush=True)
     return libs
