@@ -83,7 +83,46 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    versions (k25_q4's first ``DIVERGING_REPLAY_ROUNDS``, while its loss is
    finite): cohorts, steps, bits and payload bytes must be equal, the
    train loss within ``LOSS_RTOL``;
-4. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
+4. fig9 — the paper's Figure 9 (``benchmarks/fig9_baselines.py``) on the
+   card at the CNN's full width (``CNN(3, 10, 32)``, 62 006 parameters in
+   10 leaves): ``make_cifar_like(6000, 1000, seed=1)``, Dirichlet(0.7)
+   over 10 clients, 5 a round, batch 32 (``benchmarks/common.py``'s
+   ``cifar_setup``, rebuilt from the port's modules), ``FIG9_ROUNDS``
+   rounds through ``server.run_federated`` of FedAvg, sparseFedAvg
+   (TopK(0.1)), Scaffold, FedDyn (gamma = 0.1, 10 local steps),
+   FedComLoc-Com with TopK(0.1) and Scaffnew (gamma = 0.05, p = 0.1), each
+   on the account and the packed wire.  The counters are set to 0 just
+   before each run and read just after: the two TopK runs launch K1 + K2
+   as one launch (``topk_threshold_mask``) a leaf a round on the account
+   wire and K1 and K5 a leaf a round on the packed wire, 120 each; the
+   dense runs launch nothing.  Every run must train (finite losses, the
+   last round's train loss below the first's) but Scaffold, which goes to
+   NaN in the JAX package as well (``FIG9_DIVERGING``: only its finite
+   rounds are held).  The packed run must give the account run's uplink
+   and total bits exactly and its parameters within
+   ``PARAM_RTOL``/``PARAM_ATOL``.  Prints best accuracy, total and uplink
+   Mbit, and the steady rounds' ms, device busy ms, idle share and device
+   operations a round (``profile_rounds``); then replays the first
+   ``REPLAY_ROUNDS`` rounds (Scaffold's finite ones) of sparseFedAvg,
+   Scaffold and FedComLoc on the CPU: cohorts, steps and bits equal, train
+   loss within ``LOSS_RTOL``;
+5. hetero — the same setup on ``ClientProfile.lognormal(10, speed_sigma=1,
+   bandwidth_sigma=0.7, seed=0)`` with ``bit_cost=1e-7``, ``HETERO_S`` = 4
+   clients a round (``async_buffered(2, ...)`` needs a capacity that
+   divides it): FedComLoc TopK(0.1), FedAvg and Scaffold under ``sync``,
+   ``semi_sync(3)`` and ``async_buffered(2, 0.5)``, then FedComLoc under
+   ``sync`` with ``deadline=10.0, drop_stragglers=True`` (slow clients'
+   steps truncated) and Scaffold under ``semi_sync(3)`` with
+   ``deadline=3.0`` (the slowest client drops).  Each round:
+   ``clients_aggregated`` is 3 under ``semi_sync(3)`` unless fewer
+   participate, every participant under ``sync``; staleness levels are
+   ``rank // 2`` in stable finish order under ``async_buffered``; a
+   dropped client sends 0 bits and finishes exactly at the deadline.  The
+   FedComLoc runs launch K1 + K2 as one launch a leaf a round, the rest
+   nothing.  Then ``REPLAY_ROUNDS`` rounds of each run on the CPU:
+   counting metrics equal, ``sim_time`` and ``client_finish`` within
+   ``CLOCK_RTOL``, train loss within ``LOSS_RTOL``;
+6. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
    at the serving shapes (8, 2560, 2560) and (8, 40, 2560, 64), T = 1,
    odd T, B = 1, decays near 0 and 1 and zeros; K11 must be bit-equal,
    also at D = 2579, 2562 and 40 (not a multiple of a block's channels,
@@ -99,7 +138,7 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (y: plus one bf16 ulp) of the plain version run in float64.  Times both
    scans at the serving and a larger shape (K12's bf16 route on the
    prefill layout, its float32 route at main);
-5. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
+7. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
    width and depth in bf16, weights from the port's own init on the card,
    through ``launch/serve.py``'s :func:`serve`: batch 8, prompt 2560
    (above recurrentgemma's window of 2048, so the ring cache runs), 32
@@ -114,14 +153,14 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    and serve, above what earlier phases hold), and the device's busy time
    and idle share under ``torch.profiler`` for one prefill and for 8
    decode steps;
-6. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
+8. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
    way at batch 4, prompt 4608 (above gemma2's window of 4096 and
    gemma3's 1024: the ring branch of prefill and the ring decode run on
    their swa layers), each freed before the next.  Their prefill attends
    through ``chunked_attention``, as the JAX package's models do, so the
    counted run launches no kernel (K10 included).  The warm-up prefill
    hands over the q/k/v of the layers in ``ATTN_CAPTURE``;
-7. attention — K10 (``ops.mha_attention``: bf16 on the wgmma kernel fed
+9. attention — K10 (``ops.mha_attention``: bf16 on the wgmma kernel fed
    by TMA, float32 on the SIMT kernel) against its plain version
    ``ref.mha_attention`` in float32 and bf16 within ``ATTN_F32_TOL`` /
    ``ATTN_BF16_TOL`` (the JAX tests' tolerances, compared in the working
@@ -139,7 +178,7 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    layers' times and each dense model's layer pattern, what its prefill
    would save if it called K10 instead of ``chunked_attention`` (the route
    stays as the JAX models have it);
-8. CUDA against CPU — the five models at full width and reduced depth
+10. CUDA against CPU — the five models at full width and reduced depth
    (``CPU_CHECK_LAYERS``: one block pattern each, gemma3's 6 layers
    included), float32 with TF32 off, batch 2, prompt 128, 4 decode steps,
    the same weights on the card and on the CPU: logits within
@@ -154,6 +193,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -170,6 +210,14 @@ ROUNDS = 20
 REPLAY_ROUNDS = 3
 DIVERGING_REPLAY_ROUNDS = 6
 PROFILE_ROUNDS = 5
+FIG9_ROUNDS = 12              # benchmarks/common.py FAST_ROUNDS
+# async_buffered(2, 0.5) needs a capacity that divides clients_per_round,
+# so the hetero phase samples 4 of its 10 clients a round (Figure 9: 5)
+HETERO_S = 4
+CLOCK_RTOL = 1e-6              # sim_time, client_finish: tests/test_golden.py
+# Scaffold at Figure 9's gamma = 0.1 and 10 local steps diverges in the JAX
+# package as well (on the CPU: loss 7.40, 7.94, then NaN from round 3)
+FIG9_DIVERGING = ("scaffold",)
 FUSED_K1_K2 = "topk_threshold_mask"   # the launch counter of K1 + K2 fused
 KEYED_K7 = "quantize_pack_keyed"       # ... of K7 drawing its uniforms
 VALUES_K9 = "unpack_qr_values"         # ... of K9 decoding to Q_r values
@@ -404,7 +452,7 @@ def bf16_ulp(torch, y):
 
 
 def check_scan_kernels(torch, dev, recs) -> None:
-    """Phase 4: K11 and K12 against their plain versions, then timed."""
+    """Phase 6: K11 and K12 against their plain versions, then timed."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import wkv6
@@ -607,7 +655,7 @@ def check_scan_kernels(torch, dev, recs) -> None:
 
 
 def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
-    """Phases 5 and 6: each model of ``shapes`` ({arch: (batch, prompt,
+    """Phases 7 and 8: each model of ``shapes`` ({arch: (batch, prompt,
     launches of one prefill)}) at full width and depth through serve().
     Returns ({kernel name: {run label: launches}}, {(arch, layer): (q, k,
     v, chunked_attention's keyword arguments)}) for the (arch, layer) pairs
@@ -862,7 +910,7 @@ def attention_bound(torch, q, k, kw) -> tuple:
 
 
 def attention_phase(torch, dev, rec, captured: dict) -> dict:
-    """Phase 7: K10 against its plain version at the JAX package's flash
+    """Phase 9: K10 against its plain version at the JAX package's flash
     cases and further shapes in both dtypes; then the main path,
     ``ops.mha_attention`` on the q/k/v the dense models' prefill computed,
     counted, and held against the plain version and the models' own
@@ -1055,7 +1103,7 @@ def prefill_question(served_rows: dict) -> None:
 
 
 def cuda_vs_cpu_phase(torch, dev) -> None:
-    """Phase 6: full width, reduced depth, float32: the card (kernels)
+    """Phase 10: full width, reduced depth, float32: the card (kernels)
     against the CPU (plain versions) on the same weights."""
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_spec
@@ -1084,6 +1132,358 @@ def cuda_vs_cpu_phase(torch, dev) -> None:
             raise AssertionError(f"{arch}: CUDA and CPU serving differ")
         del params, cpu_params
         torch.cuda.empty_cache()
+
+
+def cifar_setup(torch, dev):
+    """The paper's FedCIFAR10 setup (``benchmarks/common.py`` ``cifar_setup``)
+    from the port's own modules: ``make_cifar_like(6000, 1000, seed=1)``,
+    Dirichlet(0.7) over 10 clients, the CNN; data on the card and on the
+    CPU, eval on the card."""
+    from repro_torch.core import fed_data, server
+    from repro_torch.data import dirichlet, synthetic
+    from repro_torch.models import small
+
+    ds = synthetic.make_cifar_like(n_train=6000, n_test=1000, seed=1)
+    parts = dirichlet.dirichlet_partition(ds.y_train, n_clients=10,
+                                          alpha=0.7, seed=1)
+    model = small.CNN(3, 10, 32)
+    data = {d: fed_data.from_numpy_partition(ds.x_train, ds.y_train, parts,
+                                             device=d) for d in ("cuda", "cpu")}
+    eval_fn = server.make_eval_fn(model.apply,
+                                  torch.from_numpy(ds.x_test).to(dev),
+                                  torch.from_numpy(ds.y_test).to(dev))
+    return model, data, eval_fn
+
+
+def finite_rounds(losses) -> int:
+    """How many rounds from the first have a finite train loss."""
+    return next((i for i, v in enumerate(losses) if not math.isfinite(v)),
+                len(losses))
+
+
+def replay_on_cpu(torch, prng, make, params0, rounds: int, label: str, exact,
+                  close=()) -> None:
+    """``rounds`` rounds of ``make("cuda")`` from ``params0``, each round
+    replayed on the CPU (the plain versions) by ``make("cpu")`` from the
+    card's state before it, with the same key: cohorts and the ``exact``
+    metrics equal, the ``close`` ones within rtol ``CLOCK_RTOL``, the train
+    loss within ``LOSS_RTOL``.  Starting every CPU round from the card's
+    state keeps a TopK selection that float32 rounding flipped in one
+    round out of the next round's loss: on the CNN with TopK(0.1), scaling
+    the init by 1 + 1e-7 moves round 3's train loss by up to 1.8e-3
+    (relative) on the CPU alone."""
+    import numpy as np
+
+    from repro_torch import tree as tree_util
+
+    def to(state, device):
+        return type(state)(*(tree_util.map(
+            lambda t: t.to(device) if isinstance(t, torch.Tensor) else t, f)
+            for f in state))
+
+    algs, cohorts = {}, {}
+    for d in ("cuda", "cpu"):
+        algs[d] = make(d)
+        log = cohorts[d] = []
+        sample = algs[d].sched.sample_cohort
+
+        def recording(key_, s_, round_idx=0, _sample=sample, _log=log):
+            clients, avail = _sample(key_, s_, round_idx)
+            _log.append(clients.tolist())
+            return clients, avail
+
+        object.__setattr__(algs[d].sched, "sample_cohort", recording)
+    state, key, losses = algs["cuda"].init(params0), prng.PRNGKey(1), []
+    for r in range(rounds):
+        key, sub = prng.split(key, 2)
+        _, b = algs["cpu"].round(to(state, "cpu"), sub)
+        state, a = algs["cuda"].round(state, sub)
+        for key_ in exact:
+            if np.asarray(a[key_]).tolist() != np.asarray(b[key_]).tolist():
+                raise AssertionError(f"{label} round {r}: {key_} "
+                                     f"{a[key_]!r} != {b[key_]!r}")
+        for key_ in close:
+            if not np.allclose(a[key_], b[key_], rtol=CLOCK_RTOL, atol=0):
+                raise AssertionError(f"{label} round {r}: {key_} "
+                                     f"{a[key_]!r} vs {b[key_]!r}")
+        if abs(a["train_loss"] - b["train_loss"]) > LOSS_RTOL * abs(
+                b["train_loss"]):
+            raise AssertionError(f"{label} round {r}: train_loss "
+                                 f"{a['train_loss']!r} vs "
+                                 f"{b['train_loss']!r}")
+        losses.append((a["train_loss"], b["train_loss"]))
+    if cohorts["cuda"] != cohorts["cpu"]:
+        raise AssertionError(f"{label}: cohorts differ {cohorts}")
+    print(f"[replay] {label}: {rounds} rounds, each from the card's state, "
+          f"CUDA == CPU on cohorts {cohorts['cuda']}, {', '.join(exact)}; "
+          f"{', '.join(close) or 'nothing'} within rtol {CLOCK_RTOL}; "
+          f"train_loss (card, CPU) within rtol {LOSS_RTOL}: {losses!r}",
+          flush=True)
+
+
+def fig9_phase(torch, dev, setup, launches: dict) -> dict:
+    """Phase 4: the paper's Figure 9 (``benchmarks/fig9_baselines.py``) on
+    the card: FedAvg, sparseFedAvg, Scaffold, FedDyn, FedComLoc-Com and
+    Scaffnew on the CNN, each on both wires; returns the steady-round
+    profiles by run."""
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import Identity, TopK
+    from repro_torch.core import baselines, server
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import small
+
+    model, data, eval_fn = setup
+    loss_fn = small.cross_entropy_loss(model.apply)
+    params0 = model.init(prng.PRNGKey(0), device=dev)
+    fed = baselines.FedConfig(gamma=0.1, local_steps=10, n_clients=10,
+                              clients_per_round=5, batch_size=32)
+
+    def fcl(variant):
+        return FedComLocConfig(gamma=0.05, p=0.1, n_clients=10,
+                               clients_per_round=5, batch_size=32,
+                               variant=variant)
+
+    # the TopK runs launch K1 + K2 as one launch a leaf on the account
+    # wire, K1 and K5 on the packed wire (the topk codec); the rest none
+    topk_used = {"account": (FUSED_K1_K2,),
+                 "packed": ("topk_threshold_bits", "compact_slots")}
+    algs = {
+        "fedavg": (lambda d, w: baselines.FedAvg(loss_fn, d, fed, wire=w),
+                   None),
+        "sparse_fedavg_k10": (lambda d, w: baselines.SparseFedAvg(
+            loss_fn, d, fed, density=0.1, wire=w), topk_used),
+        "scaffold": (lambda d, w: baselines.Scaffold(loss_fn, d, fed, wire=w),
+                     None),
+        "feddyn": (lambda d, w: baselines.FedDyn(loss_fn, d, fed, wire=w),
+                   None),
+        "fedcomloc_com_k10": (lambda d, w: FedComLoc(
+            loss_fn, d, fcl("com"), TopK(density=0.1), wire=w), topk_used),
+        "scaffnew": (lambda d, w: FedComLoc(loss_fn, d, fcl("none"),
+                                            Identity(), wire=w), None),
+    }
+    n_leaves = len(tree_util.leaves(params0))
+    zero = {name: 0 for name in ops.launch_counts()}
+    runs = {}
+    for name, (make, used) in algs.items():
+        for wire in ("account", "packed"):
+            label = f"fig9 {name} {wire}"
+            alg = make(data["cuda"], wire)
+            per_round = []
+            round_fn = alg.round
+
+            def recording(state, key_, _round=round_fn, _log=per_round):
+                state, metrics = _round(state, key_)
+                _log.append(metrics)
+                return state, metrics
+
+            alg.round = recording
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.time()
+            hist = server.run_federated(alg, params0, FIG9_ROUNDS,
+                                        prng.PRNGKey(1), eval_fn=eval_fn,
+                                        eval_every=max(1, FIG9_ROUNDS // 6))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            del alg.round
+            counts = ops.launch_counts()
+            kernels = used[wire] if used else ()
+            expect = {**zero, **{k: FIG9_ROUNDS * n_leaves for k in kernels}}
+            losses = [float(m["train_loss"]) for m in per_round]
+            print(f"[fig9] {name} {wire}: best_acc {hist.best_acc!r} "
+                  f"total_mbits {alg.meter.total_bits / 1e6!r} uplink_mbits "
+                  f"{alg.meter.uplink_bits / 1e6!r} train loss by round "
+                  f"{losses!r} ms/round (eval included) "
+                  f"{wall / FIG9_ROUNDS * 1e3!r} launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+            if counts != expect:
+                raise AssertionError(f"{label}: launch counts {counts} != "
+                                     f"{expect}")
+            finite = finite_rounds(losses)
+            if name in FIG9_DIVERGING:
+                # the JAX package's run goes to NaN as well: only its first
+                # rounds are held
+                if finite < 1:
+                    raise AssertionError(f"{label}: round 1 not finite")
+            elif not (finite == FIG9_ROUNDS and losses[-1] < losses[0]
+                      and all(map(math.isfinite, hist.test_loss))):
+                raise AssertionError(f"{label}: does not train: {losses}")
+            for k in kernels:
+                launches.setdefault(k, {})[label] = counts[k]
+            runs[(name, wire)] = {"alg": alg, "hist": hist, "finite": finite}
+    for name in algs:
+        acc, pkd = runs[(name, "account")], runs[(name, "packed")]
+        a_m, p_m = acc["alg"].meter, pkd["alg"].meter
+        pa = tree_util.leaves(acc["hist"].final_params)
+        pp = tree_util.leaves(pkd["hist"].final_params)
+        if (p_m.uplink_bits, p_m.total_bits) != (a_m.uplink_bits,
+                                                 a_m.total_bits):
+            raise AssertionError(f"fig9 {name}: packed bits "
+                                 f"{p_m.snapshot()} != account "
+                                 f"{a_m.snapshot()}")
+        if name in FIG9_DIVERGING:
+            if acc["finite"] != pkd["finite"]:
+                raise AssertionError(f"fig9 {name}: the wires diverge in "
+                                     f"other rounds")
+            print(f"[fig9] {name}: packed == account: uplink bits "
+                  f"{p_m.uplink_bits!r}, total bits {p_m.total_bits!r}; both "
+                  f"wires' losses finite through round {acc['finite']} of "
+                  f"{FIG9_ROUNDS} (the JAX package's NaN from round 3); "
+                  f"params not held",
+                  flush=True)
+            continue
+        if not all(torch.allclose(b, a, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+                   for a, b in zip(pa, pp)):
+            raise AssertionError(f"fig9 {name}: packed params differ from "
+                                 f"account beyond rtol {PARAM_RTOL} atol "
+                                 f"{PARAM_ATOL}")
+        equal = all(torch.equal(a, b) for a, b in zip(pa, pp))
+        print(f"[fig9] {name}: packed == account: uplink bits "
+              f"{p_m.uplink_bits!r}, total bits {p_m.total_bits!r}; params "
+              f"within rtol {PARAM_RTOL} atol {PARAM_ATOL} (bit-equal "
+              f"{equal})", flush=True)
+    profiles = {}
+    for (name, wire), run in runs.items():
+        label = f"fig9 {name} {wire}"
+        p = profile_rounds(torch, prng, run["alg"], params0, label)
+        profiles[label] = p
+        idle = ("not measured" if p["busy_ms"] is None
+                else repr(1.0 - p["busy_ms"] / p["wall_ms"]))
+        print(f"[fig9] {name} {wire}: steady ms/round {p['wall_ms']!r}, device busy "
+              f"ms/round {p['busy_ms']!r}, idle share {idle}, device "
+              f"operations a round {p['device_ops']!r}", flush=True)
+    exact = ["client_steps", "uplink_bits", "downlink_bits",
+             "client_uplink_bits"]
+    for name in ("sparse_fedavg_k10", "scaffold", "fedcomloc_com_k10"):
+        replay_on_cpu(torch, prng,
+                      lambda d, _m=algs[name][0]: _m(data[d], "account"),
+                      params0, min(REPLAY_ROUNDS,
+                                   runs[(name, "account")]["finite"]),
+                      f"fig9 {name} account", exact)
+    return profiles
+
+
+def hetero_phase(torch, dev, setup, launches: dict) -> None:
+    """Phase 5: the Figure 9 setup on lognormal client speeds and
+    bandwidths, FedComLoc TopK(0.1), FedAvg and Scaffold under sync,
+    semi_sync(3) and async_buffered(2, 0.5), and straggler deadlines."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import TopK
+    from repro_torch.core import baselines
+    from repro_torch.core.aggregation import AggregationPolicy
+    from repro_torch.core.clients import ClientProfile, ClientSchedule
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import small
+
+    model, data, _ = setup
+    loss_fn = small.cross_entropy_loss(model.apply)
+    params0 = model.init(prng.PRNGKey(0), device=dev)
+    n_leaves = len(tree_util.leaves(params0))
+    s = HETERO_S
+    fed = baselines.FedConfig(gamma=0.1, local_steps=10, n_clients=10,
+                              clients_per_round=s, batch_size=32)
+    fcl = FedComLocConfig(gamma=0.05, p=0.1, n_clients=10,
+                          clients_per_round=s, batch_size=32, variant="com")
+    policies = {"sync": None,
+                "semi_sync(3)": AggregationPolicy.semi_sync(3),
+                "async_buffered(2, 0.5)": AggregationPolicy.async_buffered(
+                    2, 0.5)}
+    makers = {
+        "fedcomloc_k10": lambda d, pol, sch: FedComLoc(
+            loss_fn, d, fcl, TopK(density=0.1), schedule=sch, policy=pol),
+        "fedavg": lambda d, pol, sch: baselines.FedAvg(
+            loss_fn, d, fed, schedule=sch, policy=pol),
+        "scaffold": lambda d, pol, sch: baselines.Scaffold(
+            loss_fn, d, fed, schedule=sch, policy=pol),
+    }
+    cases = [(name, pol, {}) for name in makers for pol in policies]
+    # deadline 10 truncates the slow clients' 10 steps; at deadline 3 the
+    # slowest (speed 0.28) completes none and drops
+    cases += [("fedcomloc_k10", "sync",
+               {"deadline": 10.0, "drop_stragglers": True}),
+              ("scaffold", "semi_sync(3)",
+               {"deadline": 3.0, "drop_stragglers": True})]
+    zero = {name: 0 for name in ops.launch_counts()}
+    nominal = fed.local_steps               # = fcl.steps_cap
+    exact = ["client_steps", "uplink_bits", "downlink_bits",
+             "client_uplink_bits", "client_staleness", "clients_aggregated"]
+    for name, pol, kw in cases:
+        label = f"hetero {name} {pol}" + (
+            f" deadline {kw['deadline']}" if kw else "")
+
+        def make(d, _name=name, _pol=pol, _kw=kw):
+            profile = ClientProfile.lognormal(10, speed_sigma=1.0,
+                                              bandwidth_sigma=0.7, seed=0)
+            return makers[_name](data[d], policies[_pol],
+                                 ClientSchedule(profile, bit_cost=1e-7, **_kw))
+
+        alg = make("cuda")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        _, m = alg.run_rounds(alg.init(params0), prng.PRNGKey(1), FIG9_ROUNDS)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        kernels = (FUSED_K1_K2,) if name == "fedcomloc_k10" else ()
+        expect = {**zero, **{k: FIG9_ROUNDS * n_leaves for k in kernels}}
+        if counts != expect:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{expect}")
+        for k in kernels:
+            launches.setdefault(k, {})[label] = counts[k]
+        dropped = truncated = 0
+        for r in range(FIG9_ROUNDS):
+            steps, finish = m["client_steps"][r], m["client_finish"][r]
+            part = steps > 0 if kw else np.ones(s, bool)
+            agg = m["clients_aggregated"][r]
+            if pol == "semi_sync(3)" and agg != min(3, int(part.sum())):
+                raise AssertionError(f"{label} round {r}: {agg} aggregated, "
+                                     f"{int(part.sum())} participants")
+            if pol == "sync" and agg != part.sum():
+                raise AssertionError(f"{label} round {r}: {agg} aggregated")
+            if pol.startswith("async"):
+                order = np.argsort(np.where(part, finish, np.inf),
+                                   kind="stable")
+                rank = np.empty(s, np.int64)
+                rank[order] = np.arange(s)
+                want = (rank // 2) * part
+                if not np.array_equal(m["client_staleness"][r], want):
+                    raise AssertionError(f"{label} round {r}: staleness "
+                                         f"{m['client_staleness'][r]} != "
+                                         f"{want}")
+            if kw:
+                gone = ~part
+                if (np.any(m["client_uplink_bits"][r][gone] != 0.0)
+                        or np.any(finish[gone]
+                                  != np.float32(kw["deadline"]))):
+                    raise AssertionError(f"{label} round {r}: a dropped "
+                                         f"client sent bits or finished off "
+                                         f"the deadline")
+                dropped += int(gone.sum())
+                truncated += int(((steps > 0) & (steps < nominal)).sum())
+        losses = m["train_loss"].tolist()
+        finite = finite_rounds(losses)
+        if finite < (1 if name in FIG9_DIVERGING else FIG9_ROUNDS):
+            raise AssertionError(f"{label}: non-finite loss {losses}")
+        if kw.get("deadline") == 3.0 and not dropped:
+            raise AssertionError(f"{label}: no client dropped")
+        if kw.get("deadline") == 10.0 and not truncated:
+            raise AssertionError(f"{label}: no client truncated")
+        print(f"[hetero] {label}: sim_time {float(m['sim_time'].sum())!r} "
+              f"over {FIG9_ROUNDS} rounds, uplink Mbit "
+              f"{alg.meter.uplink_bits / 1e6!r}, clients aggregated "
+              f"{m['clients_aggregated'].tolist()}, staleness levels seen "
+              f"{sorted(set(m['client_staleness'].ravel().tolist()))}, "
+              f"dropped {dropped}, truncated {truncated}, train loss "
+              f"{losses[0]!r} -> {losses[-1]!r}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        replay_on_cpu(torch, prng, make, params0, min(REPLAY_ROUNDS, finite),
+                      label, exact, close=("sim_time", "client_finish"))
 
 
 def main() -> int:
@@ -2152,7 +2552,14 @@ def main() -> int:
         print(f"[profile] {name}: steady ms/round packed {p['wall_ms']!r} vs "
               f"account {a['wall_ms']!r}; {busy}", flush=True)
 
-    # ---- 4. scans, 5.-6. serve, 7. attention, 8. CUDA against CPU ---------- #
+    # ---- 4. fig9, 5. hetero ------------------------------------------------ #
+    cifar = cifar_setup(torch, dev)
+    fig9_phase(torch, dev, cifar, launches)
+    hetero_phase(torch, dev, cifar, launches)
+    del cifar
+    torch.cuda.empty_cache()
+
+    # ---- 6. scans, 7.-8. serve, 9. attention, 10. CUDA against CPU --------- #
     check_scan_kernels(torch, dev, recs)
     launches.update(serve_phase(torch, dev, SERVE_SHAPES)[0])
     _, captured = serve_phase(torch, dev, DENSE_SHAPES, ATTN_CAPTURE)

@@ -1,40 +1,46 @@
-"""Client layer of the round (the port of ``repro.core.clients``, the
-subset on the homogeneous synchronous path).
+"""Client layer of the round (the port of ``repro.core.clients`` on one
+device).
 
 * :class:`ClientProfile` / :class:`ClientSchedule` — per-client speed and
-  bandwidth and the per-round :class:`RoundPlan` (steps, participation);
+  bandwidth (homogeneous, lognormal or uniform) and the per-round
+  :class:`RoundPlan`: a straggler ``deadline`` truncates slow clients'
+  steps and ``drop_stragglers`` removes clients that finish none;
   ``finish_times``/``sim_time`` are the sim-clock cost model;
 * ``sample_cohort`` — the uniform without-replacement cohort draw, bit for
   bit ``jax.random.choice`` on the same key;
-* ``mean_over_active`` and ``batched_compress`` (the counterpart of
-  ``vmap_compress``: one compress call for the whole stacked cohort);
+* ``keep_where``, ``tree_where``, ``mean_over_active``, ``masked_mean``
+  and ``batched_compress`` (the counterpart of ``vmap_compress``: one
+  compress call for the whole stacked cohort);
 * the packed uplink (DESIGN.md §8): ``vmap_encode`` at the client
   boundary, ``mask_payload`` and ``gather_decoded`` on the server, and
   ``payload_metrics``.  The port has one device, so there is no client
   axis to gather across.
 
 Plans and cohorts live on the host (small ``(s,)`` tensors); the stacked
-model rows live on the device.  Deadlines, drop-out, availability, the
-tree sampler and per-client compressor overrides are not yet ported and
-raise ``NotImplementedError``.
+model rows live on the device.  Availability, the tree sampler and
+per-client compressor overrides are not yet ported and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import not_ported, prng
+from repro_torch import tree as tree_util
 
+PyTree = Any
 
 
 class RoundPlan(NamedTuple):
     """One round's resolved schedule for the ``s`` sampled clients (host)."""
 
-    steps: torch.Tensor          # (s,) int64 — local steps each completes
-    participating: torch.Tensor  # (s,) bool
+    steps: torch.Tensor          # (s,) int32 — local steps each completes
+    participating: torch.Tensor  # (s,) bool — False = straggler dropped
     speed: torch.Tensor          # (s,) float32
     bandwidth: torch.Tensor      # (s,) float32
     comp_overrides: Dict[str, torch.Tensor]
@@ -72,11 +78,48 @@ class ClientProfile:
         ones = torch.ones(n_clients, dtype=torch.float32)
         return cls(speed=ones, bandwidth=ones)
 
+    @classmethod
+    def lognormal(cls, n_clients: int, *, speed_sigma: float = 0.5,
+                  bandwidth_sigma: float = 0.0, seed: int = 0
+                  ) -> "ClientProfile":
+        """Median-1 lognormal speeds/bandwidths (heavy straggler tail): the
+        reference's numpy draws, rounded to float32."""
+        rng = np.random.default_rng(seed)
+        speed = rng.lognormal(0.0, speed_sigma, n_clients)
+        bw = (rng.lognormal(0.0, bandwidth_sigma, n_clients)
+              if bandwidth_sigma > 0 else np.ones(n_clients))
+        return cls(speed=torch.from_numpy(speed.astype(np.float32)),
+                   bandwidth=torch.from_numpy(bw.astype(np.float32)))
+
+    @classmethod
+    def uniform(cls, n_clients: int, *, lo: float = 0.5, hi: float = 2.0,
+                bandwidth_lo: Optional[float] = None,
+                bandwidth_hi: Optional[float] = None, seed: int = 0
+                ) -> "ClientProfile":
+        """Speeds (and optionally bandwidths) uniform in [lo, hi]."""
+        rng = np.random.default_rng(seed)
+        speed = rng.uniform(lo, hi, n_clients)
+        if bandwidth_lo is None:
+            bw = np.ones(n_clients)
+        else:
+            bw = rng.uniform(bandwidth_lo,
+                             bandwidth_hi if bandwidth_hi is not None
+                             else bandwidth_lo, n_clients)
+        return cls(speed=torch.from_numpy(speed.astype(np.float32)),
+                   bandwidth=torch.from_numpy(bw.astype(np.float32)))
+
 
 @dataclasses.dataclass(frozen=True)
 class ClientSchedule:
-    """Turns a profile into per-round :class:`RoundPlan` s.
+    """Turns a profile + straggler policy into per-round
+    :class:`RoundPlan` s.
 
+    ``deadline`` is a sim-time budget for the local phase: client i
+    completes ``min(nominal, floor(deadline·speed_i/step_cost))`` steps.
+    With ``drop_stragglers`` clients that complete zero steps are removed
+    from the round (no uplink payload, no control-variate update, excluded
+    from the server average, holding the round open to the deadline);
+    otherwise they report their unchanged broadcast iterate.
     ``step_cost``/``bit_cost`` are the sim-time of one local step at speed
     1 and of one uplink bit at bandwidth 1.
     """
@@ -90,16 +133,22 @@ class ClientSchedule:
     sampler: str = "gumbel"
 
     def __post_init__(self):
-        if self.deadline is not None or self.drop_stragglers:
-            raise not_ported("straggler deadlines and drop-out")
-        if self.availability is not None:
-            raise not_ported("client availability")
-        if self.sampler != "gumbel":
-            raise not_ported(f"sampler={self.sampler!r}")
+        if self.deadline is not None and self.deadline <= 0:
+            raise ValueError("deadline must be positive")
         if self.step_cost <= 0:
             raise ValueError("step_cost must be positive")
         if self.bit_cost < 0:
             raise ValueError("bit_cost must be non-negative")
+        if self.drop_stragglers and self.deadline is None:
+            raise ValueError("drop_stragglers requires a deadline")
+        if self.sampler not in ("gumbel", "tree"):
+            raise ValueError(
+                f"unknown sampler {self.sampler!r}: expected 'gumbel' or "
+                f"'tree'")
+        if self.availability is not None:
+            raise not_ported("client availability")
+        if self.sampler != "gumbel":
+            raise not_ported(f"sampler={self.sampler!r}")
 
     @classmethod
     def homogeneous(cls, n_clients: int) -> "ClientSchedule":
@@ -111,7 +160,13 @@ class ClientSchedule:
 
     @property
     def may_drop(self) -> bool:
-        return False
+        return self.drop_stragglers
+
+    @property
+    def heterogeneous_steps(self) -> bool:
+        """True if per-client step counts can differ within a round
+        (deadline truncation): round bodies mask their local steps."""
+        return self.deadline is not None
 
     def sample_cohort(self, key: torch.Tensor, s: int, round_idx=0):
         """The round's cohort ``(s,)``: ``jax.random.choice(key, n, (s,),
@@ -120,14 +175,24 @@ class ClientSchedule:
         return prng.choice(key, self.n_clients, s), None
 
     def plan(self, clients: torch.Tensor, nominal_steps: int) -> RoundPlan:
-        """Resolve the sampled ``clients`` for one round."""
+        """Resolve the sampled ``clients`` for one round (host tensors)."""
         s = clients.shape[0]
+        speed = self.profile.speed[clients]
+        steps = torch.full((s,), int(nominal_steps), dtype=torch.int32)
+        participating = torch.ones(s, dtype=torch.bool)
+        if self.deadline is not None:
+            # float32 deadline * speed / step_cost, floored, as the
+            # reference computes it
+            can_do = torch.floor(
+                torch.tensor(self.deadline, dtype=torch.float32) * speed
+                / torch.tensor(self.step_cost, dtype=torch.float32)
+            ).to(torch.int32)
+            steps = torch.minimum(steps, torch.clamp(can_do, min=0))
+            if self.drop_stragglers:
+                participating = steps > 0
         return RoundPlan(
-            steps=torch.full((s,), int(nominal_steps), dtype=torch.int64),
-            participating=torch.ones(s, dtype=torch.bool),
-            speed=self.profile.speed[clients],
-            bandwidth=self.profile.bandwidth[clients],
-            comp_overrides={})
+            steps=steps, participating=participating, speed=speed,
+            bandwidth=self.profile.bandwidth[clients], comp_overrides={})
 
     def finish_times(self, plan: RoundPlan,
                      client_uplink_bits: torch.Tensor) -> torch.Tensor:
@@ -137,10 +202,36 @@ class ClientSchedule:
         comm = (client_uplink_bits.to(torch.float32) * self.bit_cost
                 / plan.bandwidth)
         comm = torch.where(plan.participating, comm, torch.zeros_like(comm))
-        return compute + comm
+        finish = compute + comm
+        if self.deadline is not None and self.drop_stragglers:
+            # a dropped straggler holds the round until the deadline
+            finish = torch.where(
+                plan.participating, finish,
+                torch.tensor(self.deadline, dtype=torch.float32))
+        return finish
 
     def sim_time(self, plan: RoundPlan, client_uplink_bits) -> torch.Tensor:
         return torch.max(self.finish_times(plan, client_uplink_bits))
+
+
+def per_client(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A ``(s,)`` vector on ``leaf``'s device, shaped to broadcast over a
+    ``(s, ...)`` stacked leaf."""
+    return mask.to(leaf.device).reshape(
+        (mask.shape[0],) + (1,) * (leaf.dim() - 1))
+
+
+def keep_where(mask: torch.Tensor, new: PyTree, old: PyTree) -> PyTree:
+    """Per-client select over stacked trees: take ``new`` where ``mask`` is
+    set, keep ``old`` elsewhere (e.g. revert non-participants' updates)."""
+    return tree_util.map(
+        lambda n, o: torch.where(per_client(mask, n), n, o), new, old)
+
+
+def tree_where(cond: torch.Tensor, a: PyTree, b: PyTree) -> PyTree:
+    """Scalar-condition select over whole trees (e.g. 'every sampled client
+    dropped — keep the server model'); ``cond`` is a host scalar."""
+    return a if bool(cond) else b
 
 
 def mean_over_active(values: torch.Tensor,
@@ -150,6 +241,15 @@ def mean_over_active(values: torch.Tensor,
     divisor."""
     act = active.to(device=values.device, dtype=values.dtype)
     return (values * act).sum() / torch.clamp(act.sum(), min=1.0)
+
+
+def masked_mean(stacked: PyTree, weights: torch.Tensor) -> PyTree:
+    """Mean over the client axis weighted by the host ``weights`` ``(s,)``
+    (e.g. the participation mask); a zero-weight round returns zeros,
+    never NaN."""
+    wsum = float(torch.clamp(weights.sum(), min=1.0))
+    return tree_util.map(
+        lambda t: (t * per_client(weights, t)).sum(dim=0) / wsum, stacked)
 
 
 def batched_compress(comp, plan: RoundPlan, stacked, keys: torch.Tensor):

@@ -11,8 +11,9 @@ Algorithms define ``_round_impl(state, key) -> (state, metrics)`` where
   CUDA graph over a round is later work.
 
 Both record into ``self.meter`` (:class:`repro_torch.core.comm.CommMeter`).
-``wire`` is ``"account"`` or ``"packed"`` (DESIGN.md §8); only
-``downlink="dense"`` is ported.
+``set_policy`` binds one of the three aggregation policies (DESIGN.md §7)
+and ``set_wire`` the wire mode, ``"account"`` or ``"packed"`` (DESIGN.md
+§8); only ``downlink="dense"`` is ported.
 """
 
 from __future__ import annotations
@@ -23,10 +24,22 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported, prng
+from repro_torch import tree as tree_util
 
 PyTree = Any
 
 WIRE_MODES = ("account", "packed")
+
+
+def value_and_grad(loss_fn, params: PyTree, xb, yb):
+    """Per-client losses ``(s,)`` and gradients of stacked ``params``: one
+    forward/backward for the whole cohort (each client's loss depends only
+    on its own rows, so the summed loss's gradient is each client's)."""
+    flat = [p.detach().requires_grad_(True) for p in tree_util.leaves(params)]
+    with torch.enable_grad():
+        losses = loss_fn(tree_util.unflatten(params, flat), xb, yb)
+        grads = torch.autograd.grad(losses.sum(), flat)
+    return losses.detach(), tree_util.unflatten(params, list(grads))
 
 
 def _host(v):
@@ -54,7 +67,8 @@ class RoundEngine:
 
     def _setup_engine(self) -> None:
         from repro_torch.core import aggregation
-        self.policy = aggregation.validate_policy(getattr(self, "policy", None))
+        self.policy = aggregation.validate_policy(
+            getattr(self, "policy", None), self.cfg.clients_per_round)
         self.wire = validate_wire(getattr(self, "wire", None),
                                   getattr(self, "comp", None))
         if getattr(self, "downlink", "dense") != "dense":
@@ -65,6 +79,14 @@ class RoundEngine:
     def set_wire(self, wire: str) -> "RoundEngine":
         """Bind a wire mode, ``"account"`` or ``"packed"``; returns self."""
         self.wire = validate_wire(wire, getattr(self, "comp", None))
+        return self
+
+    def set_policy(self, policy) -> "RoundEngine":
+        """Bind an aggregation policy (DESIGN.md §7), ``None`` = sync;
+        returns self."""
+        from repro_torch.core import aggregation
+        self.policy = aggregation.validate_policy(
+            policy, self.cfg.clients_per_round)
         return self
 
     def round(self, state, key) -> Tuple[Any, Dict[str, Any]]:

@@ -18,10 +18,13 @@ The cohort's local SGD is batched: the server model is broadcast to
 launch per leaf for the whole cohort.  Under ``wire="packed"`` the
 cohort's uplink is encoded into real packed payloads at the client
 boundary, non-participants' buffers are masked, and the server decodes
-the stack once (DESIGN.md §8).  Ported: the homogeneous schedule, the
-sync policy, ``wire="account"`` and ``"packed"``, ``downlink="dense"``,
-``local_steps="fixed"`` and ``"geometric"``, and the beyond-paper leaky
-error feedback on the Com uplink and Polyak server momentum.
+the stack once (DESIGN.md §8).  Ported: heterogeneous schedules (per-client
+step masks under a straggler deadline, drop-out), the sync, semi_sync and
+async_buffered policies (DESIGN.md §7), ``wire="account"`` and
+``"packed"``, ``downlink="dense"``, ``local_steps="fixed"`` and
+``"geometric"``, and the beyond-paper leaky error feedback on the Com
+uplink and Polyak server momentum.  Other downlinks and client stores are
+not yet ported.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, dense_bits
 from repro_torch.core import aggregation, comm
 from repro_torch.core.clients import (
-    ClientSchedule, batched_compress, gather_decoded, mean_over_active,
-    payload_metrics, validate_schedule, vmap_encode)
-from repro_torch.core.engine import RoundEngine
+    ClientSchedule, batched_compress, gather_decoded, keep_where,
+    masked_mean, mean_over_active, payload_metrics, tree_where,
+    validate_schedule, vmap_encode)
+from repro_torch.core.engine import RoundEngine, value_and_grad
 from repro_torch.core.fed_data import FederatedData
 
 PyTree = Any
@@ -163,18 +167,14 @@ class FedComLoc(RoundEngine):
         # Geometric(p) truncated at cap, from jax.random.uniform(key)
         return int(geometric_steps(prng.uniform(key, 1), self.cfg.p, cap)[0])
 
-    def _value_and_grad(self, params: PyTree, xb, yb):
-        """Per-client losses ``(s,)`` and gradients of stacked params."""
-        flat = [p.detach().requires_grad_(True)
-                for p in tree_util.leaves(params)]
-        with torch.enable_grad():
-            losses = self.loss_fn(tree_util.unflatten(params, flat), xb, yb)
-            grads = torch.autograd.grad(losses.sum(), flat)
-        return losses.detach(), tree_util.unflatten(params, list(grads))
+    @property
+    def _round_key_fanout(self) -> int:
+        return 5          # the reference's split with a dense downlink
 
     def _round_impl(self, state: FedComLocState, key: torch.Tensor):
         cfg, sched = self.cfg, self.sched
-        k_sample, k_steps, k_local, k_up, k_down = prng.split(key, 5)
+        k_sample, k_steps, k_local, k_up, k_down = prng.split(
+            key, self._round_key_fanout)
         s = cfg.clients_per_round
         clients, _ = sched.sample_cohort(k_sample, s, state.round)
         num_steps = self._num_local_steps(k_steps)
@@ -189,26 +189,28 @@ class FedComLoc(RoundEngine):
 
         # the whole round's key chain at once: step j, client i draws
         # split(split(split(k_local, cap)[j], s)[i]) -> (batch, compress).
-        # The reference scans all cap steps and masks those past the drawn
-        # count; a step with no active client changes nothing and adds 0
-        # to the loss, so only the num_steps active steps run here.
+        # The reference scans all cap steps and masks each client past its
+        # planned count (step_idx < plan.steps); a step with no active
+        # client changes nothing and adds 0 to the loss, so only the
+        # num_steps steps that can be active run here.
         step_keys = prng.split(k_local, cfg.steps_cap)[:num_steps]
         client_keys = prng.split(step_keys, s)           # (steps, s, 2)
         kb_kc = prng.split(client_keys, 2)               # (steps, s, 2, 2)
         xb_all, yb_all = self.data.sample_batch(
             kb_kc[..., 0, :], clients.unsqueeze(0).expand(num_steps, s),
             cfg.batch_size)
-        # the homogeneous plan runs every client for all num_steps steps
-        # (per-client step masks arrive with straggler deadlines)
-        active = (plan.steps > 0).to(dev)
 
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for j in range(num_steps):
+            active = j < plan.steps                      # (s,) host mask
             x_eval = (self.comp.apply(x_i, kb_kc[j, :, 1])
                       if cfg.variant == "local" else x_i)
-            losses, g = self._value_and_grad(x_eval, xb_all[j], yb_all[j])
-            x_i = tree_util.map(
+            losses, g = value_and_grad(self.loss_fn, x_eval, xb_all[j],
+                                       yb_all[j])
+            x_new = tree_util.map(
                 lambda xc, gc, hc: xc - cfg.gamma * (gc - hc), x_i, g, h_s)
+            x_i = x_new if bool(active.all()) else keep_where(active, x_new,
+                                                              x_i)
             loss_sum = loss_sum + mean_over_active(losses, active)
         x_hat = x_i
 
@@ -246,16 +248,19 @@ class FedComLoc(RoundEngine):
             # uncompressed-uplink variants still move a real dense buffer
             payload, _ = vmap_encode(None, plan, x_hat)
 
+        # --- aggregation policy (DESIGN.md §7) --------------------------- #
         pol = aggregation.resolve_policy(
             self.policy, sched, plan,
             client_up * plan.participating.to(torch.float32))
-        out = pol.out
-        client_up = pol.client_up
-        if up_bits is None or pol.may_exclude:
+        out, may_exclude = pol.out, pol.may_exclude
+        part = out.participating
+        client_up = pol.client_up             # excluded clients send nothing
+        if up_bits is None or may_exclude:
             up_bits = client_up.sum()
         if wire_on:
             # decode once, server-side, on the masked stack; non-com
             # variants ship the raw iterate, so their decode equals x_hat
+            # on every row the aggregation keeps
             sent = gather_decoded(payload, out.partf)
             if cfg.variant != "com":
                 x_hat = sent
@@ -267,9 +272,25 @@ class FedComLoc(RoundEngine):
             # leaky memory: undecayed EF diverges inside Scaffnew
             e_s_new = tree_util.map(lambda c, snt: cfg.ef_decay * (c - snt),
                                     innov, sent)
+            if may_exclude:    # an excluded client never transmitted
+                e_s_new = keep_where(part, e_s_new, e_s)
             e_new = tree_util.map(lambda e, es: e.index_copy(0, rows, es),
                                   state.e, e_s_new)
-        x_bar = tree_util.map(lambda t: t.mean(dim=0), x_hat)
+        if aggregation.uses_delta_combine(self.policy):
+            # FedBuff server application in delta form: each buffer flush
+            # applies its staleness-discounted mean of anchor deltas
+            delta = tree_util.map(lambda xh, x0: xh - x0.unsqueeze(0),
+                                  x_hat, state.x)
+            x_bar = tree_util.map(lambda x0, u: x0 + u, state.x,
+                                  aggregation.async_weighted_sum(out, delta))
+        elif may_exclude:
+            # if every sampled client was excluded, the server keeps its
+            # model
+            x_bar = tree_where(out.n_selected > 0,
+                               masked_mean(x_hat, out.weight),
+                               state.x)
+        else:
+            x_bar = tree_util.map(lambda t: t.mean(dim=0), x_hat)
         if cfg.variant == "global":
             x_bar, down_rep = self.comp.compress(
                 tree_util.map(lambda t: t.unsqueeze(0), x_bar),
@@ -281,6 +302,8 @@ class FedComLoc(RoundEngine):
         h_s_new = tree_util.map(
             lambda h, xh, xb_: h + (cfg.p / cfg.gamma) * (xb_.unsqueeze(0) - xh),
             h_s, x_hat, x_bar)
+        if may_exclude:   # an excluded client keeps its control variate
+            h_s_new = keep_where(part, h_s_new, h_s)
         h_new = tree_util.map(lambda h, hs: h.index_copy(0, rows, hs),
                               state.h, h_s_new)
 
@@ -299,7 +322,7 @@ class FedComLoc(RoundEngine):
             "num_local_steps": torch.tensor(num_steps, dtype=torch.int32),
             "uplink_bits": up_bits,
             "downlink_bits": down_bits,
-            "client_steps": plan.steps.to(torch.int32),
+            "client_steps": plan.steps,
             "client_uplink_bits": client_up,
             "client_finish": out.finish,
             "sim_time": out.sim_time,

@@ -66,13 +66,18 @@ def run_federated(
     key,
     eval_fn: Optional[Callable] = None,
     eval_every: int = 10,
+    policy: Optional[Any] = None,
     wire: Optional[str] = None,
 ) -> History:
     """Drive ``algorithm`` (anything with .init/.round/.meter) for R rounds,
     one ``algorithm.round`` per round on the ``key, sub = split(key)``
     chain, evaluating after round 1, every ``eval_every`` rounds, and
-    after the last.  ``wire`` (``"account"`` | ``"packed"``) rebinds the
-    algorithm's wire mode first (DESIGN.md §8)."""
+    after the last.  ``policy`` (an
+    :class:`repro_torch.core.aggregation.AggregationPolicy`) rebinds the
+    aggregation policy (DESIGN.md §7) and ``wire`` (``"account"`` |
+    ``"packed"``) the wire mode (DESIGN.md §8) first."""
+    if policy is not None:
+        algorithm.set_policy(policy)
     if wire is not None:
         algorithm.set_wire(wire)
     key = prng.key_data(key)

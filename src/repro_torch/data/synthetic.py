@@ -1,10 +1,12 @@
-"""Synthetic structured dataset: the offline stand-in for MNIST.
+"""Synthetic structured datasets: the offline stand-ins for MNIST and
+CIFAR10.
 
 A copy of ``repro.data.synthetic``'s numpy code for the port's slices
-(``make_mnist_like``, ``make_lm_tokens``); the same seed gives byte-equal
-arrays.  Each class
+(``make_mnist_like``, ``make_cifar_like``, ``make_lm_tokens``); the same
+seed gives byte-equal arrays.  Each class
 gets an anchor in a latent space; samples are anchor + noise, pushed
-through a fixed random nonlinear "renderer" into 784 dimensions.
+through a fixed random nonlinear "renderer" into 784 dimensions (or
+32x32x3 images).
 """
 
 from __future__ import annotations
@@ -42,6 +44,13 @@ def make_mnist_like(n_train: int = 60_000, n_test: int = 10_000,
     """10-class, 784-dim, high SNR — an MLP should reach >0.9 accuracy."""
     return _make(n_train, n_test, seed, latent=32, out_dim=784,
                  depth=1, noise=noise, n_classes=10, image=False)
+
+
+def make_cifar_like(n_train: int = 50_000, n_test: int = 10_000,
+                    seed: int = 1, noise: float = 0.9) -> Dataset:
+    """10-class, 32x32x3, low SNR + deeper renderer — harder task."""
+    return _make(n_train, n_test, seed, latent=48, out_dim=32 * 32 * 3,
+                 depth=3, noise=noise, n_classes=10, image=True)
 
 
 def _make(n_train, n_test, seed, *, latent, out_dim, depth, noise,

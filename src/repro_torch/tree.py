@@ -1,6 +1,7 @@
-"""Parameter trees: nested dicts of tensors, flattened in sorted-key order
-(the order ``jax.tree_util`` flattens the reference's dict-of-dicts, so
-per-leaf key splits line up leaf for leaf)."""
+"""Parameter trees: nested dicts and tuples of tensors, flattened in
+sorted-key order for dicts and in position order for tuples (the order
+``jax.tree_util`` flattens the reference's trees, so per-leaf key splits
+line up leaf for leaf)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ PyTree = Any
 def leaves(tree: PyTree) -> List[Any]:
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in leaves(t)]
     return [tree]
 
 
@@ -19,6 +22,9 @@ def map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:  # noqa: A001
     if isinstance(tree, dict):
         return {k: map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        return tuple(map(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 

@@ -13,7 +13,9 @@ bit-equal to the plain versions; K3 within rtol
 update keeps the plain version's operation order) and y within
 ``WKV6_YTOL`` of max |y| in float32 (64-term sums in another order), plus
 one bf16 rounding in bf16.  One reduced prefill on the card launches K11
-once per rglru layer and K12 once per rwkv layer.
+once per rglru layer and K12 once per rwkv layer.  The stacked CNN's
+forward and backward on the card are within 1e-4 of the CPU's, and two
+rounds of Figure 9's sparseFedAvg on the card count what the CPU counts.
 """
 
 import pytest
@@ -745,6 +747,74 @@ def test_round_launch_counts_and_no_torch_uniforms(cuda_device, monkeypatch,
     else:
         want.update({"topk_threshold_bits": leaves, "compact_slots": leaves})
     assert ops.launch_counts() == want
+
+
+def test_stacked_cnn_forward_backward_matches_cpu(cuda_device):
+    """The CNN over 5 stacked clients (one grouped convolution per conv
+    layer, one bmm per dense layer) on the card against the CPU, logits,
+    losses and gradients within 1e-4."""
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.core.engine import value_and_grad
+    from repro_torch.data import synthetic
+    from repro_torch.models import small
+
+    s, b = 5, 32
+    ds = synthetic.make_cifar_like(n_train=s * b, n_test=10)
+    model = small.CNN(3, 10, 32)
+    keys = prng.split(prng.PRNGKey(3), s)
+    cpu = tree_util.map(lambda *ls: torch.stack(ls),
+                        *[model.init(k, device="cpu") for k in keys])
+    xb = torch.from_numpy(ds.x_train.reshape(s, b, 32, 32, 3))
+    yb = torch.from_numpy(ds.y_train.reshape(s, b).astype("int64"))
+    loss_fn = small.cross_entropy_loss(model.apply)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_util.map(lambda p: p.to(dev), cpu)
+        logits = model.apply(params, xb.to(dev))
+        losses, grads = value_and_grad(loss_fn, params, xb.to(dev),
+                                       yb.to(dev))
+        out[dev] = [logits, losses] + tree_util.leaves(grads)
+    for a, g in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(g.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+def test_fig9_fedavg_topk_rounds_match_cpu(cuda_device):
+    """Two rounds of Figure 9's sparseFedAvg (TopK(0.1)) on the CNN, on the
+    card and on the CPU: cohorts, steps and bits equal, train loss within
+    1e-4; the card launches K1 + K2 as one launch a leaf a round."""
+    from repro_torch import prng
+    from repro_torch.core import baselines, fed_data
+    from repro_torch.data import dirichlet, synthetic
+    from repro_torch.models import small
+
+    ds = synthetic.make_cifar_like(n_train=1200, n_test=10, seed=1)
+    parts = dirichlet.dirichlet_partition(ds.y_train, n_clients=10,
+                                          alpha=0.7, seed=1)
+    model = small.CNN(3, 10, 32)
+    cfg = baselines.FedConfig(gamma=0.1, local_steps=10, n_clients=10,
+                              clients_per_round=5, batch_size=32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        data = fed_data.from_numpy_partition(ds.x_train, ds.y_train, parts,
+                                             device=dev)
+        alg = baselines.SparseFedAvg(small.cross_entropy_loss(model.apply),
+                                     data, cfg, density=0.1)
+        ops.reset_launch_counts()
+        _, m = alg.run_rounds(alg.init(model.init(prng.PRNGKey(0),
+                                                  device=dev)),
+                              prng.PRNGKey(1), 2)
+        runs[dev] = (m, ops.launch_counts())
+    (mg, counts), (mc, _) = runs["cuda"], runs["cpu"]
+    for name in ("uplink_bits", "downlink_bits", "client_steps",
+                 "client_uplink_bits", "clients_aggregated", "sim_time"):
+        assert mg[name].tolist() == mc[name].tolist(), name
+    torch.testing.assert_close(torch.from_numpy(mg["train_loss"]),
+                               torch.from_numpy(mc["train_loss"]),
+                               rtol=1e-4, atol=0)
+    want = {name: 0 for name in counts}
+    want["topk_threshold_mask"] = 2 * 10       # 10 leaves, 2 rounds
+    assert counts == want
 
 
 WKV6_YTOL = 1e-5

@@ -182,10 +182,12 @@ def _global_topk():
     return comp
 
 
-# error feedback, server momentum, geometric local phases and the packed
-# wire are ported; each id now names what stays unported beside it: the
-# EF memory in a client store, momentum with a compressed downlink,
-# geometric phases under straggler deadlines, and the global-scope wire
+# error feedback, server momentum, geometric local phases, the packed
+# wire, straggler deadlines and the semi_sync policy are ported; each id
+# now names what stays unported beside it: the EF memory in a client
+# store, momentum with a compressed downlink, geometric phases and a
+# deadline under client availability, the global-scope wire, semi_sync as
+# a hierarchical policy's edge tier, and a deadline under the tree sampler
 @pytest.mark.parametrize("make", [
     lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, error_feedback=True),
@@ -196,16 +198,19 @@ def _global_topk():
     lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, local_steps="geometric"),
         schedule=clients.ClientSchedule(
-            clients.ClientProfile.homogeneous(N_CLIENTS), deadline=4.0)),
+            clients.ClientProfile.homogeneous(N_CLIENTS), deadline=4.0,
+            availability=object())),
     lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
                         _global_topk(), wire="packed"),
     lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
                         compress.TopK(0.3), downlink="account"),
     lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
                         compress.TopK(0.3), store=object()),
-    lambda s: aggregation.AggregationPolicy(mode="semi_sync"),
+    lambda s: aggregation.HierarchicalPolicy(
+        edge=aggregation.AggregationPolicy.semi_sync(2)),
     lambda s: clients.ClientSchedule(
-        clients.ClientProfile.homogeneous(N_CLIENTS), deadline=1.0),
+        clients.ClientProfile.homogeneous(N_CLIENTS), deadline=1.0,
+        sampler="tree"),
     lambda s: clients.ClientProfile(torch.ones(3), torch.ones(3),
                                     {"density": torch.ones(3)}),
 ], ids=["error_feedback", "server_momentum", "geometric_steps", "packed_wire",

@@ -3,7 +3,7 @@
 the card: each beside the kernel it replaced and beside the other designs
 that were candidates, with one choice changed at a time.
 
-    python3 tools/k8_k11_ablation.py [--parent DIR]
+    python3 tools/k8_k11_ablation.py [--parent DIR] [--recheck N]
 
 Needs one CUDA card and ``nvcc``.  ``--parent`` is the root of another
 checkout (the parent commit unpacked with ``git archive``, say); its
@@ -40,6 +40,13 @@ variants run.  Builds into ``src/repro_torch/kernels/_build/ablation/``:
   prompt 2560, seeded weights), with the parent's K11 and with this
   checkout's, in turns (parent, this, this, parent, three prefills each;
   18 K11 launches a prefill; the logits must be equal).
+
+``--recheck N`` runs only the first check, K8 at (5, 50176), b = 9,
+against ``ref.pack_codes``, on N fresh ``torch.randint`` code arrays (the
+first the seed-0 draw the full run starts with) with the main build's
+library alone, then N more with each K8 variant once every library of the
+ablation has loaded; it prints each mismatch (positions, words, whether a
+second call agrees) and the counts, and exits non-zero on any mismatch.
 
 Times each kernel with CUDA events, in turns (each variant twice, in order
 and then in reverse; the minimum is printed), and by its device time and
@@ -328,6 +335,40 @@ def compile_variants(build, name: str, src: str, hooks, variants, flags_of: str,
     return libs
 
 
+def k8_recheck(torch, pk, ref, libs: dict, n: int, when: str) -> int:
+    """``n`` fresh (5, 50176) code arrays below 2^9 through K8 (b = 9) from
+    each of ``libs``, held bit-equal to the plain version; returns the
+    number of mismatches."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bad = 0
+    saved = pk._lib
+    try:
+        for i in range(n):
+            codes = torch.randint(0, 1 << 9, (5, 50176), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            want = ref.pack_codes(codes, 9)
+            for v, lib in libs.items():
+                pk._lib = lambda lib=lib: lib
+                got = pk.pack_codes(codes, 9)
+                if torch.equal(got, want):
+                    continue
+                bad += 1
+                pos = (got != want).nonzero()
+                print(f"[recheck] K8 {v} ({when}) draw {i}: {pos.shape[0]} "
+                      f"words differ, first {pos[:4].tolist()}: "
+                      f"{got[tuple(pos[0])].item()} != "
+                      f"{want[tuple(pos[0])].item()}; a second call agrees "
+                      f"{torch.equal(pk.pack_codes(codes, 9), want)}",
+                      flush=True)
+    finally:
+        pk._lib = saved
+    torch.cuda.synchronize()
+    print(f"[recheck] K8 (5, 50176) b=9 {when}: {n} draws x {len(libs)} "
+          f"libraries ({', '.join(libs)}), {bad} mismatches", flush=True)
+    return bad
+
+
 def device_ms(torch, fn, calls: int, windows: int = 3):
     """(device ms, device events) a call of ``fn`` under ``torch.profiler``,
     from the window with the most device events; (None, None) where none
@@ -354,6 +395,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
                     help="root of the checkout whose kernels are compared")
+    ap.add_argument("--recheck", type=int, default=0, metavar="N",
+                    help="only hold K8 to its plain version on N fresh "
+                         "draws before and N after the libraries load")
     args = ap.parse_args()
     import torch
 
@@ -373,6 +417,11 @@ def main() -> int:
 
     def source(name):
         return (build.CSRC / f"{name}.cu").read_text()
+
+    bad = 0
+    if args.recheck:
+        bad += k8_recheck(torch, pk, ref, {"main build": pk._lib()},
+                          args.recheck, "before the ablation's libraries")
 
     k8 = compile_variants(build, "pack_codes", source("pack_codes"), K8_HOOKS,
                           K8_VARIANTS, "pack_codes", build.CSRC)
@@ -397,6 +446,10 @@ def main() -> int:
         qp._bind(lib)
     for lib in k11.values():
         rg._bind(lib)
+    if args.recheck:
+        bad += k8_recheck(torch, pk, ref, {"main build": pk._lib(), **k8},
+                          args.recheck, "with every library loaded")
+        return 1 if bad else 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
