@@ -27,7 +27,8 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    one launch) must give K1's and K2's plain outputs on every one of them.
    K4 and K7 are held by both entries: reading u, and drawing u itself
    with threefry (key words at and above 2^31, n = 1, n = 2^24 + 3, 40
-   rows) against ``prng.uniform`` + the plain version.  K9 by both
+   rows) against ``prng.uniform`` + the plain version; the keyed K4 also
+   with one r a row (per-client overrides), on every case.  K9 by both
    entries: the codes, and the codes decoded to Q_r values against the
    plain chain (``ref.qr_values`` of K9's plain version), with a sign over
    level 0 heading every row (-0.0) and zero- and NaN-norm rows (+0.0).
@@ -44,7 +45,8 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    beside K1 then K2 and K2 alone, in turns; K4's keyed entry, its memory
    entry and the whole ``ops.quantize_qr`` against the chain it replaced,
    in turns, with the keyed bound's bytes and integer terms, the latter
-   from the uniform's own operations, the SASS's count beside it; K7's
+   from the uniform's own operations, the SASS's count beside it, and its
+   per-row-levels entry beside the scalar keyed entry, in turns; K7's
    keyed entry, its memory entry and the whole ``ops.quantize_pack``
    against the chain it replaced, in turns, likewise; K9's values entry,
    its codes entry and the chain the values entry replaced, in turns; the
@@ -122,7 +124,44 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    nothing.  Then ``REPLAY_ROUNDS`` rounds of each run on the CPU:
    counting metrics equal, ``sim_time`` and ``client_finish`` within
    ``CLOCK_RTOL``, train loss within ``LOSS_RTOL``;
-6. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
+6. downlink — ``benchmarks/downlink.py``'s four arms on the card at its
+   settings (the quickstart data and MLP, 20 clients, 5 a round,
+   ``DOWNLINK_ROUNDS`` rounds, evaluated every 10): FedComLoc TopK(0.1)
+   with the dense downlink, with a packed QuantQr(8) downlink, LoCoDL
+   (``lam = 0.9``) with TopK(0.1) on both links and with Compose(TopK(0.1),
+   QuantQr(8)) on both links, packed.  Uplink, downlink and total Mbit
+   must equal ``benchmarks/artifacts/downlink.json``'s at its two-decimal
+   rounding (but locodl_double's downlink and total, which count TopK
+   ties that follow float32 rounding, ``DOWNLINK_TIES``), every compressed
+   broadcast's bits must equal ``s`` x its own support's (survivors counted
+   with ``torch.topk``, ties included), each arm must reach ``DOWNLINK_TARGET`` (rounds to target
+   printed beside the artifact's), LoCoDL must need fewer Mbit to target
+   than FedComLoc, and each run launches exactly the kernels its links
+   imply; steady rounds profiled.  Then ``REPLAY_ROUNDS`` rounds of each
+   compressed-downlink arm with ``downlink="account"`` must be
+   bit-identical to ``"packed"``, and 4 rounds of the packed broadcast's
+   slack (bytes * 8 - bits) must equal the word padding exactly for
+   QuantQr(4) and stay within ``s * sum(cap) * 64`` for TopK(0.1);
+7. het_system — ``benchmarks/het_system.py``'s fast rows (lognormal
+   speeds and bandwidths x uniform and bandwidth-proportional densities of
+   mean 0.2, waiting for all; the bandwidth allocation with deadline 10 and
+   drop-out), ``FIG9_ROUNDS`` rounds on the account wire: each client's
+   uplink bits must be the sum over leaves of ``k_i(leaf) * 64`` from its
+   own density (float32 ``round(d * n)``), K1 + K2 launch once a leaf a
+   round with one k a row, and every round is replayed on the CPU from the
+   card's state (bits exact, clocks within ``CLOCK_RTOL``, loss within
+   ``LOSS_RTOL``); the bandwidth/wait row is profiled beside the same
+   schedule without overrides;
+8. scope — the quickstart MLP for ``SCOPE_ROUNDS`` rounds under
+   ``TopK(0.1, scope="global")``, ``QuantQr(8, scope="global")`` and
+   ``Compose(TopK(0.25, "global"), QuantQr(4, "global"))`` on both wires
+   (one launch of each kernel a round: one global unit; packed equal to
+   account bit for bit, ``uplink_payload_bytes`` equal to ``s x
+   wire.payload_nbytes``) and ``TopK(0.1, impl="quantile")`` on the
+   account wire (no kernel); then a QuantQr(8) round with a per-client r of
+   4 or 8, whose every K4 launch (one r a row) must equal ``prng.uniform``
+   + the plain version bit for bit;
+9. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
    at the serving shapes (8, 2560, 2560) and (8, 40, 2560, 64), T = 1,
    odd T, B = 1, decays near 0 and 1 and zeros; K11 must be bit-equal,
    also at D = 2579, 2562 and 40 (not a multiple of a block's channels,
@@ -138,7 +177,7 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (y: plus one bf16 ulp) of the plain version run in float64.  Times both
    scans at the serving and a larger shape (K12's bf16 route on the
    prefill layout, its float32 route at main);
-7. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
+10. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
    width and depth in bf16, weights from the port's own init on the card,
    through ``launch/serve.py``'s :func:`serve`: batch 8, prompt 2560
    (above recurrentgemma's window of 2048, so the ring cache runs), 32
@@ -153,14 +192,14 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    and serve, above what earlier phases hold), and the device's busy time
    and idle share under ``torch.profiler`` for one prefill and for 8
    decode steps;
-8. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
+11. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
    way at batch 4, prompt 4608 (above gemma2's window of 4096 and
    gemma3's 1024: the ring branch of prefill and the ring decode run on
    their swa layers), each freed before the next.  Their prefill attends
    through ``chunked_attention``, as the JAX package's models do, so the
    counted run launches no kernel (K10 included).  The warm-up prefill
    hands over the q/k/v of the layers in ``ATTN_CAPTURE``;
-9. attention — K10 (``ops.mha_attention``: bf16 on the wgmma kernel fed
+12. attention — K10 (``ops.mha_attention``: bf16 on the wgmma kernel fed
    by TMA, float32 on the SIMT kernel) against its plain version
    ``ref.mha_attention`` in float32 and bf16 within ``ATTN_F32_TOL`` /
    ``ATTN_BF16_TOL`` (the JAX tests' tolerances, compared in the working
@@ -178,7 +217,7 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    layers' times and each dense model's layer pattern, what its prefill
    would save if it called K10 instead of ``chunked_attention`` (the route
    stays as the JAX models have it);
-10. CUDA against CPU — the five models at full width and reduced depth
+13. CUDA against CPU — the five models at full width and reduced depth
    (``CPU_CHECK_LAYERS``: one block pattern each, gemma3's 6 layers
    included), float32 with TF32 off, batch 2, prompt 128, 4 decode steps,
    the same weights on the card and on the CPU: logits within
@@ -211,6 +250,16 @@ REPLAY_ROUNDS = 3
 DIVERGING_REPLAY_ROUNDS = 6
 PROFILE_ROUNDS = 5
 FIG9_ROUNDS = 12              # benchmarks/common.py FAST_ROUNDS
+DOWNLINK_ROUNDS = 60          # benchmarks/common.py FULL_ROUNDS
+DOWNLINK_TARGET = 0.9         # benchmarks/downlink.py TARGET_ACC
+DOWNLINK_ARTIFACT = "benchmarks/artifacts/downlink.json"
+# locodl_double's downlink bits count the ties of TopK(0.1) on the mean of
+# Q_r(8)-coded messages: equal levels tie, and which do follows float32
+# rounding and the threefry stream the artifact was written under, so its
+# downlink and total Mbit are the run's own.  They are held round by round
+# to each broadcast's own support instead of to the artifact.
+DOWNLINK_TIES = ("locodl_double",)
+SCOPE_ROUNDS = 5
 # async_buffered(2, 0.5) needs a capacity that divides clients_per_round,
 # so the hetero phase samples 4 of its 10 clients a round (Figure 9: 5)
 HETERO_S = 4
@@ -452,7 +501,7 @@ def bf16_ulp(torch, y):
 
 
 def check_scan_kernels(torch, dev, recs) -> None:
-    """Phase 6: K11 and K12 against their plain versions, then timed."""
+    """Phase 9: K11 and K12 against their plain versions, then timed."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import wkv6
@@ -655,7 +704,7 @@ def check_scan_kernels(torch, dev, recs) -> None:
 
 
 def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
-    """Phases 7 and 8: each model of ``shapes`` ({arch: (batch, prompt,
+    """Phases 10 and 11: each model of ``shapes`` ({arch: (batch, prompt,
     launches of one prefill)}) at full width and depth through serve().
     Returns ({kernel name: {run label: launches}}, {(arch, layer): (q, k,
     v, chunked_attention's keyword arguments)}) for the (arch, layer) pairs
@@ -910,7 +959,7 @@ def attention_bound(torch, q, k, kw) -> tuple:
 
 
 def attention_phase(torch, dev, rec, captured: dict) -> dict:
-    """Phase 9: K10 against its plain version at the JAX package's flash
+    """Phase 12: K10 against its plain version at the JAX package's flash
     cases and further shapes in both dtypes; then the main path,
     ``ops.mha_attention`` on the q/k/v the dense models' prefill computed,
     counted, and held against the plain version and the models' own
@@ -1103,7 +1152,7 @@ def prefill_question(served_rows: dict) -> None:
 
 
 def cuda_vs_cpu_phase(torch, dev) -> None:
-    """Phase 10: full width, reduced depth, float32: the card (kernels)
+    """Phase 13: full width, reduced depth, float32: the card (kernels)
     against the CPU (plain versions) on the same weights."""
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_spec
@@ -1486,6 +1535,521 @@ def hetero_phase(torch, dev, setup, launches: dict) -> None:
                       label, exact, close=("sim_time", "client_finish"))
 
 
+def counted(torch, ops, fn):
+    """``fn()`` with every launch counter set to 0 just before and read
+    just after: ``(fn's result, the non-zero counts)``."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def recording_rounds(alg):
+    """Wrap ``alg.round`` so that each round's metrics land in the returned
+    list; ``del alg.round`` restores it."""
+    log = []
+    round_fn = alg.round
+
+    def recording(state, key_, _round=round_fn):
+        state, metrics = _round(state, key_)
+        log.append(metrics)
+        return state, metrics
+
+    alg.round = recording
+    return log
+
+
+def topk_qr_checking_encode(torch, wire, stats: dict):
+    """A ``wire.encode`` that holds every ``topk_qr`` payload's decode to
+    the account transform of the same input and keys: equal but where a
+    survivor tied beyond the cap is dropped (0) or a code saturates at the
+    top level (``norm (2^r - 1) / 2^r`` for ``norm``); counts both in
+    ``stats``, with the payloads, and raises on any other difference or on
+    bits that differ."""
+    orig = wire.encode
+
+    def encode(comp, stacked, keys=None):
+        payload, rep = orig(comp, stacked, keys)
+        want, want_rep = comp.compress(stacked, keys)
+        if not torch.equal(rep.total_bits, want_rep.total_bits):
+            raise AssertionError(f"topk_qr payload: bits {rep.total_bits} "
+                                 f"!= account {want_rep.total_bits}")
+        levels = float(2 ** comp.second.r)
+        got = wire.decode(payload)
+        from repro_torch import tree as tree_util
+        for o, g, bufs in zip(tree_util.leaves(want), tree_util.leaves(got),
+                              payload.data):
+            rows, of = o.shape[0], o.reshape(o.shape[0], -1)
+            n = of.shape[1]
+            shipped = torch.zeros((rows, n + 1), dtype=torch.bool,
+                                  device=of.device)
+            shipped = shipped.scatter_(1, bufs[0].long(), True)[:, :n]
+            nrm = bufs[2][:, None]
+            top = (of.abs() == nrm) & (nrm > 0)
+            expect = torch.where(
+                top, nrm * torch.sign(of) * ((levels - 1) / levels), of)
+            expect = torch.where(shipped, expect, torch.zeros_like(of))
+            if not torch.equal(g.reshape(rows, -1), expect):
+                raise AssertionError("topk_qr payload: decode != account "
+                                     "transform beyond ties and saturation")
+            stats["saturated"] += int((top & shipped).sum())
+            stats["overflow"] += int(((of != 0) & ~shipped).sum())
+        stats["payloads"] += 1
+        return payload, rep
+
+    return encode
+
+
+def downlink_phase(torch, dev, mnist, launches: dict) -> None:
+    """Phase 6: ``benchmarks/downlink.py``'s four arms on the card at its
+    settings, held to ``benchmarks/artifacts/downlink.json``'s Mbit, then
+    account == packed on the compressed downlinks and the broadcast's
+    per-round reconcile."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import Compose, QuantQr, TopK, wire
+    from repro_torch.core import clients as clients_mod
+    from repro_torch.core import fedcomloc as fedcomloc_mod
+    from repro_torch.core import locodl as locodl_mod
+    from repro_torch.core import server
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.core.locodl import LoCoDL, LoCoDLConfig
+    from repro_torch.kernels import ops
+
+    orig_encode = wire.encode
+    art = {row["name"].split("/", 1)[1]: row for row in json.loads(
+        (ROOT / DOWNLINK_ARTIFACT).read_text())["rows"]}
+    loss_fn, data, eval_fn = mnist["loss_fn"], mnist["data"], mnist["eval_fn"]
+    params0 = mnist["params0"]
+    n_leaves = len(tree_util.leaves(params0))
+    s = 5
+
+    def fedcomloc(d, **kw):
+        cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20,
+                              clients_per_round=s, batch_size=32,
+                              variant="com")
+        return FedComLoc(loss_fn, data[d], cfg, TopK(0.1), **kw)
+
+    def locodl(d, comp, **kw):
+        cfg = LoCoDLConfig(gamma=0.1, p=0.1, lam=0.9, n_clients=20,
+                           clients_per_round=s, batch_size=32)
+        return LoCoDL(loss_fn, data[d], cfg, comp, **kw)
+
+    double = lambda: Compose(TopK(0.1), QuantQr(8))
+    arms = {
+        "fedcomloc": lambda d, dl="dense": fedcomloc(d),
+        "fedcomloc_packed_down": lambda d, dl="packed": fedcomloc(
+            d, downlink=dl, downlink_compressor=QuantQr(8)),
+        "locodl": lambda d, dl="packed": locodl(
+            d, TopK(0.1), wire="packed", downlink=dl,
+            downlink_compressor=TopK(0.1)),
+        "locodl_double": lambda d, dl="packed": locodl(
+            d, double(), wire="packed", downlink=dl,
+            downlink_compressor=double()),
+    }
+    per_round = DOWNLINK_ROUNDS * n_leaves
+    # kernel -> launches a leaf a round: the uplink's and the downlink's
+    expect = {
+        "fedcomloc": {FUSED_K1_K2: 1},
+        "fedcomloc_packed_down": {FUSED_K1_K2: 1, "l2_norm": 1,
+                                  KEYED_K7: 1, VALUES_K9: 1},
+        "locodl": {"topk_threshold_bits": 2, "compact_slots": 2},
+        "locodl_double": {FUSED_K1_K2: 2, "l2_norm": 2,
+                          "compact_code_slots": 2, "pack_codes": 2,
+                          VALUES_K9: 2},
+    }
+    # every compressed broadcast's bits, against its own support: s x
+    # (survivors x value and index bits + norms), the survivors counted
+    # with torch.topk, ties at the k-th magnitude included
+    checked = [0]
+    seams = (fedcomloc_mod, locodl_mod)
+    orig_seam = clients_mod.apply_downlink
+
+    def checking_seam(mode, comp, ref, x_new, key, s_):
+        y_new, bits, extras = orig_seam(mode, comp, ref, x_new, key, s_)
+        delta = [a - b for a, b in zip(tree_util.leaves(x_new),
+                                       tree_util.leaves(ref))]
+        topk = comp.first if isinstance(comp, Compose) else comp
+        want = 0
+        for leaf in delta:
+            flat = leaf.reshape(-1)
+            if isinstance(topk, TopK):
+                mag = flat.abs()
+                kth = torch.topk(mag, topk._k(flat.numel())).values.min()
+                kept = int(((mag >= kth) & (mag > 0)).sum())
+            else:
+                kept = flat.numel()
+            width = 64 if isinstance(comp, TopK) else 1 + (
+                comp.second.r if isinstance(comp, Compose) else comp.r) + (
+                32 if isinstance(comp, Compose) else 0)
+            want += kept * width + (0 if isinstance(comp, TopK) else 32)
+        if float(bits) != float(s_ * want):
+            raise AssertionError(f"downlink: a broadcast's bits {bits} != "
+                                 f"{s_} x {want} from its own support")
+        checked[0] += 1
+        return y_new, bits, extras
+
+    for mod in seams:
+        mod.apply_downlink = checking_seam
+    to_target = {}
+    for name, make in arms.items():
+        label = f"downlink {name}"
+        alg = make("cuda")
+        checked[0] = 0
+        t0 = time.time()
+        hist, counts = counted(torch, ops, lambda: server.run_federated(
+            alg, params0, DOWNLINK_ROUNDS, prng.PRNGKey(1), eval_fn=eval_fn,
+            eval_every=max(1, DOWNLINK_ROUNDS // 6)))
+        wall = time.time() - t0
+        want_counts = {k: c * per_round for k, c in expect[name].items()}
+        if counts != want_counts:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{want_counts}")
+        for k, c in counts.items():
+            launches.setdefault(k, {})[label] = c
+        m = alg.meter
+        got = {"uplink_mbits": round(m.uplink_bits / 1e6, 2),
+               "downlink_mbits": round(m.downlink_bits / 1e6, 2),
+               "total_mbits": round(m.total_bits / 1e6, 2)}
+        want = {k: art[name][k] for k in got}
+        if name in DOWNLINK_TIES:
+            del want["downlink_mbits"], want["total_mbits"]
+        hit = next(((b, r) for a, b, r in zip(hist.test_acc, hist.total_bits,
+                                               hist.rounds)
+                    if a >= DOWNLINK_TARGET), (None, None))
+        to_target[name] = hit[0]
+        print(f"[downlink] {name}: uplink/downlink/total Mbit {got} "
+              f"(held to {want}; artifact "
+              f"{ {k: art[name][k] for k in got} }); best_acc {hist.best_acc!r} (artifact "
+              f"{art[name]['best_acc']}); rounds_to_target {hit[1]} "
+              f"(artifact {art[name]['rounds_to_target']}); Mbit to target "
+              f"{None if hit[0] is None else hit[0] / 1e6!r} (artifact "
+              f"{art[name]['mbits_to_target']}); ms/round (eval included) "
+              f"{wall / DOWNLINK_ROUNDS * 1e3!r}; launches {counts}",
+              flush=True)
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"{label}: Mbit {got} != {want}")
+        if checked[0] != (0 if name == "fedcomloc" else DOWNLINK_ROUNDS):
+            raise AssertionError(f"{label}: {checked[0]} broadcasts checked")
+        if hit[0] is None:
+            raise AssertionError(f"{label}: never reached {DOWNLINK_TARGET}: "
+                                 f"{hist.test_acc}")
+        p = profile_rounds(torch, prng, alg, params0, label)
+        print(f"[downlink] {name}: steady ms/round {p['wall_ms']!r}, device "
+              f"busy ms/round {p['busy_ms']!r}, device operations a round "
+              f"{p['device_ops']!r}", flush=True)
+    for mod in seams:
+        mod.apply_downlink = orig_seam
+    if not to_target["locodl"] < to_target["fedcomloc"]:
+        raise AssertionError(f"locodl needs {to_target['locodl']} bits to "
+                             f"{DOWNLINK_TARGET}, not fewer than fedcomloc's "
+                             f"{to_target['fedcomloc']}")
+
+    # account == packed on the compressed downlinks, 3 rounds each.  The
+    # topk_qr wire keeps the lowest-index cap of the survivors tied at the
+    # threshold and saturates the top level at 2^r - 1 (its format), and
+    # the mean of Q_r-coded messages that locodl_double broadcasts ties by
+    # the thousand: there every payload's decode is held to the account
+    # transform of the same input, but for those two, and the runs part
+    for name in ("fedcomloc_packed_down", "locodl", "locodl_double"):
+        stats = {"payloads": 0, "saturated": 0, "overflow": 0}
+        res = {}
+        for dl in ("account", "packed"):
+            alg = arms[name]("cuda", dl)
+            if dl == "packed" and name in DOWNLINK_TIES:
+                wire.encode = topk_qr_checking_encode(torch, wire, stats)
+            try:
+                res[dl] = alg.run_rounds(alg.init(params0), prng.PRNGKey(1),
+                                         REPLAY_ROUNDS)
+            finally:
+                wire.encode = orig_encode
+        (sa, ma), (sp, mp) = res["account"], res["packed"]
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(tree_util.leaves(sa.x),
+                                   tree_util.leaves(sp.x)))
+        keys_ = ("downlink_bits", "uplink_bits", "client_uplink_bits")
+        bits = all(np.array_equal(ma[k], mp[k]) for k in keys_)
+        if name in DOWNLINK_TIES:
+            first = all(np.array_equal(ma[k][0], mp[k][0]) for k in keys_)
+            if not (first and stats["payloads"] == 2 * REPLAY_ROUNDS):
+                raise AssertionError(f"downlink {name}: round 1's bits "
+                                     f"{first}, {stats}")
+            print(f"[downlink] {name}: {stats['payloads']} packed payloads "
+                  f"(uplink and downlink, {REPLAY_ROUNDS} rounds) decode to "
+                  f"the account transform of the same input but for "
+                  f"{stats['overflow']} ties beyond the cap and "
+                  f"{stats['saturated']} saturated codes; round 1's bits "
+                  f"equal; params bit-equal after {REPLAY_ROUNDS} rounds "
+                  f"{same}, bits {bits}", flush=True)
+            continue
+        if not (same and bits):
+            raise AssertionError(f"downlink {name}: account != packed "
+                                 f"(params {same}, bits {bits})")
+        print(f"[downlink] {name}: {REPLAY_ROUNDS} rounds with "
+              f"downlink=\"account\" bit-identical to \"packed\": params and "
+              f"bits {mp['downlink_bits'].tolist()}", flush=True)
+
+    # the packed broadcast's slack, every round: exactly the word padding
+    # for qr_r4, within s * sum(cap) * 64 for topk_d0.1
+    sizes = [p.numel() for p in tree_util.leaves(params0)]
+    for label, comp in (("topk_d0.1", TopK(0.1)), ("qr_r4", QuantQr(4))):
+        alg = fedcomloc("cuda", downlink="packed", downlink_compressor=comp)
+        _, m = alg.run_rounds(alg.init(params0), prng.PRNGKey(9), 4)
+        slack = m["downlink_payload_bytes"] * 8.0 - m["downlink_bits"]
+        if label == "qr_r4":
+            pad = float(sum((32 * -(-n // 32) - n) * 5 for n in sizes))
+            ok = bool(np.all(slack == s * pad))
+        else:
+            pad = float(sum(comp._k(n) * 64 for n in sizes))
+            ok = bool(np.all((slack >= 0) & (slack <= s * pad)))
+        print(f"[downlink] reconcile {label}: slack bits {slack.tolist()} "
+              f"against {s * pad!r} ({'equal' if label == 'qr_r4' else 'bound'}"
+              f"; artifact {art['reconcile_' + label]['expected_slack_bits']})",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"downlink reconcile {label}: {slack} vs "
+                                 f"{s * pad}")
+
+
+def het_system_phase(torch, dev, mnist, launches: dict) -> None:
+    """Phase 7: ``benchmarks/het_system.py``'s fast rows on the card,
+    account wire: lognormal speeds and bandwidths x uniform and
+    bandwidth-proportional densities waiting for every client, and the
+    bandwidth allocation with a deadline that drops stragglers."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import TopK
+    from repro_torch.compress.compressors import override_k
+    from repro_torch.core import server
+    from repro_torch.core.clients import ClientProfile, ClientSchedule
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.kernels import ops
+
+    loss_fn, data, eval_fn = mnist["loss_fn"], mnist["data"], mnist["eval_fn"]
+    params0 = mnist["params0"]
+    sizes = [p.numel() for p in tree_util.leaves(params0)]
+    s = 5
+    cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=s,
+                          batch_size=32, variant="com")
+    rows = (("uniform", "wait"), ("bandwidth", "wait"), ("bandwidth", "drop"))
+    exact = ["client_steps", "uplink_bits", "downlink_bits",
+             "client_uplink_bits", "clients_aggregated"]
+    for alloc, policy in rows:
+        label = f"het_system lognormal_{alloc}_{policy}"
+        profile = ClientProfile.lognormal(
+            20, speed_sigma=1.0, bandwidth_sigma=0.7,
+            seed=0).with_density_allocation(0.2, mode=alloc)
+        dens = profile.comp_params["density"]
+        if abs(float(dens.double().mean()) - 0.2) > 1e-6:
+            raise AssertionError(f"{label}: mean density {dens.mean()}")
+        kw = ({"deadline": 10.0, "drop_stragglers": True}
+              if policy == "drop" else {})
+
+        def make(d, _profile=profile, _kw=kw):
+            return FedComLoc(loss_fn, data[d], cfg, TopK(density=0.2),
+                             schedule=ClientSchedule(_profile, bit_cost=1e-7,
+                                                     **_kw))
+
+        alg = make("cuda")
+        # each round's uplink rows and per-client densities, as the
+        # compressor receives them
+        uploads = []
+        compress_fn = alg.comp.compress
+
+        def recording(stacked, keys=None, _compress=compress_fn, **ov):
+            uploads.append((tree_util.map(lambda t: t.detach().clone(),
+                                          stacked), ov["density"]))
+            return _compress(stacked, keys, **ov)
+
+        object.__setattr__(alg.comp, "compress", recording)
+        per_round = recording_rounds(alg)
+        hist, counts = counted(torch, ops, lambda: server.run_federated(
+            alg, params0, FIG9_ROUNDS, prng.PRNGKey(1), eval_fn=eval_fn,
+            eval_every=max(1, FIG9_ROUNDS // 6)))
+        del alg.round
+        # K1 + K2 in one launch a leaf a round, with one k a client's row
+        want_counts = {FUSED_K1_K2: FIG9_ROUNDS * len(sizes)}
+        if counts != want_counts:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{want_counts}")
+        launches.setdefault(FUSED_K1_K2, {})[label + " (per-row k)"] = \
+            counts[FUSED_K1_K2]
+        # each client's bits: 64 a survivor of its own k_i(leaf) =
+        # round(float32(d_i) * float32(n)) clipped to [1, n] (more only
+        # where magnitudes tie at the k-th, counted here with torch.topk)
+        ties = 0
+        for r, (m, (stacked, d)) in enumerate(zip(per_round, uploads)):
+            k_sum = torch.zeros(s, dtype=torch.int64)
+            kept = torch.zeros(s, dtype=torch.int64)
+            for leaf in tree_util.leaves(stacked):
+                rows_ = leaf.reshape(s, -1)
+                n = rows_.shape[1]
+                k = torch.clamp(override_k(d, n), 1, n)
+                k_sum += k
+                for i in range(s):
+                    mag = rows_[i].abs()
+                    kth = torch.topk(mag, int(k[i])).values.min()
+                    kept[i] += int(((mag >= kth) & (mag > 0)).sum())
+            want = (kept.to(torch.float32) * 64.0).numpy()
+            part = m["client_steps"] > 0
+            ties += int((kept - k_sum)[torch.from_numpy(part)].sum())
+            got = m["client_uplink_bits"]
+            if not (np.array_equal(got[part], want[part])
+                    and np.all(got[~part] == 0)):
+                raise AssertionError(f"{label} round {r}: client bits "
+                                     f"{got} != {want} (participating "
+                                     f"{part})")
+        sim = sum(float(m["sim_time"]) for m in per_round)
+        print(f"[het_system] {label}: best_acc {hist.best_acc!r} total Mbit "
+              f"{alg.meter.total_bits / 1e6!r} summed sim_time {sim!r}; "
+              f"densities {sorted(set(dens.tolist()))[:3]}... mean "
+              f"{float(dens.double().mean())!r}; each client's bits = "
+              f"sum of k_i(leaf) * 64 in all {FIG9_ROUNDS} rounds, plus 64 "
+              f"for each of {ties} survivors tied at a k-th magnitude; "
+              f"launches {counts}", flush=True)
+        replay_on_cpu(torch, prng, make, params0, FIG9_ROUNDS, label, exact,
+                      close=("sim_time", "client_finish"))
+        if (alloc, policy) == ("bandwidth", "wait"):
+            # the override round against its parent: the same schedule with
+            # no per-client density (TopK(0.2) for every client)
+            plain_sched = ClientSchedule(ClientProfile.lognormal(
+                20, speed_sigma=1.0, bandwidth_sigma=0.7, seed=0),
+                bit_cost=1e-7)
+            parent = FedComLoc(loss_fn, data["cuda"], cfg, TopK(density=0.2),
+                               schedule=plain_sched)
+            for tag, a in (("overrides", alg), ("no overrides", parent)):
+                p = profile_rounds(torch, prng, a, params0,
+                                   f"{label} {tag}")
+                print(f"[het_system] {label} {tag}: steady ms/round "
+                      f"{p['wall_ms']!r}, device busy ms/round "
+                      f"{p['busy_ms']!r}, device operations a round "
+                      f"{p['device_ops']!r}", flush=True)
+            interleaved_rounds(torch, prng, {"overrides": alg,
+                                             "no overrides": parent},
+                               params0, label)
+
+
+def scope_phase(torch, dev, mnist, launches: dict) -> None:
+    """Phase 8: the quickstart MLP under global-scope TopK, QuantQr and
+    Compose on both wires and a quantile TopK, then a QuantQr(8) round
+    with a per-client r of 4 or 8."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import Compose, QuantQr, TopK, wire
+    from repro_torch.core.clients import ClientProfile, ClientSchedule
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import quantize as qk
+
+    loss_fn, data, params0 = mnist["loss_fn"], mnist["data"], mnist["params0"]
+    one_client = tree_util.map(lambda p: p.detach(), params0)
+    s = 5
+    cfg = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=s,
+                          batch_size=32, variant="com")
+    k1k2, k3, k4 = FUSED_K1_K2, "l2_norm", "quantize_qr"
+    # name -> (compressor, {wire: kernels launched once a round: one
+    # global unit})
+    runs = {
+        "topk_global": (TopK(0.1, scope="global"),
+                        {"account": (k1k2,), "packed": (k1k2, "compact_slots")}),
+        "qr_global": (QuantQr(8, scope="global"),
+                      {"account": (k3, k4), "packed": (k3, KEYED_K7, VALUES_K9)}),
+        "compose_global": (Compose(TopK(0.25, "global"), QuantQr(4, "global")),
+                           {"account": (k1k2, k3, k4),
+                            "packed": (k1k2, k3, "compact_code_slots",
+                                       "pack_codes", VALUES_K9)}),
+        "topk_quantile": (TopK(0.1, impl="quantile"), {"account": ()}),
+    }
+    for name, (comp, by_wire) in runs.items():
+        res = {}
+        for mode, used in by_wire.items():
+            label = f"scope {name} {mode}"
+            alg = FedComLoc(loss_fn, data["cuda"], cfg, comp, wire=mode)
+            (state, m), counts = counted(torch, ops, lambda: alg.run_rounds(
+                alg.init(params0), prng.PRNGKey(1), SCOPE_ROUNDS))
+            want_counts = {k: SCOPE_ROUNDS for k in used}
+            if counts != want_counts:
+                raise AssertionError(f"{label}: launch counts {counts} != "
+                                     f"{want_counts}")
+            for k, c in counts.items():
+                launches.setdefault(k, {})[label] = c
+            losses = m["train_loss"].tolist()
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{label}: losses {losses}")
+            res[mode] = (state, m)
+            print(f"[scope] {label}: train loss {losses!r}, uplink Mbit "
+                  f"{float(m['uplink_bits'].sum()) / 1e6!r}; launches "
+                  f"{counts}", flush=True)
+        if "packed" not in res:
+            continue
+        (sa, ma), (sp, mp) = res["account"], res["packed"]
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(tree_util.leaves(sa.x),
+                                   tree_util.leaves(sp.x)))
+        bits = all(np.array_equal(ma[k], mp[k]) for k in (
+            "uplink_bits", "client_uplink_bits", "train_loss"))
+        nbytes = wire.payload_nbytes(comp, one_client)
+        payload = bool(np.all(mp["uplink_payload_bytes"] == s * nbytes))
+        if not (same and bits and payload):
+            raise AssertionError(f"scope {name}: packed != account (params "
+                                 f"{same}, bits {bits}, payload bytes "
+                                 f"{mp['uplink_payload_bytes']} vs "
+                                 f"{s} x {nbytes}: {payload})")
+        print(f"[scope] {name}: packed == account bit for bit (params, bits, "
+              f"losses); uplink_payload_bytes {s} x {nbytes} = "
+              f"wire.payload_nbytes a round", flush=True)
+
+    # QuantQr(8) with r = 4 or 8 a client: every leaf's K4 launch, with one
+    # level count a row, against prng.uniform + the plain version
+    r_of = torch.tensor([4, 8] * 10)
+    sched = ClientSchedule(ClientProfile.homogeneous(20).with_comp_param(
+        "r", r_of))
+    alg = FedComLoc(loss_fn, data["cuda"], cfg, QuantQr(8), schedule=sched)
+    checked = []
+    orig = ops.quantize_qr
+
+    def checking(x, r, keys):
+        out = orig(x, r, keys)
+        plain = ref.quantize_qr_with_uniforms(
+            x, r, prng.uniform(keys, x.shape[-1], device=x.device),
+            qk.l2_norm(x))
+        if not (isinstance(r, torch.Tensor) and torch.equal(
+                out.view(torch.int32), plain.view(torch.int32))):
+            raise AssertionError(f"scope per-client r: K4 per-row output "
+                                 f"differs from the plain version (r {r})")
+        checked.append(r.tolist())
+        return out
+
+    ops.quantize_qr = checking
+    try:
+        (_, m), counts = counted(torch, ops, lambda: alg.run_rounds(
+            alg.init(params0), prng.PRNGKey(1), 1))
+    finally:
+        ops.quantize_qr = orig
+    n_total = sum(p.numel() for p in tree_util.leaves(params0))
+    n_leaves = len(tree_util.leaves(params0))
+    if counts.get(k4) != n_leaves or len(checked) != n_leaves:
+        raise AssertionError(f"scope per-client r: launches {counts}, "
+                             f"{len(checked)} checked")
+    launches.setdefault(k4, {})["scope per-client r (per-row levels)"] = \
+        counts[k4]
+    want = {float(n_total * (1 + r) + n_leaves * 32) for r in (4, 8)}
+    if not set(m["client_uplink_bits"][0].tolist()) <= want:
+        raise AssertionError(f"scope per-client r: bits "
+                             f"{m['client_uplink_bits']} not in {want}")
+    print(f"[scope] QuantQr(8) with r of 4 and 8 a client: {len(checked)} "
+          f"K4 per-row launches bit-equal to prng.uniform + the plain "
+          f"version (rows' r {checked[0]}); client bits "
+          f"{m['client_uplink_bits'][0].tolist()}", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1691,6 +2255,12 @@ def main() -> int:
         keyed = qk.quantize_qr_keyed(xc, r, keys, norm)
         keyed_ref = ref.quantize_qr_with_uniforms(
             xc, r, prng.uniform(keys, xc.shape[1], device=dev), norm)
+        # one r a row (per-client overrides): r, 4, 8, 1, 16 cycled
+        r_rows = torch.tensor([(r, 4, 8, 1, 16)[j % 5]
+                               for j in range(xc.shape[0])])
+        rows_out = qk.quantize_qr_keyed(xc, r_rows, keys, norm)
+        rows_ref = ref.quantize_qr_with_uniforms(
+            xc, r_rows, prng.uniform(keys, xc.shape[1], device=dev), norm)
         torch.cuda.synchronize()
         if not torch.equal(norm, again):
             raise AssertionError(f"K3 {label}: two runs gave different norms")
@@ -1702,11 +2272,17 @@ def main() -> int:
         if not same_bits(keyed, keyed_ref):
             raise AssertionError(f"K4 keyed {label}: kernel output differs "
                                  f"from prng.uniform + the plain version")
+        if not same_bits(rows_out, rows_ref):
+            raise AssertionError(f"K4 per-row levels {label}: kernel output "
+                                 f"differs from prng.uniform + the plain "
+                                 f"version")
+        recs["K4"].err(rows_out.float(), rows_ref.float())
         recs["K3"].err(norm, norm_ref)
         recs["K4"].err(out.float(), out_ref.float())
         recs["K4"].err(keyed.float(), keyed_ref.float())
     print(f"[kernels] K4 (both entries: reading u, and drawing it with "
-          f"threefry against prng.uniform, key words >= 2^31) bit-equal and "
+          f"threefry against prng.uniform, key words >= 2^31, the keyed one "
+          f"also with one r a row) bit-equal and "
           f"K3 within rtol {NORM_RTOL} (and deterministic) on "
           f"{len(qr_cases)} cases", flush=True)
     for n in (10, leaf_sizes[0], LARGE[1]):
@@ -2113,6 +2689,40 @@ def main() -> int:
                 row["ops_quantize_qr_ms"] = {
                     "before": min(turns["ops.quantize_qr before"]),
                     "after": min(turns["ops.quantize_qr after"])}
+                # the per-row-levels entry (per-client r: 4, 8, 1, 16, ...
+                # cycled), timed beside the scalar keyed entry, in turns;
+                # bit-equal to prng.uniform + the plain version at main
+                # and large.  Its bound adds the levels' 4 bytes a row.
+                r_rows = torch.tensor([(4, 8, 1, 16)[j % 4]
+                                       for j in range(rows)])
+                per_row = lambda: qk.quantize_qr_keyed(xc, r_rows, keys, norm)
+                got = per_row()
+                want = ref.quantize_qr_with_uniforms(
+                    xc, r_rows, prng.uniform(keys, n, device=dev), norm)
+                if not same_bits(got, want):
+                    raise AssertionError(f"K4 per-row levels {tag}: differs "
+                                         f"from its plain version")
+                recs["K4"].err(got.float(), want.float())
+                del got, want
+                rt = {"per-row levels": [], "scalar keyed": []}
+                for name_ in list(rt) * 2:
+                    rt[name_].append(time_ms(torch, per_row if name_ ==
+                                             "per-row levels" else kern,
+                                             iters))
+                pr_bound, pr_by = bound_ms(8 * nx + 16 * rows,
+                                           k4_int_ops * nx, int_peak)
+                _, pr_ops = device_per_call(torch, per_row, 5)
+                row["per_row_levels"] = {
+                    "ms": min(rt["per-row levels"]),
+                    "scalar_keyed_ms_in_turns": min(rt["scalar keyed"]),
+                    "bound_ms": pr_bound, "bound_by": pr_by,
+                    "device_ops_a_call": pr_ops, "bit_equal": True}
+                print(f"[kernels] K4 per-row levels {tag} {shape}: ms in "
+                      f"turns {rt!r} (scalar keyed beside it); bound "
+                      f"{pr_bound!r} ms ({pr_by}); {pr_ops!r} device "
+                      f"operations a call (the levels' copy and K4); "
+                      f"bit-equal to prng.uniform + the plain version",
+                      flush=True)
                 print(f"[kernels] K4 {tag} {shape}: ms in turns {turns!r}; "
                       f"keyed bound terms: bytes {t_bytes!r} ms, integer "
                       f"operations {t_int!r} ms ({k4_int_ops!r} an element on "
@@ -2559,7 +3169,19 @@ def main() -> int:
     del cifar
     torch.cuda.empty_cache()
 
-    # ---- 6. scans, 7.-8. serve, 9. attention, 10. CUDA against CPU --------- #
+    # ---- 6. downlink, 7. het_system, 8. scope ------------------------------ #
+    mnist = {"loss_fn": loss_fn, "data": data, "eval_fn": eval_fn,
+             "params0": params0}
+    t0 = time.time()
+    downlink_phase(torch, dev, mnist, launches)
+    het_system_phase(torch, dev, mnist, launches)
+    scope_phase(torch, dev, mnist, launches)
+    print(f"[phases] downlink, het_system and scope took "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del mnist, data
+    torch.cuda.empty_cache()
+
+    # ---- 9. scans, 10.-11. serve, 12. attention, 13. CUDA against CPU ------ #
     check_scan_kernels(torch, dev, recs)
     launches.update(serve_phase(torch, dev, SERVE_SHAPES)[0])
     _, captured = serve_phase(torch, dev, DENSE_SHAPES, ATTN_CAPTURE)

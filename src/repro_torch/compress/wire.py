@@ -1,5 +1,6 @@
 """Wire codec layer: real packed payloads for compressed trees (DESIGN.md
-§8) — the port of ``repro.compress.wire`` without its sharded part.
+§8) — the port of ``repro.compress.wire`` without its model-sharded part
+(``encode_shard_local``/``decode_shard_local``, ROADMAP Queue A).
 
 The compressors are *transforms*: they return a dense tree whose zeros and
 levels represent the compressed message, plus a :class:`BitsReport` of
@@ -35,7 +36,10 @@ Uplink buffers are uint32 bit patterns in int32 containers, 4 bytes each,
 as in the reference.  The reports are computed as the transforms compute
 them, so account and packed rounds see identical bit metrics;
 ``padding_bits`` is the slack between measured and accounted bits.
-``scope="global"`` and the model-sharded wire are not yet ported.
+
+``scope="tensor"`` codecs emit one *unit* per leaf; ``scope="global"``
+flattens each client's tree to one ``(s, n_total)`` unit at the leaves'
+promoted dtype first, as the transforms do, and splits the decode again.
 """
 
 from __future__ import annotations
@@ -47,10 +51,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch import not_ported, prng
+from repro_torch import prng
 from repro_torch import tree as tree_util
 from repro_torch.compress.compressors import (
-    Compose, Compressor, Identity, Int8Sync, QuantQr, TopK)
+    Compose, Compressor, Identity, Int8Sync, QuantQr, TopK, flat_rows)
 from repro_torch.compress.report import (
     FLOAT_BITS, INDEX_BITS, BitsReport, dense_report, leaf_value_bits,
     per_client)
@@ -67,10 +71,11 @@ class WireSpec:
     client's), the sparse capacities, and the packed bytes per client."""
 
     codec: str                       # dense | topk | qr | topk_qr | int8
+    scope: str                       # tensor | global
     treedef: Any                     # the tree's structure, leaves None
     shapes: Tuple[Tuple[int, ...], ...]
     dtypes: Tuple[torch.dtype, ...]
-    caps: Tuple[int, ...] = ()       # per-leaf sparse capacity (topk codecs)
+    caps: Tuple[int, ...] = ()       # per-unit sparse capacity (topk codecs)
     r: int = 0                       # level bits (qr / topk_qr / int8)
     nbytes: int = 0                  # packed payload bytes per client
 
@@ -116,20 +121,10 @@ def padding_bits(payload: Payload, report: BitsReport):
 # --------------------------------------------------------------------------- #
 
 def check_supported(comp: Optional[Compressor]) -> str:
-    """Return the wire codec name for ``comp``; raise ``ValueError`` where
-    the reference does and ``NotImplementedError`` for ``scope="global"``,
-    which the port does not have yet.  The static capacity needs the
-    exact-k support, so a TopK whose ``impl`` is not ``"select"`` is
-    rejected; ``Compose`` is supported for TopK -> QuantQr with matching
-    scopes."""
-    codec = _codec(comp)
-    scope = _scope_of(comp, codec)
-    if scope != "tensor":
-        raise not_ported(f"wire codecs with scope={scope!r}")
-    return codec
-
-
-def _codec(comp: Optional[Compressor]) -> str:
+    """Return the wire codec name for ``comp``, or raise ``ValueError``
+    with the reference's message.  The static capacity needs the exact-k
+    support, so ``TopK(impl="quantile")`` is rejected; ``Compose`` is
+    supported for TopK -> QuantQr with matching scopes."""
     if comp is None or isinstance(comp, Identity):
         return "dense"
     if isinstance(comp, TopK):
@@ -184,13 +179,27 @@ def _levels_r(comp) -> int:
     return comp.second.r if isinstance(comp, Compose) else comp.r
 
 
+def _unit_shapes(comp, codec: str, tree: PyTree):
+    """``(scope, [(n, width)])``: each unit's size and value width of one
+    client's ``tree`` (one unit per leaf, or one global unit at the
+    leaves' promoted dtype)."""
+    scope = _scope_of(comp, codec)
+    leaves = tree_util.leaves(tree)
+    if scope == "global":
+        dtype = functools.reduce(torch.promote_types,
+                                 [l.dtype for l in leaves])
+        width = torch.empty((), dtype=dtype).element_size()
+        return scope, [(sum(l.numel() for l in leaves), width)]
+    return scope, [(l.numel(), l.element_size()) for l in leaves]
+
+
 def payload_nbytes(comp: Optional[Compressor], tree: PyTree) -> int:
     """Packed bytes of ``comp``'s wire format for one client's ``tree``,
     from shapes alone."""
     codec = check_supported(comp)
+    _, units = _unit_shapes(comp, codec, tree)
     total = 0
-    for leaf in tree_util.leaves(tree):
-        n, width = leaf.numel(), leaf.element_size()
+    for n, width in units:
         if codec == "dense":
             total += n * width
         elif codec == "topk":
@@ -245,16 +254,18 @@ def encode(comp: Optional[Compressor], stacked: PyTree,
     computes them, and ``decode(payload)`` rebuilds what
     ``comp.compress(stacked, keys)`` returns.  The quantizer codecs split
     each client key as the transforms do (``Compose``'s ``(k1, k2)``
-    first, then one key per leaf), so packed and account rounds draw the
-    same uniforms.
+    first, then one key per leaf, the global unit taking the first), so
+    packed and account rounds draw the same uniforms.
     """
     codec = check_supported(comp)
+    scope = _scope_of(comp, codec)
     leaves = tree_util.leaves(stacked)
     s, dev = leaves[0].shape[0], leaves[0].device
-    units = [leaf.reshape(s, -1) for leaf in leaves]
+    units = ([flat_rows(stacked)] if scope == "global"
+             else [leaf.reshape(s, -1) for leaf in leaves])
 
     def mkspec(data, **kw):
-        return WireSpec(codec=codec,
+        return WireSpec(codec=codec, scope=scope,
                         treedef=tree_util.map(lambda _: None, stacked),
                         shapes=tuple(tuple(l.shape[1:]) for l in leaves),
                         dtypes=tuple(l.dtype for l in leaves),
@@ -266,19 +277,31 @@ def encode(comp: Optional[Compressor], stacked: PyTree,
 
     if codec == "topk":
         # threshold (K1) + compaction (K5) straight to slots; the report
-        # counts the survivors the compaction counted, in leaf order, as
-        # the TopK transform accumulates its nnz
+        # counts the survivors in leaf order, as the TopK transform
+        # accumulates its nnz: the compaction's counts a leaf, or, for the
+        # global unit, each leaf's share of the masked unit (K1 and K2 in
+        # one launch, then K5)
+        caps, data, counts = [], [], []
+        for u in units:
+            cap = comp._k(u.shape[1])
+            if scope == "global":
+                idx, vals, masked = kops.topk_slots_masked(u, cap, cap)
+                off = 0
+                for leaf in leaves:
+                    n = leaf[0].numel()
+                    counts.append((masked[:, off:off + n] != 0).sum(1))
+                    off += n
+            else:
+                idx, vals, nnz = kops.topk_slots(u, cap, cap)
+                counts.append(nnz)
+            data.append((idx, vals))
+            caps.append(cap)
         vb = torch.zeros(s, dtype=torch.float32, device=dev)
         ib = torch.zeros(s, dtype=torch.float32, device=dev)
-        caps, data = [], []
-        for leaf, u in zip(leaves, units):
-            cap = comp._k(u.shape[1])
-            idx, vals, nnz = kops.topk_slots(u, cap, cap)
+        for leaf, nnz in zip(leaves, counts):
             nnzf = nnz.to(torch.float32)
             vb = vb + nnzf * leaf_value_bits(leaf)
             ib = ib + nnzf * INDEX_BITS
-            data.append((idx, vals))
-            caps.append(cap)
         data = tuple(data)
         report = BitsReport(value_bits=vb, index_bits=ib,
                             meta_bits=per_client(0.0, s, dev))
@@ -304,6 +327,8 @@ def encode(comp: Optional[Compressor], stacked: PyTree,
     if codec == "topk_qr":
         # threshold (K1), masked norm (K3), coded slots (K6), pack (K8);
         # the report is Compose's support-aware one, nnz from K6's counts
+        # (index bits do not depend on a leaf's dtype, so the global unit's
+        # count needs no split)
         ib = torch.zeros(s, dtype=torch.float32, device=dev)
         caps, data = [], []
         for j, u in enumerate(units):
@@ -332,6 +357,7 @@ def decode(payload: Payload) -> PyTree:
     """Unpack a :class:`Payload` back to the transform-output stacked tree."""
     spec = payload.spec
     sizes = [math.prod(shp) for shp in spec.shapes]
+    unit_sizes = [sum(sizes)] if spec.scope == "global" else sizes
     if spec.codec in ("topk", "topk_qr"):
         if spec.codec == "topk":
             entries = payload.data
@@ -341,15 +367,21 @@ def decode(payload: Payload) -> PyTree:
                                                           spec.caps)]
         dtype = functools.reduce(torch.promote_types,
                                  [v.dtype for _, v in entries])
-        units = _scatter_units(entries, sizes, dtype)
+        units = _scatter_units(entries, unit_sizes, dtype)
     elif spec.codec == "qr":
         units = [kops.unpack_qr_values(words, spec.r, n, norm)
-                 for (words, norm), n in zip(payload.data, sizes)]
+                 for (words, norm), n in zip(payload.data, unit_sizes)]
     elif spec.codec == "int8":
         units = [q.to(torch.float32).reshape(q.shape[0], -1) * sc[:, None]
                  for q, sc in payload.data]
     else:
         units = [bufs[0] for bufs in payload.data]
+    if spec.scope == "global":
+        # the global unit back to the leaves' slices
+        offs = [0]
+        for n in sizes[:-1]:
+            offs.append(offs[-1] + n)
+        units = [units[0][:, off:off + n] for off, n in zip(offs, sizes)]
     parts = [u.reshape((u.shape[0],) + shp).to(dt)
              for u, shp, dt in zip(units, spec.shapes, spec.dtypes)]
     return tree_util.unflatten(spec.treedef, parts)

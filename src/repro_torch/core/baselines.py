@@ -15,9 +15,10 @@ reference's key chain exactly (``_round_key_fanout``-way round split,
 ``split(k_local, local_steps)`` per step and ``split(k_step, s)`` per
 client), masks per-client steps under a straggler deadline, and combines
 under the sync, semi_sync and async_buffered policies on both wires
-(DESIGN.md §7, §8).  Scaffnew is FedComLoc with ``variant="none"``.
-Only ``downlink="dense"`` is ported; other downlinks and client stores
-raise through ``_setup_engine``.
+(DESIGN.md §7, §8), with a dense or a delta-coded downlink (DESIGN.md
+§10: clients start from the model they last received, ``y``; Scaffold's
+one payload codes the ``(x, c)`` pair).  Scaffnew is FedComLoc with
+``variant="none"``.  Client stores raise through ``_setup_engine``.
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, TopK, dense_bits
 from repro_torch.core import aggregation, comm
 from repro_torch.core.clients import (
-    ClientSchedule, batched_compress, gather_decoded, keep_where,
-    masked_mean, mean_over_active, payload_metrics, per_client, tree_where,
-    validate_schedule, vmap_encode)
+    ClientSchedule, apply_downlink, batched_compress, gather_decoded,
+    keep_where, masked_mean, mean_over_active, payload_metrics, per_client,
+    tree_where, validate_schedule, vmap_encode)
 from repro_torch.core.engine import RoundEngine, value_and_grad
 from repro_torch.core.fed_data import FederatedData
 
@@ -144,13 +145,25 @@ class _Baseline(RoundEngine):
         self.sched = validate_schedule(
             schedule if schedule is not None
             else ClientSchedule.homogeneous(cfg.n_clients),
-            cfg.n_clients)
+            cfg.n_clients, compressor)
         self.meter = comm.CommMeter(mode=meter_mode)
         self._setup_engine()
 
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    @property
+    def _dl_on(self) -> bool:
+        return self.downlink != "dense"
+
+    def _downlink(self, state, x_new, k_dl, s: int, dense_down: float):
+        """The round's downlink: ``(y_new, downlink_bits, extra
+        metrics)``; dense, the broadcast is ``x_new`` at full width."""
+        if not self._dl_on:
+            return state.y, torch.tensor(dense_down, dtype=torch.float32), {}
+        return apply_downlink(self.downlink, self.down_comp, state.y, x_new,
+                              k_dl[0], s)
 
     def _cohort(self, k_sample, round_idx: int):
         """The round's cohort, plan, plan-participation mask and whether
@@ -166,7 +179,7 @@ class _Baseline(RoundEngine):
                            else self.cfg.local_steps)
 
     def _metrics(self, loss, up_bits, down_bits, plan, client_up, out,
-                 payload):
+                 payload, dl_extras):
         metrics = {"train_loss": loss,
                    "uplink_bits": up_bits,
                    "downlink_bits": down_bits,
@@ -177,6 +190,7 @@ class _Baseline(RoundEngine):
                    **aggregation.policy_metrics(out)}
         if payload is not None:
             metrics.update(payload_metrics(payload, out.partf))
+        metrics.update(dl_extras)
         return metrics
 
 
@@ -187,6 +201,7 @@ class _Baseline(RoundEngine):
 class FedAvgState(NamedTuple):
     x: PyTree
     round: int
+    y: PyTree = ()   # clients' last-received model (downlink != "dense")
 
 
 class FedAvg(_Baseline):
@@ -205,18 +220,22 @@ class FedAvg(_Baseline):
                          downlink_compressor, store, meter_mode)
 
     def init(self, params0: PyTree) -> FedAvgState:
-        return FedAvgState(x=_on(params0, self.device), round=0)
+        x = _on(params0, self.device)
+        return FedAvgState(x=x, round=0, y=x if self._dl_on else ())
 
     @property
     def _round_key_fanout(self) -> int:
-        return 3          # the reference's split with a dense downlink
+        # the reference's split: one more key for the downlink codec
+        return 4 if self._dl_on else 3
 
     def _round_impl(self, state: FedAvgState, key: torch.Tensor):
         cfg, sched = self.cfg, self.sched
         s = cfg.clients_per_round
-        k_sample, k_local, k_comp = prng.split(key, self._round_key_fanout)
+        k_sample, k_local, k_comp, *k_dl = prng.split(
+            key, self._round_key_fanout)
         clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
-        x0 = _broadcast(state.x, s)
+        # clients start from the model they last received
+        x0 = _broadcast(state.y if self._dl_on else state.x, s)
         x_fin, loss_sum = _local_sgd(
             self.loss_fn, self.data, cfg, x0, clients, k_local,
             steps=plan.steps if het else None)
@@ -245,11 +264,12 @@ class FedAvg(_Baseline):
                                state.x)
         else:
             x_new = _tmap(lambda t: t.mean(dim=0), x_fin)
-        down_bits = torch.tensor(s * dense_bits(state.x), dtype=torch.float32)
+        y_new, down_bits, dl_extras = self._downlink(
+            state, x_new, k_dl, s, s * dense_bits(state.x))
         metrics = self._metrics(self._mean_loss(loss_sum, plan, het),
                                 pol.client_up.sum(), down_bits, plan,
-                                pol.client_up, out, payload)
-        return FedAvgState(x=x_new, round=state.round + 1), metrics
+                                pol.client_up, out, payload, dl_extras)
+        return FedAvgState(x=x_new, round=state.round + 1, y=y_new), metrics
 
 
 def SparseFedAvg(loss_fn, data, cfg, density: float = 0.1,
@@ -273,6 +293,7 @@ class ScaffoldState(NamedTuple):
     c: PyTree        # server control variate
     ci: PyTree       # per-client control variates, stacked
     round: int
+    y: PyTree = ()   # clients' last-received (x, c) (downlink != "dense")
 
 
 class Scaffold(_Baseline):
@@ -289,26 +310,31 @@ class Scaffold(_Baseline):
 
     def init(self, params0: PyTree) -> ScaffoldState:
         x = _on(params0, self.device)
-        return ScaffoldState(x=x, c=_tmap(torch.zeros_like, x),
+        c = _tmap(torch.zeros_like, x)
+        # the downlink reference is the (x, c) pair the cohort last received
+        return ScaffoldState(x=x, c=c,
                              ci=_stacked_zeros(x, self.cfg.n_clients),
-                             round=0)
+                             round=0, y=(x, c) if self._dl_on else ())
 
     @property
     def _round_key_fanout(self) -> int:
-        return 2          # the reference's split with a dense downlink
+        # the reference's split: one more key for the downlink codec
+        return 3 if self._dl_on else 2
 
     def _round_impl(self, state: ScaffoldState, key: torch.Tensor):
         cfg, sched = self.cfg, self.sched
         s = cfg.clients_per_round
-        k_sample, k_local = prng.split(key, self._round_key_fanout)
+        k_sample, k_local, *k_dl = prng.split(key, self._round_key_fanout)
         clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
         rows = clients.to(self.device)
         ci_s = _tmap(lambda c: c[rows], state.ci)
-        x0 = _broadcast(state.x, s)
+        # clients work from the (x, c) pair they last received
+        x_ref, c_ref = state.y if self._dl_on else (state.x, state.c)
+        x0 = _broadcast(x_ref, s)
 
         def adjust(g, x_c):
             return _tmap(lambda gc, cic, cc: gc - cic + cc.unsqueeze(0),
-                         g, ci_s, state.c)
+                         g, ci_s, c_ref)
 
         x_fin, loss_sum = _local_sgd(self.loss_fn, self.data, cfg, x0,
                                      clients, k_local, grad_adjust=adjust,
@@ -322,14 +348,14 @@ class Scaffold(_Baseline):
             ci_new = _tmap(
                 lambda cic, cc, xs, yf: cic - cc.unsqueeze(0)
                 + per_client(coef, xs) * (xs - yf),
-                ci_s, state.c, x0, x_fin)
+                ci_s, c_ref, x0, x_fin)
             # a zero-step client did no work: keep its old variate
             ci_new = keep_where(plan.steps > 0, ci_new, ci_s)
         else:
             coef = 1.0 / (cfg.local_steps * cfg.gamma)
             ci_new = _tmap(
                 lambda cic, cc, xs, yf: cic - cc.unsqueeze(0)
-                + coef * (xs - yf), ci_s, state.c, x0, x_fin)
+                + coef * (xs - yf), ci_s, c_ref, x0, x_fin)
         # the model and the control variate both go up, dense
         dense = dense_bits(state.x)
         pol = aggregation.resolve_policy(self.policy, sched, plan,
@@ -357,11 +383,15 @@ class Scaffold(_Baseline):
                        ci_new)
         up_bits = (pol.client_up.sum() if may_exclude
                    else torch.tensor(2 * s * dense, dtype=torch.float32))
-        down_bits = torch.tensor(2 * s * dense, dtype=torch.float32)
+        # one payload delta-codes both halves of the broadcast (model and
+        # server control variate) against the cohort's (x, c) reference
+        y_new, down_bits, dl_extras = self._downlink(
+            state, (x_new, c_new), k_dl, s, 2 * s * dense)
         metrics = self._metrics(self._mean_loss(loss_sum, plan, het), up_bits,
-                                down_bits, plan, pol.client_up, out, payload)
+                                down_bits, plan, pol.client_up, out, payload,
+                                dl_extras)
         return (ScaffoldState(x=x_new, c=c_new, ci=ci_all,
-                              round=state.round + 1), metrics)
+                              round=state.round + 1, y=y_new), metrics)
 
 
 # --------------------------------------------------------------------------- #
@@ -373,6 +403,7 @@ class FedDynState(NamedTuple):
     h: PyTree        # server correction
     grads: PyTree    # per-client dual variables, stacked
     round: int
+    y: PyTree = ()   # clients' last-received model (downlink != "dense")
 
 
 class FedDyn(_Baseline):
@@ -391,20 +422,22 @@ class FedDyn(_Baseline):
         x = _on(params0, self.device)
         return FedDynState(x=x, h=_tmap(torch.zeros_like, x),
                            grads=_stacked_zeros(x, self.cfg.n_clients),
-                           round=0)
+                           round=0, y=x if self._dl_on else ())
 
     @property
     def _round_key_fanout(self) -> int:
-        return 2          # the reference's split with a dense downlink
+        # the reference's split: one more key for the downlink codec
+        return 3 if self._dl_on else 2
 
     def _round_impl(self, state: FedDynState, key: torch.Tensor):
         cfg, sched = self.cfg, self.sched
         s = cfg.clients_per_round
-        k_sample, k_local = prng.split(key, self._round_key_fanout)
+        k_sample, k_local, *k_dl = prng.split(key, self._round_key_fanout)
         clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
         rows = clients.to(self.device)
         g_s = _tmap(lambda g: g[rows], state.grads)
-        x0 = _broadcast(state.x, s)
+        # clients start from the model they last received
+        x0 = _broadcast(state.y if self._dl_on else state.x, s)
 
         def adjust(g, x_c):
             return _tmap(
@@ -458,8 +491,10 @@ class FedDyn(_Baseline):
                           _tmap(lambda t: t.mean(dim=0), x_up), h_new)
         up_bits = (pol.client_up.sum() if may_exclude
                    else torch.tensor(s * dense, dtype=torch.float32))
-        down_bits = torch.tensor(s * dense, dtype=torch.float32)
+        y_new, down_bits, dl_extras = self._downlink(state, x_new, k_dl, s,
+                                                     s * dense)
         metrics = self._metrics(self._mean_loss(loss_sum, plan, het), up_bits,
-                                down_bits, plan, pol.client_up, out, payload)
+                                down_bits, plan, pol.client_up, out, payload,
+                                dl_extras)
         return (FedDynState(x=x_new, h=h_new, grads=grads_all,
-                            round=state.round + 1), metrics)
+                            round=state.round + 1, y=y_new), metrics)

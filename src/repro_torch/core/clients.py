@@ -8,18 +8,24 @@ device).
   ``finish_times``/``sim_time`` are the sim-clock cost model;
 * ``sample_cohort`` — the uniform without-replacement cohort draw, bit for
   bit ``jax.random.choice`` on the same key;
+* per-client compressor overrides: ``ClientProfile.comp_params`` (e.g.
+  ``{"density": (n,)}``, or ``with_density_allocation``'s bandwidth-
+  proportional densities), gathered into ``RoundPlan.comp_overrides`` for
+  the cohort and routed by ``batched_compress`` as ``(s,)`` tensors;
 * ``keep_where``, ``tree_where``, ``mean_over_active``, ``masked_mean``
   and ``batched_compress`` (the counterpart of ``vmap_compress``: one
   compress call for the whole stacked cohort);
 * the packed uplink (DESIGN.md §8): ``vmap_encode`` at the client
   boundary, ``mask_payload`` and ``gather_decoded`` on the server, and
   ``payload_metrics``.  The port has one device, so there is no client
-  axis to gather across.
+  axis to gather across;
+* the compressed downlink (DESIGN.md §10): ``apply_downlink`` delta-codes
+  the broadcast against the cohort's last-received model, on a one-row
+  stack (one payload serves the whole cohort).
 
 Plans and cohorts live on the host (small ``(s,)`` tensors); the stacked
-model rows live on the device.  Availability, the tree sampler and
-per-client compressor overrides are not yet ported and raise
-``NotImplementedError``.
+model rows live on the device.  Availability and the tree sampler are not
+yet ported and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,12 +49,38 @@ class RoundPlan(NamedTuple):
     participating: torch.Tensor  # (s,) bool — False = straggler dropped
     speed: torch.Tensor          # (s,) float32
     bandwidth: torch.Tensor      # (s,) float32
-    comp_overrides: Dict[str, torch.Tensor]
+    comp_overrides: Dict[str, torch.Tensor]   # name -> (s,) values
+
+
+def _as_param(values) -> torch.Tensor:
+    """Per-client override values as ``jnp.asarray`` holds them with 64-bit
+    types off: floats as float32, integers as int32."""
+    v = torch.as_tensor(np.asarray(values))
+    if v.dtype.is_floating_point:
+        return v.to(torch.float32)
+    if v.dtype != torch.bool:
+        return v.to(torch.int32)
+    return v
+
+
+def _xla_cpu_mean(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.mean`` of a float32 vector as XLA's CPU backend computes it
+    for up to 32 elements: a left-to-right float32 sum times the float32
+    constant ``1/n`` (XLA folds the division by a constant into that
+    multiply).  Longer vectors sum in blocks there, so their last bit may
+    part from this."""
+    acc = np.float32(0.0)
+    for x in v.numpy().astype(np.float32):
+        acc = np.float32(acc + x)
+    return torch.tensor(acc * (np.float32(1.0) / np.float32(v.numel())),
+                        dtype=torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
 class ClientProfile:
-    """Per-client relative compute ``speed`` and uplink ``bandwidth``."""
+    """Per-client relative compute ``speed`` and uplink ``bandwidth``, and
+    per-client compressor parameters ``comp_params`` (override name ->
+    ``(n,)`` values, see ``Compressor.param_overrides``)."""
 
     speed: torch.Tensor
     bandwidth: torch.Tensor
@@ -66,8 +98,13 @@ class ClientProfile:
                 f"{tuple(speed.shape)} / {tuple(bandwidth.shape)}")
         if not (bool((speed > 0).all()) and bool((bandwidth > 0).all())):
             raise ValueError("speed and bandwidth must be positive")
-        if self.comp_params:
-            raise not_ported("per-client compressor overrides")
+        params = {k: _as_param(v) for k, v in dict(self.comp_params).items()}
+        object.__setattr__(self, "comp_params", params)
+        for name, v in params.items():
+            if v.shape != speed.shape:
+                raise ValueError(
+                    f"comp_params[{name!r}] must have shape "
+                    f"{tuple(speed.shape)}, got {tuple(v.shape)}")
 
     @property
     def n_clients(self) -> int:
@@ -107,6 +144,58 @@ class ClientProfile:
                              else bandwidth_lo, n_clients)
         return cls(speed=torch.from_numpy(speed.astype(np.float32)),
                    bandwidth=torch.from_numpy(bw.astype(np.float32)))
+
+    def with_comp_param(self, name: str, values) -> "ClientProfile":
+        params = dict(self.comp_params)
+        params[name] = values
+        return dataclasses.replace(self, comp_params=params)
+
+    def with_density_allocation(self, base_density: float,
+                                mode: str = "uniform",
+                                floor: float = 0.01) -> "ClientProfile":
+        """Attach a per-client TopK ``density`` allocation, the reference's
+        values bit for bit.
+
+        ``mode="uniform"`` gives every client ``base_density``;
+        ``mode="bandwidth"`` spends the same total bit budget in proportion
+        to each client's bandwidth (d_i proportional to bw_i, clipped to
+        [floor, 1]).  ``mean(d) == base_density``: where the clip binds, the
+        slope is bisected on the host (float64) so that the clipped mean
+        lands on ``base_density``; where it does not, d is the float32
+        ``clip(float32(base) * bw / mean(bw), floor, 1)``.
+        """
+        n = self.n_clients
+        if mode == "uniform":
+            d = torch.full((n,), base_density, dtype=torch.float32)
+        elif mode == "bandwidth":
+            if not (floor <= base_density <= 1.0):
+                raise ValueError(
+                    f"base_density={base_density} outside [floor={floor}, "
+                    "1.0]: the clipped allocation cannot average to it")
+            raw = self.bandwidth.numpy().astype(np.float64)
+            raw = raw / raw.mean()
+            clipped = np.clip(base_density * raw, floor, 1.0)
+            if abs(clipped.mean() - base_density) <= 1e-9:
+                rel = self.bandwidth / _xla_cpu_mean(self.bandwidth)
+                d = torch.clamp(torch.tensor(base_density, dtype=torch.float32)
+                                * rel, floor, 1.0)
+            else:
+                # mean(clip(c * raw, floor, 1)) is monotone in c and spans
+                # [floor, 1], which holds base_density: bisect the slope
+                lo, hi = 0.0, base_density
+                while np.clip(hi * raw, floor, 1.0).mean() < base_density:
+                    hi *= 2.0
+                for _ in range(80):
+                    mid = 0.5 * (lo + hi)
+                    if np.clip(mid * raw, floor, 1.0).mean() < base_density:
+                        lo = mid
+                    else:
+                        hi = mid
+                d = torch.from_numpy(
+                    np.clip(hi * raw, floor, 1.0).astype(np.float32))
+        else:
+            raise ValueError(f"unknown allocation mode {mode!r}")
+        return self.with_comp_param("density", d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,7 +281,9 @@ class ClientSchedule:
                 participating = steps > 0
         return RoundPlan(
             steps=steps, participating=participating, speed=speed,
-            bandwidth=self.profile.bandwidth[clients], comp_overrides={})
+            bandwidth=self.profile.bandwidth[clients],
+            comp_overrides={k: v[clients]
+                            for k, v in self.profile.comp_params.items()})
 
     def finish_times(self, plan: RoundPlan,
                      client_uplink_bits: torch.Tensor) -> torch.Tensor:
@@ -256,10 +347,9 @@ def batched_compress(comp, plan: RoundPlan, stacked, keys: torch.Tensor):
     """Compress a stacked-client tree in one call (the counterpart of
     ``vmap_compress``): returns ``(compressed stacked tree, BitsReport)``
     with ``(s,)`` report vectors — ``report.total_bits`` is the per-client
-    wire cost."""
-    if plan.comp_overrides:
-        raise not_ported("per-client compressor overrides")
-    return comp.compress(stacked, keys)
+    wire cost.  The plan's per-client overrides go to ``comp.compress``
+    as ``(s,)`` tensors, one value a client's row."""
+    return comp.compress(stacked, keys, **plan.comp_overrides)
 
 
 def vmap_encode(comp, plan: RoundPlan, stacked,
@@ -305,10 +395,56 @@ def gather_decoded(payload, partf_full: torch.Tensor):
     return wire.decode(mask_payload(payload, partf_full))
 
 
-def validate_schedule(schedule: ClientSchedule,
-                      n_clients: int) -> ClientSchedule:
+def apply_downlink(mode: str, comp, ref: PyTree, x_new: PyTree,
+                   key: torch.Tensor, s: int):
+    """The downlink seam (DESIGN.md §10) every round body shares: the
+    server delta-codes the new broadcast ``x_new`` against ``ref``, the
+    model the cohort last received, once for the whole cohort, and every
+    client adopts ``y_new = ref + decode(C(x_new - ref))``.
+
+    The delta goes through the compressor or the wire as a one-row stack
+    (leading axis 1, key ``key[None]``): ``"account"`` applies the
+    transform, ``"packed"`` moves the packed payload and adds the measured
+    ``downlink_payload_bytes`` (``s`` copies of it).  Both draw from the
+    same key the same way, so the two modes are bit-identical.  Returns
+    ``(y_new, downlink_bits, extra metrics)`` with the bits counted once a
+    receiving client (``s * report.total_bits``)."""
+    delta = tree_util.map(lambda a, b: (a - b).unsqueeze(0), x_new, ref)
+    keys = key.unsqueeze(0)
+    if mode == "packed":
+        from repro_torch.compress import wire
+        payload, rep = wire.encode(comp, delta, keys)
+        dec = wire.decode(payload)
+        extras = {"downlink_payload_bytes": torch.tensor(
+            float(s * payload.nbytes), dtype=torch.float32)}
+    else:
+        dec, rep = comp.compress(delta, keys)
+        extras = {}
+    y_new = tree_util.map(lambda y, d: y + d[0], ref, dec)
+    return y_new, rep.total_bits[0] * s, extras
+
+
+def validate_schedule(schedule: ClientSchedule, n_clients: int,
+                      compressor=None) -> ClientSchedule:
+    """Check a schedule against an algorithm's config and compressor: the
+    client count, and each per-client override's name and values."""
     if schedule.n_clients != n_clients:
         raise ValueError(
             f"schedule profiles {schedule.n_clients} clients but the config "
             f"has n_clients={n_clients}")
+    params = schedule.profile.comp_params
+    if params:
+        if compressor is None:
+            # an algorithm that never compresses would silently drop them
+            raise ValueError(
+                f"profile comp_params {sorted(params)} given, but this "
+                f"algorithm has no compressor to apply them")
+        accepted = set(compressor.param_overrides())
+        unknown = set(params) - accepted
+        if unknown:
+            raise ValueError(
+                f"profile comp_params {sorted(unknown)} are not accepted by "
+                f"{type(compressor).__name__} (accepts {sorted(accepted)})")
+        for name, values in params.items():
+            compressor.validate_override(name, values.numpy())
     return schedule

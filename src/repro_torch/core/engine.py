@@ -11,9 +11,10 @@ Algorithms define ``_round_impl(state, key) -> (state, metrics)`` where
   CUDA graph over a round is later work.
 
 Both record into ``self.meter`` (:class:`repro_torch.core.comm.CommMeter`).
-``set_policy`` binds one of the three aggregation policies (DESIGN.md §7)
-and ``set_wire`` the wire mode, ``"account"`` or ``"packed"`` (DESIGN.md
-§8); only ``downlink="dense"`` is ported.
+``set_policy`` binds one of the three aggregation policies (DESIGN.md §7),
+``set_wire`` the wire mode, ``"account"`` or ``"packed"`` (DESIGN.md §8),
+and ``set_downlink`` the downlink mode, ``"dense"``, ``"account"`` or
+``"packed"`` (DESIGN.md §10).  Client stores are not yet ported.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from repro_torch import tree as tree_util
 PyTree = Any
 
 WIRE_MODES = ("account", "packed")
+
+DOWNLINK_MODES = ("dense", "account", "packed")
 
 
 def value_and_grad(loss_fn, params: PyTree, xb, yb):
@@ -48,17 +51,47 @@ def _host(v):
     return np.asarray(v)
 
 
-def validate_wire(wire: Optional[str], compressor) -> str:
+def validate_downlink(downlink: Optional[str], compressor) -> str:
+    """Resolve and check a downlink mode (DESIGN.md §10) at construction
+    time.  ``"dense"`` (the default) broadcasts the raw model and accounts
+    it at full width; ``"account"`` and ``"packed"`` delta-code the
+    broadcast against the clients' last-received model through a downlink
+    compressor (``Identity()`` for the dense codec), the latter moving the
+    real packed payload, so it needs a compressor the wire layer can pack.
+    """
+    downlink = "dense" if downlink is None else downlink
+    if downlink not in DOWNLINK_MODES:
+        raise ValueError(
+            f"downlink must be one of {DOWNLINK_MODES}, got {downlink!r}")
+    if downlink != "dense":
+        if compressor is None:
+            raise ValueError(
+                f'downlink="{downlink}" needs a downlink compressor '
+                "(downlink_compressor=...; Identity() for the dense codec)")
+        if downlink == "packed":
+            from repro_torch.compress import wire as wire_mod
+            wire_mod.check_supported(compressor)
+    return downlink
+
+
+def validate_wire(wire: Optional[str], compressor, schedule=None) -> str:
     """Resolve and check a wire mode at construction time.  ``"account"``
     (the default) moves dense trees and only the bits ledger claims
     compression; ``"packed"`` needs a compressor the wire layer can pack
-    (``repro_torch.compress.wire.check_supported``)."""
+    (``repro_torch.compress.wire.check_supported``) and a schedule without
+    per-client compressor overrides, which change payload shapes."""
     wire = "account" if wire is None else wire
     if wire not in WIRE_MODES:
         raise ValueError(f"wire must be one of {WIRE_MODES}, got {wire!r}")
     if wire == "packed":
         from repro_torch.compress import wire as wire_mod
         wire_mod.check_supported(compressor)
+        if schedule is not None and schedule.profile.comp_params:
+            raise ValueError(
+                "packed wire mode cannot carry per-client compressor "
+                f"overrides {sorted(schedule.profile.comp_params)} (static "
+                "payload capacity); run per-client overrides in account "
+                "mode")
     return wire
 
 
@@ -70,15 +103,34 @@ class RoundEngine:
         self.policy = aggregation.validate_policy(
             getattr(self, "policy", None), self.cfg.clients_per_round)
         self.wire = validate_wire(getattr(self, "wire", None),
-                                  getattr(self, "comp", None))
-        if getattr(self, "downlink", "dense") != "dense":
-            raise not_ported(f"downlink={self.downlink!r}")
+                                  getattr(self, "comp", None),
+                                  getattr(self, "sched", None))
+        self.down_comp = getattr(self, "down_comp", None)
+        self.downlink = validate_downlink(getattr(self, "downlink", None),
+                                          self.down_comp)
+        self._validate_downlink_combo()
         if getattr(self, "store", None) is not None:
             raise not_ported("client stores")
 
     def set_wire(self, wire: str) -> "RoundEngine":
         """Bind a wire mode, ``"account"`` or ``"packed"``; returns self."""
-        self.wire = validate_wire(wire, getattr(self, "comp", None))
+        self.wire = validate_wire(wire, getattr(self, "comp", None),
+                                  getattr(self, "sched", None))
+        return self
+
+    def _validate_downlink_combo(self) -> None:
+        """Algorithm-specific downlink checks (none here); FedComLoc
+        overrides it."""
+
+    def set_downlink(self, downlink: str, compressor=None) -> "RoundEngine":
+        """Bind a downlink mode (DESIGN.md §10), ``"dense"``, ``"account"``
+        or ``"packed"``; ``compressor`` replaces the bound downlink
+        compressor when given.  The downlink reference ``y`` lives in the
+        algorithm's state, so call this before ``init``.  Returns self."""
+        comp = compressor if compressor is not None else self.down_comp
+        self.downlink = validate_downlink(downlink, comp)
+        self.down_comp = comp
+        self._validate_downlink_combo()
         return self
 
     def set_policy(self, policy) -> "RoundEngine":

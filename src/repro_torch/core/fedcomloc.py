@@ -7,7 +7,8 @@ The port of ``repro.core.fedcomloc``.
 * line 16: h_i <- h_i + (p/gamma)(x_{t+1} - x^_{i,t+1}).
 
 ``variant="none"`` with ``Identity`` is Scaffnew.  The round consumes the
-reference's key chain exactly — the 5-way split, ``split(k_local, cap)``
+reference's key chain exactly — the 5-way split (6-way with a compressed
+downlink, whose codec takes the sixth key), ``split(k_local, cap)``
 per local step, ``split(k_step, s)`` per client and ``split(kc)`` into
 batch and compression keys — so cohorts, batches and Q_r uniforms equal
 the reference's bit for bit.
@@ -18,13 +19,16 @@ The cohort's local SGD is batched: the server model is broadcast to
 launch per leaf for the whole cohort.  Under ``wire="packed"`` the
 cohort's uplink is encoded into real packed payloads at the client
 boundary, non-participants' buffers are masked, and the server decodes
-the stack once (DESIGN.md §8).  Ported: heterogeneous schedules (per-client
-step masks under a straggler deadline, drop-out), the sync, semi_sync and
-async_buffered policies (DESIGN.md §7), ``wire="account"`` and
-``"packed"``, ``downlink="dense"``, ``local_steps="fixed"`` and
-``"geometric"``, and the beyond-paper leaky error feedback on the Com
-uplink and Polyak server momentum.  Other downlinks and client stores are
-not yet ported.
+the stack once (DESIGN.md §8).  Under ``downlink="account"`` or
+``"packed"`` the broadcast is delta-coded against the cohort's
+last-received model ``y`` (DESIGN.md §10): the cohort restarts from ``y``
+and the control variates update against the decoded ``y``.  Ported:
+heterogeneous schedules (per-client step masks under a straggler
+deadline, drop-out, per-client compressor overrides), the sync, semi_sync
+and async_buffered policies (DESIGN.md §7), both wires, the three
+downlink modes, ``local_steps="fixed"`` and ``"geometric"``, and the
+beyond-paper leaky error feedback on the Com uplink and Polyak server
+momentum.  Client stores are not yet ported.
 """
 
 from __future__ import annotations
@@ -39,8 +43,8 @@ from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, dense_bits
 from repro_torch.core import aggregation, comm
 from repro_torch.core.clients import (
-    ClientSchedule, batched_compress, gather_decoded, keep_where,
-    masked_mean, mean_over_active, payload_metrics, tree_where,
+    ClientSchedule, apply_downlink, batched_compress, gather_decoded,
+    keep_where, masked_mean, mean_over_active, payload_metrics, tree_where,
     validate_schedule, vmap_encode)
 from repro_torch.core.engine import RoundEngine, value_and_grad
 from repro_torch.core.fed_data import FederatedData
@@ -57,6 +61,7 @@ class FedComLocState(NamedTuple):
     round: int         # communication rounds completed
     e: PyTree = ()     # per-client error-feedback memory, stacked like h
     mom: PyTree = ()   # server momentum buffer
+    y: PyTree = ()     # clients' last-received model (downlink != "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +127,7 @@ class FedComLoc(RoundEngine):
                  policy: aggregation.AggregationPolicy | None = None,
                  wire: str = "account",
                  downlink: str = "dense",
+                 downlink_compressor: Compressor | None = None,
                  store=None,
                  meter_mode: str = "host"):
         self.loss_fn = loss_fn
@@ -130,6 +136,7 @@ class FedComLoc(RoundEngine):
         self.policy = policy
         self.wire = wire
         self.downlink = downlink
+        self.down_comp = downlink_compressor
         self.store = store
         self.comp = compressor if compressor is not None else Identity()
         if config.variant == "none" and not isinstance(self.comp, Identity):
@@ -137,13 +144,27 @@ class FedComLoc(RoundEngine):
         self.sched = validate_schedule(
             schedule if schedule is not None
             else ClientSchedule.homogeneous(config.n_clients),
-            config.n_clients)
+            config.n_clients, self.comp)
         self.meter = comm.CommMeter(mode=meter_mode)
         self._setup_engine()
 
     @property
     def device(self) -> torch.device:
         return self.data.device
+
+    def _validate_downlink_combo(self) -> None:
+        if self.downlink == "dense":
+            return
+        if self.cfg.variant == "global":
+            raise ValueError(
+                'variant="global" already compresses the broadcast its own '
+                "way (line 11); combine the downlink seam with the other "
+                "variants, or keep variant='global' with downlink='dense'")
+        if self.cfg.server_momentum > 0:
+            raise ValueError(
+                "server_momentum extrapolates the broadcast point, which "
+                "the delta-coded downlink reference cannot track stably; "
+                "use downlink='dense' with momentum")
 
     def init(self, params0: PyTree) -> FedComLocState:
         n = self.cfg.n_clients
@@ -157,8 +178,9 @@ class FedComLoc(RoundEngine):
              else ())
         mom = (tree_util.map(torch.zeros_like, x)
                if self.cfg.server_momentum > 0 else ())
+        y = x if self.downlink != "dense" else ()
         return FedComLocState(x=x, h=tree_util.map(stacked_zeros, x),
-                              round=0, e=e, mom=mom)
+                              round=0, e=e, mom=mom, y=y)
 
     def _num_local_steps(self, key: torch.Tensor) -> int:
         cap = self.cfg.steps_cap
@@ -169,11 +191,14 @@ class FedComLoc(RoundEngine):
 
     @property
     def _round_key_fanout(self) -> int:
-        return 5          # the reference's split with a dense downlink
+        # the reference's split: one more key for the downlink codec; the
+        # dense split stays 5-way
+        return 6 if self.downlink != "dense" else 5
 
     def _round_impl(self, state: FedComLocState, key: torch.Tensor):
         cfg, sched = self.cfg, self.sched
-        k_sample, k_steps, k_local, k_up, k_down = prng.split(
+        dl_on = self.downlink != "dense"
+        k_sample, k_steps, k_local, k_up, k_down, *k_dl = prng.split(
             key, self._round_key_fanout)
         s = cfg.clients_per_round
         clients, _ = sched.sample_cohort(k_sample, s, state.round)
@@ -183,9 +208,13 @@ class FedComLoc(RoundEngine):
         rows = clients.to(dev)
 
         h_s = tree_util.map(lambda h: h[rows], state.h)
+        # with a compressed downlink the cohort restarts from the model
+        # the clients hold (y, last received), and every client-side
+        # anchor below (EF innovation, FedBuff delta) is that model
+        ref = state.y if dl_on else state.x
         x_i = tree_util.map(
             lambda p: p.unsqueeze(0).expand((s,) + tuple(p.shape)).clone(),
-            state.x)
+            ref)
 
         # the whole round's key chain at once: step j, client i draws
         # split(split(split(k_local, cap)[j], s)[i]) -> (batch, compress).
@@ -203,7 +232,8 @@ class FedComLoc(RoundEngine):
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for j in range(num_steps):
             active = j < plan.steps                      # (s,) host mask
-            x_eval = (self.comp.apply(x_i, kb_kc[j, :, 1])
+            x_eval = (self.comp.apply(x_i, kb_kc[j, :, 1],
+                                      **plan.comp_overrides)
                       if cfg.variant == "local" else x_i)
             losses, g = value_and_grad(self.loss_fn, x_eval, xb_all[j],
                                        yb_all[j])
@@ -230,7 +260,7 @@ class FedComLoc(RoundEngine):
                 e_s = tree_util.map(lambda e: e[rows], state.e)
                 innov = tree_util.map(
                     lambda xh, x0, e: xh - x0.unsqueeze(0) + e,
-                    x_hat, state.x, e_s)
+                    x_hat, ref, e_s)
                 up_tree = innov
             else:
                 up_tree = x_hat
@@ -266,7 +296,7 @@ class FedComLoc(RoundEngine):
                 x_hat = sent
         if cfg.variant == "com":
             x_hat = (tree_util.map(lambda x0, snt: x0.unsqueeze(0) + snt,
-                                   state.x, sent) if ef_on else sent)
+                                   ref, sent) if ef_on else sent)
         e_new = state.e
         if ef_on:
             # leaky memory: undecayed EF diverges inside Scaffnew
@@ -280,7 +310,7 @@ class FedComLoc(RoundEngine):
             # FedBuff server application in delta form: each buffer flush
             # applies its staleness-discounted mean of anchor deltas
             delta = tree_util.map(lambda xh, x0: xh - x0.unsqueeze(0),
-                                  x_hat, state.x)
+                                  x_hat, ref)
             x_bar = tree_util.map(lambda x0, u: x0 + u, state.x,
                                   aggregation.async_weighted_sum(out, delta))
         elif may_exclude:
@@ -298,10 +328,20 @@ class FedComLoc(RoundEngine):
             x_bar = tree_util.map(lambda t: t[0], x_bar)
             down_bits = down_rep.total_bits[0].cpu() * s
 
-        # line 16: h_i += (p/gamma) (x_{t+1} - x^_{i,t+1}) for i in S
+        # the downlink seam: delta-code the new broadcast against the
+        # cohort's reference, once; every client adopts the decoded y_new
+        y_new = state.y
+        dl_extras = {}
+        if dl_on:
+            y_new, down_bits, dl_extras = apply_downlink(
+                self.downlink, self.down_comp, state.y, x_bar, k_dl[0], s)
+        bcast = y_new if dl_on else x_bar
+
+        # line 16: h_i += (p/gamma) (x_{t+1} - x^_{i,t+1}) for i in S, with
+        # x_{t+1} the model the clients adopt
         h_s_new = tree_util.map(
             lambda h, xh, xb_: h + (cfg.p / cfg.gamma) * (xb_.unsqueeze(0) - xh),
-            h_s, x_hat, x_bar)
+            h_s, x_hat, bcast)
         if may_exclude:   # an excluded client keeps its control variate
             h_s_new = keep_where(part, h_s_new, h_s)
         h_new = tree_util.map(lambda h, hs: h.index_copy(0, rows, hs),
@@ -330,5 +370,6 @@ class FedComLoc(RoundEngine):
         }
         if wire_on:
             metrics.update(payload_metrics(payload, out.partf))
+        metrics.update(dl_extras)
         return (FedComLocState(x=x_bar, h=h_new, round=state.round + 1,
-                               e=e_new, mom=mom_new), metrics)
+                               e=e_new, mom=mom_new, y=y_new), metrics)

@@ -68,18 +68,26 @@ def run_federated(
     eval_every: int = 10,
     policy: Optional[Any] = None,
     wire: Optional[str] = None,
+    downlink: Optional[str] = None,
+    downlink_compressor: Optional[Any] = None,
 ) -> History:
     """Drive ``algorithm`` (anything with .init/.round/.meter) for R rounds,
     one ``algorithm.round`` per round on the ``key, sub = split(key)``
     chain, evaluating after round 1, every ``eval_every`` rounds, and
     after the last.  ``policy`` (an
     :class:`repro_torch.core.aggregation.AggregationPolicy`) rebinds the
-    aggregation policy (DESIGN.md §7) and ``wire`` (``"account"`` |
-    ``"packed"``) the wire mode (DESIGN.md §8) first."""
+    aggregation policy (DESIGN.md §7), ``wire`` (``"account"`` |
+    ``"packed"``) the wire mode (DESIGN.md §8) and ``downlink``
+    (``"dense"`` | ``"account"`` | ``"packed"``, with
+    ``downlink_compressor``) the broadcast's codec path (DESIGN.md §10)
+    first, before ``init``, since the downlink reference ``y`` lives in
+    the algorithm's state."""
     if policy is not None:
         algorithm.set_policy(policy)
     if wire is not None:
         algorithm.set_wire(wire)
+    if downlink is not None:
+        algorithm.set_downlink(downlink, downlink_compressor)
     key = prng.key_data(key)
     state = algorithm.init(params0)
     hist = History()

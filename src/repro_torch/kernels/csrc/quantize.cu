@@ -17,6 +17,10 @@
 //     torch ops.  The main path (ops.quantize_qr) calls it, so a leaf's Q_r
 //     is K3 and K4 alone, where the torch draw took ~177 device operations.
 //     Up to 32 rows' key words ride in the launch's parameters (no copy).
+//     It takes the level count L either as one scalar for every row or as
+//     a (rows,) float32 array on the device, one L = 2^r_i a row: a
+//     per-client r override gives each client's row its own r, which the
+//     JAX package runs as its jnp oracle with levels = float32(2 ** r).
 // K4 is a 2-D grid of (row, 1024-element block of the row), four
 // consecutive elements a thread, moved as float4 where the row allows.
 //
@@ -123,7 +127,8 @@ template <bool kKeyed, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 qr_round(const float* __restrict__ x, const float* __restrict__ u,
          const __grid_constant__ ThreefryKeys keys, const float* __restrict__ norm,
-         float* __restrict__ out, long long n, float levels) {
+         float* __restrict__ out, long long n, float levels,
+         const float* __restrict__ row_levels) {
   const long long row = blockIdx.y;
   const long long e0 = 4LL * ((long long)blockIdx.x * kThreads + threadIdx.x);
   if (e0 >= n) return;
@@ -148,6 +153,7 @@ qr_round(const float* __restrict__ x, const float* __restrict__ u,
     for (int e = 0; e < 4; ++e) uv[e] = e0 + e < n ? __ldg(u + at + e) : 0.0f;
   }
   const float nr = norm[row];
+  if (row_levels != nullptr) levels = row_levels[row];
   const float safe = nr > 0.0f ? nr : 1.0f;
   float o[4];
 #pragma unroll
@@ -173,14 +179,17 @@ qr_round(const float* __restrict__ x, const float* __restrict__ u,
 
 template <bool kKeyed>
 int launch_round(const float* x, const float* u, const ThreefryKeys& keys, const float* norm,
-                 float* out, int rows, long long n, float levels, cudaStream_t stream) {
+                 float* out, int rows, long long n, float levels, const float* row_levels,
+                 cudaStream_t stream) {
   const dim3 grid((unsigned)((n + 4LL * kThreads - 1) / (4LL * kThreads)), (unsigned)rows);
   const bool vec = n % 4 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)out & 15) == 0 &&
                    (kKeyed || ((uintptr_t)u & 15) == 0);
   if (vec)
-    qr_round<kKeyed, true><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, out, n, levels);
+    qr_round<kKeyed, true><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, out, n, levels,
+                                                          row_levels);
   else
-    qr_round<kKeyed, false><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, out, n, levels);
+    qr_round<kKeyed, false><<<grid, kThreads, 0, stream>>>(x, u, keys, norm, out, n, levels,
+                                                           row_levels);
   return (int)cudaGetLastError();
 }
 
@@ -220,7 +229,7 @@ int qr_l2_norm(const float* x, int rows, long long n, float* partial,
 int qr_quantize(const float* x, const float* u, const float* norm, float* out, int rows,
                 long long n, float levels, void* stream_ptr) {
   const ThreefryKeys none = {};
-  return launch_round<false>(x, u, none, norm, out, rows, n, levels,
+  return launch_round<false>(x, u, none, norm, out, rows, n, levels, nullptr,
                              (cudaStream_t)stream_ptr);
 }
 
@@ -228,14 +237,15 @@ int qr_quantize(const float* x, const float* u, const float* norm, float* out, i
 // 2^32, key_i = (keys[2 i], keys[2 i + 1]) (int64 holding uint32).  keys_dev
 // is the (rows, 2) key data on the device; when it is null, keys_host holds
 // them on the host (rows <= 32) and they travel in the launch's
-// parameters.
+// parameters.  row_levels, when not null, is the (rows,) float32 level
+// count of each row on the device, 2^r_i, and levels is not read.
 int qr_quantize_keyed(const float* x, const long long* keys_dev, const long long* keys_host,
                       const float* norm, float* out, int rows, long long n, float levels,
-                      void* stream_ptr) {
+                      const float* row_levels, void* stream_ptr) {
   if (n >= (1LL << 32)) return (int)cudaErrorInvalidValue;
   ThreefryKeys keys;
   if (!threefry_keys(keys_dev, keys_host, rows, keys)) return (int)cudaErrorInvalidValue;
-  return launch_round<true>(x, nullptr, keys, norm, out, rows, n, levels,
+  return launch_round<true>(x, nullptr, keys, norm, out, rows, n, levels, row_levels,
                             (cudaStream_t)stream_ptr);
 }
 

@@ -30,19 +30,26 @@ _COUNTERS = (_topk.LAUNCHES, _quant.LAUNCHES, _sel.LAUNCHES,
              _fa.LAUNCHES)
 
 
-def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+def topk_mask(x: torch.Tensor, k) -> torch.Tensor:
     """Keep each row's ``k`` largest-magnitude entries (K1 and K2 in one
-    launch); at ``k >= n`` the rows are returned as they are, with no
+    launch).  ``k`` is an int, or a ``(rows,)`` integer tensor of per-row
+    counts (per-client densities), clipped to ``[1, n]`` as the reference's
+    ``topk_mask_dynamic`` clips them; a row whose k reaches n is kept as it
+    is.  At an int ``k >= n`` the rows are returned as they are, with no
     launch."""
-    if int(k) >= x.shape[-1]:
+    n = x.shape[-1]
+    if isinstance(k, torch.Tensor):
+        return _topk.topk_mask(x, torch.clamp(k.to(torch.int64), 1, n))
+    if int(k) >= n:
         return x
     return _topk.topk_mask(x, int(k))
 
 
-def quantize_qr(x: torch.Tensor, r: int, keys: torch.Tensor) -> torch.Tensor:
+def quantize_qr(x: torch.Tensor, r, keys: torch.Tensor) -> torch.Tensor:
     """Q_r of each row (K3 norm + K4 rounding) with row ``i``'s uniforms
     ``jax.random.uniform(keys[i], (n,))``, which K4 draws in the kernel (on
-    the CPU, :func:`prng.uniform` draws them for the plain version)."""
+    the CPU, :func:`prng.uniform` draws them for the plain version).  ``r``
+    is an int or a ``(rows,)`` integer tensor, one r a row."""
     return _quant.quantize_qr_keyed(x, r, keys, _quant.l2_norm(x))
 
 
@@ -53,6 +60,16 @@ def topk_slots(x: torch.Tensor, k: int, cap: int):
     x's dtype, and each row's survivor count, which the bit accounting
     reads."""
     return _sel.compact_slots(x, _topk.threshold_bits(x, int(k)), int(cap))
+
+
+def topk_slots_masked(x: torch.Tensor, k: int, cap: int):
+    """:func:`topk_slots` that also returns the masked rows (K1 and K2 in
+    one launch, then K5 at that threshold): ``(idx, vals, masked)``, the
+    float32 ``where(bits >= t, x, 0)`` rows beside the slots.  The
+    ``topk`` codec's global unit counts each leaf's survivors from them."""
+    t, masked = _topk.threshold_mask(x, int(k))
+    idx, vals, _ = _sel.compact_slots(x, t, int(cap))
+    return idx, vals, masked
 
 
 def quantize_pack(x: torch.Tensor, r: int, keys: torch.Tensor):

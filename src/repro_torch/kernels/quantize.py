@@ -9,8 +9,8 @@ kernel in ``csrc/quantize.cu`` or raises.  K4 takes the norm as an input
 and has two entries: :func:`quantize_qr_with_uniforms` reads the uniforms
 (the JAX function's counterpart), :func:`quantize_qr_keyed` draws them in
 the kernel from the rows' threefry keys, bit for bit
-``jax.random.uniform``'s.  Both are bit-equal to the plain version given
-the same norm and uniforms.
+``jax.random.uniform``'s, with one r for every row or one r a row.  Both
+are bit-equal to the plain version given the same norm and uniforms.
 
 ``LAUNCHES`` counts kernel launches per wrapper; only the CUDA path adds
 to it, so a CPU run leaves it at 0.
@@ -48,7 +48,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                 ctypes.c_longlong, ctypes.c_float, _P]
     lib.qr_quantize.restype = ctypes.c_int
     lib.qr_quantize_keyed.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int,
-                                      ctypes.c_longlong, ctypes.c_float, _P]
+                                      ctypes.c_longlong, ctypes.c_float, _P,
+                                      _P]
     lib.qr_quantize_keyed.restype = ctypes.c_int
     lib.qr_error_string.argtypes = [ctypes.c_int]
     lib.qr_error_string.restype = ctypes.c_char_p
@@ -129,24 +130,44 @@ def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
     return out.to(x.dtype)
 
 
-def quantize_qr_keyed(x: torch.Tensor, r: int, keys: torch.Tensor,
+def row_levels(r: torch.Tensor, rows: int, device) -> torch.Tensor:
+    """Per-row level counts ``float32(2 ** r[row])`` on ``device`` for a
+    ``(rows,)`` integer ``r`` in [1, 126], each exact."""
+    r = torch.as_tensor(r)
+    if r.shape != (rows,) or r.dtype.is_floating_point or r.dtype == torch.bool:
+        raise ValueError(f"per-row r must be an integer ({rows},) tensor, got "
+                         f"{r.dtype} {tuple(r.shape)}")
+    if not bool(((r >= 1) & (r <= 126)).all()):
+        raise ValueError(f"r must be in [1, 126], got {r.tolist()}")
+    return ref.qr_levels(r.cpu(), rows, "cpu")[:, 0].to(device)
+
+
+def quantize_qr_keyed(x: torch.Tensor, r, keys: torch.Tensor,
                       norm: torch.Tensor) -> torch.Tensor:
     """K4 drawing its own uniforms: Q_r of each row against ``norm[row]``
     with row ``i``'s uniforms ``jax.random.uniform(keys[i], (n,))``, in x's
     dtype.  ``keys`` is the ``(rows, 2)`` int64 key data holding uint32
-    words, on the host or on x's device.
+    words, on the host or on x's device.  ``r`` is an int, or a ``(rows,)``
+    integer tensor giving each row its own r (per-client overrides): the
+    kernel then reads each row's level count ``2 ** r[row]`` from a
+    device array, which takes one copy to x's device.
 
     Up to ``build.KEYS_BY_VALUE`` rows of host keys travel in the launch's
-    parameters, so the call is one device operation; more rows, or keys
-    elsewhere, take one copy to x's device."""
+    parameters, so the call with a scalar r is one device operation; more
+    rows, or keys elsewhere, take one copy to x's device."""
     if build.on_cpu(x):
         return ref.quantize_qr_with_uniforms(
             x, r, prng.uniform(keys, x.shape[-1]), norm)
     xf = build.cuda_rows(x)
     rows, n = xf.shape
-    r = int(r)
-    if not 1 <= r <= 126:
-        raise ValueError(f"r must be in [1, 126], got {r}")
+    if isinstance(r, torch.Tensor):
+        per_row = row_levels(r, rows, xf.device)
+        levels = 0.0
+    else:
+        r = int(r)
+        if not 1 <= r <= 126:
+            raise ValueError(f"r must be in [1, 126], got {r}")
+        per_row, levels = None, float(2 ** r)
     if n >= 2 ** 32:
         raise ValueError(f"n must be below 2**32, got {n}")
     norm = build.expect(norm, "norm", torch.float32, (rows,), xf.device)
@@ -157,7 +178,8 @@ def quantize_qr_keyed(x: torch.Tensor, r: int, keys: torch.Tensor,
     keys, dev_ptr, host_ptr = build.key_args(keys, rows, xf.device)
     code = lib.qr_quantize_keyed(xf.data_ptr(), dev_ptr, host_ptr,
                                  norm.data_ptr(), out.data_ptr(), rows, n,
-                                 float(2 ** r), build.stream_ptr())
+                                 levels, None if per_row is None
+                                 else per_row.data_ptr(), build.stream_ptr())
     build.check(code, "qr_quantize_keyed", lib, "qr_error_string")
     LAUNCHES["quantize_qr"] += 1
     return out.to(x.dtype)

@@ -118,15 +118,26 @@ def jax_sign(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, one, torch.where(x < 0, -one, x))
 
 
-def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,
+def qr_levels(r, rows: int, device):
+    """The level count ``2 ** r`` as a float, or, for a ``(rows,)`` tensor
+    of per-row r, as the ``(rows, 1)`` float32 column ``float32(2 ** r)``
+    (exact: r is an integer below 127)."""
+    if not isinstance(r, torch.Tensor):
+        return float(2 ** int(r))
+    ones = torch.ones(rows, dtype=torch.float32, device=device)
+    return torch.ldexp(ones, r.to(device=device, dtype=torch.int32))[:, None]
+
+
+def quantize_qr_with_uniforms(x: torch.Tensor, r, u: torch.Tensor,
                               norm: torch.Tensor) -> torch.Tensor:
-    """Q_r of each row with the row's ``norm`` and uniforms ``u`` given.
+    """Q_r of each row with the row's ``norm`` and uniforms ``u`` given;
+    ``r`` is an int or a ``(rows,)`` integer tensor, one r a row.
 
     Same operation order as ``repro.kernels.ref.quantize_qr_with_uniforms``
     (and the TPU kernel), so equal inputs give bit-equal outputs.
     """
     x = _rows(x)
-    levels = float(2 ** int(r))
+    levels = qr_levels(r, x.shape[0], x.device)
     xf = x.to(torch.float32)
     nrm = norm.to(torch.float32)[:, None]
     pos = nrm > 0

@@ -796,19 +796,20 @@ def test_check_supported_names_the_codecs():
     assert wire.check_supported(COMPOSES["k25_q4"](compress)) == "topk_qr"
     assert wire.check_supported(COMPOSES["dense_q4"](compress)) == "qr"
     assert wire.check_supported(compress.Int8Sync()) == "int8"
-    glob = compress.Compose(
-        _unchecked(compress.TopK, density=0.3, scope="global", impl="select"),
-        _unchecked(compress.QuantQr, r=4, scope="global"))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        wire.check_supported(glob)
+    glob = compress.Compose(compress.TopK(0.3, scope="global"),
+                            compress.QuantQr(4, scope="global"))
+    assert wire.check_supported(glob) == "topk_qr"
 
 
 def test_int8_overrides_stay_unported():
+    """Int8Sync takes no per-client override, in the reference as here:
+    ``vmap_compress`` hands the override to ``compress``, which refuses the
+    keyword (``validate_schedule`` refuses such a profile first)."""
     plan = clients.RoundPlan(
         steps=torch.ones(S, dtype=torch.int64),
         participating=torch.ones(S, dtype=torch.bool),
         speed=torch.ones(S), bandwidth=torch.ones(S),
         comp_overrides={"magnitude_bits": torch.full((S,), 4)})
     ts = convert.params_from_jax(_stacked_tree(0), "cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="magnitude_bits"):
         clients.batched_compress(compress.Int8Sync(), plan, ts, _keys(0)[1])

@@ -158,12 +158,14 @@ def test_report_helpers_match():
     assert report.leaf_value_bits(torch.zeros(2)) == 32
 
 
+# scope="global" and impl="quantile" are ported; a value outside the
+# options raises the reference's ValueError
 @pytest.mark.parametrize("make", [
-    lambda: compress.TopK(0.1, scope="global"),
-    lambda: compress.TopK(0.1, impl="quantile"),
-    lambda: compress.QuantQr(4, scope="global")])
+    lambda: compress.TopK(0.1, scope="row"),
+    lambda: compress.TopK(0.1, impl="sort"),
+    lambda: compress.QuantQr(4, scope="row")])
 def test_unported_options_raise(make):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown"):
         make()
 
 

@@ -5,8 +5,9 @@ the port only (no JAX), so it runs on a GPU machine as
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1, K2 (alone and in K1's launch, ``threshold_mask``), K4 and K7 (reading
-their uniforms, and drawing them with threefry against the torch draw),
+K1, K2 (alone and in K1's launch, ``threshold_mask``; per-row k), K4 and
+K7 (reading their uniforms, and drawing them with threefry against the
+torch draw; K4 also with one r a row),
 K5, K6, K8, K9 (codes, and decoded to Q_r values) and K11 must be
 bit-equal to the plain versions; K3 within rtol
 1e-5 (float32 sums in another order) and bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
@@ -210,6 +211,53 @@ def test_quantize_qr_keyed_bf16_device_keys_many_rows_and_offsets(cuda_device):
     keys = _keys(3, 4)
     assert _same_bits(quant.quantize_qr_keyed(x, 8, keys, norm),
                       _keyed_plain(x.contiguous(), 8, keys, norm))
+
+
+@pytest.mark.parametrize("rows,n", [(4, 50176), (5, 1001), (40, 1000),
+                                    (2, (1 << 24) + 3)])
+def test_quantize_qr_keyed_per_row_levels(cuda_device, rows, n):
+    """K4 with one r a row (per-client overrides): bit-equal to
+    prng.uniform + the plain version at those r, one launch counted, and
+    each row equal to the scalar entry at its own r; r outside [1, 126]
+    and a float r raise."""
+    x = _rows(rows, n, cuda_device, 7 * n + rows)
+    keys = _keys(rows, n + 1)
+    norm = quant.l2_norm(x)
+    r = torch.tensor([(1, 4, 8, 16)[i % 4] for i in range(rows)])
+    quant.LAUNCHES["quantize_qr"] = 0
+    out = quant.quantize_qr_keyed(x, r, keys, norm)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES["quantize_qr"] == 1
+    assert _same_bits(out, _keyed_plain(x, r, keys, norm))
+    for i in range(min(rows, 4)):
+        one = quant.quantize_qr_keyed(x, int(r[i]), keys, norm)
+        assert torch.equal(out[i].view(torch.int32), one[i].view(torch.int32))
+    for bad in (torch.zeros(rows, dtype=torch.int64),
+                torch.full((rows,), 127), torch.full((rows,), 4.0)):
+        with pytest.raises(ValueError):
+            quant.quantize_qr_keyed(x, bad, keys, norm)
+
+
+def test_ops_per_row_k_and_r_launch_the_kernels(cuda_device):
+    """``ops.topk_mask`` with a per-row k launches K1 + K2 once (k clipped
+    to [1, n], a row at k >= n kept whole) and ``ops.quantize_qr`` with a
+    per-row r launches K3 and K4 once each, bit-equal to the plain
+    versions."""
+    x = _rows(4, 3000, cuda_device, 5)
+    k = torch.tensor([0, 300, 2999, 5000])
+    ops.reset_launch_counts()
+    got = ops.topk_mask(x, k)
+    r = torch.tensor([2, 4, 8, 16])
+    keys = _keys(4, 6)
+    q = ops.quantize_qr(x, r, keys)
+    torch.cuda.synchronize()
+    counts = {n: c for n, c in ops.launch_counts().items() if c}
+    assert counts == {"topk_threshold_mask": 1, "l2_norm": 1,
+                      "quantize_qr": 1}, counts
+    want = ref.topk_mask(x.cpu(), torch.clamp(k, 1, 3000))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got[3], x[3])
+    assert _same_bits(q, _keyed_plain(x, r, keys, quant.l2_norm(x)))
 
 
 @pytest.mark.parametrize("rows,n", [(5, 1001), (3, 4096)])

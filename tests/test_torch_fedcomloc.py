@@ -173,51 +173,60 @@ def test_cpu_run_leaves_every_launch_counter_at_zero(setup):
     assert len(counts) == 15 and all(v == 0 for v in counts.values()), counts
 
 
-def _global_topk():
-    """A TopK with ``scope="global"``, which the port's constructor
-    refuses (what a config for the reference would hold)."""
-    comp = object.__new__(compress.TopK)
-    for k, v in {"density": 0.3, "scope": "global", "impl": "select"}.items():
-        object.__setattr__(comp, k, v)
-    return comp
+def _quantile_topk():
+    """A TopK with ``impl="quantile"``, which has no wire codec."""
+    return compress.TopK(0.3, impl="quantile")
 
 
 # error feedback, server momentum, geometric local phases, the packed
-# wire, straggler deadlines and the semi_sync policy are ported; each id
-# now names what stays unported beside it: the EF memory in a client
-# store, momentum with a compressed downlink, geometric phases and a
-# deadline under client availability, the global-scope wire, semi_sync as
-# a hierarchical policy's edge tier, and a deadline under the tree sampler
-@pytest.mark.parametrize("make", [
-    lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
+# wire, straggler deadlines, the semi_sync policy, the compressed downlink
+# and per-client overrides are ported; each id names what stays unported
+# beside it (the EF memory in a client store, geometric phases and a
+# deadline under client availability, semi_sync as a hierarchical policy's
+# edge tier, a deadline under the tree sampler, a client store), or, where
+# nothing does, the reference's own refusal, which the port raises as the
+# reference does: an unknown downlink mode beside momentum, the packed
+# wire for a quantile TopK, a compressed downlink without its compressor,
+# and overrides of the wrong shape
+@pytest.mark.parametrize("make,error,match", [
+    (lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, error_feedback=True),
         compress.TopK(0.1), store=object()),
-    lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
+     NotImplementedError, "not yet ported"),
+    (lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, server_momentum=0.5),
         compress.TopK(0.1), downlink="delta"),
-    lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
+     ValueError, "downlink must be one of"),
+    (lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, local_steps="geometric"),
         schedule=clients.ClientSchedule(
             clients.ClientProfile.homogeneous(N_CLIENTS), deadline=4.0,
             availability=object())),
-    lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
-                        _global_topk(), wire="packed"),
-    lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
-                        compress.TopK(0.3), downlink="account"),
-    lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
-                        compress.TopK(0.3), store=object()),
-    lambda s: aggregation.HierarchicalPolicy(
+     NotImplementedError, "not yet ported"),
+    (lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
+                         _quantile_topk(), wire="packed"),
+     ValueError, "exact-k"),
+    (lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
+                         compress.TopK(0.3), downlink="account"),
+     ValueError, "needs a downlink compressor"),
+    (lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
+                         compress.TopK(0.3), store=object()),
+     NotImplementedError, "not yet ported"),
+    (lambda s: aggregation.HierarchicalPolicy(
         edge=aggregation.AggregationPolicy.semi_sync(2)),
-    lambda s: clients.ClientSchedule(
+     NotImplementedError, "not yet ported"),
+    (lambda s: clients.ClientSchedule(
         clients.ClientProfile.homogeneous(N_CLIENTS), deadline=1.0,
         sampler="tree"),
-    lambda s: clients.ClientProfile(torch.ones(3), torch.ones(3),
-                                    {"density": torch.ones(3)}),
+     NotImplementedError, "not yet ported"),
+    (lambda s: clients.ClientProfile(torch.ones(3), torch.ones(3),
+                                     {"density": torch.ones(2)}),
+     ValueError, "must have shape"),
 ], ids=["error_feedback", "server_momentum", "geometric_steps", "packed_wire",
         "compressed_downlink", "client_store", "semi_sync", "deadline",
         "comp_overrides"])
-def test_unported_options_raise(setup, make):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+def test_unported_options_raise(setup, make, error, match):
+    with pytest.raises(error, match=match):
         make(setup)
 
 

@@ -1,11 +1,11 @@
 """Heterogeneous clients and the event-driven aggregation policies in the
 port, against the reference.
 
-* The 12 golden configs of ``tests/test_golden.py`` that need no downlink
-  (FedComLoc, FedAvg, Scaffold and FedDyn, each under sync,
-  ``semi_sync(2)`` and ``async_buffered(2, 0.5)``, lognormal client
-  speeds), re-stated in the port and held against the JAX package's trace
-  computed live in the same test, on both wires.  The committed golden
+* The 15 golden configs of ``tests/test_golden.py`` (FedComLoc, LoCoDL
+  with its account-mode TopK downlink, FedAvg, Scaffold and FedDyn, each
+  under sync, ``semi_sync(2)`` and ``async_buffered(2, 0.5)``, lognormal
+  client speeds), re-stated in the port and held against the JAX
+  package's trace computed live in the same test, on both wires.  The committed golden
   files hold jax's older non-partitionable threefry stream, so they are
   not the yardstick here.  Tolerances are ``test_golden.py``'s: counting
   metrics exact, ``sim_time``/``client_finish`` rtol 1e-6, ``train_loss``
@@ -32,6 +32,7 @@ from repro_torch.core.clients import (  # noqa: E402
     ClientProfile, ClientSchedule, masked_mean)
 from repro_torch.core.fedcomloc import (  # noqa: E402
     FedComLoc, FedComLocConfig)
+from repro_torch.core.locodl import LoCoDL, LoCoDLConfig  # noqa: E402
 from tests import test_golden as golden  # noqa: E402
 
 
@@ -50,7 +51,7 @@ POLICIES = {
     "semi_sync": AggregationPolicy.semi_sync(2),
     "async_buffered": AggregationPolicy.async_buffered(2, 0.5),
 }
-ALGORITHMS = ("fedcomloc", "fedavg", "scaffold", "feddyn")
+ALGORITHMS = ("fedcomloc", "locodl", "fedavg", "scaffold", "feddyn")
 
 
 def quadratic_data(n=N, d=D, seed=0):
@@ -86,6 +87,13 @@ def build(algorithm, policy_name, wire="account"):
                               variant="com")
         return FedComLoc(sq_loss, data, cfg, compress.TopK(density=0.5),
                          schedule=schedule(), policy=policy, wire=wire)
+    if algorithm == "locodl":
+        cfg = LoCoDLConfig(gamma=0.05, p=0.25, lam=0.5, n_clients=N,
+                           clients_per_round=S, batch_size=4)
+        return LoCoDL(sq_loss, data, cfg, compress.TopK(density=0.5),
+                      schedule=schedule(), policy=policy, wire=wire,
+                      downlink="account",
+                      downlink_compressor=compress.TopK(density=0.5))
     fed = FedConfig(gamma=0.05, local_steps=4, n_clients=N,
                     clients_per_round=S, batch_size=4)
     cls = {"fedavg": FedAvg, "scaffold": Scaffold, "feddyn": FedDyn}[algorithm]
@@ -138,6 +146,13 @@ def _jbuild(algorithm, policy, drop, wire):
         return golden.FedComLoc(golden.sq_loss, data, cfg,
                                 golden.TopK(density=0.5), schedule=sched,
                                 policy=policy, wire=wire)
+    if algorithm == "locodl":
+        cfg = golden.LoCoDLConfig(gamma=0.05, p=0.25, lam=0.5, n_clients=N,
+                                  clients_per_round=S, batch_size=4)
+        return golden.LoCoDL(golden.sq_loss, data, cfg,
+                             golden.TopK(density=0.5), schedule=sched,
+                             policy=policy, wire=wire, downlink="account",
+                             downlink_compressor=golden.TopK(density=0.5))
     fed = golden.FedConfig(gamma=0.05, local_steps=4, n_clients=N,
                            clients_per_round=S, batch_size=4)
     cls = {"fedavg": golden.FedAvg, "scaffold": golden.Scaffold,

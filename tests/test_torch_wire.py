@@ -393,26 +393,29 @@ def _plan_with_overrides():
         comp_overrides={"magnitude_bits": torch.full((S,), 4)})
 
 
-# the compose (topk_qr) and int8 codecs are ported; their ids now name
-# what stays unported beside them: Compose at scope="global" and
-# Int8Sync with per-client overrides
-@pytest.mark.parametrize("call", [
-    lambda: wire.check_supported(compress.Compose(
-        _unchecked(compress.TopK, density=0.3, scope="global",
-                   impl="select"),
-        _unchecked(compress.QuantQr, r=4, scope="global"))),
-    lambda: clients.batched_compress(
+# the compose (topk_qr) and int8 codecs and the global scope are ported:
+# the global codecs resolve to the reference's codec names, and Int8Sync
+# with per-client overrides raises the reference's TypeError (its
+# compress takes no override)
+@pytest.mark.parametrize("call,want", [
+    (lambda: wire.check_supported(compress.Compose(
+        compress.TopK(0.3, scope="global"),
+        compress.QuantQr(4, scope="global"))), "topk_qr"),
+    (lambda: clients.batched_compress(
         compress.Int8Sync(), _plan_with_overrides(),
         convert.params_from_jax(_stacked_tree(0), "cpu"),
-        prng.split(prng.PRNGKey(0), S)),
-    lambda: wire.check_supported(_unchecked(
-        compress.TopK, density=0.3, scope="global", impl="select")),
-    lambda: wire.check_supported(_unchecked(compress.QuantQr, r=4,
-                                            scope="global"))],
+        prng.split(prng.PRNGKey(0), S)), TypeError),
+    (lambda: wire.check_supported(compress.TopK(0.3, scope="global")),
+     "topk"),
+    (lambda: wire.check_supported(compress.QuantQr(4, scope="global")),
+     "qr")],
     ids=["compose", "int8sync", "topk_global", "qr_global"])
-def test_unported_codecs_raise(call):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        call()
+def test_unported_codecs_raise(call, want):
+    if isinstance(want, str):
+        assert call() == want
+    else:
+        with pytest.raises(want):
+            call()
 
 
 def test_wire_modes_validate():
