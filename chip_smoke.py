@@ -161,7 +161,24 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    account wire (no kernel); then a QuantQr(8) round with a per-client r of
    4 or 8, whose every K4 launch (one r a row) must equal ``prng.uniform``
    + the plain version bit for bit;
-9. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
+9. population — ``benchmarks/population_scale.py``'s configuration at
+   ``POP_N`` = 10^6 clients, not cut: ``SyntheticFederatedData`` (2048,
+   hetero 0.2, noise 0.01), a diurnal + churn availability trace with the
+   tree sampler, two sync tiers over 8 edges (latency 0.5), 64 clients a
+   round, batch 256, TopK(0.1), ``bit_cost`` 1e-9, a pipelined
+   memory-mapped ``HostStore`` spooling under a temporary directory;
+   FedComLoc-Com with error feedback and LoCoDL (lam 0.5), 12 rounds each
+   from key 1.  Each must give ``POP_ARTIFACT``'s size-free fields
+   (``POP_FIELDS`` at the benchmark's rounding, the store counters
+   ``POP_STORE_FIELDS``), one K1 + K2 launch a round, and a held-out loss
+   below its start; prints ms a round, the phase split (sample, gather,
+   scatter, the worker's apply and prefetch, compute), peak device memory
+   and host RSS.  Then 3 rounds at 10^5 and at 10^6 (peak device memory
+   equal within ``POP_MEM_REL``, below ``POP_MEM_CAP``), 3 rounds on the
+   plain store (bit-equal to the pipelined one), 3 rounds with the Gumbel
+   sampler on the card (each draw timed beside the tree's), and a
+   profiled steady round;
+10. scans — holds K11 (RG-LRU) and K12 (WKV6) against their plain versions
    at the serving shapes (8, 2560, 2560) and (8, 40, 2560, 64), T = 1,
    odd T, B = 1, decays near 0 and 1 and zeros; K11 must be bit-equal,
    also at D = 2579, 2562 and 40 (not a multiple of a block's channels,
@@ -177,7 +194,7 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (y: plus one bf16 ulp) of the plain version run in float64.  Times both
    scans at the serving and a larger shape (K12's bf16 route on the
    prefill layout, its float32 route at main);
-10. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
+11. serve — ``rwkv6-3b`` and ``recurrentgemma-2b`` at their published
    width and depth in bf16, weights from the port's own init on the card,
    through ``launch/serve.py``'s :func:`serve`: batch 8, prompt 2560
    (above recurrentgemma's window of 2048, so the ring cache runs), 32
@@ -192,14 +209,14 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    and serve, above what earlier phases hold), and the device's busy time
    and idle share under ``torch.profiler`` for one prefill and for 8
    decode steps;
-11. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
+12. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
    way at batch 4, prompt 4608 (above gemma2's window of 4096 and
    gemma3's 1024: the ring branch of prefill and the ring decode run on
    their swa layers), each freed before the next.  Their prefill attends
    through ``chunked_attention``, as the JAX package's models do, so the
    counted run launches no kernel (K10 included).  The warm-up prefill
    hands over the q/k/v of the layers in ``ATTN_CAPTURE``;
-12. attention — K10 (``ops.mha_attention``: bf16 on the wgmma kernel fed
+13. attention — K10 (``ops.mha_attention``: bf16 on the wgmma kernel fed
    by TMA, float32 on the SIMT kernel) against its plain version
    ``ref.mha_attention`` in float32 and bf16 within ``ATTN_F32_TOL`` /
    ``ATTN_BF16_TOL`` (the JAX tests' tolerances, compared in the working
@@ -217,7 +234,7 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    layers' times and each dense model's layer pattern, what its prefill
    would save if it called K10 instead of ``chunked_attention`` (the route
    stays as the JAX models have it);
-13. CUDA against CPU — the five models at full width and reduced depth
+14. CUDA against CPU — the five models at full width and reduced depth
    (``CPU_CHECK_LAYERS``: one block pattern each, gemma3's 6 layers
    included), float32 with TF32 off, batch 2, prompt 128, 4 decode steps,
    the same weights on the card and on the CPU: logits within
@@ -260,6 +277,27 @@ DOWNLINK_ARTIFACT = "benchmarks/artifacts/downlink.json"
 # to each broadcast's own support instead of to the artifact.
 DOWNLINK_TIES = ("locodl_double",)
 SCOPE_ROUNDS = 5
+# benchmarks/population_scale.py's settings, not cut: 10^6 clients,
+# (2048,) rows, 64 a round over 8 edges, batch 256, 12 rounds from key 1
+POP_ARTIFACT = "benchmarks/artifacts/population_scale.json"
+POP_N, POP_N_SMALL, POP_DIM, POP_COHORT, POP_EDGES = (
+    1_000_000, 100_000, 2048, 64, 8)
+POP_BATCH, POP_ROUNDS, POP_CHECK_ROUNDS = 256, 12, 3
+# the artifact's fields that do not depend on the population size, and
+# the decimals the benchmark rounds each to
+POP_FIELDS = {"uplink_mbits": 3, "host_spool_mb_per_round": 4,
+              "clients_aggregated": 2, "edges_aggregated": 2, "sim_time": 2}
+POP_STORE_FIELDS = ("rows_gathered", "rows_scattered", "bytes_gathered",
+                    "bytes_scattered", "prefetch_hits", "prefetch_misses",
+                    "raw_hazards")
+POP_MEM_REL = 0.05            # peak device memory, 10^5 against 10^6
+POP_MEM_CAP = 2.0e9           # a quarter of one stacked (10^6, 2048) slot
+# the card against the CPU on the population path: y = x @ w_c is a float32
+# product of length 2048 summed in another order (|err| <= POP_Y_RTOL *
+# max |y|); round 0's model after the TopK(0.1) uplink within
+# LOSS_RTOL * max |x| of the CPU's
+POP_Y_RTOL = 1e-5
+POP_SAMPLE_CLIENTS = (0, 1, 499_999, 999_999)
 # async_buffered(2, 0.5) needs a capacity that divides clients_per_round,
 # so the hetero phase samples 4 of its 10 clients a round (Figure 9: 5)
 HETERO_S = 4
@@ -1211,7 +1249,7 @@ def finite_rounds(losses) -> int:
 
 
 def replay_on_cpu(torch, prng, make, params0, rounds: int, label: str, exact,
-                  close=()) -> None:
+                  close=(), x_rtol=None) -> None:
     """``rounds`` rounds of ``make("cuda")`` from ``params0``, each round
     replayed on the CPU (the plain versions) by ``make("cpu")`` from the
     card's state before it, with the same key: cohorts and the ``exact``
@@ -1220,7 +1258,10 @@ def replay_on_cpu(torch, prng, make, params0, rounds: int, label: str, exact,
     state keeps a TopK selection that float32 rounding flipped in one
     round out of the next round's loss: on the CNN with TopK(0.1), scaling
     the init by 1 + 1e-7 moves round 3's train loss by up to 1.8e-3
-    (relative) on the CPU alone."""
+    (relative) on the CPU alone.  ``x_rtol`` also holds each round's
+    model to the CPU's within ``x_rtol * max |x|``.  Both algorithms are
+    initialised; with a host store each side keeps its own rows, so such
+    a replay holds round 0 only."""
     import numpy as np
 
     from repro_torch import tree as tree_util
@@ -1236,17 +1277,29 @@ def replay_on_cpu(torch, prng, make, params0, rounds: int, label: str, exact,
         log = cohorts[d] = []
         sample = algs[d].sched.sample_cohort
 
-        def recording(key_, s_, round_idx=0, _sample=sample, _log=log):
-            clients, avail = _sample(key_, s_, round_idx)
+        def recording(key_, s_, round_idx=0, device=None, _sample=sample,
+                      _log=log):
+            clients, avail = _sample(key_, s_, round_idx, device=device)
             _log.append(clients.tolist())
             return clients, avail
 
         object.__setattr__(algs[d].sched, "sample_cohort", recording)
+    algs["cpu"].init(tree_util.map(lambda t: t.cpu(), params0))
     state, key, losses = algs["cuda"].init(params0), prng.PRNGKey(1), []
+    x_err = []
     for r in range(rounds):
         key, sub = prng.split(key, 2)
-        _, b = algs["cpu"].round(to(state, "cpu"), sub)
+        cpu_state, b = algs["cpu"].round(to(state, "cpu"), sub)
         state, a = algs["cuda"].round(state, sub)
+        if x_rtol is not None:
+            for xa, xb in zip(tree_util.leaves(state.x),
+                              tree_util.leaves(cpu_state.x)):
+                err = float((xa.cpu() - xb).abs().max())
+                lim = x_rtol * float(xb.abs().max())
+                x_err.append(err)
+                if not err <= lim:
+                    raise AssertionError(f"{label} round {r}: x differs by "
+                                         f"{err!r} (limit {lim!r})")
         for key_ in exact:
             if np.asarray(a[key_]).tolist() != np.asarray(b[key_]).tolist():
                 raise AssertionError(f"{label} round {r}: {key_} "
@@ -1266,8 +1319,9 @@ def replay_on_cpu(torch, prng, make, params0, rounds: int, label: str, exact,
     print(f"[replay] {label}: {rounds} rounds, each from the card's state, "
           f"CUDA == CPU on cohorts {cohorts['cuda']}, {', '.join(exact)}; "
           f"{', '.join(close) or 'nothing'} within rtol {CLOCK_RTOL}; "
-          f"train_loss (card, CPU) within rtol {LOSS_RTOL}: {losses!r}",
-          flush=True)
+          f"train_loss (card, CPU) within rtol {LOSS_RTOL}: {losses!r}"
+          + (f"; x within {x_rtol} * max |x|, max abs err {x_err!r}"
+             if x_rtol is not None else ""), flush=True)
 
 
 def fig9_phase(torch, dev, setup, launches: dict) -> dict:
@@ -2050,6 +2104,283 @@ def scope_phase(torch, dev, mnist, launches: dict) -> None:
           f"{m['client_uplink_bits'][0].tolist()}", flush=True)
 
 
+def population_phase(torch, dev, launches: dict) -> None:
+    """Phase 9: ``benchmarks/population_scale.py`` through the port at
+    10^6 clients: FedComLoc-Com with error feedback and LoCoDL (lam 0.5),
+    TopK(0.1), on ``SyntheticFederatedData``, the diurnal + churn trace
+    with the tree sampler, two sync tiers over 8 edges and a pipelined,
+    memory-mapped ``HostStore``; each row held to the artifact's
+    size-free fields.  Then device memory at 10^5 against 10^6, the plain
+    store against the pipelined one, and the Gumbel sampler's time.  First
+    the card is held to the CPU (the plain versions) at this path's
+    shapes: a few clients' batches, and round 0 of ``fedcomloc_pop``
+    from the card's batches on."""
+    import resource
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.compress import TopK
+    from repro_torch.core.aggregation import (
+        AggregationPolicy, HierarchicalPolicy)
+    from repro_torch.core.client_store import HostStore
+    from repro_torch.core.clients import (
+        ClientAvailability, ClientProfile, ClientSchedule)
+    from repro_torch.core.fed_data import SyntheticFederatedData
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.core.locodl import LoCoDL, LoCoDLConfig
+    from repro_torch.kernels import ops
+
+    t_phase = time.time()
+    art = {row["name"]: row for row in json.loads(
+        (ROOT / POP_ARTIFACT).read_text())["rows"]}
+
+    def loss_fn(p, xb, yb):
+        pred = torch.bmm(xb, p["w"].unsqueeze(-1)).squeeze(-1)
+        return 0.5 * ((pred - yb) ** 2).mean(-1)
+
+    def build(name, n, store, sampler="tree", device=dev):
+        avail = ClientAvailability.diurnal(
+            n, period=24.0, amp=0.8, churn_rate=0.05, online_frac=0.7,
+            seed=0)
+        sched = ClientSchedule(profile=ClientProfile.homogeneous(n),
+                               availability=avail, bit_cost=1e-9,
+                               sampler=sampler)
+        policy = HierarchicalPolicy(edge=AggregationPolicy.sync(),
+                                    server=AggregationPolicy.sync(),
+                                    n_edges=POP_EDGES, edge_latency=0.5)
+        data = SyntheticFederatedData.create(n, POP_DIM, hetero=0.2,
+                                             noise=0.01, seed=0,
+                                             device=device)
+        if name == "fedcomloc_pop":
+            cfg = FedComLocConfig(gamma=0.1, p=0.2, n_clients=n,
+                                  clients_per_round=POP_COHORT,
+                                  batch_size=POP_BATCH, variant="com",
+                                  error_feedback=True)
+            return FedComLoc(loss_fn, data, cfg, TopK(density=0.1),
+                             schedule=sched, policy=policy, store=store)
+        cfg = LoCoDLConfig(gamma=0.1, p=0.2, lam=0.5, n_clients=n,
+                           clients_per_round=POP_COHORT, batch_size=POP_BATCH)
+        return LoCoDL(loss_fn, data, cfg, TopK(density=0.1), schedule=sched,
+                      policy=policy, store=store)
+
+    def eval_loss(data, params, n):
+        """The benchmark's held-out loss: 512 fresh draws from each of 8
+        spread-out clients."""
+        tot = 0.0
+        for c in range(8):
+            xb, yb = data.sample_batch(prng.PRNGKey(10_000 + c),
+                                       torch.tensor(c * (n // 8)), 512)
+            tot += float(0.5 * ((xb @ params["w"] - yb) ** 2).mean())
+        return tot / 8
+
+    def timed_sampling(alg):
+        """Wall seconds of each cohort draw, the card's work included: the
+        round's ``sample_cohort`` calls, and the tree sampler's draws
+        (memoised: the planner draws, the round reads the memo)."""
+        sched, spent = alg.sched, []
+        owner, attr = ((sched.tree_sampler, "draw") if sched.uses_host_sampler
+                       else (sched, "sample_cohort"))
+        draw = getattr(owner, attr)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = draw(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        object.__setattr__(owner, attr, timed)
+        return spent
+
+    def run(name, n, rounds, prefetch=True, sampler="tree"):
+        spool = tempfile.mkdtemp(prefix="popscale_")
+        try:
+            store = HostStore(mmap_dir=spool, prefetch=prefetch)
+            alg = build(name, n, store, sampler)
+            sampled = timed_sampling(alg)
+            p0 = {"w": torch.zeros(POP_DIM, device=dev)}
+            state = alg.init(p0)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            (state, m), counts = counted(torch, ops, lambda: alg.run_rounds(
+                state, prng.PRNGKey(1), rounds))
+            store.flush()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+        finally:
+            shutil.rmtree(spool, ignore_errors=True)
+        return {"alg": alg, "state": state, "m": m, "counts": counts,
+                "wall": wall, "peak": peak, "draws_ms": [
+                    t * 1e3 for t in sampled if t > 1e-4],
+                "tel": store.telemetry(), "p0": p0}
+
+    # the card's procedural data against the CPU's: w_c and x bit for bit
+    t_check = time.time()
+    datas = {d: SyntheticFederatedData.create(
+        POP_N, POP_DIM, hetero=0.2, noise=0.01, seed=0, device=d)
+        for d in (dev, "cpu")}
+    cl = torch.tensor(POP_SAMPLE_CLIENTS)
+    keys = prng.split(prng.PRNGKey(7), len(POP_SAMPLE_CLIENTS))
+    (xg, yg), (xc, yc) = (datas[d].sample_batch(keys, cl, POP_BATCH)
+                          for d in (dev, "cpu"))
+    wg, wc = (datas[d].client_weights(cl) for d in (dev, "cpu"))
+    y_err = float((yg.cpu() - yc).abs().max())
+    if not (torch.equal(wg.cpu(), wc) and torch.equal(xg.cpu(), xc)
+            and y_err <= POP_Y_RTOL * float(yc.abs().max())):
+        raise AssertionError(f"population: the card's batches differ from "
+                             f"the CPU's (w_c equal "
+                             f"{torch.equal(wg.cpu(), wc)}, x equal "
+                             f"{torch.equal(xg.cpu(), xc)}, y err {y_err!r})")
+    print(f"[population] SyntheticFederatedData on the card == CPU for "
+          f"clients {list(POP_SAMPLE_CLIENTS)}: w_c and x {tuple(xg.shape)} "
+          f"bit for bit, y within {POP_Y_RTOL} * max |y| (max abs err "
+          f"{y_err!r})", flush=True)
+    card_data = datas[dev]
+    del datas, xg, yg, xc, yc
+
+    class CardDraws:
+        """The card's batches, handed to the CPU's algorithm: drawing 5 x
+        64 x 256 x 2048 normals on the host takes minutes, and the draws
+        were held to the CPU's just above."""
+        device = torch.device("cpu")
+
+        def sample_batch(self, keys, clients, batch):
+            x, y = card_data.sample_batch(keys, clients, batch)
+            return x.cpu(), y.cpu()
+
+    def replayed(d):
+        alg = build("fedcomloc_pop", POP_N, HostStore(), device=d)
+        if d == "cpu":
+            alg.data = CardDraws()
+        return alg
+
+    # round 0 of fedcomloc_pop on the card and on the CPU (everything
+    # after the draws), each with a plain host store of its own
+    replay_on_cpu(
+        torch, prng, replayed, {"w": torch.zeros(POP_DIM, device=dev)}, 1,
+        f"population fedcomloc_pop n={POP_N}",
+        exact=("client_steps", "uplink_bits", "client_uplink_bits",
+               "clients_aggregated", "edges_aggregated"),
+        close=("sim_time",), x_rtol=LOSS_RTOL)
+    print(f"[population] the card against the CPU took "
+          f"{time.time() - t_check:.1f} s", flush=True)
+
+    main_draws = {}
+    for name in ("fedcomloc_pop", "locodl_pop"):
+        r = run(name, POP_N, POP_ROUNDS)
+        main_draws[name] = r["draws_ms"]
+        m, tel, alg = r["m"], r["tel"], r["alg"]
+        host_mb = (tel["bytes_gathered"] + tel["bytes_scattered"]) / 1e6
+        row = {
+            "uplink_mbits": float(np.sum(m["uplink_bits"])) / 1e6,
+            "host_spool_mb_per_round": host_mb / POP_ROUNDS,
+            "clients_aggregated": float(np.mean(m["clients_aggregated"])),
+            "edges_aggregated": float(np.mean(m["edges_aggregated"])),
+            "sim_time": float(np.sum(m["sim_time"])),
+        }
+        want = art[name]
+        for field, digits in POP_FIELDS.items():
+            if round(row[field], digits) != want[field]:
+                raise AssertionError(f"population {name}: {field} "
+                                     f"{row[field]!r} != artifact "
+                                     f"{want[field]!r}")
+        for field in POP_STORE_FIELDS:
+            if tel[field] != want["store"][field]:
+                raise AssertionError(f"population {name}: store {field} "
+                                     f"{tel[field]} != artifact "
+                                     f"{want['store'][field]}")
+        ev0 = eval_loss(alg.data, r["p0"], POP_N)
+        ev1 = eval_loss(alg.data, r["state"].x, POP_N)
+        losses = m["train_loss"].tolist()
+        if not (math.isfinite(ev1) and ev1 < ev0
+                and all(map(math.isfinite, losses))):
+            raise AssertionError(f"population {name}: eval loss {ev0!r} -> "
+                                 f"{ev1!r}, train losses {losses}")
+        want_counts = {FUSED_K1_K2: POP_ROUNDS}
+        if r["counts"] != want_counts:
+            raise AssertionError(f"population {name}: launch counts "
+                                 f"{r['counts']} != {want_counts}")
+        launches.setdefault(FUSED_K1_K2, {})[f"population {name}"] = \
+            r["counts"][FUSED_K1_K2]
+        sample_s = alg.sched.tree_sampler.sample_seconds
+        critical = sample_s + tel["gather_seconds"] + tel["scatter_seconds"]
+        phases = {"sample_s": sample_s, "gather_s": tel["gather_seconds"],
+                  "scatter_s": tel["scatter_seconds"],
+                  "apply_worker_s": tel["apply_seconds"],
+                  "prefetch_worker_s": tel["prefetch_seconds"],
+                  "compute_s": max(r["wall"] - critical, 0.0)}
+        print(f"[population] {name} n={POP_N}: {POP_ROUNDS} rounds in "
+              f"{r['wall']!r} s, ms/round {r['wall'] / POP_ROUNDS * 1e3!r}; "
+              f"phases {phases}; store {{"
+              + ", ".join(f"{k}: {tel[k]}" for k in POP_STORE_FIELDS
+                          + ("flush_stalls",)) + "}", flush=True)
+        print(f"[population] {name}: " + ", ".join(
+            f"{k} {row[k]!r} (artifact {want[k]!r})" for k in POP_FIELDS)
+            + f"; eval loss {ev0!r} -> {ev1!r} (artifact, JAX on a CPU with "
+            f"an older key stream: {want['eval_loss_init']!r} -> "
+            f"{want['eval_loss_final']!r}); train loss {losses[0]!r} -> "
+            f"{losses[-1]!r}; K1 + K2 launches {r['counts']}; peak device "
+            f"memory {r['peak'] / 1e6!r} MB above the state; peak host RSS "
+            f"of the process {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0!r}"
+            f" MB", flush=True)
+
+    # device memory holds the cohort, not the population
+    small = run("fedcomloc_pop", POP_N_SMALL, POP_CHECK_ROUNDS)
+    full = run("fedcomloc_pop", POP_N, POP_CHECK_ROUNDS)
+    hi, lo = max(small["peak"], full["peak"]), min(small["peak"], full["peak"])
+    if not (hi - lo <= POP_MEM_REL * hi and hi < POP_MEM_CAP):
+        raise AssertionError(f"population: peak device memory {small['peak']}"
+                             f" B at n={POP_N_SMALL} vs {full['peak']} B at "
+                             f"n={POP_N} (within {POP_MEM_REL}, below "
+                             f"{POP_MEM_CAP})")
+    print(f"[population] peak device memory over {POP_CHECK_ROUNDS} rounds: "
+          f"{small['peak'] / 1e6!r} MB at n={POP_N_SMALL}, "
+          f"{full['peak'] / 1e6!r} MB at n={POP_N} (one stacked slot: "
+          f"{POP_N * POP_DIM * 4 / 1e6!r} MB)", flush=True)
+
+    # the plain store gives the pipelined one's bits
+    plain = run("fedcomloc_pop", POP_N, POP_CHECK_ROUNDS, prefetch=False)
+    same_x = torch.equal(plain["state"].x["w"].view(torch.int32),
+                         full["state"].x["w"].view(torch.int32))
+    same_m = all(np.array_equal(plain["m"][k], full["m"][k])
+                 for k in full["m"])
+    if not (same_x and same_m and sorted(plain["m"]) == sorted(full["m"])):
+        raise AssertionError(f"population: plain store != pipelined store "
+                             f"(x {same_x}, metrics {same_m})")
+    print(f"[population] plain HostStore == pipelined HostStore bit for bit "
+          f"over {POP_CHECK_ROUNDS} rounds (x and every metric); plain "
+          f"{plain['wall'] / POP_CHECK_ROUNDS * 1e3!r} ms/round, pipelined "
+          f"{full['wall'] / POP_CHECK_ROUNDS * 1e3!r}", flush=True)
+
+    # the O(n) Gumbel-top-k on the card against the tree sampler
+    gum = run("fedcomloc_pop", POP_N, POP_CHECK_ROUNDS, sampler="gumbel")
+    print(f"[population] cohort draws at n={POP_N}, ms each: gumbel on the "
+          f"card {gum['draws_ms']!r} (its rounds "
+          f"{gum['wall'] / POP_CHECK_ROUNDS * 1e3!r} ms each); tree on the "
+          f"host {full['draws_ms']!r} (the first builds the segment tree; "
+          f"the 12-round runs' draws: {main_draws!r})", flush=True)
+
+    # where a population round's time goes
+    spool = tempfile.mkdtemp(prefix="popscale_")
+    try:
+        alg = build("fedcomloc_pop", POP_N,
+                    HostStore(mmap_dir=spool, prefetch=True))
+        profile_rounds(torch, prng, alg,
+                       {"w": torch.zeros(POP_DIM, device=dev)},
+                       f"population fedcomloc_pop n={POP_N}")
+        alg.store.flush()
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+    print(f"[phases] population took {time.time() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2173,6 +2504,9 @@ def main() -> int:
     for n in (1, 3, 5, 7):
         topk_cases.append((f"n={n} below the CTAs", randn(3, n), max(1, n // 2)))
     topk_cases.append(("odd n=50177", randn(s, 50177), 15053))
+    # the population phase's cohort rows at TopK(0.1)
+    topk_cases.append((f"population ({POP_COHORT}, {POP_DIM})",
+                       randn(POP_COHORT, POP_DIM), 205))
     x = randn(5, 1000)
     topk_cases.append(("per-row k 0 1 n-1 n >n", x,
                        torch.tensor([0, 1, 999, 1000, 1500], device=dev)))
@@ -3113,8 +3447,9 @@ def main() -> int:
             cohorts = []
             sample = alg_d.sched.sample_cohort
 
-            def recording(key_, s_, round_idx=0, _sample=sample, _log=cohorts):
-                clients, avail = _sample(key_, s_, round_idx)
+            def recording(key_, s_, round_idx=0, device=None,
+                          _sample=sample, _log=cohorts):
+                clients, avail = _sample(key_, s_, round_idx, device=device)
                 _log.append(clients.tolist())
                 return clients, avail
 
@@ -3181,7 +3516,11 @@ def main() -> int:
     del mnist, data
     torch.cuda.empty_cache()
 
-    # ---- 9. scans, 10.-11. serve, 12. attention, 13. CUDA against CPU ------ #
+    # ---- 9. population ----------------------------------------------------- #
+    population_phase(torch, dev, launches)
+    torch.cuda.empty_cache()
+
+    # ---- 10. scans, 11.-12. serve, 13. attention, 14. CUDA against CPU ----- #
     check_scan_kernels(torch, dev, recs)
     launches.update(serve_phase(torch, dev, SERVE_SHAPES)[0])
     _, captured = serve_phase(torch, dev, DENSE_SHAPES, ATTN_CAPTURE)

@@ -1,6 +1,9 @@
 """PyTorch/CUDA port of the FedComLoc reproduction (``repro``).
 
-Mirrors the JAX package's module layout; imports torch and numpy only.
+Mirrors the JAX package's module layout (``core``, ``compress``,
+``kernels``, ``models``, ``data``, ``launch``, ``configs`` and
+``checkpoint``, whose files either package resumes); imports torch and
+numpy only.
 Entry points take an explicit ``device`` (default ``"cuda"``); the kernels
 on the path are hand-written CUDA for Hopper (``kernels/csrc``), and a
 CPU tensor runs their plain PyTorch versions.

@@ -25,11 +25,14 @@ def _from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array.  numpy has no bfloat16 of its own
+    (``ml_dtypes`` adds one, and the port never imports it), so a bfloat16
+    tensor always comes back as its uint16 bits; a caller that has
+    ``ml_dtypes`` views them as ``ml_dtypes.bfloat16``."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes   # numpy's bfloat16, as JAX uses it
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
 
 
@@ -40,6 +43,6 @@ def params_from_jax(tree_of_numpy: Any, device="cuda") -> Any:
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """The inverse: tensors -> numpy leaves (host copies; bfloat16 leaves
-    become ``ml_dtypes.bfloat16`` arrays with the same bits)."""
-    return tree_util.map(_to_numpy, tree)
+    """The inverse: tensors -> numpy leaves (bfloat16 leaves as their
+    uint16 bits, see :func:`to_host`)."""
+    return tree_util.map(to_host, tree)

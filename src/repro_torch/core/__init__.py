@@ -1,1 +1,21 @@
-"""Federated rounds of the port: FedComLoc on the synchronous account path."""
+"""Federated rounds of the port: FedComLoc, LoCoDL and the baselines on
+the account and packed wires, with heterogeneous clients, aggregation
+policies and, for million-client populations, availability traces, the
+tree sampler, hierarchical aggregation, host-side client stores and
+procedural data."""
+
+from repro_torch.core.aggregation import (
+    AggregationPolicy, HierarchicalPolicy)
+from repro_torch.core.client_store import (
+    ClientStore, HostStore, InMemoryStore, resolve_store)
+from repro_torch.core.clients import (
+    ClientAvailability, ClientProfile, ClientSchedule, RoundPlan)
+from repro_torch.core.fed_data import (
+    FederatedData, SyntheticFederatedData)
+from repro_torch.core.sampling import TreeSampler
+
+__all__ = ["AggregationPolicy", "HierarchicalPolicy", "ClientStore",
+           "HostStore", "InMemoryStore", "resolve_store",
+           "ClientAvailability", "ClientProfile", "ClientSchedule",
+           "RoundPlan", "FederatedData", "SyntheticFederatedData",
+           "TreeSampler"]

@@ -12,9 +12,9 @@ semi-sync wait-for-K and FedBuff-style buffered async, on the
   and each buffer of ``capacity`` arrivals is applied as its mean delta,
   scaled by ``1/(1+staleness)^alpha`` where staleness is the flush index.
 
-The outcome is computed on the host from the ``(s,)`` plan and bits
-vectors with the reference's float32 formulas.  ``HierarchicalPolicy`` is
-not yet ported and raises ``NotImplementedError``.
+``HierarchicalPolicy`` composes two of these tiers, edge -> server
+(DESIGN.md §11).  The outcome is computed on the host from the ``(s,)``
+plan and bits vectors with the reference's float32 formulas.
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch import tree as tree_util
 
 MODES = ("sync", "semi_sync", "async_buffered")
@@ -87,25 +86,77 @@ class AggregationPolicy:
 SYNC = AggregationPolicy()
 
 
+@dataclasses.dataclass(frozen=True)
 class HierarchicalPolicy:
-    """Two-tier edge -> server aggregation (the reference's DESIGN.md
-    §11); not yet ported."""
+    """Two-tier edge -> server aggregation (DESIGN.md §11).
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("HierarchicalPolicy")
+    The ``s`` sampled clients split into ``n_edges`` contiguous groups of
+    ``s / n_edges``; each edge runs its ``edge`` policy over its group on
+    the client finish clock, and the server runs the ``server`` policy
+    over edge arrival times (each edge's ``sim_time`` plus
+    ``edge_latency``).  The tiers compose in the outcome vectors:
+    participation is client ∩ edge ∩ server, ``weight`` makes the masked
+    mean the mean of edge means, ``coef``/``discount`` multiply,
+    staleness adds, and ``sim_time`` is the server tier's.
+    """
+
+    edge: AggregationPolicy = dataclasses.field(
+        default_factory=AggregationPolicy)
+    server: AggregationPolicy = dataclasses.field(
+        default_factory=AggregationPolicy)
+    n_edges: int = 1
+    edge_latency: float = 0.0
+
+    def __post_init__(self):
+        if self.n_edges <= 0:
+            raise ValueError("n_edges must be positive")
+        if self.edge_latency < 0:
+            raise ValueError("edge_latency must be non-negative")
+        for tier in (self.edge, self.server):
+            if not isinstance(tier, AggregationPolicy):
+                raise TypeError("edge/server tiers must be flat "
+                                "AggregationPolicy instances")
+
+    @property
+    def mode(self) -> str:
+        return "hierarchical"
+
+    @property
+    def is_sync(self) -> bool:
+        return False
+
+    @property
+    def may_exclude(self) -> bool:
+        """Hierarchical outcomes are weighted (a mean of edge means), so
+        rounds always take the masked aggregation path."""
+        return True
 
 
 def uses_delta_combine(policy) -> bool:
     """True if the round applies the server update in delta form
-    (``sum_i coef_i * delta_i``): async_buffered."""
+    (``sum_i coef_i * delta_i``): async_buffered, or a hierarchical policy
+    with an async tier (the composed ``coef`` telescopes both)."""
+    if isinstance(policy, HierarchicalPolicy):
+        return (policy.edge.mode == "async_buffered"
+                or policy.server.mode == "async_buffered")
     return policy.mode == "async_buffered"
 
 
-def validate_policy(policy, clients_per_round: int) -> AggregationPolicy:
+def validate_policy(policy, clients_per_round: int):
     """Resolve ``None``/defaults against ``clients_per_round`` and check
     realisability, at construction time."""
     if policy is None:
         return SYNC
+    if isinstance(policy, HierarchicalPolicy):
+        s = clients_per_round
+        if s % policy.n_edges != 0:
+            raise ValueError(
+                f"n_edges={policy.n_edges} must divide clients_per_round="
+                f"{s} (contiguous equal-size edge groups)")
+        return dataclasses.replace(
+            policy,
+            edge=validate_policy(policy.edge, s // policy.n_edges),
+            server=validate_policy(policy.server, policy.n_edges))
     if not isinstance(policy, AggregationPolicy):
         raise TypeError(f"policy must be an AggregationPolicy, got "
                         f"{type(policy).__name__}")
@@ -136,7 +187,10 @@ class PolicyOutcome(NamedTuple):
     staleness weight and the per-flush buffer-mean divisor);
     ``discount`` is the un-normalised staleness weight
     ``partf/(1+staleness)^alpha``; ``weight`` is the mean-aggregation
-    weight (``partf`` for every flat policy).
+    weight (``partf`` for every flat policy; a hierarchical outcome's
+    makes ``masked_mean(x, weight, weight_sum=n_selected)`` the mean of
+    edge means); ``edges_aggregated`` counts the edges the server applied
+    (hierarchical only).
     """
 
     participating: torch.Tensor   # (s,) bool — plan ∩ policy
@@ -148,6 +202,7 @@ class PolicyOutcome(NamedTuple):
     coef: torch.Tensor            # (s,) f32
     discount: torch.Tensor        # (s,) f32
     weight: torch.Tensor          # (s,) f32
+    edges_aggregated: Optional[torch.Tensor] = None   # () f32
 
 
 def _outcome_from_finish(policy: AggregationPolicy,
@@ -206,11 +261,48 @@ def _outcome_from_finish(policy: AggregationPolicy,
         discount=partf_plan, weight=partf_plan)
 
 
+def _apply_hierarchical(policy: HierarchicalPolicy,
+                        participating: torch.Tensor,
+                        finish: torch.Tensor) -> PolicyOutcome:
+    """The edge tier on each contiguous group, then the server tier over
+    the edges' arrival times, composed as the reference composes them."""
+    s, e = finish.shape[0], policy.n_edges
+    k = s // e
+    tiers = [_outcome_from_finish(policy.edge, participating[i * k:(i + 1) * k],
+                                  finish[i * k:(i + 1) * k])
+             for i in range(e)]
+    edge = PolicyOutcome(*(torch.stack([getattr(t, f) for t in tiers])
+                           for f in PolicyOutcome._fields[:-1]))
+    # each edge's aggregate reaches the server one hop after its clock
+    # closes; an empty edge sends nothing
+    srv = _outcome_from_finish(
+        policy.server, edge.n_selected > 0,
+        edge.sim_time + torch.tensor(policy.edge_latency,
+                                     dtype=torch.float32))
+    part = (edge.participating & srv.participating[:, None]).reshape(s)
+    partf = part.to(torch.float32)
+    n_sel = partf.sum()
+    # scale so that sum(weight) == n_selected and the masked mean's
+    # divisor cancels back to the mean of edge means
+    edge_wn = edge.weight / torch.clamp(edge.n_selected, min=1.0)[:, None]
+    srv_wn = srv.weight / torch.clamp(srv.n_selected, min=1.0)
+    weight = n_sel * (srv_wn[:, None] * edge_wn).reshape(s)
+    return PolicyOutcome(
+        participating=part, partf=partf, n_selected=n_sel,
+        sim_time=srv.sim_time, finish=finish,
+        staleness=(edge.staleness + srv.staleness[:, None]).reshape(s),
+        coef=(edge.coef * srv.coef[:, None]).reshape(s),
+        discount=(edge.discount * srv.discount[:, None]).reshape(s),
+        weight=weight, edges_aggregated=srv.n_selected)
+
+
 def apply_policy(policy, sched, plan,
                  client_bits_full: torch.Tensor) -> PolicyOutcome:
     """Resolve one round's policy from the plan and the ``(s,)`` wire cost
     each plan participant would transmit (0 for dropped stragglers)."""
     finish = sched.finish_times(plan, client_bits_full)
+    if isinstance(policy, HierarchicalPolicy):
+        return _apply_hierarchical(policy, plan.participating, finish)
     return _outcome_from_finish(policy, plan.participating, finish)
 
 
@@ -238,6 +330,10 @@ def async_weighted_sum(out: PolicyOutcome, stacked):
 
 def policy_metrics(out: PolicyOutcome) -> dict:
     """``client_staleness`` and ``clients_aggregated``, the number of
-    updates the server applied this round."""
-    return {"client_staleness": out.staleness,
-            "clients_aggregated": out.n_selected}
+    updates the server applied this round (and ``edges_aggregated`` under
+    a hierarchical policy)."""
+    metrics = {"client_staleness": out.staleness,
+               "clients_aggregated": out.n_selected}
+    if out.edges_aggregated is not None:
+        metrics["edges_aggregated"] = out.edges_aggregated
+    return metrics

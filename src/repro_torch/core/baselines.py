@@ -17,8 +17,9 @@ client), masks per-client steps under a straggler deadline, and combines
 under the sync, semi_sync and async_buffered policies on both wires
 (DESIGN.md §7, §8), with a dense or a delta-coded downlink (DESIGN.md
 §10: clients start from the model they last received, ``y``; Scaffold's
-one payload codes the ``(x, c)`` pair).  Scaffnew is FedComLoc with
-``variant="none"``.  Client stores raise through ``_setup_engine``.
+one payload codes the ``(x, c)`` pair).  Scaffold's ``ci`` and FedDyn's
+``grads`` live behind the client-store contract (``store=``, DESIGN.md
+§11).  Scaffnew is FedComLoc with ``variant="none"``.
 """
 
 from __future__ import annotations
@@ -105,11 +106,6 @@ def _broadcast(x: PyTree, s: int) -> PyTree:
     return _tmap(lambda p: p.unsqueeze(0).expand((s,) + tuple(p.shape)), x)
 
 
-def _stacked_zeros(x: PyTree, n: int) -> PyTree:
-    return _tmap(lambda p: torch.zeros((n,) + tuple(p.shape), dtype=p.dtype,
-                                       device=p.device), x)
-
-
 def _on(x: PyTree, device) -> PyTree:
     return _tmap(lambda p: p.detach().to(device), x)
 
@@ -121,7 +117,7 @@ def _combine(policy, out, may_exclude: bool, deltas: PyTree) -> PyTree:
     if aggregation.uses_delta_combine(policy):
         return aggregation.async_weighted_sum(out, deltas)
     if may_exclude:
-        return masked_mean(deltas, out.weight)
+        return masked_mean(deltas, out.weight, weight_sum=out.n_selected)
     return _tmap(lambda t: t.mean(dim=0), deltas)
 
 
@@ -168,9 +164,11 @@ class _Baseline(RoundEngine):
     def _cohort(self, k_sample, round_idx: int):
         """The round's cohort, plan, plan-participation mask and whether
         its steps are masked."""
-        clients, _ = self.sched.sample_cohort(
-            k_sample, self.cfg.clients_per_round, round_idx)
-        plan = self.sched.plan(clients, self.cfg.local_steps)
+        clients, avail = self.sched.sample_cohort(
+            k_sample, self.cfg.clients_per_round, round_idx,
+            device=self.device)
+        plan = self.sched.plan(clients, self.cfg.local_steps,
+                               available=avail)
         return (clients, plan, plan.participating.to(torch.float32),
                 self.sched.heterogeneous_steps)
 
@@ -260,7 +258,8 @@ class FedAvg(_Baseline):
             # if every sampled client was excluded, the server keeps its
             # model
             x_new = tree_where(out.n_selected > 0,
-                               masked_mean(x_fin, out.weight),
+                               masked_mean(x_fin, out.weight,
+                                           weight_sum=out.n_selected),
                                state.x)
         else:
             x_new = _tmap(lambda t: t.mean(dim=0), x_fin)
@@ -291,7 +290,7 @@ def SparseFedAvg(loss_fn, data, cfg, density: float = 0.1,
 class ScaffoldState(NamedTuple):
     x: PyTree
     c: PyTree        # server control variate
-    ci: PyTree       # per-client control variates, stacked
+    ci: PyTree       # per-client control variates: a store slot
     round: int
     y: PyTree = ()   # clients' last-received (x, c) (downlink != "dense")
 
@@ -313,7 +312,8 @@ class Scaffold(_Baseline):
         c = _tmap(torch.zeros_like, x)
         # the downlink reference is the (x, c) pair the cohort last received
         return ScaffoldState(x=x, c=c,
-                             ci=_stacked_zeros(x, self.cfg.n_clients),
+                             ci=self.store.init_slot("ci", x,
+                                                     self.cfg.n_clients),
                              round=0, y=(x, c) if self._dl_on else ())
 
     @property
@@ -326,8 +326,8 @@ class Scaffold(_Baseline):
         s = cfg.clients_per_round
         k_sample, k_local, *k_dl = prng.split(key, self._round_key_fanout)
         clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
-        rows = clients.to(self.device)
-        ci_s = _tmap(lambda c: c[rows], state.ci)
+        rows = self.store.cohort_index(clients, self.device)
+        ci_s = self.store.gather("ci", state.ci, rows)
         # clients work from the (x, c) pair they last received
         x_ref, c_ref = state.y if self._dl_on else (state.x, state.c)
         x0 = _broadcast(x_ref, s)
@@ -365,22 +365,27 @@ class Scaffold(_Baseline):
             ci_new = keep_where(out.participating, ci_new, ci_s)
         payload = None
         x_up, ci_up = x_fin, ci_new
+        ci_old = ci_s
         if self.wire == "packed":
-            # one dense payload carries (model, variate)
+            # one dense payload carries (model, variate); the server reads
+            # the cohort's old variates from the store itself (a host
+            # store's second read, as the reference makes it; the stacked
+            # store's rows are ci_s already)
             payload, _ = vmap_encode(None, plan, (x_fin, ci_new))
             x_up, ci_up = gather_decoded(payload, out.partf)
+            if self.store.host_side:
+                ci_old = self.store.gather("ci", state.ci, rows)
         dx = _combine(self.policy, out, may_exclude,
                       _tmap(lambda yf, xs: yf - xs, x_up, x0))
         dc = _combine(self.policy, out, may_exclude,
-                      _tmap(lambda cn, co: cn - co, ci_up, ci_s))
+                      _tmap(lambda cn, co: cn - co, ci_up, ci_old))
         if aggregation.uses_delta_combine(self.policy) or may_exclude:
             s_eff = float(out.n_selected / cfg.n_clients)
         else:
             s_eff = s / cfg.n_clients
         x_new = _tmap(lambda x_, d: x_ + d, state.x, dx)
         c_new = _tmap(lambda c_, d: c_ + s_eff * d, state.c, dc)
-        ci_all = _tmap(lambda c, cn: c.index_copy(0, rows, cn), state.ci,
-                       ci_new)
+        ci_all = self.store.scatter("ci", state.ci, rows, ci_new)
         up_bits = (pol.client_up.sum() if may_exclude
                    else torch.tensor(2 * s * dense, dtype=torch.float32))
         # one payload delta-codes both halves of the broadcast (model and
@@ -401,7 +406,7 @@ class Scaffold(_Baseline):
 class FedDynState(NamedTuple):
     x: PyTree
     h: PyTree        # server correction
-    grads: PyTree    # per-client dual variables, stacked
+    grads: PyTree    # per-client dual variables: a store slot
     round: int
     y: PyTree = ()   # clients' last-received model (downlink != "dense")
 
@@ -421,7 +426,8 @@ class FedDyn(_Baseline):
     def init(self, params0: PyTree) -> FedDynState:
         x = _on(params0, self.device)
         return FedDynState(x=x, h=_tmap(torch.zeros_like, x),
-                           grads=_stacked_zeros(x, self.cfg.n_clients),
+                           grads=self.store.init_slot("grads", x,
+                                                      self.cfg.n_clients),
                            round=0, y=x if self._dl_on else ())
 
     @property
@@ -434,8 +440,8 @@ class FedDyn(_Baseline):
         s = cfg.clients_per_round
         k_sample, k_local, *k_dl = prng.split(key, self._round_key_fanout)
         clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
-        rows = clients.to(self.device)
-        g_s = _tmap(lambda g: g[rows], state.grads)
+        rows = self.store.cohort_index(clients, self.device)
+        g_s = self.store.gather("grads", state.grads, rows)
         # clients start from the model they last received
         x0 = _broadcast(state.y if self._dl_on else state.x, s)
 
@@ -455,8 +461,7 @@ class FedDyn(_Baseline):
                       g_s, x_fin, x0)
         if may_exclude:   # excluded stragglers keep their dual variables
             g_new = keep_where(out.participating, g_new, g_s)
-        grads_all = _tmap(lambda g, gn: g.index_copy(0, rows, gn),
-                          state.grads, g_new)
+        grads_all = self.store.scatter("grads", state.grads, rows, g_new)
         payload = None
         x_up = x_fin
         if self.wire == "packed":
@@ -484,7 +489,8 @@ class FedDyn(_Baseline):
                 x_new = tree_where(out.n_selected > 0, x_new, state.x)
         elif may_exclude:
             x_new = _tmap(lambda ym, h_: ym - h_ / cfg.alpha,
-                          masked_mean(x_up, out.weight), h_new)
+                          masked_mean(x_up, out.weight,
+                                      weight_sum=out.n_selected), h_new)
             x_new = tree_where(out.n_selected > 0, x_new, state.x)
         else:
             x_new = _tmap(lambda ym, h_: ym - h_ / cfg.alpha,

@@ -6,8 +6,14 @@ device).
   :class:`RoundPlan`: a straggler ``deadline`` truncates slow clients'
   steps and ``drop_stragglers`` removes clients that finish none;
   ``finish_times``/``sim_time`` are the sim-clock cost model;
+* :class:`ClientAvailability` — the diurnal + churn availability trace of
+  a population (DESIGN.md §11), a pure function of the round index;
 * ``sample_cohort`` — the uniform without-replacement cohort draw, bit for
-  bit ``jax.random.choice`` on the same key;
+  bit ``jax.random.choice`` on the same key; with an availability trace,
+  the weighted draw: the Gumbel-top-k on the device (``sampler="gumbel"``)
+  or the host's segment tree (``sampler="tree"``,
+  :mod:`repro_torch.core.sampling`), both the reference's cohorts bit for
+  bit, with ``RoundPlan.available`` flagging offline picks;
 * per-client compressor overrides: ``ClientProfile.comp_params`` (e.g.
   ``{"density": (n,)}``, or ``with_density_allocation``'s bandwidth-
   proportional densities), gathered into ``RoundPlan.comp_overrides`` for
@@ -24,8 +30,7 @@ device).
   stack (one payload serves the whole cohort).
 
 Plans and cohorts live on the host (small ``(s,)`` tensors); the stacked
-model rows live on the device.  Availability and the tree sampler are not
-yet ported and raise ``NotImplementedError``.
+model rows live on the device.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import not_ported, prng
+from repro_torch import prng
 from repro_torch import tree as tree_util
 
 PyTree = Any
@@ -50,6 +55,10 @@ class RoundPlan(NamedTuple):
     speed: torch.Tensor          # (s,) float32
     bandwidth: torch.Tensor      # (s,) float32
     comp_overrides: Dict[str, torch.Tensor]   # name -> (s,) values
+    # (s,) bool — False = the availability trace marked this pick offline:
+    # it never starts, transmits nothing and holds nothing open; None
+    # when no availability trace is attached
+    available: Optional[torch.Tensor] = None
 
 
 def _as_param(values) -> torch.Tensor:
@@ -198,6 +207,101 @@ class ClientProfile:
         return self.with_comp_param("density", d)
 
 
+def _f32(v) -> float:
+    """``v`` rounded to float32, as a Python float."""
+    return float(np.float32(v))
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientAvailability:
+    """A population's availability trace (DESIGN.md §11): a pure function
+    of the round index, so resumed and replayed runs see the same trace.
+
+    * diurnal: ``w_i(t) = 1 - amp * (0.5 + 0.5 * sin(2 pi (t/period +
+      phase_i)))``, the client's timezone in ``phase_i``;
+    * churn: client i is in the population iff ``frac(t * churn_rate +
+      stagger_i) < online_frac``.
+
+    ``weights(t)`` is the ``(n,)`` sampling weight; 0 means offline.
+    ``phase``/``stagger`` live on the host (float32); ``weights`` runs on
+    the device it is asked for.
+    """
+
+    phase: torch.Tensor               # (n,) diurnal phase in [0, 1)
+    stagger: torch.Tensor             # (n,) churn stagger in [0, 1)
+    period: float = 24.0              # rounds per diurnal cycle
+    amp: float = 0.8                  # diurnal modulation depth in [0, 1]
+    churn_rate: float = 0.0           # population fraction cycling a round
+    online_frac: float = 1.0          # steady-state in-population fraction
+
+    def __post_init__(self):
+        phase = torch.as_tensor(np.asarray(self.phase, np.float32))
+        stagger = torch.as_tensor(np.asarray(self.stagger, np.float32))
+        object.__setattr__(self, "phase", phase)
+        object.__setattr__(self, "stagger", stagger)
+        object.__setattr__(self, "_device_copies", {})
+        if phase.dim() != 1 or stagger.shape != phase.shape:
+            raise ValueError("phase/stagger must be matching (n,) arrays")
+        if not 0.0 <= self.amp <= 1.0:
+            raise ValueError("amp must be in [0, 1]")
+        if self.period <= 0:
+            raise ValueError("period must be positive")
+        if self.churn_rate < 0:
+            raise ValueError("churn_rate must be non-negative")
+        if not 0.0 < self.online_frac <= 1.0:
+            raise ValueError("online_frac must be in (0, 1]")
+
+    @property
+    def n_clients(self) -> int:
+        return self.phase.shape[0]
+
+    @classmethod
+    def diurnal(cls, n_clients: int, *, period: float = 24.0,
+                amp: float = 0.8, churn_rate: float = 0.0,
+                online_frac: float = 1.0, seed: int = 0
+                ) -> "ClientAvailability":
+        """Uniform-random timezones and churn staggers (the reference's
+        numpy draws, rounded to float32)."""
+        rng = np.random.default_rng(seed)
+        return cls(phase=rng.random(n_clients).astype(np.float32),
+                   stagger=rng.random(n_clients).astype(np.float32),
+                   period=period, amp=amp, churn_rate=churn_rate,
+                   online_frac=online_frac)
+
+    def _on(self, device):
+        """``(phase, stagger)`` on ``device``, copied there once."""
+        dev = torch.device("cpu" if device is None else device)
+        pair = self._device_copies.get(dev)
+        if pair is None:
+            pair = (self.phase.to(dev), self.stagger.to(dev))
+            self._device_copies[dev] = pair
+        return pair
+
+    def weights(self, round_idx, device=None) -> torch.Tensor:
+        """The ``(n,)`` float32 availability weight at ``round_idx``, on
+        ``device`` (the host by default), bit for bit the weights the
+        reference's rounds use.  Inside their compiled graph XLA folds
+        ``t / period`` into ``t * float32(1 / period)`` and fuses ``1 - amp
+        * h`` into one FMA, so the reference's ``weights(t)`` called op by
+        op, outside ``jit``, differs from these in about 1 weight in 3.
+        The sine is XLA's (``prng.xla_sin``)."""
+        phase, stagger = self._on(device)
+        # the round's scalars in numpy float32 on the host (a CUDA division
+        # by a scalar multiplies by its reciprocal instead)
+        t = np.float32(round_idx)
+        rate = t * (np.float32(1.0) / np.float32(self.period))
+        h = prng.xla_sin((phase + float(rate)) * _f32(2.0 * np.pi)) * 0.5 + 0.5
+        # the product of two float32 values and 1 minus it are exact in
+        # float64, so this rounds once, as the FMA does
+        w = (1.0 - h.double() * _f32(self.amp)).float()
+        if self.churn_rate > 0.0 and self.online_frac < 1.0:
+            shift = float(t * np.float32(self.churn_rate))
+            u = torch.fmod(stagger + shift, 1.0)
+            w = torch.where(u < _f32(self.online_frac), w,
+                            torch.zeros_like(w))
+        return w
+
+
 @dataclasses.dataclass(frozen=True)
 class ClientSchedule:
     """Turns a profile + straggler policy into per-round
@@ -211,6 +315,16 @@ class ClientSchedule:
     otherwise they report their unchanged broadcast iterate.
     ``step_cost``/``bit_cost`` are the sim-time of one local step at speed
     1 and of one uplink bit at bandwidth 1.
+
+    ``availability`` attaches a :class:`ClientAvailability` trace: the
+    cohort is drawn proportionally to the round's weights, and a sampled
+    but offline client (only when fewer than ``s`` are online) runs zero
+    steps, transmits nothing, joins no aggregate and holds nothing open.
+    ``sampler`` picks the weighted draw: ``"gumbel"`` (O(n) on the
+    device) or ``"tree"`` (O(s log n) on the host, the population-scale
+    choice, DESIGN.md §12).  They consume randomness differently, so
+    their cohorts differ while their distributions agree.  Without a
+    trace the sampler is inert and the uniform draw runs.
     """
 
     profile: ClientProfile
@@ -218,7 +332,7 @@ class ClientSchedule:
     drop_stragglers: bool = False
     step_cost: float = 1.0
     bit_cost: float = 0.0
-    availability: Optional[object] = None
+    availability: Optional[ClientAvailability] = None
     sampler: str = "gumbel"
 
     def __post_init__(self):
@@ -235,9 +349,14 @@ class ClientSchedule:
                 f"unknown sampler {self.sampler!r}: expected 'gumbel' or "
                 f"'tree'")
         if self.availability is not None:
-            raise not_ported("client availability")
-        if self.sampler != "gumbel":
-            raise not_ported(f"sampler={self.sampler!r}")
+            if not isinstance(self.availability, ClientAvailability):
+                raise TypeError(
+                    f"availability must be a ClientAvailability, got "
+                    f"{type(self.availability).__name__}")
+            if self.availability.n_clients != self.profile.n_clients:
+                raise ValueError(
+                    f"availability traces {self.availability.n_clients} "
+                    f"clients but the profile has {self.profile.n_clients}")
 
     @classmethod
     def homogeneous(cls, n_clients: int) -> "ClientSchedule":
@@ -249,22 +368,74 @@ class ClientSchedule:
 
     @property
     def may_drop(self) -> bool:
-        return self.drop_stragglers
+        return self.drop_stragglers or self.availability is not None
 
     @property
     def heterogeneous_steps(self) -> bool:
         """True if per-client step counts can differ within a round
-        (deadline truncation): round bodies mask their local steps."""
-        return self.deadline is not None
+        (deadline truncation, or offline clients running none): round
+        bodies mask their local steps."""
+        return self.deadline is not None or self.availability is not None
 
-    def sample_cohort(self, key: torch.Tensor, s: int, round_idx=0):
-        """The round's cohort ``(s,)``: ``jax.random.choice(key, n, (s,),
-        replace=False)`` bit for bit.  Returns ``(clients, None)`` (no
-        availability process)."""
-        return prng.choice(key, self.n_clients, s), None
+    @property
+    def uses_host_sampler(self) -> bool:
+        """True when cohorts are drawn on the host (``sampler="tree"``
+        with an availability trace)."""
+        return self.sampler == "tree" and self.availability is not None
 
-    def plan(self, clients: torch.Tensor, nominal_steps: int) -> RoundPlan:
-        """Resolve the sampled ``clients`` for one round (host tensors)."""
+    @property
+    def tree_sampler(self):
+        """The schedule's :class:`~repro_torch.core.sampling.TreeSampler`
+        (segment tree and draw memo, shared by the round and the cohort
+        planner), built at first use."""
+        if not self.uses_host_sampler:
+            raise ValueError("schedule does not use the tree sampler")
+        inst = getattr(self, "_tree_sampler", None)
+        if inst is None:
+            from repro_torch.core.sampling import TreeSampler
+            inst = TreeSampler(self.availability)
+            object.__setattr__(self, "_tree_sampler", inst)
+        return inst
+
+    def plan_cohort_host(self, key, s: int, round_idx: int):
+        """The tree sampler's cohort for ``(key, round_idx)``: numpy
+        ``(clients (s,) int32, online (s,) bool)``, memoised, so the cohort
+        planner and the round share one draw.  The key goes in as its
+        uint32 words, as the reference hands them over."""
+        kd = np.asarray(prng.key_data(key).cpu().numpy(), np.uint32)
+        return self.tree_sampler.draw(kd, round_idx, s)
+
+    def sample_cohort(self, key: torch.Tensor, s: int, round_idx=0,
+                      device=None):
+        """The round's cohort ``(s,)`` (host int64) and its online mask.
+
+        Without an availability trace: ``jax.random.choice(key, n, (s,),
+        replace=False)`` bit for bit, and ``None``.  With one, a weighted
+        draw without replacement proportional to the round's weights:
+        ``sampler="tree"`` on the host; ``"gumbel"`` on ``device``, the
+        top ``s`` of ``log(max(w, 1e-20)) + gumbel(key, (n,))`` with
+        offline clients at -inf, ties to the lower index as
+        ``lax.top_k`` breaks them (a stable descending sort)."""
+        n = self.n_clients
+        if self.availability is None:
+            return prng.choice(key, n, s), None
+        if self.sampler == "tree":
+            clients, online = self.plan_cohort_host(key, s, round_idx)
+            return (torch.from_numpy(clients.astype(np.int64)),
+                    torch.from_numpy(online))
+        w = self.availability.weights(round_idx, device)
+        online = w > 0.0
+        g = prng.gumbel(key, (n,), device=w.device)
+        floor = torch.tensor(_f32(1e-20), device=w.device)
+        scores = torch.where(online, prng.xla_log(torch.maximum(w, floor)) + g,
+                             torch.full_like(w, -float("inf")))
+        top = torch.sort(scores, descending=True, stable=True).indices[:s]
+        return top.cpu(), online[top].cpu()
+
+    def plan(self, clients: torch.Tensor, nominal_steps: int,
+             available: Optional[torch.Tensor] = None) -> RoundPlan:
+        """Resolve the sampled ``clients`` for one round (host tensors);
+        ``available`` is ``sample_cohort``'s online mask."""
         s = clients.shape[0]
         speed = self.profile.speed[clients]
         steps = torch.full((s,), int(nominal_steps), dtype=torch.int32)
@@ -279,11 +450,16 @@ class ClientSchedule:
             steps = torch.minimum(steps, torch.clamp(can_do, min=0))
             if self.drop_stragglers:
                 participating = steps > 0
+        if available is not None:
+            # an offline client runs nothing and joins no aggregate
+            steps = torch.where(available, steps, torch.zeros_like(steps))
+            participating = participating & available
         return RoundPlan(
             steps=steps, participating=participating, speed=speed,
             bandwidth=self.profile.bandwidth[clients],
             comp_overrides={k: v[clients]
-                            for k, v in self.profile.comp_params.items()})
+                            for k, v in self.profile.comp_params.items()},
+            available=available)
 
     def finish_times(self, plan: RoundPlan,
                      client_uplink_bits: torch.Tensor) -> torch.Tensor:
@@ -299,6 +475,10 @@ class ClientSchedule:
             finish = torch.where(
                 plan.participating, finish,
                 torch.tensor(self.deadline, dtype=torch.float32))
+        if plan.available is not None:
+            # an offline client never starts: it holds nothing open
+            finish = torch.where(plan.available, finish,
+                                 torch.zeros_like(finish))
         return finish
 
     def sim_time(self, plan: RoundPlan, client_uplink_bits) -> torch.Tensor:
@@ -334,11 +514,15 @@ def mean_over_active(values: torch.Tensor,
     return (values * act).sum() / torch.clamp(act.sum(), min=1.0)
 
 
-def masked_mean(stacked: PyTree, weights: torch.Tensor) -> PyTree:
+def masked_mean(stacked: PyTree, weights: torch.Tensor,
+                weight_sum: Optional[torch.Tensor] = None) -> PyTree:
     """Mean over the client axis weighted by the host ``weights`` ``(s,)``
     (e.g. the participation mask); a zero-weight round returns zeros,
-    never NaN."""
-    wsum = float(torch.clamp(weights.sum(), min=1.0))
+    never NaN.  ``weight_sum`` replaces ``weights.sum()`` as the divisor
+    (a hierarchical policy's weights sum to its ``n_selected`` only up to
+    rounding)."""
+    wsum = float(torch.clamp(weights.sum() if weight_sum is None
+                             else weight_sum, min=1.0))
     return tree_util.map(
         lambda t: (t * per_client(weights, t)).sum(dim=0) / wsum, stacked)
 

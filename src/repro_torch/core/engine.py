@@ -14,7 +14,10 @@ Both record into ``self.meter`` (:class:`repro_torch.core.comm.CommMeter`).
 ``set_policy`` binds one of the three aggregation policies (DESIGN.md §7),
 ``set_wire`` the wire mode, ``"account"`` or ``"packed"`` (DESIGN.md §8),
 and ``set_downlink`` the downlink mode, ``"dense"``, ``"account"`` or
-``"packed"`` (DESIGN.md §10).  Client stores are not yet ported.
+``"packed"`` (DESIGN.md §10).  ``store=`` picks where per-client state
+lives (:mod:`repro_torch.core.client_store`); before the rounds run, the
+engine replays their key chain on the host and hands a prefetching
+``HostStore`` the cohorts they will gather (``_plan_cohorts``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported, prng
+from repro_torch import prng
 from repro_torch import tree as tree_util
 
 PyTree = Any
@@ -99,9 +102,10 @@ class RoundEngine:
     """Mixin: host-stepped ``round`` + multi-round ``run_rounds``."""
 
     def _setup_engine(self) -> None:
-        from repro_torch.core import aggregation
+        from repro_torch.core import aggregation, client_store
         self.policy = aggregation.validate_policy(
             getattr(self, "policy", None), self.cfg.clients_per_round)
+        self.store = client_store.resolve_store(getattr(self, "store", None))
         self.wire = validate_wire(getattr(self, "wire", None),
                                   getattr(self, "comp", None),
                                   getattr(self, "sched", None))
@@ -109,8 +113,6 @@ class RoundEngine:
         self.downlink = validate_downlink(getattr(self, "downlink", None),
                                           self.down_comp)
         self._validate_downlink_combo()
-        if getattr(self, "store", None) is not None:
-            raise not_ported("client stores")
 
     def set_wire(self, wire: str) -> "RoundEngine":
         """Bind a wire mode, ``"account"`` or ``"packed"``; returns self."""
@@ -141,9 +143,51 @@ class RoundEngine:
             policy, self.cfg.clients_per_round)
         return self
 
+    #: the round's key fanout: ``_round_impl`` draws its sampling key as
+    #: ``split(key, fanout)[0]``; algorithms set it so that
+    #: ``_plan_cohorts`` can replay the key chain (``None``: no plan)
+    _round_key_fanout: Optional[int] = None
+
+    def _plan_cohorts(self, state, key, num_rounds: int,
+                      stepped: bool = False) -> None:
+        """Replay the coming rounds' sampling keys on the host and hand
+        the cohorts to a prefetching store.
+
+        Round r's key is r applications of ``key, sub = split(key)`` and
+        its sampling key ``split(sub, fanout)[0]``.  Tree-sampler
+        schedules draw each cohort in O(s log n) (memoised, so the round
+        reuses the same arrays); schedules without availability replay the
+        uniform ``choice``.  Gumbel schedules are not replayed (that is
+        the O(n) work the tree sampler removes): the store then runs
+        write-behind only.  The plan is a hint; a wrong one costs a
+        prefetch miss, never a wrong row."""
+        store, sched = self.store, getattr(self, "sched", None)
+        if (not getattr(store, "prefetch", False) or sched is None
+                or self._round_key_fanout is None):
+            return
+        if sched.availability is not None and not sched.uses_host_sampler:
+            return
+        s = self.cfg.clients_per_round
+        t0 = int(state.round)
+        key = prng.key_data(key)
+        cohorts = []
+        for r in range(num_rounds):
+            if stepped:
+                sub = key           # round() receives the round key itself
+            else:
+                key, sub = prng.split(key, 2)
+            k_sample = prng.split(sub, self._round_key_fanout)[0]
+            if sched.uses_host_sampler:
+                clients, _ = sched.plan_cohort_host(k_sample, s, t0 + r)
+            else:
+                clients = prng.choice(k_sample, sched.n_clients, s).numpy()
+            cohorts.append(clients)
+        store.submit_cohort_plan(cohorts)
+
     def round(self, state, key) -> Tuple[Any, Dict[str, Any]]:
         """Run one communication round; returns (state, metrics) with
         scalars as python floats and per-client vectors as numpy arrays."""
+        self._plan_cohorts(state, key, 1, stepped=True)
         state, metrics = self._round_impl(state, prng.key_data(key))
         out = {}
         for k, v in metrics.items():
@@ -165,6 +209,7 @@ class RoundEngine:
         if num_rounds <= 0:
             raise ValueError("num_rounds must be positive")
         key = prng.key_data(key)
+        self._plan_cohorts(state, key, num_rounds)
         rows = []
         for _ in range(num_rounds):
             key, sub = prng.split(key, 2)

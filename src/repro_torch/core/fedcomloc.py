@@ -28,7 +28,10 @@ deadline, drop-out, per-client compressor overrides), the sync, semi_sync
 and async_buffered policies (DESIGN.md §7), both wires, the three
 downlink modes, ``local_steps="fixed"`` and ``"geometric"``, and the
 beyond-paper leaky error feedback on the Com uplink and Polyak server
-momentum.  Client stores are not yet ported.
+momentum.  The per-client ``h`` and EF memory ``e`` live behind the
+client-store contract (``store=``, DESIGN.md §11): stacked on the device
+by default, or on the host with :class:`~repro_torch.core.client_store.
+HostStore` for populations the device cannot hold.
 """
 
 from __future__ import annotations
@@ -57,9 +60,10 @@ VARIANTS = ("none", "com", "local", "global")
 
 class FedComLocState(NamedTuple):
     x: PyTree          # server model (broadcast value), on the device
-    h: PyTree          # control variates, stacked (n_clients, ...)
+    h: PyTree          # control variates: a store slot (stacked (n, ...)
+                       # in memory, a version token in a HostStore)
     round: int         # communication rounds completed
-    e: PyTree = ()     # per-client error-feedback memory, stacked like h
+    e: PyTree = ()     # per-client error-feedback memory, a slot like h
     mom: PyTree = ()   # server momentum buffer
     y: PyTree = ()     # clients' last-received model (downlink != "dense")
 
@@ -169,17 +173,12 @@ class FedComLoc(RoundEngine):
     def init(self, params0: PyTree) -> FedComLocState:
         n = self.cfg.n_clients
         x = tree_util.map(lambda p: p.detach().to(self.device), params0)
-
-        def stacked_zeros(p):
-            return torch.zeros((n,) + tuple(p.shape), dtype=p.dtype,
-                               device=p.device)
-
-        e = (tree_util.map(stacked_zeros, x) if self.cfg.error_feedback
+        e = (self.store.init_slot("e", x, n) if self.cfg.error_feedback
              else ())
         mom = (tree_util.map(torch.zeros_like, x)
                if self.cfg.server_momentum > 0 else ())
         y = x if self.downlink != "dense" else ()
-        return FedComLocState(x=x, h=tree_util.map(stacked_zeros, x),
+        return FedComLocState(x=x, h=self.store.init_slot("h", x, n),
                               round=0, e=e, mom=mom, y=y)
 
     def _num_local_steps(self, key: torch.Tensor) -> int:
@@ -201,13 +200,14 @@ class FedComLoc(RoundEngine):
         k_sample, k_steps, k_local, k_up, k_down, *k_dl = prng.split(
             key, self._round_key_fanout)
         s = cfg.clients_per_round
-        clients, _ = sched.sample_cohort(k_sample, s, state.round)
+        clients, avail = sched.sample_cohort(k_sample, s, state.round,
+                                             device=self.device)
         num_steps = self._num_local_steps(k_steps)
-        plan = sched.plan(clients, num_steps)
+        plan = sched.plan(clients, num_steps, available=avail)
         dev = self.device
-        rows = clients.to(dev)
+        rows = self.store.cohort_index(clients, dev)
 
-        h_s = tree_util.map(lambda h: h[rows], state.h)
+        h_s = self.store.gather("h", state.h, rows)
         # with a compressed downlink the cohort restarts from the model
         # the clients hold (y, last received), and every client-side
         # anchor below (EF innovation, FedBuff delta) is that model
@@ -257,7 +257,7 @@ class FedComLoc(RoundEngine):
                 # EF on the uplink innovation: clients send
                 # C(x^_i - x + e_i), the server rebuilds x + sent, and the
                 # residual stays in e_i; the bits are the innovation's
-                e_s = tree_util.map(lambda e: e[rows], state.e)
+                e_s = self.store.gather("e", state.e, rows)
                 innov = tree_util.map(
                     lambda xh, x0, e: xh - x0.unsqueeze(0) + e,
                     x_hat, ref, e_s)
@@ -304,8 +304,7 @@ class FedComLoc(RoundEngine):
                                     innov, sent)
             if may_exclude:    # an excluded client never transmitted
                 e_s_new = keep_where(part, e_s_new, e_s)
-            e_new = tree_util.map(lambda e, es: e.index_copy(0, rows, es),
-                                  state.e, e_s_new)
+            e_new = self.store.scatter("e", state.e, rows, e_s_new)
         if aggregation.uses_delta_combine(self.policy):
             # FedBuff server application in delta form: each buffer flush
             # applies its staleness-discounted mean of anchor deltas
@@ -317,7 +316,8 @@ class FedComLoc(RoundEngine):
             # if every sampled client was excluded, the server keeps its
             # model
             x_bar = tree_where(out.n_selected > 0,
-                               masked_mean(x_hat, out.weight),
+                               masked_mean(x_hat, out.weight,
+                                           weight_sum=out.n_selected),
                                state.x)
         else:
             x_bar = tree_util.map(lambda t: t.mean(dim=0), x_hat)
@@ -344,8 +344,7 @@ class FedComLoc(RoundEngine):
             h_s, x_hat, bcast)
         if may_exclude:   # an excluded client keeps its control variate
             h_s_new = keep_where(part, h_s_new, h_s)
-        h_new = tree_util.map(lambda h, hs: h.index_copy(0, rows, hs),
-                              state.h, h_s_new)
+        h_new = self.store.scatter("h", state.h, rows, h_s_new)
 
         # beyond-paper: Polyak momentum on the broadcast point only (the
         # control variates above saw the plain mean)

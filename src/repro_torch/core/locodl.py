@@ -28,10 +28,12 @@ the reference's key chain exactly: one 5-way split in every downlink mode
 (dense never uses the fifth key), ``split(k_local, cap)`` per step and
 ``split(k_step, s)`` per client, each client's key drawing its batch.
 
-State: the per-client iterates ``xs`` and variates ``h`` are stacked
-``(n_clients, ...)`` on the device, gathered and scattered by cohort
-index; the shared reference ``y`` sits in the ``x`` slot every driver and
-eval hook reads.  Client stores are not yet ported.
+State: the per-client iterates ``xs`` and variates ``h`` live behind the
+client-store contract (``store=``, DESIGN.md §11), gathered and scattered
+by cohort index: stacked ``(n_clients, ...)`` on the device by default, or
+on the host in a ``HostStore``, where ``xs``'s broadcast start is one fill
+row; the shared reference ``y`` sits in the ``x`` slot that ``round``,
+``run_rounds`` and the eval hooks read.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ LossFn = Callable[[PyTree, torch.Tensor, torch.Tensor], torch.Tensor]
 
 class LoCoDLState(NamedTuple):
     x: PyTree          # shared reference model y (the evaluable one)
-    xs: PyTree         # per-client iterates, stacked (n_clients, ...)
-    h: PyTree          # per-client control variates, stacked
+    xs: PyTree         # per-client iterates: a store slot
+    h: PyTree          # per-client control variates: a store slot
     hy: PyTree         # reference-model control variate
     round: int         # communication rounds completed
 
@@ -137,12 +139,10 @@ class LoCoDL(RoundEngine):
         x = tree_util.map(lambda p: p.detach().to(self.device), params0)
         # every client's iterate starts at the broadcast model, the
         # variates at zero
-        xs = tree_util.map(
-            lambda p: p.unsqueeze(0).expand((n,) + tuple(p.shape)).clone(), x)
-        h = tree_util.map(lambda p: torch.zeros((n,) + tuple(p.shape),
-                                                dtype=p.dtype,
-                                                device=p.device), x)
-        return LoCoDLState(x=x, xs=xs, h=h,
+        return LoCoDLState(x=x,
+                           xs=self.store.init_slot("xs", x, n,
+                                                   init="broadcast"),
+                           h=self.store.init_slot("h", x, n),
                            hy=tree_util.map(torch.zeros_like, x), round=0)
 
     def _num_local_steps(self, key: torch.Tensor) -> int:
@@ -160,14 +160,15 @@ class LoCoDL(RoundEngine):
         # chain; the dense mode never uses k_dl
         k_sample, k_steps, k_local, k_up, k_dl = prng.split(key, 5)
         s = cfg.clients_per_round
-        clients, _ = sched.sample_cohort(k_sample, s, state.round)
+        clients, avail = sched.sample_cohort(k_sample, s, state.round,
+                                             device=self.device)
         num_steps = self._num_local_steps(k_steps)
-        plan = sched.plan(clients, num_steps)
-        rows = clients.to(self.device)
+        plan = sched.plan(clients, num_steps, available=avail)
+        rows = self.store.cohort_index(clients, self.device)
 
-        h_s = tree_util.map(lambda h: h[rows], state.h)
+        h_s = self.store.gather("h", state.h, rows)
         # clients resume their own iterates: there is no model broadcast
-        x0 = tree_util.map(lambda t: t[rows], state.xs)
+        x0 = self.store.gather("xs", state.xs, rows)
 
         # step j, client i draws its batch with split(split(k_local,
         # cap)[j], s)[i]; as in FedComLoc, only the num_steps steps that
@@ -220,7 +221,9 @@ class LoCoDL(RoundEngine):
         elif may_exclude:
             # all-excluded rounds send m from v = 0: y drifts only by its
             # control variate
-            v = tree_where(out.n_selected > 0, masked_mean(u, out.weight),
+            v = tree_where(out.n_selected > 0,
+                           masked_mean(u, out.weight,
+                                       weight_sum=out.n_selected),
                            tree_util.map(torch.zeros_like, y_hat))
         else:
             v = tree_util.map(lambda t: t.mean(dim=0), u)
@@ -246,10 +249,8 @@ class LoCoDL(RoundEngine):
             # an excluded straggler neither sent u_i nor received m
             xs_rows = keep_where(part, xs_rows, x0)
             h_rows = keep_where(part, h_rows, h_s)
-        xs_new = tree_util.map(lambda t, r: t.index_copy(0, rows, r),
-                               state.xs, xs_rows)
-        h_new = tree_util.map(lambda t, r: t.index_copy(0, rows, r),
-                              state.h, h_rows)
+        xs_new = self.store.scatter("xs", state.xs, rows, xs_rows)
+        h_new = self.store.scatter("h", state.h, rows, h_rows)
         y_new = tree_util.map(lambda yh, mm: yh + cfg.lam * mm, y_hat, m)
         hy_new = tree_util.map(
             lambda hy, mm: hy + (cfg.p / cfg.gamma) * cfg.lam * mm,

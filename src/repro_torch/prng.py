@@ -95,6 +95,17 @@ def split(key, num: int = 2) -> torch.Tensor:
     return torch.stack((o0, o1), dim=-1)
 
 
+def fold_in(key, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: threefry2x32 of ``key`` over the
+    seed words ``(0, uint32(data))``.  ``data`` may be a tensor of any
+    shape (e.g. a cohort's client ids); ``(2,)`` key -> ``data.shape +
+    (2,)`` keys."""
+    key = key_data(key)
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
+    o0, o1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack((o0, o1), dim=-1)
+
+
 def bits(key, n: int, device=None) -> torch.Tensor:
     """``jax.random.bits(key, (n,))`` (uint32 values in int64):
     ``(..., 2)`` keys -> ``(..., n)`` words, computed on ``device``."""
@@ -151,6 +162,84 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     y = _fma(y, x3, _LOG_Q1 * e)
     m = m - 0.5 * x2
     return (m + y) + _LOG_Q2 * e
+
+
+# XLA's float32 sin on the CPU is a call to the C library's sinf; glibc's
+# (since 2.28) reduces and evaluates in double and rounds once.  Its
+# constants: the quadrant signs, 2/pi scaled by 2^24, pi/2, the cosine
+# polynomial c0..c4 and the sine polynomial s1..s3 (the second table, for
+# quadrants 2 and 3, negates the cosine half), and 4/pi's bits for the
+# reduction of |x| >= 120.
+_SIN_SIGN = (1.0, -1.0, -1.0, 1.0)
+_SIN_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")
+_SIN_HPI = float.fromhex("0x1.921FB54442D18p0")
+_SIN_PI63 = float.fromhex("0x1.921FB54442D18p-62")
+_SIN_TABLE = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16",
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+_SIN_TABLE_Q23 = tuple(-c for c in _SIN_TABLE[:5]) + _SIN_TABLE[5:]
+_INV_PIO4 = (
+    0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44, 0x6e4e4415,
+    0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757, 0xfc2757d1, 0x2757d1f5,
+    0x57d1f534, 0xd1f534dd, 0xf534ddc0, 0x34ddc0db, 0xddc0db62, 0xc0db6295,
+    0xdb629599, 0x6295993c, 0x95993c43, 0x993c4390, 0x3c439041)
+
+
+def _sinf_poly(x, x2, odd, q23):
+    """glibc's ``sinf_poly``: the sine polynomial on even quadrants, the
+    cosine one on odd, from the table the quadrant picks (float64)."""
+    def poly(c):
+        x3 = x * x2
+        s = (x3 * x2) * (x2 * c[7] + c[6]) + (x3 * c[5] + x)
+        x4 = x2 * x2
+        cos = (x4 * x2) * (x2 * c[4] + c[3]) + (x4 * c[2] + (x2 * c[1] + c[0]))
+        return torch.where(odd, cos, s)
+    return torch.where(q23, poly(_SIN_TABLE_Q23), poly(_SIN_TABLE))
+
+
+def xla_sin(y: torch.Tensor) -> torch.Tensor:
+    """``jnp.sin`` of a float32 tensor as XLA computes it on the CPU, bit
+    for bit: glibc's ``sinf`` (``torch.sin`` differs in about 1 value in
+    5, the correctly rounded sine in about 1 in 80).  The reduction and
+    both polynomials run in float64 as glibc's do, so every step is one
+    IEEE operation and the card gives the CPU's bits."""
+    y = y.to(torch.float32)
+    yi = y.view(torch.int32).to(torch.int64) & MASK32
+    top = (yi >> 20) & 0x7FF                      # glibc's abstop12
+    x = y.double()
+    zero = torch.zeros_like(yi)
+    # |y| < 120: one multiply-subtract by pi/2, the quadrant from the
+    # truncated 2^24-scaled product
+    n = (torch.trunc(x * _SIN_HPI_INV).to(torch.int64) + 0x800000) >> 24
+    n = torch.where(top < 0x42F, n, zero)
+    xr = x - n.double() * _SIN_HPI
+    # |y| >= 120: 4/pi's bits in 64-bit integer arithmetic (int64 wraps
+    # as uint64 does; right shifts are masked to be logical)
+    tab = torch.tensor(_INV_PIO4, dtype=torch.int64, device=y.device)
+    j = (yi >> 26) & 15
+    m = ((yi & 0xFFFFFF) | 0x800000) << ((yi >> 23) & 7)
+    r0 = (m * tab[j]) & MASK32
+    r0 = (((m * tab[j + 8]) >> 32) & MASK32) | (r0 << 32)
+    r0 = r0 + m * tab[j + 4]
+    nl = ((r0 + (1 << 61)) >> 62) & 3
+    xl = (r0 - (nl << 62)).double() * _SIN_PI63
+    large = top >= 0x42F
+    sign_q = torch.where(large, nl + ((yi >> 31) & 1), n)
+    n = torch.where(large, nl, n)
+    xr = torch.where(large, xl, xr)
+    sign = torch.tensor(_SIN_SIGN, dtype=torch.float64,
+                        device=y.device)[sign_q & 3]
+    reduced = _sinf_poly(xr * sign, xr * xr, (n & 1) == 1,
+                         (sign_q & 2) == 2)
+    # |y| < 0.75 (glibc's cut at abstop12(pi/4)): no reduction
+    small = _sinf_poly(x, x * x, torch.zeros_like(top, dtype=torch.bool),
+                       torch.zeros_like(top, dtype=torch.bool))
+    out = torch.where(top < 0x3F4, small, reduced).float()
+    # tiny arguments return themselves; inf and NaN give NaN
+    out = torch.where(top < 0x398, y, out)
+    return torch.where(top >= 0x7F8, torch.full_like(y, math.nan), out)
 
 
 # XLA's float32 log-plus-one on the CPU: for |x| < sqrt(2) - 1 the Cephes

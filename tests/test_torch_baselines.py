@@ -164,15 +164,16 @@ def test_cpu_baselines_launch_nothing():
     assert all(v == 0 for v in ops.launch_counts().values())
 
 
-# the compressed downlink is ported: without its compressor it raises the
-# reference's ValueError; client stores stay unported
+# the compressed downlink and client stores are ported: without its
+# compressor the downlink raises the reference's ValueError, and a store
+# that is not a ClientStore the reference's TypeError
 @pytest.mark.parametrize("make,error,match", [
     (lambda d: baselines.FedAvg(None, d, _config(baselines.FedConfig),
                                 downlink="account"),
      ValueError, "needs a downlink compressor"),
     (lambda d: baselines.Scaffold(None, d, _config(baselines.FedConfig),
                                   store=object()),
-     NotImplementedError, "not yet ported")],
+     TypeError, "ClientStore")],
     ids=["compressed_downlink", "client_store"])
 def test_unported_options_raise(make, error, match):
     with pytest.raises(error, match=match):

@@ -17,6 +17,10 @@ one bf16 rounding in bf16.  One reduced prefill on the card launches K11
 once per rglru layer and K12 once per rwkv layer.  The stacked CNN's
 forward and backward on the card are within 1e-4 of the CPU's, and two
 rounds of Figure 9's sparseFedAvg on the card count what the CPU counts.
+Population scale on the card: a HostStore (plain and pipelined) gives the
+in-memory store's bits over 3 rounds of FedComLoc-EF; the Gumbel cohort,
+ties at -inf included, and ``ClientAvailability.weights`` (XLA's sin chain
+in float64 torch operations) are the CPU's bit for bit.
 """
 
 import pytest
@@ -1023,3 +1027,84 @@ def test_reduced_prefill_launches_one_scan_per_recurrent_layer(cuda_device,
     assert counts["rglru_scan"] == kinds.count("rglru")
     assert counts["wkv6_scan"] == kinds.count("rwkv")
     assert bool(torch.isfinite(logits).all())
+
+
+# --------------------------------------------------------------------------- #
+# population scale: stores, availability, the Gumbel cohort
+# --------------------------------------------------------------------------- #
+
+def _thin_schedule(n, sampler):
+    from repro_torch.core.clients import (
+        ClientAvailability, ClientProfile, ClientSchedule)
+    avail = ClientAvailability.diurnal(
+        n, period=5.0, amp=0.9, churn_rate=0.37, online_frac=0.34, seed=4)
+    return ClientSchedule(profile=ClientProfile.homogeneous(n),
+                          availability=avail, sampler=sampler)
+
+
+@pytest.mark.parametrize("store", ["host", "prefetch"])
+def test_host_store_matches_memory_store_on_the_card(cuda_device, store,
+                                                     tmp_path):
+    from repro_torch import compress, prng
+    from repro_torch.core.client_store import HostStore, InMemoryStore
+    from repro_torch.core.fed_data import SyntheticFederatedData
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+
+    n, d = 500, 64
+
+    def loss(p, xb, yb):
+        pred = torch.bmm(xb, p["w"].unsqueeze(-1)).squeeze(-1)
+        return 0.5 * ((pred - yb) ** 2).mean(-1)
+
+    def run(st):
+        data = SyntheticFederatedData.create(n, d, hetero=0.2, noise=0.01,
+                                             device=cuda_device)
+        cfg = FedComLocConfig(gamma=0.1, p=0.2, n_clients=n,
+                              clients_per_round=8, batch_size=16,
+                              variant="com", error_feedback=True)
+        alg = FedComLoc(loss, data, cfg, compress.TopK(0.1),
+                        schedule=_thin_schedule(n, "tree"), store=st)
+        out = alg.run_rounds(alg.init({"w": torch.zeros(d,
+                                                        device=cuda_device)}),
+                             prng.PRNGKey(1), 3)
+        return out
+
+    sa, ma = run(InMemoryStore())
+    sb, mb = run(HostStore(mmap_dir=tmp_path, prefetch=store == "prefetch"))
+    assert sb.x["w"].device.type == torch.device(cuda_device).type
+    assert _same_bits(sa.x["w"], sb.x["w"])
+    assert sorted(ma) == sorted(mb)
+    for k in ma:
+        assert (ma[k] == mb[k]).all(), k
+
+
+def test_gumbel_cohort_with_offline_ties_matches_cpu(cuda_device):
+    """The thin population puts offline clients (score -inf) into the
+    cohort; the stable sort on the card pads with the lowest indices, as on
+    the CPU."""
+    from repro_torch import prng
+    sched = _thin_schedule(6, "gumbel")
+    big = _thin_schedule(3000, "gumbel")
+    key, offline = prng.PRNGKey(5), 0
+    for t in range(10):
+        key, sub = prng.split(key, 2)
+        for sc, s in ((sched, 3), (big, 40)):
+            cg, og = sc.sample_cohort(sub, s, t, device=cuda_device)
+            cc, oc = sc.sample_cohort(sub, s, t, device="cpu")
+            assert torch.equal(cg, cc) and torch.equal(og, oc), t
+            offline += int((~og).sum())
+    assert offline > 0
+
+
+def test_availability_weights_on_the_card_match_cpu(cuda_device):
+    from repro_torch import prng
+    from repro_torch.core.clients import ClientAvailability
+    avail = ClientAvailability.diurnal(200_000, period=24.0, amp=0.8,
+                                       churn_rate=0.05, online_frac=0.7)
+    for t in (0, 1, 5, 17, 48, 500):
+        assert _same_bits(avail.weights(t, cuda_device).cpu(),
+                          avail.weights(t)), t
+    gen = torch.Generator().manual_seed(0)
+    x = torch.cat([torch.rand(1 << 20, generator=gen) * 40 - 20,
+                   (torch.rand(1 << 16, generator=gen) - 0.5) * 1e7])
+    assert _same_bits(prng.xla_sin(x.to(cuda_device)).cpu(), prng.xla_sin(x))

@@ -179,20 +179,21 @@ def _quantile_topk():
 
 
 # error feedback, server momentum, geometric local phases, the packed
-# wire, straggler deadlines, the semi_sync policy, the compressed downlink
-# and per-client overrides are ported; each id names what stays unported
-# beside it (the EF memory in a client store, geometric phases and a
-# deadline under client availability, semi_sync as a hierarchical policy's
-# edge tier, a deadline under the tree sampler, a client store), or, where
-# nothing does, the reference's own refusal, which the port raises as the
-# reference does: an unknown downlink mode beside momentum, the packed
-# wire for a quantile TopK, a compressed downlink without its compressor,
-# and overrides of the wrong shape
+# wire, straggler deadlines, the semi_sync policy, the compressed downlink,
+# per-client overrides, client stores, availability, hierarchical policies
+# and the tree sampler are ported; each case is the reference's own
+# refusal, which the port raises as the reference does: a store that is
+# not a ClientStore (beside the EF memory, and alone), an availability
+# trace that is not one, an unknown downlink mode beside momentum, the
+# packed wire for a quantile TopK, a compressed downlink without its
+# compressor, a hierarchical policy whose edges do not divide the cohort
+# (a semi_sync edge tier), the tree sampler of a schedule without
+# availability (beside a deadline), and overrides of the wrong shape
 @pytest.mark.parametrize("make,error,match", [
     (lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, error_feedback=True),
         compress.TopK(0.1), store=object()),
-     NotImplementedError, "not yet ported"),
+     TypeError, "ClientStore"),
     (lambda s: FedComLoc(None, s["tdata"], FedComLocConfig(
         n_clients=N_CLIENTS, clients_per_round=S, server_momentum=0.5),
         compress.TopK(0.1), downlink="delta"),
@@ -202,7 +203,7 @@ def _quantile_topk():
         schedule=clients.ClientSchedule(
             clients.ClientProfile.homogeneous(N_CLIENTS), deadline=4.0,
             availability=object())),
-     NotImplementedError, "not yet ported"),
+     TypeError, "ClientAvailability"),
     (lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
                          _quantile_topk(), wire="packed"),
      ValueError, "exact-k"),
@@ -211,14 +212,14 @@ def _quantile_topk():
      ValueError, "needs a downlink compressor"),
     (lambda s: FedComLoc(None, s["tdata"], _config(FedComLocConfig, "com"),
                          compress.TopK(0.3), store=object()),
-     NotImplementedError, "not yet ported"),
-    (lambda s: aggregation.HierarchicalPolicy(
-        edge=aggregation.AggregationPolicy.semi_sync(2)),
-     NotImplementedError, "not yet ported"),
+     TypeError, "ClientStore"),
+    (lambda s: aggregation.validate_policy(aggregation.HierarchicalPolicy(
+        edge=aggregation.AggregationPolicy.semi_sync(2), n_edges=2), S),
+     ValueError, "must divide"),
     (lambda s: clients.ClientSchedule(
         clients.ClientProfile.homogeneous(N_CLIENTS), deadline=1.0,
-        sampler="tree"),
-     NotImplementedError, "not yet ported"),
+        sampler="tree").tree_sampler,
+     ValueError, "does not use the tree sampler"),
     (lambda s: clients.ClientProfile(torch.ones(3), torch.ones(3),
                                      {"density": torch.ones(2)}),
      ValueError, "must have shape"),
