@@ -238,7 +238,30 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (``CPU_CHECK_LAYERS``: one block pattern each, gemma3's 6 layers
    included), float32 with TF32 off, batch 2, prompt 128, 4 decode steps,
    the same weights on the card and on the CPU: logits within
-   ``CPU_LOGIT_TOL`` and greedy tokens equal.
+   ``CPU_LOGIT_TOL`` and greedy tokens equal;
+15. train — (a) K11's backward (``csrc/rglru_scan.cu``) bit-equal to its
+   plain version at recurrentgemma-2b's training shape (2, 4096, 2560) and
+   on edges (a = 1's inf and NaN, ragged T, D % 64 != 0), and K12's
+   backward (``csrc/wkv6_bwd.cu``) within ``K12_BWD_TOL`` of its plain
+   version run in float64 at rwkv6-3b's (2, 40, 4096, 64) with r/k/v in
+   bf16 and in f32, w held at 1e-7 and 1 - 1e-7, T = 1, 9, 65; both timed
+   beside their plain versions and bounds at that shape and at the scans'
+   large one; (b) one rglru block's and one rwkv time-mix's gradients at
+   full width, float32, T = ``BLOCK_T``, the card against the CPU within
+   ``BLOCK_GRAD_TOL``; (c) rwkv6-3b and recurrentgemma-2b at full width and
+   depth, bf16, through ``steps.build_train_step`` (Adam 1e-4), batch 2,
+   seq 4096 (``train_4k``'s, batch cut from 256), ``TRAIN_STEPS`` steps on
+   one fixed ``make_lm_tokens`` batch: every loss finite, the last below
+   the first, and each step launching the forward kernels twice a layer
+   (remat) and the backward kernels once (``TRAIN_SHAPES``); ms a step,
+   tokens/s and peak memory printed; (d) ``build_fed_round`` on rwkv6-3b at
+   full width, ``FED_CLIENTS`` stacked clients, ``FED_LOCAL_STEPS`` local
+   steps, one round each with TopK(quantile, 0.1), Q_r(8) and the int8
+   sync (r = 7): finite losses and ``comm_bits`` equal to the closed form
+   (TopK: the payloads' nnz times 16 + 32 bits; Q_r: 9 bits a scalar and
+   32 a tensor a client; int8: 8 and 32) within the float32 report's
+   rounding (``FED_BITS_ULPS`` an addition); ms a round and peak memory
+   printed.
 
 Prints the card's name and power limit, one line per kernel and shape, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -358,6 +381,36 @@ GAP_REL = 0.05
 CPU_LOGIT_TOL = 1e-3
 CPU_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3, "qwen2-7b": 2,
                     "gemma2-9b": 2, "gemma3-4b": 6}
+# phase 15 (train).  K12's backward against its plain version run in
+# float64, per gradient: |d| <= K12_BWD_TOL * max |plain| (+ one bf16 ulp
+# of plain where the gradient comes back in bf16, its own rounding): the
+# kernel's float32 sums over 4096 steps run in FMAs, shuffles and another
+# order than the plain einsums.  K11's backward must be bit-equal.
+K12_BWD_TOL = 1e-4
+# each recurrent block's gradients at full width, float32, T = 512, the
+# card against the CPU: max |d| <= BLOCK_GRAD_TOL * max |cpu| per gradient
+# (cuBLAS against CPU sums at d = 2560, as CPU_LOGIT_TOL)
+BLOCK_GRAD_TOL = 1e-3
+BLOCK_T = 512
+# the backward kernels at the training shapes (train_4k's seq 4096, batch
+# cut from 256 to 2) and at the scans' large shapes
+BWD_MAIN = {"K11b": (2, 4096, 2560), "K12b": (2, 40, 4096, 64)}
+BWD_LARGE = {"K11b": SCAN_LARGE["K11"], "K12b": SCAN_LARGE["K12"]}
+# arch -> (batch, seq, launches of one Adam step at full depth): the
+# forward kernels twice (the forward, then the recompute under per-layer
+# remat), the backward kernels once; rwkv6-3b has 32 rwkv layers,
+# recurrentgemma-2b 18 rglru layers
+TRAIN_STEPS = 4
+TRAIN_SHAPES = {
+    "rwkv6-3b": (2, 4096, {"wkv6_scan": 64, "wkv6_scan_bwd": 32}),
+    "recurrentgemma-2b": (2, 4096, {"rglru_scan": 36, "rglru_scan_bwd": 18})}
+# the one-card fed round on rwkv6-3b: 2 stacked clients of batch 1
+FED_SEQ, FED_CLIENTS, FED_LOCAL_STEPS = 1024, 2, 2
+# comm_bits against the closed form: the report is float32, as the
+# reference's is, and past 2^24 bits each of its additions (a leaf's bits
+# into a client's sum, then the clients' and the buckets' sums) rounds
+# once: |comm_bits - closed| <= (leaves + 3) * 2^-24 * closed
+FED_BITS_ULPS = 2.0 ** -24
 
 
 def card_line() -> str:
@@ -2381,6 +2434,328 @@ def population_phase(torch, dev, launches: dict) -> None:
           flush=True)
 
 
+def backward_kernels_phase(torch, dev, recs) -> None:
+    """Phase 15a: K11's and K12's backward kernels against their plain
+    versions on the card, then timed at the training and the large
+    shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import wkv6
+    from repro_torch.models import rwkv6
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def same_bits(a, b):
+        """Bit-equal, NaN where the other has NaN (0 * inf at a = 1)."""
+        nan = torch.isnan(a)
+        return (torch.equal(nan, torch.isnan(b)) and torch.equal(
+            a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+    def rglru_inputs(b, t, d):
+        x = torch.randn((b, t, d), generator=gen, device=dev)
+        a = torch.rand((b, t, d), generator=gen, device=dev)
+        y, _ = rg.rglru_scan(x, a)
+        return x, a, y, torch.randn((b, t, d), generator=gen, device=dev)
+
+    edge = rglru_inputs(2, 333, 2560)
+    edge[1][0, :, :64] = 1e-7
+    edge[1][0, :, 64:128] = 1.0 - 1e-7
+    edge[1][1, :, :8] = 1.0                     # on max's tie: -inf, NaN
+    edge[0][1, :5, :8] = 0.0
+    cases = [("main", rglru_inputs(*BWD_MAIN["K11b"])),
+             ("edges (a = 1e-7, 1 - 1e-7, 1)", edge),
+             ("T=1", rglru_inputs(2, 1, 2560)),
+             ("T=37 D=2579 B=1", rglru_inputs(1, 37, 2579)),
+             ("T=4097 D=40 B=3", rglru_inputs(3, 4097, 40))]
+    for label, args in cases:
+        got = rg.rglru_scan_bwd(*args)
+        want = ref.rglru_scan_bwd(*args)
+        torch.cuda.synchronize()
+        if not all(same_bits(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K11 backward {label}: kernel differs from "
+                                 f"the plain version")
+        for g, w in zip(got, want):
+            fin = torch.isfinite(w)
+            recs["K11b"].err(g[fin], w[fin])
+    print(f"[train] K11 backward bit-equal to its plain version on "
+          f"{len(cases)} cases (a = 1's inf and NaN in place, ragged T, D % "
+          f"64 != 0)", flush=True)
+    del cases, edge
+
+    def wkv6_inputs(b, h, t, dtype):
+        """``rwkv6._heads`` views of (B, T, H*64) activations, as the
+        forward takes them; dy a (B, H, T, 64) view of (B, T, H, 64), as
+        y's gradient arrives."""
+        shape = (b, t, h * 64)
+        r, k, v = (0.5 * torch.randn(shape, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        w = torch.rand(shape, generator=gen, device=dev)
+        u = 0.1 * torch.randn((h, 64), generator=gen, device=dev)
+        dy = torch.randn((b, t, h, 64), generator=gen, device=dev).to(dtype)
+        r, k, v, w = (rwkv6._heads(z, 64) for z in (r, k, v, w))
+        return r, k, v, w, u, dy.transpose(1, 2)
+
+    def k12_case(label, args):
+        got = wkv6.wkv6_scan_bwd(*args)
+        want = ref.wkv6_scan_bwd(*(z.double() for z in args),
+                                 dtype=torch.float64)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+            tol = K12_BWD_TOL * float(w.abs().max())
+            if g.dtype == torch.bfloat16:
+                tol = tol + bf16_ulp(torch, w).double()
+            d = (g.double() - w).abs()
+            q = float((d / tol).max())
+            if q > 1.0:
+                raise AssertionError(f"K12 backward {label}: {name} off by "
+                                     f"{float(d.max())!r} (|d| / tol {q!r})")
+            worst = max(worst, q)
+            recs["K12b"].err(g.double(), w)
+        return worst
+
+    b, h, t, _ = BWD_MAIN["K12b"]
+    held = wkv6_inputs(2, 4, 333, torch.bfloat16)
+    held[3][:, 0] = 1e-7
+    held[3][:, 1] = 1.0 - 1e-7
+    cases = [("main bf16", wkv6_inputs(b, h, t, torch.bfloat16)),
+             ("main f32", wkv6_inputs(b, h, t, torch.float32)),
+             ("w = 1e-7 and 1 - 1e-7 on whole heads", held)]
+    cases += [(f"T={tt}", wkv6_inputs(1, 3, tt, torch.bfloat16))
+              for tt in (1, 9, 65)]
+    worst = max(k12_case(label, args) for label, args in cases)
+    print(f"[train] K12 backward within {K12_BWD_TOL} max |plain in float64| "
+          f"(+ one bf16 ulp for bf16 gradients) on {len(cases)} cases, r/k/v "
+          f"in bf16 and f32; worst |d| / tolerance {worst!r}", flush=True)
+    del cases, held
+    torch.cuda.empty_cache()
+
+    for tag, shapes, iters, plain_iters, warm in (
+            ("main", BWD_MAIN, 10, 1, 1), ("large", BWD_LARGE, 3, 1, 0)):
+        bb, tt, d = shapes["K11b"]
+        args11 = rglru_inputs(bb, tt, d)
+        n = bb * tt * d
+        # reads x, a, y, dy and writes dx, da (24 bytes an element); about
+        # 15 operations an element, far below the float32 peak
+        plans = {"K11b": (lambda: rg.rglru_scan_bwd(*args11),
+                          lambda: ref.rglru_scan_bwd(*args11),
+                          24 * n, 15 * n, F32_OPS_PER_S)}
+        bb, h, tt, _ = shapes["K12b"]
+        args12 = wkv6_inputs(bb, h, tt, torch.bfloat16)
+        n = bb * h * tt * 64
+        # reads bf16 r, k, v, dy and f32 w (12 bytes an element), writes
+        # bf16 dr, dk, dv and f32 dw (10), u and du; the least work a
+        # (b, h, t) is 12 operations a state entry (S's recurrence, G's,
+        # and an FMA each for dr, dk, dv and dw), on bf16 inputs at the
+        # bf16 tensor-core peak (float32's printed beside it)
+        ops12 = 12 * 64 * n
+        plans["K12b"] = (lambda: wkv6.wkv6_scan_bwd(*args12),
+                         lambda: ref.wkv6_scan_bwd(*args12),
+                         22 * n + 8 * h * 64, ops12, BF16_OPS_PER_S)
+        print(f"[train] K12 backward {tag}: bound against float32's 67 "
+              f"TFLOP/s {bound_ms(22 * n, ops12)!r}", flush=True)
+        for key_, (kern, plain, nbytes, nops, peak) in plans.items():
+            rec = recs[key_]
+            b_ms, b_by = bound_ms(nbytes, nops, peak)
+            row = {"shape": list(shapes[key_]),
+                   "kernel_ms": time_ms(torch, kern, iters),
+                   "plain_ms": time_ms(torch, plain, plain_iters, warm),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            rec.timings[tag] = row
+            print(f"[train] {key_} {rec.name} {tag} {shapes[key_]}: "
+                  f"kernel_ms={row['kernel_ms']!r} plain_ms="
+                  f"{row['plain_ms']!r} library_ms=None (no one PyTorch call "
+                  f"computes it) bound_ms={b_ms!r} ({b_by})", flush=True)
+        del args11, args12, plans
+        torch.cuda.empty_cache()
+
+
+def block_grads_phase(torch, dev) -> None:
+    """Phase 15b: one rglru block's and one rwkv time-mix's gradients at
+    full width, float32, T = BLOCK_T, the card against the CPU."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_spec
+    from repro_torch.models import rglru, rwkv6
+
+    cpu_gen = torch.Generator().manual_seed(21)
+    d_rwkv = get_spec("rwkv6-3b").model
+    d_rg = get_spec("recurrentgemma-2b").model.d_model
+    blocks = {
+        "rglru block": (rglru.rglru_block,
+                        rglru.rglru_init(cpu_gen, d_rg, d_rg), d_rg),
+        "rwkv time-mix": (rwkv6.time_mix,
+                          rwkv6.rwkv6_init(cpu_gen, d_rwkv.d_model,
+                                           d_rwkv.d_ff), d_rwkv.d_model)}
+    for label, (fn, params, d) in blocks.items():
+        x = torch.randn((1, BLOCK_T, d), generator=cpu_gen)
+        dy = torch.randn((1, BLOCK_T, d), generator=cpu_gen)
+        grads = {}
+        for where in ("cpu", "cuda"):
+            live = [t.detach().to(where).requires_grad_()
+                    for t in [x] + tree_util.leaves(params)]
+            y = fn(tree_util.unflatten(params, live[1:]), live[0])
+            grads[where] = torch.autograd.grad(y, live, dy.to(where),
+                                               allow_unused=True,
+                                               materialize_grads=True)
+        worst = 0.0
+        for g, c in zip(grads["cuda"], grads["cpu"]):
+            scale = float(c.abs().max())
+            d_ = float((g.cpu() - c).abs().max())
+            if d_ > BLOCK_GRAD_TOL * scale:
+                raise AssertionError(f"{label}: the card's gradient differs "
+                                     f"from the CPU's by {d_!r} (max |cpu| "
+                                     f"{scale!r})")
+            worst = max(worst, d_ / scale if scale else 0.0)
+        print(f"[train] {label} at d {d}, T {BLOCK_T}, float32: "
+              f"{len(grads['cpu'])} gradients (x and every parameter) on the "
+              f"card within {BLOCK_GRAD_TOL} max |cpu| of the CPU's; worst "
+              f"{worst!r}", flush=True)
+
+
+def train_steps_phase(torch, dev, launches) -> None:
+    """Phase 15c: rwkv6-3b and recurrentgemma-2b at full width and depth,
+    bf16, Adam (``_optimizer_for``), TRAIN_STEPS steps on one fixed batch
+    through ``steps.build_train_step``; the counters set to 0 before each
+    step and read after."""
+    from repro_torch.configs import get_spec
+    from repro_torch.configs.base import SHAPES, InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import optimizers
+
+    for arch, (batch, seq, want) in TRAIN_SHAPES.items():
+        spec = get_spec(arch)
+        m = spec.model
+        shape = InputShape(f"{SHAPES['train_4k'].name}, batch {batch}", seq,
+                           batch, "train")
+        bundle = steps.build_train_step(spec, shape)
+        params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0))
+        opt_state = optimizers.make(*steps._optimizer_for(spec))[0](params)
+        toks = torch.from_numpy(synthetic.make_lm_tokens(
+            min(m.vocab, 4096), batch, seq, seed=0)).to(dev, torch.int64)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, secs = [], []
+        for i in range(TRAIN_STEPS):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt_state, loss = bundle.fn(params, opt_state,
+                                                {"tokens": toks})
+            losses.append(float(loss))             # synchronises
+            secs.append(time.perf_counter() - t0)
+            got = {k: v for k, v in ops.launch_counts().items() if v}
+            if got != want:
+                raise AssertionError(f"{arch} step {i}: launches {got}, "
+                                     f"expected {want}")
+            for k, v in got.items():
+                launches.setdefault(k, {})
+                launches[k][f"{arch} train"] = (
+                    launches[k].get(f"{arch} train", 0) + v)
+        peak = torch.cuda.max_memory_allocated()
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{arch}: losses {losses} (finite, falling "
+                                 f"from step 1 to {TRAIN_STEPS} expected)")
+        steady = statistics.median(secs[1:]) * 1e3
+        print(f"[train] {arch} (full width and depth, bf16, Adam "
+              f"{steps._optimizer_for(spec)[1]}, batch {batch}, seq {seq}): "
+              f"losses {losses!r}; ms a step {[x * 1e3 for x in secs]!r}, "
+              f"steady (median of steps 2-{TRAIN_STEPS}) {steady!r}, "
+              f"tokens/s {batch * seq / steady * 1e3!r}; peak memory {peak} "
+              f"B; launches a step {want}", flush=True)
+        del params, opt_state, bundle
+        torch.cuda.empty_cache()
+
+
+def fed_round_phase(torch, dev) -> None:
+    """Phase 15d: ``build_fed_round`` on rwkv6-3b at full width and depth:
+    FED_CLIENTS stacked clients, FED_LOCAL_STEPS local steps, the default
+    gamma and p, one round each with TopK(quantile, 0.1), Q_r(8) (K3 and
+    the keyed K4 on every leaf) and the int8 sync (r = 7)."""
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.compress.compressors import TopK
+    from repro_torch.compress.report import INDEX_BITS
+    from repro_torch.configs import get_spec
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_train
+    from repro_torch.models import transformer as tfm
+
+    spec = get_spec("rwkv6-3b")
+    m = spec.model
+
+    def stacked_init():
+        """The clients' stacked weights (every run from the same seeded
+        init, made anew: holding one copy of 6.1 GB beside the round
+        would take the int8 run to ~75 GB)."""
+        one = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0))
+        return tree_util.map(lambda x: torch.stack([x] * FED_CLIENTS), one)
+
+    leaves = tree_util.leaves(stacked_init())
+    n = sum(x[0].numel() for x in leaves)
+    n_leaves = len(leaves)
+    del leaves
+    toks = torch.from_numpy(synthetic.make_lm_tokens(
+        min(m.vocab, 4096), FED_CLIENTS, FED_SEQ, seed=0)).to(dev, torch.int64)
+    toks = toks.reshape(FED_CLIENTS, 1, FED_SEQ)
+    sent = []                     # the TopK payloads' (value + index) bits
+    orig_compress = TopK.compress
+
+    def recording(self, stacked, keys=None, **kw):
+        out, rep = orig_compress(self, stacked, keys, **kw)
+        sent.append(sum(int((x != 0).sum()) * (x.element_size() * 8
+                                               + INDEX_BITS)
+                        for x in tree_util.leaves(out)))
+        return out, rep
+
+    runs = {"topk (quantile, 0.1)": (dict(compressor="topk", density=0.1),
+                                     None),
+            "quant r=8": (dict(compressor="quant", quant_bits=8),
+                          FED_CLIENTS * (n * 9 + n_leaves * 32)),
+            "quant r=7, int8 sync": (dict(compressor="quant", quant_bits=7,
+                                          sync_mode="int8"),
+                                     FED_CLIENTS * (n * 8 + n_leaves * 32))}
+    for label, (kw, closed) in runs.items():
+        fed = fed_train.FedTrainConfig(local_steps=FED_LOCAL_STEPS, **kw)
+        bundle = fed_train.build_fed_round(
+            spec, InputShape("fed", FED_SEQ, FED_CLIENTS, "train"), fed)
+        params = stacked_init()
+        h = tree_util.map(torch.zeros_like, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        sent.clear()
+        TopK.compress = recording
+        t0 = time.perf_counter()
+        try:
+            params, h, loss, bits = bundle.fn(params, h, {"tokens": toks},
+                                              prng.PRNGKey(1))
+            loss, bits = float(loss), float(bits)   # synchronise
+        finally:
+            TopK.compress = orig_compress
+        ms = (time.perf_counter() - t0) * 1e3
+        if closed is None:
+            closed = sum(sent)
+        if not (math.isfinite(loss) and abs(bits - closed)
+                <= (n_leaves + 3) * FED_BITS_ULPS * closed):
+            raise AssertionError(f"fed round {label}: loss {loss!r}, "
+                                 f"comm_bits {bits!r} against the closed "
+                                 f"form {closed}")
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        print(f"[train] fed round rwkv6-3b {label}: {FED_CLIENTS} clients, "
+              f"{FED_LOCAL_STEPS} local steps, seq {FED_SEQ}: loss {loss!r}, "
+              f"comm_bits {bits!r} (closed form {closed}, {n} parameters in "
+              f"{n_leaves} tensors), {ms!r} ms, peak memory "
+              f"{torch.cuda.max_memory_allocated()} B, launches {counts}",
+              flush=True)
+        del params, h, bundle
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2456,6 +2831,12 @@ def main() -> int:
         "K11": KernelRecord("rglru_scan", csrc + "rglru_scan.cu",
                             tpu + "rglru_scan.py:60"),
         "K12": KernelRecord("wkv6_scan", csrc + "wkv6.cu", tpu + "wkv6.py:62"),
+        # the backward kernels replace no Pallas kernel: the JAX package
+        # differentiates its ref.py scans (the file:line of each)
+        "K11b": KernelRecord("rglru_scan_bwd", csrc + "rglru_scan.cu",
+                             tpu + "ref.py:430"),
+        "K12b": KernelRecord("wkv6_scan_bwd", csrc + "wkv6_bwd.cu",
+                             tpu + "ref.py:478"),
     }
     gen = torch.Generator(device=dev).manual_seed(0)
     hidden = 64
@@ -3529,6 +3910,14 @@ def main() -> int:
     del captured
     torch.cuda.empty_cache()
     cuda_vs_cpu_phase(torch, dev)
+
+    # ---- 15. train --------------------------------------------------------- #
+    t0 = time.time()
+    backward_kernels_phase(torch, dev, recs)
+    block_grads_phase(torch, dev)
+    train_steps_phase(torch, dev, launches)
+    fed_round_phase(torch, dev)
+    print(f"[phases] train took {time.time() - t0:.1f} s", flush=True)
 
     # kernel -> (the counter of its main-path entry, the tag of its runs)
     entries = {"topk_mask": (FUSED_K1_K2, "fused"),

@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of the FedComLoc reproduction (``repro``).
 
 Mirrors the JAX package's module layout (``core``, ``compress``,
-``kernels``, ``models``, ``data``, ``launch``, ``configs`` and
+``kernels``, ``models``, ``data``, ``launch``, ``configs``, ``optim`` and
 ``checkpoint``, whose files either package resumes); imports torch and
-numpy only.
+numpy only.  The model zoo serves (prefill, decode) and trains (the
+chunked loss, its gradient through the scans' backward kernels, the
+optimizers, ``launch/train.py`` and the one-card FedComLoc round of
+``launch/fed_train.py``).
 Entry points take an explicit ``device`` (default ``"cuda"``); the kernels
 on the path are hand-written CUDA for Hopper (``kernels/csrc``), and a
 CPU tensor runs their plain PyTorch versions.

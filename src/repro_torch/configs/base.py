@@ -1,9 +1,9 @@
 """Architecture spec plumbing, the port of ``repro.configs.base``: full
-configs with their published dimensions, and ``reduced()`` variants for
-the CPU tests.  The encoder-decoder branch is not ported, nor are the
-input shapes (``InputShape``, ``SHAPES``) and the per-arch modality and
-shape skips that only the reference's training and dry-run launchers
-read.
+configs with their published dimensions, ``reduced()`` variants for the
+CPU tests, and the input shapes the launchers build steps for
+(``InputShape``, ``SHAPES``).  The encoder-decoder branch is not ported,
+nor are the per-arch modality and shape skips that only the reference's
+dry-run launcher reads.
 """
 
 from __future__ import annotations
@@ -14,6 +14,25 @@ from typing import Any
 import torch
 
 from repro_torch import not_ported
+
+
+ALL_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

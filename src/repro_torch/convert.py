@@ -1,8 +1,13 @@
-"""Carry the reference package's parameters into the port.
+"""Carry the reference package's parameters and training state into the
+port, and back.
 
-The tests start both packages from the same weights: the JAX side's
-params, passed as a tree of numpy arrays, become the port's tensors with
-the same dict layout.
+The tests start both packages from the same state: the JAX side's trees,
+passed as numpy arrays, become the port's tensors with the same dict
+layout.  Any tree of the two packages' shared layouts crosses: model
+parameters, the optimizers' states (Adam's float32 ``m``/``v`` and int32
+step ``t``, momentum's ``m``; SGD's empty tuple) and the fed round's
+stacked parameters and control variates ``h`` (a leading client axis on
+every leaf), so multi-step runs start both packages from one state.
 """
 
 from __future__ import annotations
@@ -38,7 +43,8 @@ def to_host(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(tree_of_numpy: Any, device="cuda") -> Any:
     """numpy leaves (e.g. ``jax.tree.map(np.asarray, params)``) -> tensors
-    on ``device``, same nesting and dtypes (bfloat16 bit for bit)."""
+    on ``device``, same nesting and dtypes (bfloat16 bit for bit).  Also
+    an optimizer state or a stacked tree (the module docstring)."""
     return tree_util.map(lambda a: _from_numpy(a).to(device), tree_of_numpy)
 
 

@@ -31,7 +31,8 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: source stem -> extra nvcc flags.  quantize.cu, select_slots.cu (K6's
 #: codes) and qr_pack.cu must not contract ``scaled - lo`` into an FMA (the
 #: Q_r rounding compares its bits); rglru_scan.cu keeps the plain
-#: version's ``a*h + gx`` (K11 is bit-equal to it).
+#: version's ``a*h + gx`` and its backward's operation order (K11 and its
+#: backward are bit-equal to them).
 SOURCES: Dict[str, tuple] = {
     "topk_compress": (),
     "quantize": ("--fmad=false",),
@@ -40,6 +41,7 @@ SOURCES: Dict[str, tuple] = {
     "pack_codes": (),
     "rglru_scan": ("--fmad=false",),
     "wkv6": (),
+    "wkv6_bwd": (),
     "flash_attention": (),
     "flash_attention_sm90": (),
 }

@@ -47,6 +47,25 @@
 // y out), 629 MB at the serving shape, 0.18783 ms; 7 flops an element are
 // far below the float32 peak.  PERF.md has the times on an NVIDIA H100
 // 80GB HBM3 at 700 W (chip_smoke.py, tools/k8_k11_ablation.py).
+//
+// The backward (rglru_back, entry rglru_scan_bwd) replaces no TPU kernel:
+// the JAX package differentiates the two-level scan of
+// src/repro/kernels/ref.py:rglru_scan under jax.vjp.  It is one reverse
+// pass over T with the same layout (two-warp blocks, a channel a lane):
+//
+//     g_t  = dy_t + a_{t+1} g_{t+1}
+//     dx_t = beta_t g_t,   beta = sqrt(max(1 - a^2, 0))
+//     da_t = g_t h_{t-1} + (-(((g_t x_t) (0.5 / beta_t)) m_t)) (2 a_t)
+//
+// (m: max's share of the cotangent, 1 above the tie, 0.5 at 1 - a^2 == 0,
+// 0 below, as jax.vjp takes it), reading x, a, y (the forward's h) and dy
+// and writing dx and da: 24 bytes an element, 503 MB at recurrentgemma-
+// 2b's training shape (2, 4096, 2560), 0.15 ms at 3.35 TB/s.  Each thread
+// loads a batch of kBwdU steps of its four inputs at once, then runs them
+// from the last; 0.5 / beta is taken as (1 / beta) * 0.5, as the plain
+// version's torch expression computes it (equal for every beta in (0, 1]).
+// Under --fmad=false and in the plain version's (kernels/ref.py:
+// rglru_scan_bwd) operation order, dx and da are bit-equal to it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,6 +176,66 @@ int launch(const float* x, const float* a, int B, int T, int D, float* y, float*
   return (int)cudaGetLastError();
 }
 
+// One reverse step of the backward; carry holds a_{t+1} g_{t+1}.
+__device__ __forceinline__ void rglru_back_step(float dy, float x, float a, float h_prev,
+                                                float& carry, float& dx, float& da) {
+  const float g = dy + carry;
+  const float m = 1.0f - a * a;
+  const float beta = sqrtf(fmaxf(m, 0.0f));
+  const float share = m > 0.0f ? 1.0f : (m == 0.0f ? 0.5f : 0.0f);
+  dx = beta * g;
+  const float dbeta = ((g * x) * ((1.0f / beta) * 0.5f)) * share;
+  da = g * h_prev + (-dbeta) * (2.0f * a);
+  carry = a * g;
+}
+
+constexpr int kBwdU = 16;                   // steps a thread loads at once
+
+// grid: (ceil(D / (32 kWarps)), B); block: 32 kWarps threads, a channel each.
+__global__ void __launch_bounds__(32 * kWarps)
+rglru_back(const float* __restrict__ x, const float* __restrict__ a,
+           const float* __restrict__ y, const float* __restrict__ dy, int T, int D,
+           float* __restrict__ dx, float* __restrict__ da) {
+  const int d = blockIdx.x * (32 * kWarps) + threadIdx.x;
+  if (d >= D) return;
+  const long long base = (long long)blockIdx.y * T * D + d;
+  x += base;
+  a += base;
+  y += base;
+  dy += base;
+  dx += base;
+  da += base;
+  float carry = 0.0f;
+  const int whole = T - T % kBwdU;
+  for (int t = T - 1; t >= whole; --t) {     // a ragged T's last steps first
+    const long long o = (long long)t * D;
+    const float h_prev = t > 0 ? __ldcs(y + o - D) : 0.0f;
+    float dxv, dav;
+    rglru_back_step(__ldcs(dy + o), __ldcs(x + o), __ldcs(a + o), h_prev, carry, dxv, dav);
+    __stcs(dx + o, dxv);
+    __stcs(da + o, dav);
+  }
+  for (int t0 = whole - kBwdU; t0 >= 0; t0 -= kBwdU) {
+    float xs[kBwdU], as[kBwdU], gs[kBwdU], hs[kBwdU];
+#pragma unroll
+    for (int i = 0; i < kBwdU; ++i) {
+      const long long o = (long long)(t0 + i) * D;
+      xs[i] = __ldcs(x + o);
+      as[i] = __ldcs(a + o);
+      gs[i] = __ldcs(dy + o);
+      hs[i] = t0 + i > 0 ? __ldcs(y + o - D) : 0.0f;
+    }
+#pragma unroll
+    for (int i = kBwdU - 1; i >= 0; --i) {
+      const long long o = (long long)(t0 + i) * D;
+      float dxv, dav;
+      rglru_back_step(gs[i], xs[i], as[i], hs[i], carry, dxv, dav);
+      __stcs(dx + o, dxv);
+      __stcs(da + o, dav);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -176,6 +255,18 @@ int rglru_scan(const float* x, const float* a, int B, int T, int D, float* y,
   if (pairs && warps > (long long)kSms * kFewWarpsPerSm)
     return launch<2, 8>(x, a, B, T, D, y, h_out, stream);
   return launch<1, 32>(x, a, B, T, D, y, h_out, stream);
+}
+
+// K11's backward.  x, a, y (the forward's h), dy: (B, T, D) float32
+// contiguous; writes dx and da, (B, T, D) float32.  1 <= B <= 65535,
+// T >= 1, D >= 1.
+int rglru_scan_bwd(const float* x, const float* a, const float* y, const float* dy, int B,
+                   int T, int D, float* dx, float* da, void* stream_ptr) {
+  if (B < 1 || B > 65535 || T < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  const int per_block = 32 * kWarps;
+  const dim3 grid((unsigned)((D + per_block - 1) / per_block), (unsigned)B);
+  rglru_back<<<grid, per_block, 0, (cudaStream_t)stream_ptr>>>(x, a, y, dy, T, D, dx, da);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -123,16 +123,74 @@ def unpack_qr_values(words: torch.Tensor, r: int, n: int,
     return _pack.unpack_qr_values(words, r, n, norm)
 
 
+class _RGLRUScan(torch.autograd.Function):
+    """K11 forward, K11's backward kernel (``ref.rglru_scan_bwd`` on the
+    CPU) for the gradient; saves x, a and the float32 y."""
+
+    @staticmethod
+    def forward(ctx, x, a):
+        y, h = _rg.rglru_scan(x, a)
+        ctx.save_for_backward(x, a, y)
+        ctx.mark_non_differentiable(h)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, _dh):
+        x, a, y = ctx.saved_tensors
+        return _rg.rglru_scan_bwd(x, a, y, dy)
+
+
+class _WKV6Scan(torch.autograd.Function):
+    """K12 forward (either route), K12's backward kernel
+    (``ref.wkv6_scan_bwd`` on the CPU) for the gradient; saves only the
+    inputs (the backward recomputes the states)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        y, s = _wkv.wkv6_scan(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.mark_non_differentiable(s)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, _ds):
+        return _wkv.wkv6_scan_bwd(*ctx.saved_tensors, dy)
+
+
+def _differentiable(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rglru_scan(x: torch.Tensor, a: torch.Tensor):
     """The RG-LRU scan (K11): x, a (B, T, D) -> (y at x's dtype, h_T
-    float32)."""
+    float32).
+
+    Differentiable in x and a (h_T carries no gradient: the training loss
+    never reads it): the backward is K11's backward kernel on the card and
+    ``ref.rglru_scan_bwd`` on the CPU, with no fallback from one to the
+    other.  Where no input needs a gradient (serving, under
+    ``torch.no_grad()``), K11 launches as it is and nothing is saved."""
+    if _differentiable(x, a):
+        return _RGLRUScan.apply(x, a)
     return _rg.rglru_scan(x, a)
 
 
 def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor):
     """The RWKV6 WKV scan (K12): r, k, v, w (B, H, T, 64), u (H, 64) ->
-    (y at r's dtype, S_T float32)."""
+    (y at r's dtype, S_T float32).
+
+    Differentiable in r, k, v, w and u (S_T carries no gradient): the
+    backward is K12's backward kernel on the card and
+    ``ref.wkv6_scan_bwd`` on the CPU, no fallback.  The gradient is that of
+    the float32 recurrence whatever the forward's route: K12's bf16 route
+    is within 3e-4 of it, the relation the JAX package has between its
+    Pallas forward and the ``ref.py`` scan it differentiates.  ``dy`` may
+    arrive as a non-contiguous view (on the card y is a (B, H, T, 64) view
+    of a (B, T, H, 64) tensor).  Where no input needs a gradient, K12
+    launches as it is and nothing is saved."""
+    if _differentiable(r, k, v, w, u):
+        return _WKV6Scan.apply(r, k, v, w, u)
     return _wkv.wkv6_scan(r, k, v, w, u)
 
 

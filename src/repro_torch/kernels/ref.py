@@ -34,6 +34,13 @@ def _per_row(v, rows: int, device) -> torch.Tensor:
     return t.expand(rows) if t.dim() == 0 else t
 
 
+def loop_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type a scan's plain loop runs in for input ``x``: float64 for
+    float64 input (a yardstick, and what ``gradcheck`` needs), else
+    float32, the kernels' type."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def mag_bits(x: torch.Tensor) -> torch.Tensor:
     """|x| as uint32 bit patterns (after an f32 cast), in int64.
 
@@ -358,21 +365,23 @@ def topk_qr_slots(x: torch.Tensor, k, cap: int, r: int, u: torch.Tensor):
     return idx, pack_codes(codes, 1 + int(r)), norm, nnz
 
 
-def rglru_scan(x: torch.Tensor, a: torch.Tensor, h0=None):
+def rglru_scan(x: torch.Tensor, a: torch.Tensor, h0=None,
+               dtype: torch.dtype = torch.float32):
     """The RG-LRU recurrence (``repro.kernels.ref.rglru_scan``), a plain
     time loop in float32: ``h_t = a_t * h_{t-1} + sqrt(max(1 - a_t^2, 0))
     * x_t`` elementwise over channels.
 
     x, a: (B, T, D); h0: (B, D) or None (zeros).  Returns ``(y, h_T)``:
-    y (B, T, D) at x's dtype and h_T (B, D) float32.  One op at a time, in
-    this order, so K11 (built without FMA contraction) has its bits.
+    y (B, T, D) at x's dtype and h_T (B, D) at ``dtype``, the type the
+    loop runs in (float64 gives a yardstick).  One op at a time, in this
+    order, so K11 (built without FMA contraction) has its bits.
     """
     b, t, d = x.shape
-    af = a.to(torch.float32)
-    gx = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.to(torch.float32)
-    h = (torch.zeros((b, d), dtype=torch.float32, device=x.device)
-         if h0 is None else h0.to(torch.float32))
-    ys = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
+    af = a.to(dtype)
+    gx = torch.sqrt(torch.clamp(1.0 - af * af, min=0.0)) * x.to(dtype)
+    h = (torch.zeros((b, d), dtype=dtype, device=x.device)
+         if h0 is None else h0.to(dtype))
+    ys = torch.empty((b, t, d), dtype=dtype, device=x.device)
     for i in range(t):
         h = af[:, i] * h + gx[:, i]
         ys[:, i] = h
@@ -405,6 +414,103 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ys[:, :, i] = torch.einsum("bhk,bhkv->bhv", rf[:, :, i], s + uf * kv)
         s = wf[:, :, i, :, None] * s + kv
     return ys.to(r.dtype), s
+
+
+def rglru_scan_bwd(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
+                   dy: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """The gradient of :func:`rglru_scan` from ``h_0 = 0`` (K11's
+    backward): a reverse time loop over ``g_t = dy_t + a_{t+1} g_{t+1}``,
+    ``dx_t = beta_t g_t`` and ``da_t = g_t h_{t-1} + x_t g_t dbeta_t/da_t``
+    with ``beta = sqrt(max(1 - a^2, 0))``.
+
+    x, a, y (the forward's float32 h), dy: (B, T, D).  Each step takes the
+    operations of ``jax.vjp`` of ``repro.kernels.ref.rglru_scan`` in their
+    order: ``dbeta`` flows as ``((g x) (0.5 / beta)) m`` (``m``: ``max``'s
+    share of the cotangent, 1 above the tie, 0.5 at ``1 - a^2 == 0``, 0
+    below), negated, times ``2 a``; ``0.5 / beta`` is taken as ``(1 /
+    beta) * 0.5``, equal to it for every beta in (0, 1] (and what torch's
+    ``0.5 / tensor`` computes).  So at ``a = 1`` da is what JAX gives:
+    ``-inf`` or ``inf`` where ``g x != 0``, NaN where it is 0.  One op at a
+    time in ``dtype`` (float64 gives a yardstick), so K11's backward
+    (built without FMA contraction) has its bits in float32.  Returns
+    ``(dx, da)`` at x's and a's dtypes.
+    """
+    b, t, d = x.shape
+    xf, af, yf, gf = (z.to(dtype) for z in (x, a, y, dy))
+    m = 1.0 - af * af
+    beta = torch.sqrt(torch.clamp(m, min=0.0))
+    share = torch.where(m > 0, 1.0, torch.where(m == 0, 0.5, 0.0)).to(dtype)
+    dx = torch.empty((b, t, d), dtype=dtype, device=x.device)
+    da = torch.empty((b, t, d), dtype=dtype, device=x.device)
+    carry = torch.zeros((b, d), dtype=dtype, device=x.device)
+    zero = torch.zeros((b, d), dtype=dtype, device=x.device)
+    for i in range(t - 1, -1, -1):
+        g = gf[:, i] + carry
+        dx[:, i] = beta[:, i] * g
+        h_prev = yf[:, i - 1] if i else zero
+        dbeta = ((g * xf[:, i]) * (torch.reciprocal(beta[:, i]) * 0.5)) * share[:, i]
+        da[:, i] = g * h_prev + (-dbeta) * (2.0 * af[:, i])
+        carry = af[:, i] * g
+    return dx.to(x.dtype), da.to(a.dtype)
+
+
+def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                  dtype: torch.dtype = torch.float32, chunk: int = 64):
+    """The gradient of :func:`wkv6_scan` from ``S_0 = 0`` (K12's backward),
+    S_T unused.  A reverse loop carrying ``dS_t`` (the gradient of the
+    state after step t, 0 after the last)::
+
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t
+        dk_t = u * r_t (v_t . dy_t) + dS_t v_t
+        dv_t = (r_t . (u * k_t)) dy_t + dS_t^T k_t
+        dw_t = rowsum(dS_t * S_{t-1})
+        du   = sum over (b, t) of r_t * k_t (v_t . dy_t)
+        dS_{t-1} = diag(w_t) dS_t + r_t dy_t^T
+
+    ``S_{t-1}`` is recomputed from states stored every ``chunk`` steps in
+    a first forward pass, as the reference's two-level scan recomputes its
+    chunks under remat (dividing by w instead would fail: w = exp(-exp(.))
+    underflows to 0).  r, k, w, dy: (B, H, T, K); v: (B, H, T, V); u:
+    (H, K).  Runs in ``dtype`` (float64 gives a yardstick); returns ``(dr,
+    dk, dv, dw, du)`` at the inputs' dtypes.
+    """
+    b, h, t, kd = r.shape
+    vd = v.shape[-1]
+    rf, kf, vf, wf, gy = (z.to(dtype) for z in (r, k, v, w, dy))
+    uf = u.to(dtype)
+    dev = r.device
+    s = torch.zeros((b, h, kd, vd), dtype=dtype, device=dev)
+    marks = []                                   # S before each chunk
+    for i in range(t):
+        if i % chunk == 0:
+            marks.append(s)
+        s = wf[:, :, i, :, None] * s + kf[:, :, i, :, None] * vf[:, :, i, None, :]
+    grads = [torch.empty((b, h, t, n), dtype=dtype, device=dev)
+             for n in (kd, kd, vd, kd)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros((b, h, kd), dtype=dtype, device=dev)
+    ds = torch.zeros((b, h, kd, vd), dtype=dtype, device=dev)
+    for c in range(len(marks) - 1, -1, -1):
+        lo, hi = c * chunk, min((c + 1) * chunk, t)
+        prev = [marks[c]]                        # S_{t-1} for t in [lo, hi)
+        for i in range(lo, hi - 1):
+            prev.append(wf[:, :, i, :, None] * prev[-1]
+                        + kf[:, :, i, :, None] * vf[:, :, i, None, :])
+        for i in range(hi - 1, lo - 1, -1):
+            s_prev = prev[i - lo]
+            r_t, k_t, v_t, g_t = rf[:, :, i], kf[:, :, i], vf[:, :, i], gy[:, :, i]
+            vdy = (v_t * g_t).sum(-1, keepdim=True)              # (B,H,1)
+            dr[:, :, i] = (torch.einsum("bhkv,bhv->bhk", s_prev, g_t)
+                           + uf * k_t * vdy)
+            dk[:, :, i] = uf * r_t * vdy + torch.einsum("bhkv,bhv->bhk", ds, v_t)
+            dv[:, :, i] = ((r_t * uf * k_t).sum(-1, keepdim=True) * g_t
+                           + torch.einsum("bhkv,bhk->bhv", ds, k_t))
+            dw[:, :, i] = (ds * s_prev).sum(-1)
+            du = du + r_t * k_t * vdy
+            ds = wf[:, :, i, :, None] * ds + r_t[..., :, None] * g_t[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.sum(0).to(u.dtype))
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -10,6 +10,11 @@ sequential kernel, whose state update keeps the plain
 version's operation order (S_T has its bits on the card) while y's
 64-term sums run in another order and agree within a tolerance.
 
+:func:`wkv6_scan_bwd`, its gradient, dispatches the same way: a CPU
+tensor runs ``ref.wkv6_scan_bwd``, a CUDA tensor the backward kernel in
+``csrc/wkv6_bwd.cu`` (either dtype of r/k/v; float32 arithmetic), held to
+its plain version within a tolerance.
+
 ``LAUNCHES`` counts kernel launches; only the CUDA path adds to it, so a
 CPU run leaves it at 0.
 """
@@ -22,7 +27,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"wkv6_scan": 0}
+LAUNCHES = {"wkv6_scan": 0, "wkv6_scan_bwd": 0}
 
 HEAD = 64     # K = V = 64: the head size every RWKV6 model here uses
 CHUNK = 16    # steps a chunk of the bf16 route (csrc/wkv6.cu)
@@ -44,6 +49,47 @@ def _lib() -> ctypes.CDLL:
     return build.load("wkv6", _bind)
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    lib.wkv6_scan_bwd.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, _LL, _LL, _LL,
+                                  _LL, _LL, _LL, ctypes.c_int, _LL, _LL, _LL,
+                                  _P, _P, _P, _P, _P, _P, _P]
+    lib.wkv6_scan_bwd.restype = ctypes.c_int
+    lib.wkv6_bwd_ckpt_floats.argtypes = [ctypes.c_int]
+    lib.wkv6_bwd_ckpt_floats.restype = _LL
+    lib.wkv6_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.wkv6_bwd_error_string.restype = ctypes.c_char_p
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    return build.load("wkv6_bwd", _bind_bwd)
+
+
+def _check_operands(r, k, v, w, u):
+    """The forward's and the backward's shared checks: ``(b, h, t)``."""
+    if r.dim() != 4:
+        raise ValueError(f"expects (B, H, T, K) input, got {tuple(r.shape)}")
+    b, h, t, kd = r.shape
+    if kd != HEAD or v.shape[-1] != HEAD:
+        raise ValueError(f"head size must be {HEAD}, got K={kd}, "
+                         f"V={v.shape[-1]}")
+    if r.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"r must be float32 or bfloat16, got {r.dtype}")
+    shape = (b, h, t, HEAD)
+    for z, name, dtype in ((r, "r", r.dtype), (k, "k", r.dtype),
+                           (v, "v", r.dtype), (w, "w", torch.float32)):
+        if z.dtype != dtype or tuple(z.shape) != shape or z.device != r.device:
+            raise ValueError(f"{name} must be a {dtype} {shape} tensor on "
+                             f"{r.device}, got {z.dtype} {tuple(z.shape)} "
+                             f"on {z.device}")
+        if z.stride(-1) != 1 or z.stride()[:3] != r.stride()[:3]:
+            raise ValueError(f"{name} must have a dense last dimension and "
+                             f"r's strides {r.stride()}, got {z.stride()}")
+    if not 1 <= b * h <= 2 ** 31 - 1:
+        raise ValueError(f"B*H must be in [1, 2^31), got {b * h}")
+    return b, h, t
+
+
 def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor):
     """K12: ``y_t = (S + diag(u) k_t v_t^T)^T r_t``, ``S <- diag(w_t) S +
@@ -59,28 +105,11 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, T, 64) view of a (B, T, H, 64) tensor, so ``_unheads`` needs no
     copy) and S_T (B, H, 64, 64) float32."""
     if build.on_cpu(r):
-        return ref.wkv6_scan(r, k, v, w, u)
-    if r.dim() != 4:
-        raise ValueError(f"expects (B, H, T, K) input, got {tuple(r.shape)}")
-    b, h, t, kd = r.shape
-    if kd != HEAD or v.shape[-1] != HEAD:
-        raise ValueError(f"head size must be {HEAD}, got K={kd}, "
-                         f"V={v.shape[-1]}")
-    if r.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"r must be float32 or bfloat16, got {r.dtype}")
-    shape = (b, h, t, HEAD)
-    operands = [(r, "r", r.dtype), (k, "k", r.dtype), (v, "v", r.dtype),
-                (w, "w", torch.float32)]
-    for z, name, dtype in operands:
-        if z.dtype != dtype or tuple(z.shape) != shape or z.device != r.device:
-            raise ValueError(f"{name} must be a {dtype} {shape} tensor on "
-                             f"{r.device}, got {z.dtype} {tuple(z.shape)} "
-                             f"on {z.device}")
-        if z.stride(-1) != 1 or z.stride()[:3] != r.stride()[:3]:
-            raise ValueError(f"{name} must have a dense last dimension and "
-                             f"r's strides {r.stride()}, got {z.stride()}")
+        return ref.wkv6_scan(r, k, v, w, u, dtype=ref.loop_dtype(r))
+    b, h, t = _check_operands(r, k, v, w, u)
     if r.dtype == torch.bfloat16:
-        for z, name, _ in operands:       # the chunked route's cp.async rows
+        for z, name in ((r, "r"), (k, "k"), (v, "v"), (w, "w")):
+            # the chunked route's cp.async rows
             if z.data_ptr() % 16 or any(st % 8 for st in z.stride()[:3]):
                 raise ValueError(f"{name}: the bf16 route needs 16-byte "
                                  f"aligned rows (data_ptr and the (b, h, "
@@ -88,8 +117,6 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  f"got {z.data_ptr() % 16} and "
                                  f"{z.stride()}")
     u = build.expect(u, "u", torch.float32, (h, HEAD), r.device)
-    if not 1 <= b * h <= 2 ** 31 - 1:
-        raise ValueError(f"B*H must be in [1, 2^31), got {b * h}")
     y = torch.empty((b, t, h, HEAD), dtype=r.dtype, device=r.device)
     s = torch.empty((b, h, HEAD, HEAD), dtype=torch.float32, device=r.device)
     if t == 0:
@@ -104,3 +131,51 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(code, "wkv6_scan", lib, "wkv6_error_string")
     LAUNCHES["wkv6_scan"] += 1
     return y.transpose(1, 2), s
+
+
+def wkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
+    """K12's backward: ``(dr, dk, dv, dw, du)`` of :func:`wkv6_scan` at
+    ``(r, k, v, w, u)`` for the output gradient ``dy`` (S_T carries none).
+
+    r, k, v, w, u as :func:`wkv6_scan` takes them (strided views read in
+    place, no copy); dy: (B, H, T, 64) at r's dtype, any strides with a
+    dense last dimension (the gradient of the forward's y view arrives as
+    one).  The kernel computes in float32 whatever r's dtype.  Returns dr,
+    dk, dv at r's dtype and dw float32, each a (B, H, T, 64) view of a
+    (B, T, H, 64) tensor (so ``rwkv6._heads``' backward needs no copy in
+    float32), and du (H, 64) float32, the per-(b, h) partials summed over
+    B in a fixed order."""
+    if build.on_cpu(r):
+        return ref.wkv6_scan_bwd(r, k, v, w, u, dy,
+                                 dtype=ref.loop_dtype(r))
+    b, h, t = _check_operands(r, k, v, w, u)
+    u = build.expect(u, "u", torch.float32, (h, HEAD), r.device)
+    if (dy.dtype != r.dtype or tuple(dy.shape) != (b, h, t, HEAD)
+            or dy.device != r.device or dy.stride(-1) != 1):
+        raise ValueError(f"dy must be a {r.dtype} {(b, h, t, HEAD)} tensor on "
+                         f"{r.device} with a dense last dimension, got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}, "
+                         f"strides {dy.stride()}")
+    f32 = dict(dtype=torch.float32, device=r.device)
+    grads = [torch.empty((b, t, h, HEAD), **f32).transpose(1, 2)
+             for _ in range(4)]
+    du_part = torch.empty((b, h, HEAD), **f32)
+    if t == 0:
+        return (*(g.zero_() for g in grads), du_part.sum(0).zero_())
+    lib = _lib_bwd()
+    ckpt = torch.empty((b * h, lib.wkv6_bwd_ckpt_floats(t)), **f32)
+    sb, sh, st, _ = r.stride()
+    gb, gh, gt, _ = dy.stride()
+    ob, oh, ot, _ = grads[0].stride()
+    code = lib.wkv6_scan_bwd(
+        build.ptr(r), build.ptr(k), build.ptr(v), build.ptr(w), build.ptr(u),
+        build.ptr(dy), b, h, t, sb, sh, st, gb, gh, gt,
+        int(r.dtype == torch.bfloat16), ob, oh, ot,
+        *(build.ptr(g) for g in grads), build.ptr(du_part), build.ptr(ckpt),
+        build.stream_ptr())
+    build.check(code, "wkv6_scan_bwd", lib, "wkv6_bwd_error_string")
+    LAUNCHES["wkv6_scan_bwd"] += 1
+    dr, dk, dv, dw = grads
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw,
+            du_part.sum(0))

@@ -1,12 +1,14 @@
-"""Attention for prefill and decode, the port of ``repro.models.attention``
-(forward only).
+"""Attention for training, prefill and decode, the port of
+``repro.models.attention``.
 
 * :func:`chunked_attention` — blockwise online softmax over KV chunks; it
   never forms the (Tq, Tk) matrix.  It keeps both of the reference's
   routes: the flash route (``_flash_fwd_impl``: the scale folded into q at
   q's dtype, products accumulated in float32) when ``kv_length`` is None,
   and the explicit-length route (q cast to float32 first, keys past
-  ``kv_length`` masked) otherwise.
+  ``kv_length`` masked) otherwise.  The flash route is the reference's
+  custom-VJP ``_flash`` as a ``torch.autograd.Function``: it saves (q, k,
+  v, out, lse) and its backward recomputes each chunk.
 * :func:`decode_attention` — one query token against a linear KV cache.
 * :func:`ring_decode_attention` — one query token against a ring cache of
   ``window`` slots (sliding-window layers).
@@ -56,6 +58,126 @@ def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
+def _chunk_mask(kpos, qpos, limit, causal, window):
+    """The (Tq, ck) visibility of one key chunk, or None (all visible)."""
+    mask = None
+    if limit is not None:
+        mask = (kpos[None, :] < limit).expand(qpos.shape[0], kpos.shape[0])
+    if causal:
+        cm = kpos[None, :] <= qpos[:, None]
+        mask = cm if mask is None else mask & cm
+    if window is not None:
+        wm = kpos[None, :] > qpos[:, None] - window
+        mask = wm if mask is None else mask & wm
+    return mask
+
+
+def _online_softmax(qf, k, v, qpos, g, *, causal, window, limit, softcap,
+                    chunk):
+    """The forward scan over KV chunks: ``(acc, m, l)`` of the folded
+    float32 queries ``qf`` (B, Hkv, G*Tq, Dh) against k, v (B, Hkv, Tk,
+    Dh), Tk a multiple of ``chunk``."""
+    b, hkv, rows, dh = qf.shape
+    m = torch.full((b, hkv, rows, 1), _NEG_INF, dtype=torch.float32,
+                   device=qf.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, rows, dh), dtype=torch.float32,
+                      device=qf.device)
+    for ci in range(k.shape[2] // chunk):
+        kb = k[:, :, ci * chunk:(ci + 1) * chunk]          # (B,Hkv,ck,Dh)
+        vb = v[:, :, ci * chunk:(ci + 1) * chunk]
+        kpos = ci * chunk + torch.arange(chunk, device=qf.device)
+        s = qf @ kb.transpose(-1, -2).to(torch.float32)     # (B,Hkv,G*Tq,ck)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _chunk_mask(kpos, qpos, limit, causal, window)
+        if mask is not None:                                # (Tq, ck) per head
+            s = torch.where(mask.repeat(g, 1), s, torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _f32_matmul(p.to(v.dtype), vb)
+        m = m_new
+    return acc, m, l
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's custom-VJP ``_flash`` (``repro.models.attention``):
+    the forward saves only (q, k, v, out, lse); the backward recomputes
+    each chunk's probabilities from lse (``_flash_bwd``: ``delta``, the
+    softcap's ``1 - th^2``, the mask).  k, v arrive padded to a multiple
+    of ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, softcap, chunk):
+        b, hq, tq, dh = q.shape
+        hkv = k.shape[1]
+        g = hq // hkv
+        # the reference's _flash_fwd_impl: scale cast to q's dtype and
+        # folded into q before the products; causal masking hides the
+        # end padding (kpos > max qpos)
+        scale = torch.tensor(1.0 / (dh ** 0.5), dtype=q.dtype, device=q.device)
+        qf = (_fold_gqa(q, hkv) * scale).to(torch.float32)
+        qpos = q_offset + torch.arange(tq, device=q.device)
+        acc, m, l = _online_softmax(qf, k, v, qpos, g, causal=causal,
+                                    window=window, limit=None,
+                                    softcap=softcap, chunk=chunk)
+        seen = l > 0
+        one = torch.ones_like(l)
+        # +1e30 for rows with no visible key, so the backward's p is 0
+        lse = torch.where(seen, m + torch.log(torch.where(seen, l, one)),
+                          torch.full_like(l, 1e30))
+        out = (acc / torch.where(seen, l, one)).reshape(b, hq, tq, dh).to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, window, q_offset, softcap, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset, softcap, chunk = ctx.opts
+        b, hq, tq, dh = q.shape
+        hkv, tk = k.shape[1], k.shape[2]
+        g = hq // hkv
+        scale = 1.0 / (dh ** 0.5)
+        f32 = torch.float32
+        qf = _fold_gqa(q, hkv).to(f32)
+        of = _fold_gqa(out, hkv).to(f32)
+        dof = _fold_gqa(dout, hkv).to(f32)
+        qpos = q_offset + torch.arange(tq, device=q.device)
+        delta = torch.sum(of * dof, dim=-1, keepdim=True)  # (B,Hkv,G*Tq,1)
+        dq = torch.zeros_like(qf)
+        dk = torch.empty((b, hkv, tk, dh), dtype=f32, device=q.device)
+        dv = torch.empty_like(dk)
+        for ci in range(tk // chunk):
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            kb, vb = k[:, :, sl].to(f32), v[:, :, sl].to(f32)
+            kpos = ci * chunk + torch.arange(chunk, device=q.device)
+            s_raw = (qf @ kb.transpose(-1, -2)) * scale
+            if softcap is not None:
+                th = torch.tanh(s_raw / softcap)
+                s = softcap * th
+            else:
+                s = s_raw
+            mask = _chunk_mask(kpos, qpos, None, causal, window)
+            if mask is not None:
+                mask = mask.repeat(g, 1)
+                s = torch.where(mask, s, torch.full_like(s, _NEG_INF))
+            p = torch.exp(s - lse)                          # (B,Hkv,G*Tq,ck)
+            dv[:, :, sl] = p.transpose(-1, -2) @ dof
+            dp = dof @ vb.transpose(-1, -2)
+            ds = p * (dp - delta)
+            if softcap is not None:
+                ds = ds * (1.0 - th * th)
+            if mask is not None:
+                ds = torch.where(mask, ds, torch.zeros_like(ds))
+            dq = dq + (ds @ kb) * scale
+            dk[:, :, sl] = (ds.transpose(-1, -2) @ qf) * scale
+        return (dq.reshape(b, hq, tq, dh).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None, None)
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       q_offset: int = 0, softcap: Optional[float] = None,
@@ -66,7 +188,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Hq, Tq, Dh); k, v: (B, Hkv, Tk, Dh).  Returns (B, Hq, Tq, Dh) at
     q's dtype.  ``window``: keys within ``window`` positions of the query;
     ``softcap``: ``softcap * tanh(logits / softcap)``; ``kv_length``: the
-    valid prefix of k/v.
+    valid prefix of k/v.  Where the reference routes to its custom-VJP
+    ``_flash`` (``kv_length`` None, and no end padding unless causal), so
+    does this (:class:`_Flash`, whose backward recomputes each chunk);
+    the explicit-length route is differentiated by autograd, as the
+    reference's plain scan is by ``jax.grad``.
     """
     b, hq, tq, dh = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -76,49 +202,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    nchunks = (tk + pad) // chunk
-    scale = 1.0 / (dh ** 0.5)
-    flash = kv_length is None and (not pad or causal)
-    if flash:
-        # the reference's _flash_fwd_impl: scale cast to q's dtype and
-        # folded into q before the products; causal masking hides the
-        # end padding (kpos > max qpos)
-        qf = (_fold_gqa(q, hkv) * torch.tensor(scale, dtype=q.dtype,
-                                               device=q.device)).to(torch.float32)
-        limit = None
-    else:
-        qf = _fold_gqa(q, hkv).to(torch.float32) * scale
-        limit = tk if kv_length is None else int(kv_length)
+    if kv_length is None and (not pad or causal):
+        return _Flash.apply(q, k, v, causal, window, q_offset, softcap, chunk)
+    qf = _fold_gqa(q, hkv).to(torch.float32) * (1.0 / (dh ** 0.5))
     qpos = q_offset + torch.arange(tq, device=q.device)
-    rows = (b, hkv, g * tq, 1)
-    m = torch.full(rows, _NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros(rows, dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hkv, g * tq, dh), dtype=torch.float32,
-                      device=q.device)
-    for ci in range(nchunks):
-        kb = k[:, :, ci * chunk:(ci + 1) * chunk]          # (B,Hkv,ck,Dh)
-        vb = v[:, :, ci * chunk:(ci + 1) * chunk]
-        kpos = ci * chunk + torch.arange(chunk, device=q.device)
-        s = qf @ kb.transpose(-1, -2).to(torch.float32)     # (B,Hkv,G*Tq,ck)
-        if softcap is not None:
-            s = softcap * torch.tanh(s / softcap)
-        mask = None
-        if limit is not None:
-            mask = (kpos[None, :] < limit).expand(tq, chunk)
-        if causal:
-            cm = kpos[None, :] <= qpos[:, None]
-            mask = cm if mask is None else mask & cm
-        if window is not None:
-            wm = kpos[None, :] > qpos[:, None] - window
-            mask = wm if mask is None else mask & wm
-        if mask is not None:                                # (Tq, ck) per head
-            s = torch.where(mask.repeat(g, 1), s, torch.full_like(s, _NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + _f32_matmul(p.to(v.dtype), vb)
-        m = m_new
+    acc, _, l = _online_softmax(
+        qf, k, v, qpos, g, causal=causal, window=window,
+        limit=tk if kv_length is None else int(kv_length), softcap=softcap,
+        chunk=chunk)
     out = acc / torch.where(l > 0, l, torch.ones_like(l))
     return out.reshape(b, hq, tq, dh).to(q.dtype)
 

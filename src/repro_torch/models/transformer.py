@@ -1,5 +1,5 @@
 """The model zoo's decoder stack, the port of ``repro.models.transformer``
-(serving: prefill + decode).
+(training: forward_hidden + the chunked loss; serving: prefill + decode).
 
 Per-layer block types (``ModelConfig.block_pattern``, cycled over layers):
 
@@ -8,16 +8,16 @@ Per-layer block types (``ModelConfig.block_pattern``, cycled over layers):
   "rglru"  — RecurrentGemma recurrent layer (K11 in prefill)
   "rwkv"   — RWKV6 layer (time-mix + channel-mix; K12 in prefill)
 
-``prefill(params, cfg, tokens, max_len)`` returns the last position's
-logits and the decode state; ``decode_step(params, cfg, token, state)``
-runs one token against it.  Parameters are the reference's nested dicts
+``loss(params, cfg, tokens)`` is the next-token cross-entropy over
+``forward_hidden`` (per-layer remat); ``prefill(params, cfg, tokens,
+max_len)`` returns the last position's logits and the decode state;
+``decode_step(params, cfg, token, state)`` runs one token against it.  Parameters are the reference's nested dicts
 (same names and layouts).  The dense GQA family's options are here:
 q/k/v biases (qwen2), q/k RMSNorms before RoPE (gemma3), post-norms on
 the branch outputs and the final logit softcap (gemma2), and the
 long-context window cap on "attn" layers (gemma2, gemma3).  Not ported
 yet, and raising ``NotImplementedError``: MoE layers, M-RoPE
-(``_NOT_PORTED``), prefix embeddings, the training forward and loss, and
-the encoder-decoder wrapper.
+(``_NOT_PORTED``), prefix embeddings and the encoder-decoder wrapper.
 
 The reference's dtype conventions are kept: KV caches and the rglru conv
 state leave prefill in ``dtype`` (bfloat16 by default, even in a float32
@@ -31,6 +31,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
 from repro_torch.kernels import ops as kops
@@ -216,12 +217,100 @@ def _post_norm(p: dict, cfg: ModelConfig, name: str,
     return layers.rmsnorm(p[name], y) if cfg.post_norm else y
 
 
-def forward_hidden(*args, **kwargs):
-    raise not_ported("forward_hidden (training)")
+def _layer_fwd(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
+               positions: torch.Tensor, causal: bool = True):
+    """Full-sequence layer forward (training).  Returns ``(x, aux)``; aux
+    is the MoE balance loss, 0 here (MoE layers are not ported)."""
+    bt = cfg.block_type(i)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if bt == "rwkv":
+        x = x + rwkv6.time_mix(p["rwkv"], layers.layernorm(p["ln_tm"], x))
+        x = x + rwkv6.channel_mix(p["rwkv"], layers.layernorm(p["ln_cm"], x))
+        return x, aux
+    h = layers.rmsnorm(p["ln_attn"], x)
+    if bt == "rglru":
+        y = rglru.rglru_block(p["rglru"], h)
+    else:
+        q, k, v = _qkv(p, cfg, h, positions)
+        y = attn.chunked_attention(q, k, v, causal=causal,
+                                   window=cfg.layer_window(i),
+                                   softcap=cfg.softcap_attn)
+        y = layers.dense(p["o"], _merge_heads(y))
+    x = x + _post_norm(p, cfg, "ln_attn_post", y)
+    h = layers.rmsnorm(p["ln_mlp"], x)
+    return x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, h)), aux
 
 
-def loss(*args, **kwargs):
-    raise not_ported("loss (training)")
+def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+                   prefix_embeds=None, positions3=None, causal: bool = True,
+                   remat: bool = True):
+    """Token ids (B, T) -> ``(final hidden states (B, T, D), aux)``.
+
+    A plain loop over the layers, which the reference's scan over stacked
+    layer cycles equals (its ``scan_layers`` changes compile time, not
+    numerics).  ``remat``: each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so its backward recomputes
+    it from the layer's input, as the reference's per-layer
+    ``jax.checkpoint`` does: K11 and K12 then launch twice a step, once
+    in the forward and once in the recompute."""
+    _check_ported(cfg)
+    if positions3 is not None:
+        raise not_ported("M-RoPE positions")
+    x = _embed_in(params, cfg, tokens, prefix_embeds)
+    b, t = x.shape[:2]
+    positions = torch.arange(t, device=x.device).expand(b, t)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        p = params["layers"][f"layer_{i}"]
+
+        def fwd(p_, x_, i_=i):
+            return _layer_fwd(p_, cfg, i_, x_, positions, causal)
+
+        if remat:
+            x, aux = checkpoint(fwd, p, x, use_reentrant=False)
+        else:
+            x, aux = fwd(p, x)
+        aux_total = aux_total + aux
+    return layers.rmsnorm(params["final_norm"], x), aux_total
+
+
+def _chunk_nll(params: dict, cfg: ModelConfig, hs: torch.Tensor,
+               ys: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    logits = _unembed(params, cfg, hs)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, ys[..., None])[..., 0]
+    return (nll * ws).sum()
+
+
+def loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+         prefix_embeds=None, positions3=None, loss_chunk: int = 1024,
+         aux_weight: float = 0.01, remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy, chunked over the sequence as the
+    reference chunks it: the (B, T - 1) positions padded to whole chunks
+    of ``loss_chunk`` with a zero weight mask, each chunk's (B, chunk,
+    vocab) logits recomputed in the backward (``torch.utils.checkpoint``)
+    and never held at once; ``total / (B (T - 1)) + aux_weight * aux``.
+    A float32 scalar."""
+    h, aux = forward_hidden(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                            positions3=positions3, remat=remat)
+    b, t, _ = h.shape
+    inputs = h[:, :-1]
+    targets = tokens[:, 1:].to(torch.int64)
+    tm1 = t - 1
+    chunk = min(loss_chunk, tm1)
+    nchunk = -(-tm1 // chunk)
+    pad = nchunk * chunk - tm1
+    inputs = torch.nn.functional.pad(inputs, (0, 0, 0, pad))
+    targets = torch.nn.functional.pad(targets, (0, pad))
+    wmask = torch.nn.functional.pad(
+        torch.ones((b, tm1), dtype=torch.float32, device=h.device), (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nchunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_nll, params, cfg, inputs[:, sl],
+                                   targets[:, sl], wmask[:, sl],
+                                   use_reentrant=False)
+    return total / (b * tm1) + aux_weight * aux
 
 
 # --------------------------------------------------------------------------- #

@@ -13,8 +13,12 @@ bit-equal to the plain versions; K3 within rtol
 1e-5 (float32 sums in another order) and bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
 update keeps the plain version's operation order) and y within
 ``WKV6_YTOL`` of max |y| in float32 (64-term sums in another order), plus
-one bf16 rounding in bf16.  One reduced prefill on the card launches K11
-once per rglru layer and K12 once per rwkv layer.  The stacked CNN's
+one bf16 rounding in bf16.  K11's backward must be bit-equal to its plain
+version (a = 1's inf and NaN in place), K12's within ``K12_BWD_TOL`` of
+max |plain in float64| (plus one bf16 ulp for bf16 gradients).  One
+reduced prefill on the card launches K11 once per rglru layer and K12
+once per rwkv layer; a reduced training step launches each twice (remat)
+and its backward once, with gradients within 1e-4 of the CPU's.  The stacked CNN's
 forward and backward on the card are within 1e-4 of the CPU's, and two
 rounds of Figure 9's sparseFedAvg on the card count what the CPU counts.
 Population scale on the card: a HostStore (plain and pipelined) gives the
@@ -563,8 +567,8 @@ def test_launch_counters_count_cuda_launches(cuda_device):
         "l2_norm": 4, "quantize_qr": 2, "compact_slots": 1,
         "compact_code_slots": 1, "quantize_pack_with_uniforms": 1,
         "quantize_pack_keyed": 1, "pack_codes": 2, "unpack_codes": 1,
-        "unpack_qr_values": 1, "rglru_scan": 0, "wkv6_scan": 0,
-        "flash_attention": 0}
+        "unpack_qr_values": 1, "rglru_scan": 0, "rglru_scan_bwd": 0,
+        "wkv6_scan": 0, "wkv6_scan_bwd": 0, "flash_attention": 0}
 
 
 def _device_ops(fn):
@@ -1108,3 +1112,90 @@ def test_availability_weights_on_the_card_match_cpu(cuda_device):
     x = torch.cat([torch.rand(1 << 20, generator=gen) * 40 - 20,
                    (torch.rand(1 << 16, generator=gen) - 0.5) * 1e7])
     assert _same_bits(prng.xla_sin(x.to(cuda_device)).cpu(), prng.xla_sin(x))
+
+
+def _same_bits_or_nan(a, b):
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and _same_bits(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("b,t,d", [(2, 4096, 2560), (2, 333, 2560),
+                                   (1, 37, 2579), (3, 4097, 40), (2, 1, 96)])
+def test_rglru_scan_bwd_bit_equal_to_plain(cuda_device, b, t, d):
+    """K11's backward at recurrentgemma-2b's training shape and on edges
+    (a ragged T against its 16-step batches, D not a multiple of its
+    blocks), with a at 1e-7, 1 - 1e-7 and 1 (inf and NaN where the plain
+    version has them)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b + t + d)
+    x = torch.randn((b, t, d), generator=gen, device=cuda_device)
+    a = torch.rand((b, t, d), generator=gen, device=cuda_device)
+    a[0, :, :8] = 1e-7
+    a[0, :, 8:16] = 1.0 - 1e-7
+    a[-1, :, 16:24] = 1.0
+    x[-1, :3, 16:20] = 0.0
+    dy = torch.randn((b, t, d), generator=gen, device=cuda_device)
+    y, _ = rg.rglru_scan(x, a)
+    got = rg.rglru_scan_bwd(x, a, y, dy)
+    want = ref.rglru_scan_bwd(x, a, y, dy)
+    assert all(_same_bits_or_nan(g, w) for g, w in zip(got, want))
+
+
+# K12's backward against its plain version run in float64, per gradient:
+# |d| <= K12_BWD_TOL * max |plain| (+ one bf16 ulp of plain for bf16
+# gradients), as chip_smoke.py states it
+K12_BWD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,h,t,dtype", [
+    (2, 40, 4096, torch.bfloat16), (2, 40, 4096, torch.float32),
+    (1, 3, 1, torch.bfloat16), (2, 3, 9, torch.float32),
+    (1, 2, 65, torch.bfloat16)])
+def test_wkv6_scan_bwd_matches_plain(cuda_device, b, h, t, dtype):
+    """K12's backward at rwkv6-3b's training shape and on ragged tails of
+    its 8-step checkpoints, w at 1e-7 and 1 - 1e-7 (``_wkv6_inputs``); r,
+    k, v and dy in ``dtype``, the gradients at the inputs' dtypes."""
+    args = _wkv6_inputs(b, h, t, cuda_device, 200 + t, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    dy = torch.randn((b, h, t, 64), generator=gen, device=cuda_device).to(dtype)
+    got = wkv6.wkv6_scan_bwd(*args, dy)
+    want = ref.wkv6_scan_bwd(*(z.double() for z in args + (dy,)),
+                             dtype=torch.float64)
+    for g, w, z in zip(got, want, args):
+        assert g.dtype == z.dtype and g.shape == z.shape
+        tol = K12_BWD_TOL * float(w.abs().max())
+        if g.dtype == torch.bfloat16:
+            _, e = torch.frexp(w.float())
+            tol = tol + torch.ldexp(torch.ones_like(w), e - 8)
+        assert bool(((g.double() - w).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("arch,fwd,bwd", [
+    ("rwkv6-3b", "wkv6_scan", "wkv6_scan_bwd"),
+    ("recurrentgemma-2b", "rglru_scan", "rglru_scan_bwd")])
+def test_reduced_training_step_launches_the_backward_kernels(
+        cuda_device, arch, fwd, bwd):
+    """The reduced model's loss and gradients on the card (float32): each
+    recurrent layer launches its forward kernel twice (the forward and
+    the remat recompute) and its backward kernel once; the gradients
+    within 1e-4 of max |CPU gradient| of the CPU's (plain versions)."""
+    from repro_torch import tree as tree_util
+
+    m = reduced(get_spec(arch)).model
+    params = tfm.init_params(m, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, m.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    layers = sum(m.block_type(i) == {"wkv6_scan": "rwkv",
+                                     "rglru_scan": "rglru"}[fwd]
+                 for i in range(m.n_layers))
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        live = [p.detach().to(dev).requires_grad_()
+                for p in tree_util.leaves(params)]
+        ops.reset_launch_counts()
+        loss = tfm.loss(tree_util.unflatten(params, live), m, toks.to(dev),
+                        loss_chunk=16)
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(loss, live)]
+    counts = ops.launch_counts()
+    assert counts[fwd] == 2 * layers and counts[bwd] == layers
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())

@@ -362,16 +362,18 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.pack_codes(torch.zeros((3, 256), dtype=torch.int32), 5)
     ops.topk_qr_slots(x, 10, 10, 4, keys)
     xs = torch.from_numpy(_rows(11, 2, 3 * 64)).reshape(2, 3, 64)
-    ops.rglru_scan(xs, torch.sigmoid(xs))
+    ys, _ = ops.rglru_scan(xs.requires_grad_(), torch.sigmoid(xs))
     r4 = xs.reshape(1, 2, 3, 64)
-    ops.wkv6_scan(r4, r4, r4, torch.sigmoid(r4), torch.zeros(2, 64))
+    yw, _ = ops.wkv6_scan(r4, r4, r4, torch.sigmoid(r4), torch.zeros(2, 64))
+    (ys.sum() + yw.sum()).backward()            # the two backward wrappers
     ops.mha_attention(r4, r4, r4, window=2, softcap=5.0)
     assert set(ops.launch_counts()) == {
         "topk_threshold_bits", "topk_mask", "topk_threshold_mask", "l2_norm",
         "quantize_qr",
         "compact_slots", "compact_code_slots", "quantize_pack_with_uniforms",
         "quantize_pack_keyed", "pack_codes", "unpack_codes",
-        "unpack_qr_values", "rglru_scan", "wkv6_scan", "flash_attention"}
+        "unpack_qr_values", "rglru_scan", "rglru_scan_bwd", "wkv6_scan",
+        "wkv6_scan_bwd", "flash_attention"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 

@@ -550,11 +550,13 @@ def test_other_families_options_are_not_ported(option, value):
 
 
 def test_training_and_other_families_are_not_ported():
+    """Training is ported; its prefix embeddings and M-RoPE positions,
+    like the other families' options, still raise."""
     _, m = _configs("rwkv6-3b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.loss({}, m, None)
+        tfm.loss({}, m, None, prefix_embeds=torch.zeros((1, 2, 128)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.forward_hidden({}, m, None)
+        tfm.forward_hidden({}, m, None, positions3=torch.zeros((1, 3, 2)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.prefill({}, dataclasses.replace(m, mrope_sections=(16, 8, 8)),
                     torch.zeros((1, 2), dtype=torch.int64), 4)
