@@ -244,7 +244,10 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    on edges (a = 1's inf and NaN, ragged T, D % 64 != 0), and K12's
    backward (``csrc/wkv6_bwd.cu``) within ``K12_BWD_TOL`` of its plain
    version run in float64 at rwkv6-3b's (2, 40, 4096, 64) with r/k/v in
-   bf16 and in f32, w held at 1e-7 and 1 - 1e-7, T = 1, 9, 65; both timed
+   bf16 and in f32, w held at 1e-7 and 1 - 1e-7, T = 1, 9, 65, the
+   bf16 route's chunk edges T = 15, 16, 17 and 4095 with w exactly 0 on
+   whole heads, dy contiguous and dy rows off 16-byte alignment (K11
+   also at B = 1, D = 2560, its fewest warps); both timed
    beside their plain versions and bounds at that shape and at the scans'
    large one; (b) one rglru block's and one rwkv time-mix's gradients at
    full width, float32, T = ``BLOCK_T``, the card against the CPU within
@@ -2466,7 +2469,8 @@ def backward_kernels_phase(torch, dev, recs) -> None:
              ("edges (a = 1e-7, 1 - 1e-7, 1)", edge),
              ("T=1", rglru_inputs(2, 1, 2560)),
              ("T=37 D=2579 B=1", rglru_inputs(1, 37, 2579)),
-             ("T=4097 D=40 B=3", rglru_inputs(3, 4097, 40))]
+             ("T=4097 D=40 B=3", rglru_inputs(3, 4097, 40)),
+             ("B=1 D=2560 (fewest warps)", rglru_inputs(1, 4096, 2560))]
     for label, args in cases:
         got = rg.rglru_scan_bwd(*args)
         want = ref.rglru_scan_bwd(*args)
@@ -2523,11 +2527,26 @@ def backward_kernels_phase(torch, dev, recs) -> None:
              ("w = 1e-7 and 1 - 1e-7 on whole heads", held)]
     cases += [(f"T={tt}", wkv6_inputs(1, 3, tt, torch.bfloat16))
               for tt in (1, 9, 65)]
+    # the chunked route's 16-step chunk edges, w exactly 0 on whole heads,
+    # dy as a (B, H, T, 64) tensor and as a view whose rows are not
+    # 16-byte aligned (the wrapper copies it)
+    forget = wkv6_inputs(2, 4, 4095, torch.bfloat16)
+    forget[3][0, :2] = 0.0
+    forget[3][1, 3] = 0.0
+    dense_dy = wkv6_inputs(1, 3, 100, torch.bfloat16)
+    odd = torch.randn((1, 3, 100, 65), generator=gen, device=dev).to(
+        torch.bfloat16)[..., 1:]
+    cases += [(f"T={tt}", wkv6_inputs(1, 3, tt, torch.bfloat16))
+              for tt in (15, 16, 17)]
+    cases += [("T=4095, w = 0 on whole heads", forget),
+              ("dy (B, H, T, 64) contiguous",
+               (*dense_dy[:5], dense_dy[5].contiguous())),
+              ("dy rows off 16-byte alignment", (*dense_dy[:5], odd))]
     worst = max(k12_case(label, args) for label, args in cases)
     print(f"[train] K12 backward within {K12_BWD_TOL} max |plain in float64| "
           f"(+ one bf16 ulp for bf16 gradients) on {len(cases)} cases, r/k/v "
           f"in bf16 and f32; worst |d| / tolerance {worst!r}", flush=True)
-    del cases, held
+    del cases, held, forget, dense_dy, odd
     torch.cuda.empty_cache()
 
     for tag, shapes, iters, plain_iters, warm in (

@@ -51,7 +51,7 @@
 // The backward (rglru_back, entry rglru_scan_bwd) replaces no TPU kernel:
 // the JAX package differentiates the two-level scan of
 // src/repro/kernels/ref.py:rglru_scan under jax.vjp.  It is one reverse
-// pass over T with the same layout (two-warp blocks, a channel a lane):
+// pass over T, a channel a lane:
 //
 //     g_t  = dy_t + a_{t+1} g_{t+1}
 //     dx_t = beta_t g_t,   beta = sqrt(max(1 - a^2, 0))
@@ -60,12 +60,37 @@
 // (m: max's share of the cotangent, 1 above the tie, 0.5 at 1 - a^2 == 0,
 // 0 below, as jax.vjp takes it), reading x, a, y (the forward's h) and dy
 // and writing dx and da: 24 bytes an element, 503 MB at recurrentgemma-
-// 2b's training shape (2, 4096, 2560), 0.15 ms at 3.35 TB/s.  Each thread
-// loads a batch of kBwdU steps of its four inputs at once, then runs them
-// from the last; 0.5 / beta is taken as (1 / beta) * 0.5, as the plain
-// version's torch expression computes it (equal for every beta in (0, 1]).
-// Under --fmad=false and in the plain version's (kernels/ref.py:
-// rglru_scan_bwd) operation order, dx and da are bit-equal to it.
+// 2b's training shape (2, 4096, 2560), 0.15 ms at 3.35 TB/s.  That shape
+// has only 5120 channels, and the first design (two-warp blocks, a
+// channel a lane, on 80 SMs) took 0.685 ms: not for bytes but for each
+// channel's chain of 4096 steps, every step an IEEE sqrt and reciprocal
+// (each with its slow-path branch, which stops the compiler overlapping
+// steps) and a store branch.  So:
+//   * a step splits in two (rglru_back_pre, rglru_back_step): beta,
+//     0.5 / beta and max's share depend only on a_t, and for a batch of
+//     kBwdU steps all 32 lanes compute them for the warp's C channels (U C
+//     / 32 each) into shared memory; then C lanes run their channel's
+//     chain over the batch, which has no branch a step: the carry's two
+//     operations a step are the only serial ones;
+//   * up to 12 warps of 32 channels an SM (the training shape has 1.2) a
+//     warp takes C = 8 channels (640 one-warp blocks at the training
+//     shape, each lane computing 4 of a batch's pre-values), past it (the
+//     large shape (32, 4096, 2560) has 19.4) C = 32, where issue slots are
+//     what is short;
+//   * each warp keeps a ring of kBwdDepth = 4 batches in shared memory
+//     (x, a, h_{t-1} and dy, 16 C bytes a step), filled by cp.async three
+//     batches ahead of the one it runs;
+//   * with D % 4 == 0 and 16-byte aligned tensors a lane copies 16 bytes,
+//     else 4; loads carry an L2 evict-first policy, stores stream (nothing
+//     is read twice).
+// Any B, T and D run: a ragged T's last batch is zero-filled past T and
+// its missing steps skipped, lanes past D copy nothing and store nothing.
+// tools/k11_k12_bwd_ablation.py times the choices (PERF.md).
+// 0.5 / beta is taken as (1 / beta) * 0.5, as the plain version's torch
+// expression computes it (equal for every beta in (0, 1]).  Under
+// --fmad=false and in the plain version's (kernels/ref.py:
+// rglru_scan_bwd) operation order, one channel's steps in reverse order,
+// dx and da are bit-equal to it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -176,64 +201,159 @@ int launch(const float* x, const float* a, int B, int T, int D, float* y, float*
   return (int)cudaGetLastError();
 }
 
-// One reverse step of the backward; carry holds a_{t+1} g_{t+1}.
+// One reverse step of the backward, in two parts.  The first depends only
+// on a_t: beta, 0.5 / beta (taken as (1 / beta) * 0.5) and max's share;
+// the second carries the chain (carry holds a_{t+1} g_{t+1}).  Each
+// operation and its order are those of ref.rglru_scan_bwd.
+__device__ __forceinline__ void rglru_back_pre(float a, float& beta, float& rb,
+                                               float& share) {
+  const float m = 1.0f - a * a;
+  beta = sqrtf(fmaxf(m, 0.0f));
+  share = m > 0.0f ? 1.0f : (m == 0.0f ? 0.5f : 0.0f);
+  rb = (1.0f / beta) * 0.5f;
+}
+
 __device__ __forceinline__ void rglru_back_step(float dy, float x, float a, float h_prev,
+                                                float beta, float rb, float share,
                                                 float& carry, float& dx, float& da) {
   const float g = dy + carry;
-  const float m = 1.0f - a * a;
-  const float beta = sqrtf(fmaxf(m, 0.0f));
-  const float share = m > 0.0f ? 1.0f : (m == 0.0f ? 0.5f : 0.0f);
   dx = beta * g;
-  const float dbeta = ((g * x) * ((1.0f / beta) * 0.5f)) * share;
+  const float dbeta = ((g * x) * rb) * share;
   da = g * h_prev + (-dbeta) * (2.0f * a);
   carry = a * g;
 }
 
-constexpr int kBwdU = 16;                   // steps a thread loads at once
+constexpr int kBwdU = 16;                   // steps a batch
+// Up to kBwdFewWarps warps of 32 channels, kBwdFewC channels a warp; past
+// it, kBwdManyC; each warp's ring kBwdDepth batches deep
+// (tools/k11_k12_bwd_ablation.py builds the other choices)
+constexpr int kBwdFewWarps = kSms * kFewWarpsPerSm;
+constexpr int kBwdFewC = 8;
+constexpr int kBwdManyC = 32;
+constexpr int kBwdDepth = 4;
 
-// grid: (ceil(D / (32 kWarps)), B); block: 32 kWarps threads, a channel each.
-__global__ void __launch_bounds__(32 * kWarps)
+__device__ __forceinline__ unsigned long long evict_first_policy() {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok,
+                                         unsigned long long policy) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0), "l"(policy));
+  else
+    asm volatile("cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2, %3;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0), "l"(policy));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// grid: (ceil(D / C), B); block: one warp, channels d0 .. d0 + C - 1.
+// ring[slot][0..3][i][c]: x, a, h_{t-1} (y one step back, 0 at t = 0) and
+// dy of step t0 + i and channel d0 + c of the batch in that slot.  Each
+// batch runs in two phases: every lane takes U C / 32 of its (step,
+// channel) entries through rglru_back_pre (beta, rb, share into shared
+// memory), then lanes 0 .. C - 1 run their channel's chain over its U
+// steps from the last.  VEC: 16-byte copies (D % 4 == 0, 16-byte aligned
+// tensors), else 4-byte ones.
+template <int C, bool VEC>
+__global__ void __launch_bounds__(32)
 rglru_back(const float* __restrict__ x, const float* __restrict__ a,
            const float* __restrict__ y, const float* __restrict__ dy, int T, int D,
            float* __restrict__ dx, float* __restrict__ da) {
-  const int d = blockIdx.x * (32 * kWarps) + threadIdx.x;
-  if (d >= D) return;
-  const long long base = (long long)blockIdx.y * T * D + d;
-  x += base;
-  a += base;
-  y += base;
-  dy += base;
-  dx += base;
-  da += base;
+  static_assert(C % 4 == 0 && C <= 32 && kBwdU * C % 32 == 0, "channels a warp");
+  __shared__ __align__(16) float ring[kBwdDepth][4][kBwdU][C];
+  __shared__ float pre[3][kBwdU][C];        // beta, rb, share
+  const int lane = threadIdx.x;
+  const int d0 = blockIdx.x * C;
+  const long long row0 = (long long)blockIdx.y * T * D;
+  const int nb = (T + kBwdU - 1) / kBwdU;
+  const unsigned long long policy = evict_first_policy();
+  const float* src[4] = {x, a, y, dy};
+
+  // batch jb (steps jb U .. jb U + U - 1) into ring slot `slot`; steps
+  // past T, channels past D and batches before the first (jb < 0) are
+  // zero-filled
+  auto load = [&](int slot, int jb) {
+    const int t0 = jb * kBwdU;
+    constexpr int kWidth = VEC ? 4 : 1;     // floats a copy
+    constexpr int kRow = C / kWidth;        // copies a step row
+#pragma unroll
+    for (int arr = 0; arr < 4; ++arr)
+#pragma unroll
+      for (int m = 0; m < kBwdU * kRow / 32; ++m) {
+        const int e = lane + 32 * m;
+        const int i = e / kRow, c = (e - i * kRow) * kWidth;
+        const int t = t0 + i - (arr == 2);  // y: h_{t-1}
+        const bool ok = jb >= 0 && t0 + i < T && t >= 0 && d0 + c < D;
+        cp_async<4 * kWidth>(&ring[slot][arr][i][c],
+                             src[arr] + (ok ? row0 + (long long)t * D + d0 + c : 0), ok,
+                             policy);
+      }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kBwdDepth - 1; ++s) {
+    load(s, nb - 1 - s);
+    cp_async_commit();
+  }
   float carry = 0.0f;
-  const int whole = T - T % kBwdU;
-  for (int t = T - 1; t >= whole; --t) {     // a ragged T's last steps first
-    const long long o = (long long)t * D;
-    const float h_prev = t > 0 ? __ldcs(y + o - D) : 0.0f;
-    float dxv, dav;
-    rglru_back_step(__ldcs(dy + o), __ldcs(x + o), __ldcs(a + o), h_prev, carry, dxv, dav);
-    __stcs(dx + o, dxv);
-    __stcs(da + o, dav);
-  }
-  for (int t0 = whole - kBwdU; t0 >= 0; t0 -= kBwdU) {
-    float xs[kBwdU], as[kBwdU], gs[kBwdU], hs[kBwdU];
+  for (int idx = 0; idx < nb; ++idx) {
+    const int jb = nb - 1 - idx;
+    const int slot = idx % kBwdDepth;
+    cp_async_wait<kBwdDepth - 2>();
+    __syncwarp();       // batch jb is in; the slot refilled next and pre are read
+    load((idx + kBwdDepth - 1) % kBwdDepth, jb - (kBwdDepth - 1));
+    cp_async_commit();
 #pragma unroll
-    for (int i = 0; i < kBwdU; ++i) {
-      const long long o = (long long)(t0 + i) * D;
-      xs[i] = __ldcs(x + o);
-      as[i] = __ldcs(a + o);
-      gs[i] = __ldcs(dy + o);
-      hs[i] = t0 + i > 0 ? __ldcs(y + o - D) : 0.0f;
+    for (int m = 0; m < kBwdU * C / 32; ++m) {
+      const int e = lane + 32 * m;
+      const int i = e / C, c = e - i * C;
+      rglru_back_pre(ring[slot][1][i][c], pre[0][i][c], pre[1][i][c], pre[2][i][c]);
     }
+    __syncwarp();
+    if (lane < C && d0 + lane < D) {
+      // a whole batch runs without a branch a step, so the compiler can
+      // overlap each step's tail with the next steps' chain; only the
+      // first batch walked (the last in time) can be ragged.  Lanes past
+      // C or D have no chain to carry.
+      const int t0 = jb * kBwdU;
+      float* dxp = dx + row0 + (long long)t0 * D + d0 + lane;
+      float* dap = da + row0 + (long long)t0 * D + d0 + lane;
+      auto step = [&](int i) {
+        float dxv, dav;
+        rglru_back_step(ring[slot][3][i][lane], ring[slot][0][i][lane],
+                        ring[slot][1][i][lane], ring[slot][2][i][lane], pre[0][i][lane],
+                        pre[1][i][lane], pre[2][i][lane], carry, dxv, dav);
+        __stcs(dxp + (long long)i * D, dxv);
+        __stcs(dap + (long long)i * D, dav);
+      };
+      if (t0 + kBwdU <= T) {
 #pragma unroll
-    for (int i = kBwdU - 1; i >= 0; --i) {
-      const long long o = (long long)(t0 + i) * D;
-      float dxv, dav;
-      rglru_back_step(gs[i], xs[i], as[i], hs[i], carry, dxv, dav);
-      __stcs(dx + o, dxv);
-      __stcs(da + o, dav);
+        for (int i = kBwdU - 1; i >= 0; --i) step(i);
+      } else {
+        for (int i = T - t0 - 1; i >= 0; --i) step(i);
+      }
     }
   }
+  cp_async_wait<0>();
+}
+
+template <int C, bool VEC>
+int launch_back(const float* x, const float* a, const float* y, const float* dy, int B,
+                int T, int D, float* dx, float* da, cudaStream_t stream) {
+  const dim3 grid((unsigned)((D + C - 1) / C), (unsigned)B);
+  rglru_back<C, VEC><<<grid, 32, 0, stream>>>(x, a, y, dy, T, D, dx, da);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -263,10 +383,15 @@ int rglru_scan(const float* x, const float* a, int B, int T, int D, float* y,
 int rglru_scan_bwd(const float* x, const float* a, const float* y, const float* dy, int B,
                    int T, int D, float* dx, float* da, void* stream_ptr) {
   if (B < 1 || B > 65535 || T < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  const int per_block = 32 * kWarps;
-  const dim3 grid((unsigned)((D + per_block - 1) / per_block), (unsigned)B);
-  rglru_back<<<grid, per_block, 0, (cudaStream_t)stream_ptr>>>(x, a, y, dy, T, D, dx, da);
-  return (int)cudaGetLastError();
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const bool vec = D % 4 == 0 &&
+                   (((uintptr_t)x | (uintptr_t)a | (uintptr_t)y | (uintptr_t)dy) & 15) == 0;
+  const bool few = (long long)B * ((D + 31) / 32) <= kBwdFewWarps;
+  if (vec)
+    return few ? launch_back<kBwdFewC, true>(x, a, y, dy, B, T, D, dx, da, stream)
+               : launch_back<kBwdManyC, true>(x, a, y, dy, B, T, D, dx, da, stream);
+  return few ? launch_back<kBwdFewC, false>(x, a, y, dy, B, T, D, dx, da, stream)
+             : launch_back<kBwdManyC, false>(x, a, y, dy, B, T, D, dx, da, stream);
 }
 
 }  // extern "C"

@@ -73,9 +73,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wkv6_chunk.cuh"
+
 namespace {
 
-constexpr int kHead = 64;   // K = V = 64, the only head size the models use
+using namespace wkv6_chunk;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
@@ -145,12 +147,10 @@ wkv6_fwd(const T* __restrict__ r, const T* __restrict__ k,
 
 // ---- bf16: the chunked scan -------------------------------------------- //
 
-constexpr int kL = 16;          // steps a chunk
 constexpr int kStages = 4;      // cp.async ring depth (chunks)
 constexpr int kCThreads = 256;  // 8 warps
 constexpr int kRtLd = 72;       // padded row strides (elements) of the tiles
 constexpr int kKtLd = 24;
-constexpr int kALd = 24;
 constexpr int kVtLd = 24;
 constexpr int kYLd = 20;
 
@@ -171,39 +171,6 @@ struct ChunkSmem {
   float u[kHead];
   float ypart[4][kL][kYLd];        // y over i in 32..63, by value block
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d += a * b, m16n8k16, bf16 operands, float32 accumulators.
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b, m16n8k8, TF32 operands, float32 accumulators.
-__device__ __forceinline__ void mma1688(float (&d)[4], const unsigned (&a)[4],
-                                        unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // x -> TF32 hi and lo with x ~= hi + lo (22 significant bits).
 __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
@@ -227,20 +194,6 @@ __device__ __forceinline__ void split2(float x0, float x1, unsigned& hi, unsigne
 __device__ __forceinline__ void split_pair(const float* p, unsigned& hi, unsigned& lo) {
   const float2 x = *reinterpret_cast<const float2*>(p);
   split2(x.x, x.y, hi, lo);
-}
-
-// One round of a reduce-scatter over the lanes that differ in bit M: the
-// lane with that bit clear keeps the sums of part[0 .. HALF), the other
-// those of part[HALF .. 2 HALF), both moved to part[0 .. HALF).
-template <int HALF, int M>
-__device__ __forceinline__ void reduce_scatter_half(float* part, int lane) {
-  const bool upper = (lane & M) != 0;
-#pragma unroll
-  for (int j = 0; j < HALF; ++j) {
-    const float send = upper ? part[j] : part[j + HALF];
-    const float keep = upper ? part[j + HALF] : part[j];
-    part[j] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, M);
-  }
 }
 
 // Stages chunk `c` (steps 16c .. 16c+15) of this (b, h) into ring slot
@@ -274,7 +227,6 @@ __device__ __forceinline__ void load_chunk(ChunkSmem& sm, int slot, int c, int T
 // Chunk c's operands in float32 from its staged r, k, v, w (ring slot
 // `slot`, tc valid steps): R~ = r * P, K~^T = (k * Q)^T, D, v^T and A.
 __device__ __forceinline__ void prep_chunk(ChunkSmem& sm, int slot, int tc, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
   if (tid >= 2 * kHead) {
     // warps 4-7, whose share of A below is the smallest: threads 128-191
     // P_t (exclusive prefix) and D of channel i, 192-255 Q_s (exclusive
@@ -310,66 +262,7 @@ __device__ __forceinline__ void prep_chunk(ChunkSmem& sm, int slot, int tc, int 
       sm.vt[j][s] = sm.v[slot][s][j];
     }
   }
-  // A: thread (s, channels 4*ig .. 4*ig+3) carries k_s decayed to step t
-  // (mk) and forms its 4-channel part of A[t][s] for every t; warp w holds
-  // s = 2w, 2w + 1, so its t starts at 2w.  The parts are summed over the
-  // 16 lanes of an s by a reduce-scatter (15 shuffles), after which lane
-  // ig holds A[ig][s].
-  const int s = tid >> 4, ig = tid & 15;
-  float ks[4], uk[4], mk[4], part[kL];
-  {
-    const uint2 kraw = *reinterpret_cast<const uint2*>(&sm.k[slot][s][4 * ig]);
-    const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(&kraw);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float2 f = __bfloat1622float2(kp[e]);
-      ks[2 * e] = f.x;
-      ks[2 * e + 1] = f.y;
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    uk[e] = sm.u[4 * ig + e] * ks[e];
-    mk[e] = 0.0f;
-  }
-#pragma unroll
-  for (int t = 0; t < kL; ++t) {
-    part[t] = 0.0f;
-    if (t >= 2 * warp) {          // the same for the warp
-      float rr[4];
-      const uint2 rraw = *reinterpret_cast<const uint2*>(&sm.r[slot][t][4 * ig]);
-      const __nv_bfloat162* rp = reinterpret_cast<const __nv_bfloat162*>(&rraw);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float2 f = __bfloat1622float2(rp[e]);
-        rr[2 * e] = f.x;
-        rr[2 * e + 1] = f.y;
-      }
-      const float4 w4 = *reinterpret_cast<const float4*>(&sm.w[slot][t][4 * ig]);
-      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-      float acc = 0.0f;
-      if (t < 2 * warp + 2) {     // t meets the warp's own s: the diagonal
-        const bool diag = t == s;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc = fmaf(rr[e], diag ? uk[e] : mk[e], acc);
-        // k_s enters at t = s; w_t decays it for t + 1 (a ragged tail's
-        // zero-filled w only reaches rows whose r is 0)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mk[e] = diag ? ks[e] : mk[e] * wv[e];
-      } else {                    // t > s for every lane of the warp
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc = fmaf(rr[e], mk[e], acc);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mk[e] *= wv[e];
-      }
-      part[t] = acc;
-    }
-  }
-  reduce_scatter_half<8, 8>(part, lane);
-  reduce_scatter_half<4, 4>(part, lane);
-  reduce_scatter_half<2, 2>(part, lane);
-  reduce_scatter_half<1, 1>(part, lane);
-  sm.a[ig][s] = part[0];
+  chunk_a<kHead>(sm.r[slot], sm.k[slot], sm.w[slot], sm.u, sm.a, tid);
 }
 
 // grid: B*H blocks (block = b*H + h); block: kCThreads; dynamic shared

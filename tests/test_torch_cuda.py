@@ -1120,7 +1120,8 @@ def _same_bits_or_nan(a, b):
 
 
 @pytest.mark.parametrize("b,t,d", [(2, 4096, 2560), (2, 333, 2560),
-                                   (1, 37, 2579), (3, 4097, 40), (2, 1, 96)])
+                                   (1, 37, 2579), (3, 4097, 40), (2, 1, 96),
+                                   (1, 4096, 2560)])
 def test_rglru_scan_bwd_bit_equal_to_plain(cuda_device, b, t, d):
     """K11's backward at recurrentgemma-2b's training shape and on edges
     (a ragged T against its 16-step batches, D not a multiple of its
@@ -1157,7 +1158,10 @@ def test_wkv6_scan_bwd_matches_plain(cuda_device, b, h, t, dtype):
     args = _wkv6_inputs(b, h, t, cuda_device, 200 + t, dtype)
     gen = torch.Generator(device=cuda_device).manual_seed(t)
     dy = torch.randn((b, h, t, 64), generator=gen, device=cuda_device).to(dtype)
-    got = wkv6.wkv6_scan_bwd(*args, dy)
+    _assert_k12_bwd_close(wkv6.wkv6_scan_bwd(*args, dy), args, dy)
+
+
+def _assert_k12_bwd_close(got, args, dy):
     want = ref.wkv6_scan_bwd(*(z.double() for z in args + (dy,)),
                              dtype=torch.float64)
     for g, w, z in zip(got, want, args):
@@ -1167,6 +1171,35 @@ def test_wkv6_scan_bwd_matches_plain(cuda_device, b, h, t, dtype):
             _, e = torch.frexp(w.float())
             tol = tol + torch.ldexp(torch.ones_like(w), e - 8)
         assert bool(((g.double() - w).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("t", [15, 16, 17, 4095])
+def test_wkv6_scan_bwd_chunk_edges_and_forgetting_heads(cuda_device, t):
+    """The bf16 route's 16-step chunks: one short of a chunk, exactly one,
+    one past, and 4095 steps; w exactly 0 on whole heads (besides
+    ``_wkv6_inputs``' 1e-7 and 1 - 1e-7), dy a transposed (B, T, H, 64)
+    view as y's gradient arrives."""
+    args = _wkv6_inputs(2, 3, t, cuda_device, 300 + t, torch.bfloat16)
+    args[3][0, 1] = 0.0
+    args[3][1, 0] = 0.0
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    dy = torch.randn((2, t, 3, 64), generator=gen,
+                     device=cuda_device).to(torch.bfloat16).transpose(1, 2)
+    _assert_k12_bwd_close(wkv6.wkv6_scan_bwd(*args, dy), args, dy)
+
+
+def test_wkv6_scan_bwd_copies_a_misaligned_dy(cuda_device):
+    """dy whose rows are not 16-byte aligned (a slice of a wider tensor):
+    the bf16 route copies it first and gives the same gradients."""
+    args = _wkv6_inputs(1, 2, 50, cuda_device, 5, torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    wide = torch.randn((1, 2, 50, 65), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    dy = wide[..., 1:]
+    got = wkv6.wkv6_scan_bwd(*args, dy)
+    _assert_k12_bwd_close(got, args, dy)
+    for g, c in zip(got, wkv6.wkv6_scan_bwd(*args, dy.contiguous())):
+        assert torch.equal(g, c)
 
 
 @pytest.mark.parametrize("arch,fwd,bwd", [

@@ -21,7 +21,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 ARCHS = ("rwkv6-3b", "recurrentgemma-2b")
 SCAN_KERNELS = ("rglru_slabs", "rglru_back", "wkv6_fwd", "wkv6_chunked_bf16",
-                "wkv6_back")
+                "wkv6_back", "wkv6_bwd_states", "wkv6_bwd_chunks")
 
 
 def group(name: str) -> str:
