@@ -238,7 +238,11 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (``CPU_CHECK_LAYERS``: one block pattern each, gemma3's 6 layers
    included), float32 with TF32 off, batch 2, prompt 128, 4 decode steps,
    the same weights on the card and on the CPU: logits within
-   ``CPU_LOGIT_TOL`` and greedy tokens equal;
+   ``CPU_LOGIT_TOL`` and greedy tokens equal; then (``CPU_CHECK_MM``)
+   qwen2-vl-7b with 16 seeded prefix embeddings on a vision grid
+   (``grid_positions3``: t, h and w ids that differ) and its decode steps
+   continuing the text ids, and seamless-m4t-large-v2 on 128 seeded
+   source frames with a target prefix of 4, held the same way;
 15. train — (a) K11's backward (``csrc/rglru_scan.cu``) bit-equal to its
    plain version at recurrentgemma-2b's training shape (2, 4096, 2560) and
    on edges (a = 1's inf and NaN, ragged T, D % 64 != 0), and K12's
@@ -257,14 +261,30 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    one fixed ``make_lm_tokens`` batch: every loss finite, the last below
    the first, and each step launching the forward kernels twice a layer
    (remat) and the backward kernels once (``TRAIN_SHAPES``); ms a step,
-   tokens/s and peak memory printed; (d) ``build_fed_round`` on rwkv6-3b at
+   tokens/s and peak memory printed; the same for seamless-m4t-large-v2
+   at full width and depth (2048 seeded bf16 source frames + 2048 target
+   tokens) and qwen2-vl-7b at full width with ``TRAIN_LAYERS`` of its 28
+   layers (256 seeded bf16 prefix embeddings + 3840 tokens), neither
+   launching a kernel; (d) ``build_fed_round`` on rwkv6-3b at
    full width, ``FED_CLIENTS`` stacked clients, ``FED_LOCAL_STEPS`` local
    steps, one round each with TopK(quantile, 0.1), Q_r(8) and the int8
-   sync (r = 7): finite losses and ``comm_bits`` equal to the closed form
+   sync (r = 7), then seamless-m4t-large-v2's Q_r(8) round (seq 1024: 512
+   frames + 512 tokens a client): finite losses and ``comm_bits`` equal
+   to the closed form
    (TopK: the payloads' nnz times 16 + 32 bits; Q_r: 9 bits a scalar and
    32 a tensor a client; int8: 8 and 32) within the float32 report's
-   rounding (``FED_BITS_ULPS`` an addition); ms a round and peak memory
-   printed.
+   rounding (``FED_BITS_ULPS`` an addition), one K3 and one keyed K4 a
+   leaf in each Q_r round (their launches join the ``kernels`` line); ms
+   a round and peak memory printed;
+16. multimodal serve — qwen2-vl-7b at full width and depth, bf16, batch 4:
+   256 seeded prefix embeddings and 4352 tokens (4608 positions) through
+   ``steps.build_prefill_step``, then 32 greedy decode steps; and
+   seamless-m4t-large-v2 at full width and depth, batch 8, 4096 seeded
+   source frames and a target prefix of 4, through :func:`serve`, 32
+   greedy steps.  The counters set to 0 before the counted run and read
+   after (no launch: attention is ``chunked_attention``); finite logits;
+   the median of ``SERVE_TIMED`` warm prefills and of the per-step decode
+   ms, tokens/s and peak memory printed.
 
 Prints the card's name and power limit, one line per kernel and shape, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -384,6 +404,11 @@ GAP_REL = 0.05
 CPU_LOGIT_TOL = 1e-3
 CPU_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3, "qwen2-7b": 2,
                     "gemma2-9b": 2, "gemma3-4b": 6}
+# qwen2-vl-7b (2 layers) with 16 prefix embeddings on a vision grid of two
+# 2 x 4 frames, and seamless-m4t-large-v2 (2 + 2 layers, 128 source
+# frames, a target prefix of 4), full width, float32, on the same check
+CPU_CHECK_MM = {"qwen2-vl-7b": 2, "seamless-m4t-large-v2": 2}
+CPU_CHECK_PREFIX = 16
 # phase 15 (train).  K12's backward against its plain version run in
 # float64, per gradient: |d| <= K12_BWD_TOL * max |plain| (+ one bf16 ulp
 # of plain where the gradient comes back in bf16, its own rounding): the
@@ -406,14 +431,34 @@ BWD_LARGE = {"K11b": SCAN_LARGE["K11"], "K12b": SCAN_LARGE["K12"]}
 TRAIN_STEPS = 4
 TRAIN_SHAPES = {
     "rwkv6-3b": (2, 4096, {"wkv6_scan": 64, "wkv6_scan_bwd": 32}),
-    "recurrentgemma-2b": (2, 4096, {"rglru_scan": 36, "rglru_scan_bwd": 18})}
-# the one-card fed round on rwkv6-3b: 2 stacked clients of batch 1
+    "recurrentgemma-2b": (2, 4096, {"rglru_scan": 36, "rglru_scan_bwd": 18}),
+    # seq 4096 = 256 prefix embeddings + 3840 tokens; 2048 source frames +
+    # 2048 target tokens.  Their attention is chunked_attention: no kernel
+    "qwen2-vl-7b": (2, 4096, {}),
+    "seamless-m4t-large-v2": (2, 4096, {})}
+# qwen2-vl-7b trains at full width with 8 of its 28 layers: at full depth
+# its ~7.6 B parameters in bf16, their bf16 gradients and Adam's float32 m
+# and v take ~91 GB of the card's 80 (8 layers: ~3.0 B, ~36 GB)
+TRAIN_LAYERS = {"qwen2-vl-7b": 8}
+PREFIX_SCALE = 0.02           # seeded prefix embeddings at the embed's scale
+# the one-card fed round on rwkv6-3b (and, Q_r(8) only, on
+# seamless-m4t-large-v2): 2 stacked clients of batch 1
 FED_SEQ, FED_CLIENTS, FED_LOCAL_STEPS = 1024, 2, 2
 # comm_bits against the closed form: the report is float32, as the
 # reference's is, and past 2^24 bits each of its additions (a leaf's bits
 # into a client's sum, then the clients' and the buckets' sums) rounds
 # once: |comm_bits - closed| <= (leaves + 3) * 2^-24 * closed
 FED_BITS_ULPS = 2.0 ** -24
+
+
+# phase 16 (multimodal serve): qwen2-vl-7b at batch 4 with 256 seeded
+# prefix embeddings and 4352 text tokens (4608 positions, the dense serves'
+# shape) through steps.build_prefill_step, built for 4608 + SERVE_GEN + 1
+# positions so that the decode steps have cache room; seamless-m4t-large-v2
+# at batch 8 on 4096 seeded source frames with a target prefix of 4
+# through serve().  Neither path launches a kernel.
+VLM_SERVE = (4, 256, 4352)            # batch, prefix embeddings, tokens
+ENCDEC_SERVE = (8, 4096, 4)           # batch, source frames, target prefix
 
 
 def card_line() -> str:
@@ -1245,12 +1290,30 @@ def prefill_question(served_rows: dict) -> None:
               f"chunked_attention| on its layers {err!r}", flush=True)
 
 
+def grid_positions3(torch, b: int, npre: int, t_text: int, device,
+                    frames: int = 2, width: int = 4):
+    """(B, 3, npre + t_text) M-RoPE ids: ``npre`` prefix embeddings on
+    ``frames`` temporal frames of an (npre / frames / width, width) grid,
+    then the text at one past the grid's largest id on all three axes."""
+    per = npre // frames
+    tt = torch.arange(frames).repeat_interleave(per)
+    hh = torch.arange(per // width).repeat_interleave(width).repeat(frames)
+    ww = torch.arange(width).repeat(frames * (per // width))
+    start = int(max(tt.max(), hh.max(), ww.max())) + 1
+    text = start + torch.arange(t_text)
+    pos = torch.stack([torch.cat([a, text]) for a in (tt, hh, ww)])
+    return pos.expand(b, 3, npre + t_text).contiguous().to(device)
+
+
 def cuda_vs_cpu_phase(torch, dev) -> None:
-    """Phase 13: full width, reduced depth, float32: the card (kernels)
-    against the CPU (plain versions) on the same weights."""
+    """Phase 14: full width, reduced depth, float32: the card (kernels)
+    against the CPU (plain versions) on the same weights; then
+    qwen2-vl-7b with prefix embeddings and vision-grid M-RoPE ids, and
+    seamless-m4t-large-v2 on seeded source frames."""
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_spec
     from repro_torch.launch import serve
+    from repro_torch.launch.steps import init_params
     from repro_torch.models import transformer as tfm
 
     for arch, n_layers in CPU_CHECK_LAYERS.items():
@@ -1274,6 +1337,63 @@ def cuda_vs_cpu_phase(torch, dev) -> None:
         if not (worst <= CPU_LOGIT_TOL and same):
             raise AssertionError(f"{arch}: CUDA and CPU serving differ")
         del params, cpu_params
+        torch.cuda.empty_cache()
+
+    for arch, n_layers in CPU_CHECK_MM.items():
+        spec = get_spec(arch)
+        if spec.is_encdec:
+            m = dataclasses.replace(spec.model, n_enc_layers=n_layers,
+                                    n_dec_layers=n_layers,
+                                    dtype=torch.float32)
+        else:
+            m = dataclasses.replace(spec.model, n_layers=n_layers,
+                                    dtype=torch.float32)
+        spec = dataclasses.replace(spec, model=m)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = init_params(spec, gen)
+        cpu_params = tree_util.map(lambda t: t.cpu(), params)
+        prompts = serve.prompts_for(m, 2, 128, dev)
+        places = (("cuda", dev, params), ("cpu", torch.device("cpu"),
+                                          cpu_params))
+        runs = {}
+        if spec.is_encdec:
+            src = torch.randn((2, 128, m.d_model), generator=gen, device=dev)
+            what = "128 source frames, target prefix 4"
+            for label, where, p_ in places:
+                res = serve.serve(p_, m, prompts[:, :4].to(where), 4,
+                                  src_embeds=src.to(where))
+                runs[label] = ([res.prefill_logits] + res.logits, res.tokens)
+        else:
+            npre = CPU_CHECK_PREFIX
+            pre = torch.randn((2, npre, m.d_model), generator=gen,
+                              device=dev) * PREFIX_SCALE
+            pos3 = grid_positions3(torch, 2, npre, 128, dev)
+            what = f"{npre} prefix embeddings on a vision grid, 128 tokens"
+            for label, where, p_ in places:
+                logits, st = tfm.prefill(
+                    p_, m, prompts.to(where), npre + 128 + 5,
+                    prefix_embeds=pre.to(where), positions3=pos3.to(where))
+                seen, toks = [logits], []
+                for step in range(4):
+                    tok = logits.argmax(-1)
+                    toks.append(tok)
+                    nxt = int(pos3[0, 0, -1]) + 1 + step
+                    logits, st = tfm.decode_step(
+                        p_, m, tok, st, positions3=torch.full(
+                            (2, 3, 1), nxt, dtype=torch.int64, device=where))
+                    seen.append(logits)
+                runs[label] = (seen, torch.stack(toks, 1))
+        worst = max(float(((g.cpu() - c).abs() / (1 + c.abs())).max())
+                    for g, c in zip(runs["cuda"][0], runs["cpu"][0]))
+        same = torch.equal(runs["cuda"][1].cpu(), runs["cpu"][1])
+        depth = f"{n_layers} layers" + (" a side" if spec.is_encdec else "")
+        print(f"[cuda-vs-cpu] {arch} ({depth}, "
+              f"d {m.d_model}, float32, {what}): max |cuda - cpu| / (1 + "
+              f"|cpu|) over prefill and 4 decode logits {worst!r} (limit "
+              f"{CPU_LOGIT_TOL}); greedy tokens equal {same}", flush=True)
+        if not (worst <= CPU_LOGIT_TOL and same):
+            raise AssertionError(f"{arch}: CUDA and CPU serving differ")
+        del params, cpu_params, runs
         torch.cuda.empty_cache()
 
 
@@ -2631,37 +2751,63 @@ def block_grads_phase(torch, dev) -> None:
               f"{worst!r}", flush=True)
 
 
+def seeded_batch(torch, spec, batch: int, seq: int, dev, seed: int = 0):
+    """One (batch, seq) step's inputs in ``steps.batch_struct``'s layout:
+    ``make_lm_tokens`` rows, seeded bf16 source frames (encoder-decoder)
+    or prefix embeddings at ``PREFIX_SCALE`` (qwen2-vl)."""
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.from_numpy(synthetic.make_lm_tokens(
+        min(spec.model.vocab, 4096), batch, seq, seed=seed)).to(
+            dev, torch.int64)
+    out = {}
+    for name, s_ in steps.batch_struct(spec, batch, seq).items():
+        if s_.dtype == torch.int64:
+            out[name] = toks[:, :s_.shape[1]]
+        else:
+            scale = 1.0 if name == "src_embeds" else PREFIX_SCALE
+            out[name] = (torch.randn(s_.shape, generator=gen, device=dev)
+                         * scale).to(s_.dtype)
+    return out
+
+
 def train_steps_phase(torch, dev, launches) -> None:
     """Phase 15c: rwkv6-3b and recurrentgemma-2b at full width and depth,
-    bf16, Adam (``_optimizer_for``), TRAIN_STEPS steps on one fixed batch
-    through ``steps.build_train_step``; the counters set to 0 before each
-    step and read after."""
+    seamless-m4t-large-v2 too and qwen2-vl-7b at full width with
+    ``TRAIN_LAYERS`` layers, bf16, Adam (``_optimizer_for``), TRAIN_STEPS
+    steps on one fixed batch through ``steps.build_train_step``; the
+    counters set to 0 before each step and read after."""
+    from repro_torch import tree as tree_util
     from repro_torch.configs import get_spec
     from repro_torch.configs.base import SHAPES, InputShape
-    from repro_torch.data import synthetic
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
-    from repro_torch.models import transformer as tfm
     from repro_torch.optim import optimizers
 
     for arch, (batch, seq, want) in TRAIN_SHAPES.items():
         spec = get_spec(arch)
-        m = spec.model
+        depth = "full width and depth"
+        if arch in TRAIN_LAYERS:
+            spec = dataclasses.replace(spec, model=dataclasses.replace(
+                spec.model, n_layers=TRAIN_LAYERS[arch]))
+            depth = (f"full width, {TRAIN_LAYERS[arch]} of "
+                     f"{get_spec(arch).model.n_layers} layers")
         shape = InputShape(f"{SHAPES['train_4k'].name}, batch {batch}", seq,
                            batch, "train")
         bundle = steps.build_train_step(spec, shape)
-        params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0))
+        params = steps.init_params(spec,
+                                   torch.Generator(device=dev).manual_seed(0))
         opt_state = optimizers.make(*steps._optimizer_for(spec))[0](params)
-        toks = torch.from_numpy(synthetic.make_lm_tokens(
-            min(m.vocab, 4096), batch, seq, seed=0)).to(dev, torch.int64)
+        data = seeded_batch(torch, spec, batch, seq, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses, secs = [], []
         for i in range(TRAIN_STEPS):
             ops.reset_launch_counts()
             t0 = time.perf_counter()
-            params, opt_state, loss = bundle.fn(params, opt_state,
-                                                {"tokens": toks})
+            params, opt_state, loss = bundle.fn(params, opt_state, data)
             losses.append(float(loss))             # synchronises
             secs.append(time.perf_counter() - t0)
             got = {k: v for k, v in ops.launch_counts().items() if v}
@@ -2678,49 +2824,52 @@ def train_steps_phase(torch, dev, launches) -> None:
             raise AssertionError(f"{arch}: losses {losses} (finite, falling "
                                  f"from step 1 to {TRAIN_STEPS} expected)")
         steady = statistics.median(secs[1:]) * 1e3
-        print(f"[train] {arch} (full width and depth, bf16, Adam "
-              f"{steps._optimizer_for(spec)[1]}, batch {batch}, seq {seq}): "
+        n_params = sum(x.numel() for x in tree_util.leaves(params))
+        print(f"[train] {arch} ({depth}, {n_params} params, "
+              f"{str(spec.model.dtype).split('.')[-1]}, Adam "
+              f"{steps._optimizer_for(spec)[1]}, batch {batch}, seq {seq}, "
+              f"inputs {list(data)}): "
               f"losses {losses!r}; ms a step {[x * 1e3 for x in secs]!r}, "
               f"steady (median of steps 2-{TRAIN_STEPS}) {steady!r}, "
               f"tokens/s {batch * seq / steady * 1e3!r}; peak memory {peak} "
               f"B; launches a step {want}", flush=True)
-        del params, opt_state, bundle
+        del params, opt_state, bundle, data
         torch.cuda.empty_cache()
 
 
-def fed_round_phase(torch, dev) -> None:
-    """Phase 15d: ``build_fed_round`` on rwkv6-3b at full width and depth:
+def fed_round_phase(torch, dev, launches, arch: str = "rwkv6-3b",
+                    only=None) -> None:
+    """Phase 15d: ``build_fed_round`` on ``arch`` at full width and depth:
     FED_CLIENTS stacked clients, FED_LOCAL_STEPS local steps, the default
     gamma and p, one round each with TopK(quantile, 0.1), Q_r(8) (K3 and
-    the keyed K4 on every leaf) and the int8 sync (r = 7)."""
+    the keyed K4 on every leaf) and the int8 sync (r = 7), or the runs
+    named in ``only``.  Each run's launches join ``launches``."""
     from repro_torch import prng
     from repro_torch import tree as tree_util
     from repro_torch.compress.compressors import TopK
     from repro_torch.compress.report import INDEX_BITS
     from repro_torch.configs import get_spec
     from repro_torch.configs.base import InputShape
-    from repro_torch.data import synthetic
     from repro_torch.kernels import ops
-    from repro_torch.launch import fed_train
-    from repro_torch.models import transformer as tfm
+    from repro_torch.launch import fed_train, steps
 
-    spec = get_spec("rwkv6-3b")
-    m = spec.model
+    spec = get_spec(arch)
 
     def stacked_init():
         """The clients' stacked weights (every run from the same seeded
-        init, made anew: holding one copy of 6.1 GB beside the round
-        would take the int8 run to ~75 GB)."""
-        one = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0))
+        init, made anew: holding one copy of rwkv6-3b's 6.1 GB beside the
+        round would take the int8 run to ~75 GB)."""
+        one = steps.init_params(spec,
+                                torch.Generator(device=dev).manual_seed(0))
         return tree_util.map(lambda x: torch.stack([x] * FED_CLIENTS), one)
 
     leaves = tree_util.leaves(stacked_init())
     n = sum(x[0].numel() for x in leaves)
     n_leaves = len(leaves)
     del leaves
-    toks = torch.from_numpy(synthetic.make_lm_tokens(
-        min(m.vocab, 4096), FED_CLIENTS, FED_SEQ, seed=0)).to(dev, torch.int64)
-    toks = toks.reshape(FED_CLIENTS, 1, FED_SEQ)
+    # each client's batch of 1 (the clients' rows differ)
+    data = {name: x[:, None] for name, x in seeded_batch(
+        torch, spec, FED_CLIENTS, FED_SEQ, dev).items()}
     sent = []                     # the TopK payloads' (value + index) bits
     orig_compress = TopK.compress
 
@@ -2739,6 +2888,8 @@ def fed_round_phase(torch, dev) -> None:
                                           sync_mode="int8"),
                                      FED_CLIENTS * (n * 8 + n_leaves * 32))}
     for label, (kw, closed) in runs.items():
+        if only is not None and label not in only:
+            continue
         fed = fed_train.FedTrainConfig(local_steps=FED_LOCAL_STEPS, **kw)
         bundle = fed_train.build_fed_round(
             spec, InputShape("fed", FED_SEQ, FED_CLIENTS, "train"), fed)
@@ -2751,7 +2902,7 @@ def fed_round_phase(torch, dev) -> None:
         TopK.compress = recording
         t0 = time.perf_counter()
         try:
-            params, h, loss, bits = bundle.fn(params, h, {"tokens": toks},
+            params, h, loss, bits = bundle.fn(params, h, data,
                                               prng.PRNGKey(1))
             loss, bits = float(loss), float(bits)   # synchronise
         finally:
@@ -2765,13 +2916,140 @@ def fed_round_phase(torch, dev) -> None:
                                  f"comm_bits {bits!r} against the closed "
                                  f"form {closed}")
         counts = {k: v for k, v in ops.launch_counts().items() if v}
-        print(f"[train] fed round rwkv6-3b {label}: {FED_CLIENTS} clients, "
-              f"{FED_LOCAL_STEPS} local steps, seq {FED_SEQ}: loss {loss!r}, "
+        if kw["compressor"] == "quant" and "sync_mode" not in kw and not (
+                counts.get("l2_norm") == counts.get("quantize_qr")
+                == n_leaves):
+            raise AssertionError(f"fed round {arch} {label}: launches "
+                                 f"{counts}; one K3 and one K4 a leaf "
+                                 f"({n_leaves}) expected")
+        for k, v in counts.items():
+            launches.setdefault(k, {})[f"fed round {arch} {label}"] = v
+        print(f"[train] fed round {arch} {label}: {FED_CLIENTS} clients, "
+              f"{FED_LOCAL_STEPS} local steps, seq {FED_SEQ} (inputs "
+              f"{list(data)}): loss {loss!r}, "
               f"comm_bits {bits!r} (closed form {closed}, {n} parameters in "
               f"{n_leaves} tensors), {ms!r} ms, peak memory "
               f"{torch.cuda.max_memory_allocated()} B, launches {counts}",
               flush=True)
         del params, h, bundle
+        torch.cuda.empty_cache()
+
+
+def mm_serve_phase(torch, dev) -> None:
+    """Phase 16: qwen2-vl-7b and seamless-m4t-large-v2 served at full width
+    and depth, bf16, seeded weights (``VLM_SERVE``, ``ENCDEC_SERVE``), 32
+    greedy decode steps.  The counters are set to 0 just before the counted
+    run and read just after: neither path launches a kernel.  Then the
+    median of SERVE_TIMED warm prefills and of the per-step decode times,
+    tokens/s and peak memory."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_spec
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+
+    for arch in ("qwen2-vl-7b", "seamless-m4t-large-v2"):
+        spec = get_spec(arch)
+        m = spec.model
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = steps.init_params(spec, gen)
+        n_params = sum(x.numel() for x in tree_util.leaves(params))
+        if spec.is_encdec:
+            batch, frames, prefix = ENCDEC_SERVE
+            src = torch.randn((batch, frames, m.d_model), generator=gen,
+                              device=dev)
+            prompts = serve.prompts_for(m, batch, prefix, dev)
+            what = (f"{frames} source frames, target prefix {prefix}, "
+                    f"through serve()")
+            max_len = prefix + SERVE_GEN + 1
+
+            def prefill():
+                return encdec.prefill(params, m, src, prompts, max_len)
+
+            def decode(tok, st):
+                return encdec.decode_step(params, m, tok, st)
+
+            def counted():
+                res = serve.serve(params, m, prompts, SERVE_GEN,
+                                  src_embeds=src)
+                return res.prefill_logits, res.logits, res.tokens
+        else:
+            batch, npre, n_text = VLM_SERVE
+            data = seeded_batch(torch, spec, batch, npre + n_text, dev)
+            max_len = npre + n_text + SERVE_GEN + 1
+            bundle = steps.build_prefill_step(
+                spec, InputShape("vlm serve", max_len, batch, "prefill"))
+            data["tokens"] = data["tokens"][:, :n_text]
+            what = (f"{npre} prefix embeddings + {n_text} tokens, through "
+                    f"steps.build_prefill_step (caches of {max_len})")
+
+            def prefill():
+                return bundle.fn(params, data)
+
+            @torch.no_grad()
+            def decode(tok, st):
+                return tfm.decode_step(params, m, tok, st)
+
+            def counted():
+                logits, st = prefill()
+                first, seen, out = logits, [], []
+                tok = logits.argmax(-1)
+                for _ in range(SERVE_GEN):
+                    out.append(tok)
+                    logits, st = decode(tok, st)
+                    seen.append(logits)
+                    tok = logits.argmax(-1)
+                return first, seen, torch.stack(out, 1)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            first, seen, toks = counted()
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t0
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if counts:
+            raise AssertionError(f"{arch}: serve launched {counts}")
+        finite = bool(torch.isfinite(first).all()) and all(
+            bool(torch.isfinite(x).all()) for x in seen)
+        if not finite or tuple(toks.shape) != (batch, SERVE_GEN):
+            raise AssertionError(f"{arch}: non-finite logits or tokens of "
+                                 f"shape {tuple(toks.shape)}")
+        pre_ms, step_ms = [], []
+        with torch.no_grad():
+            for _ in range(SERVE_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, st = prefill()
+                torch.cuda.synchronize()
+                pre_ms.append((time.perf_counter() - t0) * 1e3)
+            tok = logits.argmax(-1)
+            for _ in range(SERVE_GEN):
+                t0 = time.perf_counter()
+                logits, st = decode(tok, st)
+                tok = logits.argmax(-1)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - before
+        step_med = statistics.median(step_ms)
+        dt = str(m.dtype).split(".")[-1]
+        print(f"[serve] {arch}: {n_params} params {dt}, batch {batch}, "
+              f"{what}, gen {SERVE_GEN}: prefill ms median "
+              f"{statistics.median(pre_ms)!r} of {pre_ms!r}; decode ms/step "
+              f"median {step_med!r} (min {min(step_ms)!r}, max "
+              f"{max(step_ms)!r}; {batch * 1e3 / step_med!r} tokens/s); the "
+              f"counted run (prefill + {SERVE_GEN} decode steps) "
+              f"{counted_s * 1e3!r} ms; peak memory {peak} B "
+              f"(max_memory_allocated over what was allocated before the "
+              f"weights); launches none; tokens[0][:8] "
+              f"{toks[0, :8].tolist()}", flush=True)
+        del params, st, logits, first, seen
         torch.cuda.empty_cache()
 
 
@@ -2801,6 +3079,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.time()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     card = card_line()
@@ -3935,8 +4214,16 @@ def main() -> int:
     backward_kernels_phase(torch, dev, recs)
     block_grads_phase(torch, dev)
     train_steps_phase(torch, dev, launches)
-    fed_round_phase(torch, dev)
+    fed_round_phase(torch, dev, launches)
+    fed_round_phase(torch, dev, launches, "seamless-m4t-large-v2",
+                    only=("quant r=8",))
     print(f"[phases] train took {time.time() - t0:.1f} s", flush=True)
+
+    # ---- 16. multimodal serve ---------------------------------------------- #
+    t0 = time.time()
+    mm_serve_phase(torch, dev)
+    print(f"[phases] multimodal serve took {time.time() - t0:.1f} s",
+          flush=True)
 
     # kernel -> (the counter of its main-path entry, the tag of its runs)
     entries = {"topk_mask": (FUSED_K1_K2, "fused"),
@@ -4000,6 +4287,8 @@ def main() -> int:
             "large": rec.timings["large"],
             **({"served": rec.timings["served"]} if "served" in rec.timings
                else {})})
+    print(f"[phases] all phases took {time.time() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

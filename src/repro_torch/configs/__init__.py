@@ -1,10 +1,12 @@
 """Architecture registry, the port of ``repro.configs``:
 ``get_spec("rwkv6-3b")`` / ``--arch`` ids.
 
-The port serves the recurrent families, ``rwkv6-3b`` (K12) and
-``recurrentgemma-2b`` (K11), and the dense GQA family: ``qwen2-0.5b``,
-``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b``.  Every other architecture
-of the reference raises ``NotImplementedError``.
+The port serves and trains the recurrent families, ``rwkv6-3b`` (K12)
+and ``recurrentgemma-2b`` (K11), the dense GQA family (``qwen2-0.5b``,
+``qwen2-7b``, ``gemma2-9b``, ``gemma3-4b``), the VLM backbone
+``qwen2-vl-7b`` (prefix embeddings, M-RoPE) and the encoder-decoder
+``seamless-m4t-large-v2``.  The MoE architectures (``mixtral-8x7b``,
+``llama4-maverick-400b-a17b``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ _MODULES = {
     "gemma3-4b": "gemma3_4b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen2-7b": "qwen2_7b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-3b": "rwkv6_3b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,19 +1,20 @@
 """Architecture spec plumbing, the port of ``repro.configs.base``: full
 configs with their published dimensions, ``reduced()`` variants for the
-CPU tests, and the input shapes the launchers build steps for
-(``InputShape``, ``SHAPES``).  The encoder-decoder branch is not ported,
-nor are the per-arch modality and shape skips that only the reference's
-dry-run launcher reads.
+CPU tests (the decoder stacks and the encoder-decoder family), and the
+input shapes the launchers build steps for (``InputShape``, ``SHAPES``).
+Each spec carries the reference's modality, its skipped shapes and the
+number of stub prefix tokens (qwen2-vl's 256 patch embeddings).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Tuple
 
 import torch
 
 from repro_torch import not_ported
+from repro_torch.models.encdec import EncDecConfig
 
 
 ALL_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -40,25 +41,47 @@ class ArchSpec:
     arch_id: str
     family: str                    # dense | moe | ssm | hybrid | audio | vlm
     citation: str
-    model: Any                     # transformer.ModelConfig
+    model: Any                     # transformer.ModelConfig | EncDecConfig
+    modality: str = "text"         # text | audio | vlm
+    skip_shapes: Tuple[str, ...] = ()
+    skip_reason: str = ""
+    n_prefix_tokens: int = 0       # vision/audio stub tokens prepended
+
+    @property
+    def is_encdec(self) -> bool:
+        return isinstance(self.model, EncDecConfig)
+
+    def runs(self, shape: str) -> bool:
+        return shape not in self.skip_shapes
 
 
 def reduced(spec: ArchSpec) -> ArchSpec:
     """The family-preserving smoke-test variant: the block pattern and
     feature flags kept, one pattern cycle deep (at least 2 layers, at most
     4), d_model 256 (128 for rwkv), head_dim 64, window 16, the
-    long-context cap 16 where the full config has one, float32."""
+    long-context cap 16 where the full config has one, M-RoPE sections
+    (16, 8, 8), float32; an encoder-decoder gets one layer each side at
+    d_model 128; at most 16 prefix tokens."""
     m = spec.model
-    if m.moe is not None:
-        raise not_ported("reduced MoE configs")
-    n_layers = max(2, min(len(m.block_pattern), 4)) \
-        if len(m.block_pattern) > 1 else 2
-    d_model = 256 if m.block_type(0) != "rwkv" else 128
-    small = dataclasses.replace(
-        m, n_layers=n_layers, d_model=d_model, n_heads=4,
-        n_kv_heads=max(1, min(m.n_kv_heads, 2)),
-        head_dim=64, d_ff=512, vocab=512,
-        window=(16 if m.window else None),
-        long_context_cap=(16 if m.long_context_cap else None),
-        dtype=torch.float32)
-    return dataclasses.replace(spec, model=small)
+    if isinstance(m, EncDecConfig):
+        small = dataclasses.replace(
+            m, n_enc_layers=1, n_dec_layers=1, d_model=128, n_heads=4,
+            n_kv_heads=4, head_dim=32, d_ff=256, vocab=512,
+            dtype=torch.float32)
+    else:
+        if m.moe is not None:
+            raise not_ported("reduced MoE configs")
+        n_layers = max(2, min(len(m.block_pattern), 4)) \
+            if len(m.block_pattern) > 1 else 2
+        d_model = 256 if m.block_type(0) != "rwkv" else 128
+        small = dataclasses.replace(
+            m, n_layers=n_layers, d_model=d_model, n_heads=4,
+            n_kv_heads=max(1, min(m.n_kv_heads, 2)),
+            head_dim=64, d_ff=512, vocab=512,
+            window=(16 if m.window else None),
+            long_context_cap=(16 if m.long_context_cap else None),
+            dtype=torch.float32)
+        if m.mrope_sections is not None:
+            small = dataclasses.replace(small, mrope_sections=(16, 8, 8))
+    return dataclasses.replace(spec, model=small,
+                               n_prefix_tokens=min(16, spec.n_prefix_tokens))

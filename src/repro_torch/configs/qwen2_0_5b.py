@@ -14,6 +14,8 @@ SPEC = ArchSpec(
     arch_id="qwen2-0.5b",
     family="dense",
     citation="arXiv:2407.10671",
+    skip_shapes=("long_500k",),
+    skip_reason="pure full attention; no native sub-quadratic variant",
     model=ModelConfig(
         name="qwen2-0.5b",
         n_layers=24,

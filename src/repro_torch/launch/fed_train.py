@@ -35,9 +35,8 @@ from repro_torch.compress import wire
 from repro_torch.compress.compressors import Compressor
 from repro_torch.compress.report import dense_bits
 from repro_torch.configs.base import ArchSpec, InputShape
-from repro_torch.launch.steps import (StepBundle, TensorSpec, _check_decoder,
-                                      _params_struct)
-from repro_torch.models import transformer as tfm
+from repro_torch.launch.steps import (StepBundle, TensorSpec, _params_struct,
+                                      batch_struct, loss_fn)
 from repro_torch.optim.optimizers import weak
 
 PyTree = Any
@@ -105,8 +104,9 @@ def build_fed_round(spec: ArchSpec, shape: InputShape,
 
     ``fn(params, h, batch, key) -> (params, h, loss, comm_bits)``:
     ``params`` and ``h`` are stacked trees (every leaf ``(n_clients,
-    ...)``), ``batch`` is ``{"tokens": (n_clients, B_local, T) int}``,
-    ``key`` a ``(2,)`` key.  ``params`` and ``h`` are updated in place
+    ...)``), ``batch`` the family's batch (``steps.batch_struct``) with
+    the client axis in front (the text decoders' ``{"tokens": (n_clients,
+    B_local, T) int}``), ``key`` a ``(2,)`` key.  ``params`` and ``h`` are updated in place
     and returned (the reference's round donates both): the round holds
     the stacked parameters and control variates once, one client's
     gradient, and the compressed uplink.  ``loss`` is the mean over the
@@ -116,14 +116,12 @@ def build_fed_round(spec: ArchSpec, shape: InputShape,
     leave it open (None), and the batch's per-client rows with it: the
     shape's global batch splits evenly over the clients.
     """
-    _check_decoder(spec)
     if not fed.aggregation_policy().is_sync:
         raise ValueError(
             f'aggregation={fed.aggregation!r}: the round is one synchronous '
             f'average, so only "sync" is executable here; run event-driven '
             f'policies through the simulator (repro_torch.core.aggregation, '
             f'DESIGN.md §7)')
-    m = spec.model
     comp = make_compressor(fed)
     if fed.sync_mode == "int8" and fed.compressor != "quant":
         raise ValueError('sync_mode="int8" requires compressor="quant"')
@@ -133,13 +131,14 @@ def build_fed_round(spec: ArchSpec, shape: InputShape,
 
     params_struct = tree_util.map(
         lambda s: TensorSpec((None,) + s.shape, s.dtype), _params_struct(spec))
-    batch = {"tokens": TensorSpec((None, None, shape.seq_len), torch.int64)}
+    batch = {name: TensorSpec((None, None) + s.shape[1:], s.dtype)
+             for name, s in batch_struct(spec, 1, shape.seq_len).items()}
+    loss_of = loss_fn(spec, LOSS_CHUNK)
 
-    def client_grad(x_i, tokens):
+    def client_grad(x_i, batch_i):
         live = [leaf.detach().requires_grad_()
                 for leaf in tree_util.leaves(x_i)]
-        loss = tfm.loss(tree_util.unflatten(x_i, live), m, tokens,
-                        loss_chunk=LOSS_CHUNK)
+        loss = loss_of(tree_util.unflatten(x_i, live), batch_i)
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
         return loss.detach(), grads
@@ -160,7 +159,7 @@ def build_fed_round(spec: ArchSpec, shape: InputShape,
             for i in range(n):
                 loss, grads = client_grad(
                     tree_util.map(lambda leaf: leaf[i], x_eval),
-                    batch_["tokens"][i])
+                    {name: v[i] for name, v in batch_.items()})
                 losses.append(loss)
                 with torch.no_grad():
                     for xl, gl, hl in zip(xs, grads, hs):

@@ -6,7 +6,11 @@ batch of prompts, then decode tokens against the carried state.
 
 Without ``--reduced`` it serves the published width and depth (bfloat16)
 and wants the card (``--device cuda``, the default).  :func:`serve` is the
-body, for callers that bring their own weights and prompts.
+body, for callers that bring their own weights and prompts.  For the
+encoder-decoder family (``seamless-m4t-large-v2``) the CLI encodes
+``--prompt-len`` seeded source frames and decodes after a target prefix
+of the prompt's first 4 tokens, as the reference does; qwen2-vl is served
+text-only (no prefix embeddings), as in the reference's CLI.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from repro_torch import prng
 from repro_torch.configs import ARCH_IDS, get_spec
 from repro_torch.configs.base import reduced as make_reduced
 from repro_torch.data import synthetic
+from repro_torch.launch.steps import init_params
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 
 
@@ -38,13 +44,18 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(params: dict, cfg: tfm.ModelConfig, prompts: torch.Tensor,
-          gen: int, temperature: float = 0.0, key=None) -> ServeResult:
+def serve(params: dict, cfg, prompts: torch.Tensor, gen: int,
+          temperature: float = 0.0, key=None, *, src_embeds=None,
+          max_len=None) -> ServeResult:
     """Prefill ``prompts`` (B, T) and decode ``gen`` tokens, on the
-    prompts' device.
+    prompts' device.  ``cfg`` is a ``transformer.ModelConfig`` or an
+    ``encdec.EncDecConfig``, whose ``src_embeds`` (B, T_src, D) are
+    encoded and ``prompts`` are the target prefix.
 
     As the reference's ``serve.py`` does: the caches are sized for
-    ``T + gen + 1``; the first token is the argmax of the prefill logits;
+    ``T + gen + 1`` unless ``max_len`` is given (its encoder-decoder CLI
+    sizes them for the source's length instead: ``T_src + gen + 1``);
+    the first token is the argmax of the prefill logits;
     each decode step then feeds the last token and picks the next by
     argmax or, at
     ``temperature > 0``, by ``jax.random.categorical(sub, logits /
@@ -53,12 +64,19 @@ def serve(params: dict, cfg: tfm.ModelConfig, prompts: torch.Tensor,
     last kept token runs too, as in the reference.
     """
     device = prompts.device
-    max_len = prompts.shape[1] + gen + 1
+    if max_len is None:
+        max_len = prompts.shape[1] + gen + 1
     if temperature > 0 and key is None:
         key = prng.PRNGKey(3)
+    encdec = isinstance(cfg, encdec_mod.EncDecConfig)
+    decode = encdec_mod.decode_step if encdec else tfm.decode_step
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = tfm.prefill(params, cfg, prompts, max_len=max_len)
+    if encdec:
+        logits, state = encdec_mod.prefill(params, cfg, src_embeds, prompts,
+                                           max_len=max_len)
+    else:
+        logits, state = tfm.prefill(params, cfg, prompts, max_len=max_len)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     prefill_logits = logits
@@ -67,7 +85,7 @@ def serve(params: dict, cfg: tfm.ModelConfig, prompts: torch.Tensor,
     t0 = time.perf_counter()
     for _ in range(gen):
         out.append(tok)
-        logits, state = tfm.decode_step(params, cfg, tok, state)
+        logits, state = decode(params, cfg, tok, state)
         seen.append(logits)
         if temperature > 0:
             key, sub = prng.split(key, 2)
@@ -83,13 +101,20 @@ def serve(params: dict, cfg: tfm.ModelConfig, prompts: torch.Tensor,
                        logits=seen, prefill_s=prefill_s, decode_s=decode_s)
 
 
-def prompts_for(cfg: tfm.ModelConfig, batch: int, prompt_len: int,
-                device) -> torch.Tensor:
+def prompts_for(cfg, batch: int, prompt_len: int, device) -> torch.Tensor:
     """The reference's serve prompts: ``make_lm_tokens(min(vocab, 4096),
     batch, prompt_len, seed=1)``."""
     toks = synthetic.make_lm_tokens(min(cfg.vocab, 4096), batch, prompt_len,
                                     seed=1)
     return torch.from_numpy(toks).to(device=device, dtype=torch.int64)
+
+
+def source_frames(cfg, batch: int, frames: int, device) -> torch.Tensor:
+    """The reference's encoder-decoder serve input:
+    ``jax.random.normal(PRNGKey(2), (batch, frames, d_model))``, float32,
+    through :mod:`repro_torch.prng`."""
+    return prng.normal(prng.PRNGKey(2), (batch, frames, cfg.d_model),
+                       device=device)
 
 
 def main(argv=None) -> None:
@@ -108,9 +133,15 @@ def main(argv=None) -> None:
         spec = make_reduced(spec)
     m = spec.model
     device = torch.device(args.device)
-    params = tfm.init_params(m, torch.Generator(device=device).manual_seed(0))
+    params = init_params(spec, torch.Generator(device=device).manual_seed(0))
     prompts = prompts_for(m, args.batch, args.prompt_len, device)
-    res = serve(params, m, prompts, args.gen, args.temperature)
+    if spec.is_encdec:
+        res = serve(params, m, prompts[:, :4], args.gen, args.temperature,
+                    src_embeds=source_frames(m, args.batch, args.prompt_len,
+                                             device),
+                    max_len=args.prompt_len + args.gen + 1)
+    else:
+        res = serve(params, m, prompts, args.gen, args.temperature)
     print(f"prefill done in {res.prefill_s:.2f}s")
     n = args.gen * args.batch
     print(f"generated {args.gen} tokens x {args.batch} seqs in "

@@ -10,9 +10,13 @@ on one device: the card by default (full configs, bf16), the CPU with
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --steps 20 --batch 4 --seq 128 --device cpu
 
-The flags, the token draws and the log line are the reference's;
-``--device`` takes the place of ``--production-mesh``.  Weights come from
-the port's own init (seed 0), not the reference's bits.
+The flags, the batches and the log line are the reference's: the
+encoder-decoder family trains on ``--seq // 2`` source frames
+(``default_rng(step).normal``, bf16) and the rest target tokens; qwen2-vl
+on ``n_prefix_tokens`` zero bf16 prefix embeddings before ``--seq -
+n_prefix_tokens`` tokens.  ``--device`` takes the place of
+``--production-mesh``.  Weights come from the port's own init (seed 0),
+not the reference's bits.
 """
 
 from __future__ import annotations
@@ -27,8 +31,29 @@ from repro_torch.configs import ARCH_IDS, get_spec
 from repro_torch.configs.base import InputShape, reduced as make_reduced
 from repro_torch.data import synthetic
 from repro_torch.launch import steps as steps_mod
-from repro_torch.models import transformer as tfm
 from repro_torch.optim import optimizers
+
+
+def batch_for(spec, toks: np.ndarray, step: int, device) -> dict:
+    """Step ``step``'s batch from its (B, seq) token rows, as the
+    reference's ``train.py`` makes it."""
+    m = spec.model
+    b, seq = toks.shape
+    if spec.is_encdec:
+        t_src = seq // 2
+        src = np.random.default_rng(step).normal(size=(b, t_src, m.d_model))
+        return {"src_embeds": torch.from_numpy(src).to(device=device,
+                                                       dtype=torch.bfloat16),
+                "tgt_tokens": torch.from_numpy(toks[:, :seq - t_src]).to(
+                    device=device, dtype=torch.int64)}
+    npre = spec.n_prefix_tokens
+    batch = {"tokens": torch.from_numpy(toks[:, :seq - npre]).to(
+        device=device, dtype=torch.int64)}
+    if npre:
+        batch["prefix_embeds"] = torch.zeros((b, npre, m.d_model),
+                                             dtype=torch.bfloat16,
+                                             device=device)
+    return batch
 
 
 def main(argv=None) -> None:
@@ -52,7 +77,8 @@ def main(argv=None) -> None:
     bundle = steps_mod.build_train_step(spec, shape,
                                         optimizer=args.optimizer)
 
-    params = tfm.init_params(m, torch.Generator(device=device).manual_seed(0))
+    params = steps_mod.init_params(
+        spec, torch.Generator(device=device).manual_seed(0))
     opt_name, lr = steps_mod._optimizer_for(spec)
     if args.optimizer:
         opt_name = args.optimizer
@@ -64,8 +90,7 @@ def main(argv=None) -> None:
     t0 = time.time()
     for i in range(args.steps):
         sl = np.random.default_rng(i).integers(0, toks.shape[0], args.batch)
-        batch = {"tokens": torch.from_numpy(toks[sl]).to(device=device,
-                                                          dtype=torch.int64)}
+        batch = batch_for(spec, toks[sl], i, device)
         params, opt_state, loss = bundle.fn(params, opt_state, batch)
         if i % args.log_every == 0:
             print(f"step {i:4d}  loss {float(loss):.4f}  "

@@ -6,8 +6,7 @@ layouts (a dense kernel is ``(n_in, n_out)`` applied as ``x @ kernel``),
 so the reference's weights carry across unchanged
 (:func:`repro_torch.convert.params_from_jax`).  Initialisers draw from an
 explicit ``torch.Generator`` on the generator's device; they follow the
-reference's distributions, not its bits.  ``apply_mrope`` (qwen2-vl) is
-not ported.
+reference's distributions, not its bits.
 """
 
 from __future__ import annotations
@@ -83,7 +82,7 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# RoPE
+# RoPE (standard + multimodal M-RoPE)
 # --------------------------------------------------------------------------- #
 
 def rope_freqs(dh: int, theta: float = 10_000.0,
@@ -98,6 +97,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, x.device)                  # (dh/2,)
     ang = positions[:, None, :, None].to(torch.float32) * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections=(16, 24, 24), theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE (arXiv:2409.12191).
+
+    x: (B, H, T, Dh); positions3: (B, 3, T), the temporal / height / width
+    position ids.  ``sections`` splits the dh/2 rotary frequencies among
+    the three axes in that order; tokens whose t/h/w ids are equal (text)
+    get exactly :func:`apply_rope`'s rotation.
+    """
+    dh = x.shape[-1]
+    half = dh // 2
+    if sum(sections) != half:
+        raise ValueError(f"sections {tuple(sections)} must sum to {half}")
+    freqs = rope_freqs(dh, theta, x.device)                  # (half,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(tuple(sections), device=x.device))       # (half,)
+    pos = positions3.to(torch.float32)[:, sec_id, :]          # (B, half, T)
+    ang = pos.transpose(1, 2)[:, None] * freqs                # (B,1,T,half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -11,13 +11,17 @@ Per-layer block types (``ModelConfig.block_pattern``, cycled over layers):
 ``loss(params, cfg, tokens)`` is the next-token cross-entropy over
 ``forward_hidden`` (per-layer remat); ``prefill(params, cfg, tokens,
 max_len)`` returns the last position's logits and the decode state;
-``decode_step(params, cfg, token, state)`` runs one token against it.  Parameters are the reference's nested dicts
-(same names and layouts).  The dense GQA family's options are here:
-q/k/v biases (qwen2), q/k RMSNorms before RoPE (gemma3), post-norms on
-the branch outputs and the final logit softcap (gemma2), and the
-long-context window cap on "attn" layers (gemma2, gemma3).  Not ported
-yet, and raising ``NotImplementedError``: MoE layers, M-RoPE
-(``_NOT_PORTED``), prefix embeddings and the encoder-decoder wrapper.
+``decode_step(params, cfg, token, state)`` runs one token against it.
+Parameters are the reference's nested dicts (same names and layouts).
+The dense GQA family's options are here: q/k/v biases (qwen2), q/k
+RMSNorms before RoPE (gemma3), post-norms on the branch outputs and the
+final logit softcap (gemma2), the long-context window cap on "attn"
+layers (gemma2, gemma3), and qwen2-vl's multimodal inputs: precomputed
+prefix embeddings placed before the tokens (``prefix_embeds``) and M-RoPE
+over (t, h, w) position ids (``positions3``; text-only by default, every
+axis the linear position).  MoE layers are not ported yet and raise
+``NotImplementedError`` (``_NOT_PORTED``); the encoder-decoder family is
+``models/encdec.py``.
 
 The reference's dtype conventions are kept: KV caches and the rglru conv
 state leave prefill in ``dtype`` (bfloat16 by default, even in a float32
@@ -60,7 +64,7 @@ class ModelConfig:
     post_norm: bool = False                # gemma2 extra post-norms
     act: str = "silu"
     rope_theta: float = 10_000.0
-    mrope_sections: Optional[tuple] = None  # qwen2-vl (not ported)
+    mrope_sections: Optional[tuple] = None  # qwen2-vl (t, h, w) split
     moe: Any = None                        # MoE config (not ported)
     moe_period: int = 1
     n_shared_experts: int = 0
@@ -90,7 +94,7 @@ class ModelConfig:
 
 # options of the reference's other families; the served configs leave each
 # at its default, and any other value raises
-_NOT_PORTED = {"moe": "MoE layers", "mrope_sections": "M-RoPE"}
+_NOT_PORTED = {"moe": "MoE layers"}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -170,7 +174,8 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * hd)
 
 
-def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+         positions3=None):
     hd = cfg.hd
     q = _split_heads(layers.dense(p["q"], x), cfg.n_heads, hd)
     k = _split_heads(layers.dense(p["k"], x), cfg.n_kv_heads, hd)
@@ -178,9 +183,25 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     if cfg.qk_norm:
         q = layers.rmsnorm(p["q_norm"], q)
         k = layers.rmsnorm(p["k_norm"], k)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None and positions3 is not None:
+        q = layers.apply_mrope(q, positions3, cfg.mrope_sections,
+                               cfg.rope_theta)
+        k = layers.apply_mrope(k, positions3, cfg.mrope_sections,
+                               cfg.rope_theta)
+    else:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _default_positions3(cfg: ModelConfig, positions: torch.Tensor,
+                        positions3):
+    """Text-only M-RoPE ids: the t/h/w ids all equal the linear position
+    (B, T) -> (B, 3, T); None where the config has no M-RoPE."""
+    if positions3 is None and cfg.mrope_sections is not None:
+        b, t = positions.shape
+        positions3 = positions[:, None].expand(b, 3, t)
+    return positions3
 
 
 def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -190,9 +211,11 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
               prefix_embeds=None) -> torch.Tensor:
-    if prefix_embeds is not None:
-        raise not_ported("prefix embeddings")
+    """Token embeddings (B, T, D), after the prefix embeddings (B, P, D)
+    where given; the embed scale applies to both, as in the reference."""
     x = layers.embed(params["embed"], tokens).to(cfg.dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
     if cfg.embed_scale:
         # sqrt(d) rounded to the model's dtype first, as the reference does:
         # bf16(sqrt(2560)) = 50.5, not 50.596
@@ -218,7 +241,7 @@ def _post_norm(p: dict, cfg: ModelConfig, name: str,
 
 
 def _layer_fwd(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
-               positions: torch.Tensor, causal: bool = True):
+               positions: torch.Tensor, positions3=None, causal: bool = True):
     """Full-sequence layer forward (training).  Returns ``(x, aux)``; aux
     is the MoE balance loss, 0 here (MoE layers are not ported)."""
     bt = cfg.block_type(i)
@@ -231,7 +254,7 @@ def _layer_fwd(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
     if bt == "rglru":
         y = rglru.rglru_block(p["rglru"], h)
     else:
-        q, k, v = _qkv(p, cfg, h, positions)
+        q, k, v = _qkv(p, cfg, h, positions, positions3)
         y = attn.chunked_attention(q, k, v, causal=causal,
                                    window=cfg.layer_window(i),
                                    softcap=cfg.softcap_attn)
@@ -244,7 +267,9 @@ def _layer_fwd(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
                    prefix_embeds=None, positions3=None, causal: bool = True,
                    remat: bool = True):
-    """Token ids (B, T) -> ``(final hidden states (B, T, D), aux)``.
+    """Token ids (B, T), after ``prefix_embeds`` (B, P, D) where given ->
+    ``(final hidden states (B, P + T, D), aux)``.  ``positions3`` (B, 3,
+    P + T): M-RoPE's t/h/w ids (text-only by default).
 
     A plain loop over the layers, which the reference's scan over stacked
     layer cycles equals (its ``scan_layers`` changes compile time, not
@@ -254,17 +279,17 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``jax.checkpoint`` does: K11 and K12 then launch twice a step, once
     in the forward and once in the recompute."""
     _check_ported(cfg)
-    if positions3 is not None:
-        raise not_ported("M-RoPE positions")
     x = _embed_in(params, cfg, tokens, prefix_embeds)
     b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device).expand(b, t)
+    positions3 = _default_positions3(cfg, positions, positions3)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         p = params["layers"][f"layer_{i}"]
 
         def fwd(p_, x_, i_=i):
-            return _layer_fwd(p_, cfg, i_, x_, positions, causal)
+            return _layer_fwd(p_, cfg, i_, x_, positions, positions3,
+                              causal)
 
         if remat:
             x, aux = checkpoint(fwd, p, x, use_reentrant=False)
@@ -290,9 +315,12 @@ def loss(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     of ``loss_chunk`` with a zero weight mask, each chunk's (B, chunk,
     vocab) logits recomputed in the backward (``torch.utils.checkpoint``)
     and never held at once; ``total / (B (T - 1)) + aux_weight * aux``.
-    A float32 scalar."""
+    The prefix positions carry no target and are dropped first.  A
+    float32 scalar."""
     h, aux = forward_hidden(params, cfg, tokens, prefix_embeds=prefix_embeds,
                             positions3=positions3, remat=remat)
+    npre = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    h = h[:, npre:]
     b, t, _ = h.shape
     inputs = h[:, :-1]
     targets = tokens[:, 1:].to(torch.int64)
@@ -347,10 +375,10 @@ def _first_attn_layer(cfg: ModelConfig):
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 state: dict, positions3=None):
     """One token for each sequence.  token: (B,) int.  Returns ``(logits
-    (B, vocab) float32, new_state)``."""
+    (B, vocab) float32, new_state)``.  Its position is the caches' length
+    (prefix positions included); ``positions3`` (B, 3, 1) overrides it
+    for M-RoPE."""
     _check_ported(cfg)
-    if positions3 is not None:
-        raise not_ported("M-RoPE positions")
     b = token.shape[0]
     x = _embed_in(params, cfg, token[:, None])
     # absolute position: every layer tracks the same length; the first
@@ -358,6 +386,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     first = _first_attn_layer(cfg)
     pos = state[f"layer_{first}"].length if first is not None else 0
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    positions3 = _default_positions3(cfg, positions, positions3)
     new_state = {}
     for i in range(cfg.n_layers):
         p = params["layers"][f"layer_{i}"]
@@ -377,7 +406,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         if bt == "rglru":
             y, st_new = rglru.rglru_block_decode(p["rglru"], h, st)
         else:
-            q, k, v = _qkv(p, cfg, h, positions)
+            q, k, v = _qkv(p, cfg, h, positions, positions3)
             w = cfg.layer_window(i)
             if w is not None and st.k.shape[2] == w:       # ring cache
                 st_new = attn.update_ring_cache(st, k, v)
@@ -399,19 +428,20 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int, *, prefix_embeds=None, positions3=None,
             dtype=torch.bfloat16):
-    """Process a prompt batch (B, T); returns ``(last-position logits
-    (B, vocab) float32, decode state sized for max_len)``.
+    """Process a prompt batch (B, T), after ``prefix_embeds`` (B, P, D)
+    where given; returns ``(last-position logits (B, vocab) float32,
+    decode state sized for max_len)``, which must hold P + T and the
+    tokens to decode.  ``positions3`` (B, 3, P + T): M-RoPE's ids.
 
     rwkv layers run K12 and rglru layers K11 over the whole prompt; caches
     are produced by the full-sequence forward.
     """
     _check_ported(cfg)
-    if positions3 is not None:
-        raise not_ported("M-RoPE positions")
     b, t = tokens.shape
     x = _embed_in(params, cfg, tokens, prefix_embeds)
     ttot = x.shape[1]
     positions = torch.arange(ttot, device=x.device).expand(b, ttot)
+    positions3 = _default_positions3(cfg, positions, positions3)
     state = init_decode_state(cfg, b, max_len, dtype, x.device)
     new_state = {}
     for i in range(cfg.n_layers):
@@ -442,7 +472,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             new_state[f"layer_{i}"] = rglru.RGLRUState(
                 conv=conv_st.to(dtype), h=h_fin)
         else:
-            q, k, v = _qkv(p, cfg, h, positions)
+            q, k, v = _qkv(p, cfg, h, positions, positions3)
             y = attn.chunked_attention(q, k, v, causal=True,
                                        window=cfg.layer_window(i),
                                        softcap=cfg.softcap_attn)

@@ -35,6 +35,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_spec as jget_spec  # noqa: E402
+from repro.configs.base import SHAPES as JSHAPES  # noqa: E402
 from repro.configs.base import reduced as jreduced  # noqa: E402
 from repro.data import synthetic as jsynthetic  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
@@ -434,26 +435,47 @@ def _gap_matches(jm, m):
 # --------------------------------------------------------------------------- #
 
 DENSE_ARCHS = ("qwen2-0.5b", "qwen2-7b", "gemma2-9b", "gemma3-4b")
+MULTIMODAL_ARCHS = ("qwen2-vl-7b", "seamless-m4t-large-v2")
+MOE_ARCHS = ("mixtral-8x7b", "llama4-maverick-400b-a17b")
+_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _same_fields(t, j):
+    """Every dataclass field of the port's ``t`` equals the reference's
+    ``j`` (dtypes mapped; the reference's decoder config also has
+    ``scan_layers``, a compile-time option the port's loop has no use
+    for)."""
+    for f in dataclasses.fields(t):
+        got, want = getattr(t, f.name), getattr(j, f.name)
+        if f.name == "dtype":
+            assert got == _DTYPES[want], f.name
+        else:
+            assert got == want, f.name
 
 
 def test_registry_and_published_dims():
-    assert set(ARCH_IDS) == set(ARCHS) | set(DENSE_ARCHS)
-    for arch in ARCHS + DENSE_ARCHS:
+    """Every ported spec (the ArchSpec's fields, ``is_encdec`` and
+    ``runs``), its model config and its ``reduced()`` equal the
+    reference's; the MoE architectures still raise."""
+    assert set(ARCH_IDS) == set(ARCHS) | set(DENSE_ARCHS) | set(
+        MULTIMODAL_ARCHS)
+    for arch in ARCHS + DENSE_ARCHS + MULTIMODAL_ARCHS:
         j, t = jget_spec(arch), get_spec(arch)
-        assert (t.arch_id, t.family, t.citation) == (j.arch_id, j.family,
-                                                     j.citation)
-        for f in dataclasses.fields(t.model):
-            want = getattr(j.model, f.name)
-            if f.name == "dtype":
-                assert t.model.dtype == torch.bfloat16 and want == jnp.bfloat16
-            else:
-                assert getattr(t.model, f.name) == want, f.name
-        rj, rt = jreduced(j).model, reduced(t).model
-        assert (rt.n_layers, rt.d_model, rt.window, rt.vocab,
-                rt.long_context_cap) == (rj.n_layers, rj.d_model, rj.window,
-                                         rj.vocab, rj.long_context_cap)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_spec("mixtral-8x7b")
+        for f in ("arch_id", "family", "citation", "modality", "skip_shapes",
+                  "skip_reason", "n_prefix_tokens", "is_encdec"):
+            assert getattr(t, f) == getattr(j, f), (arch, f)
+        assert [t.runs(s) for s in JSHAPES] == [j.runs(s) for s in JSHAPES]
+        assert t.model.dtype == torch.bfloat16
+        _same_fields(t.model, j.model)
+        rj, rt = jreduced(j), reduced(t)
+        assert rt.n_prefix_tokens == rj.n_prefix_tokens
+        _same_fields(rt.model, rj.model)
+    assert get_spec("qwen2-vl-7b").n_prefix_tokens == 256
+    assert reduced(get_spec("qwen2-vl-7b")).model.mrope_sections == (16, 8, 8)
+    assert get_spec("seamless-m4t-large-v2").is_encdec
+    for arch in MOE_ARCHS:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_spec(arch)
 
 
 def test_make_lm_tokens_byte_equal():
@@ -550,13 +572,21 @@ def test_other_families_options_are_not_ported(option, value):
 
 
 def test_training_and_other_families_are_not_ported():
-    """Training is ported; its prefix embeddings and M-RoPE positions,
-    like the other families' options, still raise."""
-    _, m = _configs("rwkv6-3b")
+    """Training, prefix embeddings, M-RoPE and the encoder-decoder are
+    ported; the MoE family still raises, from the registry, from
+    ``reduced`` and from every model entry given a ``moe=`` config."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.loss({}, m, None, prefix_embeds=torch.zeros((1, 2, 128)))
+        get_spec("mixtral-8x7b")
+    jspec = jget_spec("mixtral-8x7b")
+    _, m = _configs("qwen2-0.5b")
+    m = dataclasses.replace(m, moe=jspec.model.moe)
+    spec = dataclasses.replace(get_spec("qwen2-0.5b"), model=m)
+    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP"):
+        reduced(spec)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.forward_hidden({}, m, None, positions3=torch.zeros((1, 3, 2)))
+        tfm.init_params(m, torch.Generator())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.prefill({}, dataclasses.replace(m, mrope_sections=(16, 8, 8)),
-                    torch.zeros((1, 2), dtype=torch.int64), 4)
+        tfm.loss({}, m, torch.zeros((1, 2), dtype=torch.int64),
+                 prefix_embeds=torch.zeros((1, 2, 256)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfm.prefill({}, m, torch.zeros((1, 2), dtype=torch.int64), 4)
