@@ -204,11 +204,11 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    must be finite, and prefill(T) + one decode step must agree with
    prefill(T + 1)'s last logits within ``GAP_REL`` of max |logits|.
    After a warm-up at the serving shape, prints the median of
-   ``SERVE_TIMED`` prefills' ms and of the per-step decode ms, tokens/s,
-   the counted run's own times, peak memory (weights
-   and serve, above what earlier phases hold), and the device's busy time
-   and idle share under ``torch.profiler`` for one prefill and for 8
-   decode steps;
+   ``SERVE_TIMED`` prefills' ms (the counted run's among them) and of the
+   per-step decode ms, tokens/s, the counted run's own times, peak memory
+   (weights and serve, above what earlier phases hold), and the device's
+   busy time and idle share under ``torch.profiler`` for one prefill and
+   for 8 decode steps;
 12. dense serve — ``qwen2-7b``, ``gemma2-9b`` and ``gemma3-4b`` the same
    way at batch 4, prompt 4608 (above gemma2's window of 4096 and
    gemma3's 1024: the ring branch of prefill and the ring decode run on
@@ -263,13 +263,15 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (remat) and the backward kernels once (``TRAIN_SHAPES``); ms a step,
    tokens/s and peak memory printed; the same for seamless-m4t-large-v2
    at full width and depth (2048 seeded bf16 source frames + 2048 target
-   tokens) and qwen2-vl-7b at full width with ``TRAIN_LAYERS`` of its 28
-   layers (256 seeded bf16 prefix embeddings + 3840 tokens), neither
-   launching a kernel; (d) ``build_fed_round`` on rwkv6-3b at
+   tokens), and at full width with ``TRAIN_LAYERS`` of their layers
+   qwen2-vl-7b (8 of 28; 256 seeded bf16 prefix embeddings + 3840 tokens)
+   and mixtral-8x7b (2 of 32), none launching a kernel; (d)
+   ``build_fed_round`` on rwkv6-3b at
    full width, ``FED_CLIENTS`` stacked clients, ``FED_LOCAL_STEPS`` local
    steps, one round each with TopK(quantile, 0.1), Q_r(8) and the int8
-   sync (r = 7), then seamless-m4t-large-v2's Q_r(8) round (seq 1024: 512
-   frames + 512 tokens a client): finite losses and ``comm_bits`` equal
+   sync (r = 7), then the Q_r(8) rounds of seamless-m4t-large-v2 (seq
+   1024: 512 frames + 512 tokens a client) and of mixtral-8x7b (2 of 32
+   layers): finite losses and ``comm_bits`` equal
    to the closed form
    (TopK: the payloads' nnz times 16 + 32 bits; Q_r: 9 bits a scalar and
    32 a tensor a client; int8: 8 and 32) within the float32 report's
@@ -284,7 +286,21 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    greedy steps.  The counters set to 0 before the counted run and read
    after (no launch: attention is ``chunked_attention``); finite logits;
    the median of ``SERVE_TIMED`` warm prefills and of the per-step decode
-   ms, tokens/s and peak memory printed.
+   ms, tokens/s and peak memory printed;
+17. MoE — mixtral-8x7b (16 of 32 layers) and llama4-maverick-400b-a17b
+   (2 of 48 layers: a dense layer, then 128 experts top-1 and the shared
+   expert) at full width, bf16, through phase 11's serve
+   (``MOE_SERVE``, ``MOE_SERVE_LAYERS``: batch 4, prompt 4608, 32 greedy
+   steps, no launch), whose prefill(T) + decode check holds an MoE row
+   only where prefill(T + 1) dropped none of its last position's routes
+   and routed its first T positions as prefill(T) did (``moe_gap_rows``;
+   the counts are printed); then the card against the CPU in float32
+   (``MOE_CPU_CHECK``: mixtral at full width and 1 layer, llama4
+   reduced), every position's logits, the prefill and 4 decode steps,
+   with every MoE call's routing recorded on both sides: a token routed
+   otherwise is printed with its probability gap (an expert may change
+   only at a near-tie, ``FLIP_GAP``) and the rows it can reach are left
+   out; every other row within ``CPU_LOGIT_TOL``, greedy tokens equal.
 
 Prints the card's name and power limit, one line per kernel and shape, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -371,7 +387,9 @@ SCAN_MAIN = {"K11": (8, 2560, 2560), "K12": (8, 40, 2560, 64)}
 SCAN_LARGE = {"K11": (32, 4096, 2560), "K12": (32, 40, 4096, 64)}
 SERVE_GEN = 32
 SERVE_PROFILE_STEPS = 8
-SERVE_TIMED = 3               # warm prefills timed for the median
+# warm prefills timed for the median (2 since the MoE phases came: the
+# earlier 3 spread by <= 6%, PERF.md section 5)
+SERVE_TIMED = 2
 # arch -> (batch, prompt, launches of one prefill at full depth):
 # rwkv6-3b's 32 rwkv layers run K12, recurrentgemma-2b's 18 rglru layers
 # (26 layers, pattern rglru rglru swa) run K11; the dense models' prefill
@@ -409,6 +427,22 @@ CPU_CHECK_LAYERS = {"rwkv6-3b": 2, "recurrentgemma-2b": 3, "qwen2-7b": 2,
 # frames, a target prefix of 4), full width, float32, on the same check
 CPU_CHECK_MM = {"qwen2-vl-7b": 2, "seamless-m4t-large-v2": 2}
 CPU_CHECK_PREFIX = 16
+# phase 17 (MoE).  Serve at full width, bf16, batch 4, prompt 4608 (above
+# mixtral's window of 4096: the ring caches run), with the depth cut to
+# fit the card: mixtral-8x7b 16 of 32 layers (~23.5 B parameters, ~47 GB;
+# 32 layers take ~93 GB), llama4-maverick-400b-a17b 2 of 48 (a dense
+# layer, then 128 experts top-1 + the shared expert: ~18.5 B, ~37 GB; 4
+# layers would take ~70 GB).  No kernel on the path.
+MOE_SERVE = {arch: (4, 4608, {})
+             for arch in ("mixtral-8x7b", "llama4-maverick-400b-a17b")}
+MOE_SERVE_LAYERS = {"mixtral-8x7b": 16, "llama4-maverick-400b-a17b": 2}
+# the card against the CPU, float32: mixtral at full width and 1 layer
+# (~6.8 GB on each side), llama4 on its reduced() config (None: one MoE
+# layer at full width is 64 GB in float32 on the host); a token's expert
+# may change between the two only at a near-tie of the router's
+# probabilities: gap <= FLIP_GAP (float32 logits agree to ~1e-6)
+MOE_CPU_CHECK = (("mixtral-8x7b", 1), ("llama4-maverick-400b-a17b", None))
+FLIP_GAP = 1e-4
 # phase 15 (train).  K12's backward against its plain version run in
 # float64, per gradient: |d| <= K12_BWD_TOL * max |plain| (+ one bf16 ulp
 # of plain where the gradient comes back in bf16, its own rounding): the
@@ -431,6 +465,8 @@ BWD_LARGE = {"K11b": SCAN_LARGE["K11"], "K12b": SCAN_LARGE["K12"]}
 TRAIN_STEPS = 4
 TRAIN_SHAPES = {
     "rwkv6-3b": (2, 4096, {"wkv6_scan": 64, "wkv6_scan_bwd": 32}),
+    # mixtral-8x7b's experts are bmm and einsum products: no kernel
+    "mixtral-8x7b": (2, 4096, {}),
     "recurrentgemma-2b": (2, 4096, {"rglru_scan": 36, "rglru_scan_bwd": 18}),
     # seq 4096 = 256 prefix embeddings + 3840 tokens; 2048 source frames +
     # 2048 target tokens.  Their attention is chunked_attention: no kernel
@@ -439,7 +475,10 @@ TRAIN_SHAPES = {
 # qwen2-vl-7b trains at full width with 8 of its 28 layers: at full depth
 # its ~7.6 B parameters in bf16, their bf16 gradients and Adam's float32 m
 # and v take ~91 GB of the card's 80 (8 layers: ~3.0 B, ~36 GB)
-TRAIN_LAYERS = {"qwen2-vl-7b": 8}
+# mixtral-8x7b (train and fed round) at 2 of 32 layers: ~3.17 B
+# parameters, whose bf16 weights and gradients and Adam's float32 state
+# take ~38 GB (a llama4 MoE layer alone would take ~193 GB)
+TRAIN_LAYERS = {"qwen2-vl-7b": 8, "mixtral-8x7b": 2}
 PREFIX_SCALE = 0.02           # seeded prefix embeddings at the embed's scale
 # the one-card fed round on rwkv6-3b (and, Q_r(8) only, on
 # seamless-m4t-large-v2): 2 stacked clients of batch 1
@@ -842,9 +881,73 @@ def check_scan_kernels(torch, dev, recs) -> None:
         torch.cuda.empty_cache()
 
 
-def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
-    """Phases 10 and 11: each model of ``shapes`` ({arch: (batch, prompt,
-    launches of one prefill)}) at full width and depth through serve().
+class RouteRecorder:
+    """Inside ``with``: every ``moe.moe_apply`` call's routing of its real
+    tokens, recomputed by ``moe.route`` on the call's own input and moved
+    to the host: ``calls``, one ``(x's (B, T), topi (B T, k), keep (B T,
+    k), probs (B T, E))`` a call, in call order (the layers' order)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.torch, self.moe, self.calls = torch, moe, []
+
+    def __enter__(self):
+        torch, moe = self.torch, self.moe
+        orig = self.orig = moe.moe_apply
+
+        def recording(params, x, cfg, act="silu"):
+            with torch.no_grad():
+                xt, n = moe.group_tokens(x, cfg)
+                r = moe.route(params, xt, cfg)
+                k, e = cfg.topk, cfg.n_experts
+                self.calls.append((tuple(x.shape[:2]),
+                                   r.topi.reshape(-1, k)[:n].cpu(),
+                                   r.keep.reshape(-1, k)[:n].cpu(),
+                                   r.probs.reshape(-1, e)[:n].cpu()))
+            return orig(params, x, cfg, act)
+
+        moe.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.orig
+
+
+def moe_gap_rows(torch, calls_t, calls_t1, batch: int, t: int):
+    """The rows of the prefill(T) + decode against prefill(T + 1) check
+    that an MoE model is held to: those whose last position prefill(T + 1)
+    routed with no dropped (layer, choice) route, and whose first T
+    positions it routed as prefill(T) did (the two prefills group the
+    flattened tokens at other offsets past row 0, so a row's earlier
+    tokens can queue, and drop, otherwise).  Returns (rows, a note with
+    the counts)."""
+    last = torch.zeros(batch, dtype=torch.int64)
+    moved = torch.zeros(batch, dtype=torch.int64)
+    dropped = routes = 0
+    for (_, ti0, k0, _), (_, ti1, k1, _) in zip(calls_t, calls_t1):
+        k = ti0.shape[-1]
+        ti0, k0 = ti0.reshape(batch, t, k), k0.reshape(batch, t, k)
+        ti1, k1 = ti1.reshape(batch, t + 1, k), k1.reshape(batch, t + 1, k)
+        last += (~k1[:, t]).sum(-1)
+        moved += ((ti0 != ti1[:, :t]) | (k0 != k1[:, :t])).any(-1).sum(-1)
+        dropped += int((~k1).sum())
+        routes += k1.numel()
+    rows = [b for b in range(batch) if last[b] == 0 and moved[b] == 0]
+    n_routes = len(calls_t1) * (calls_t1[0][1].shape[-1] if calls_t1 else 0)
+    note = (f"; MoE: prefill(T+1) dropped {last.tolist()} of each row's last "
+            f"position's {n_routes} (layer, choice) routes and routed "
+            f"{moved.tolist()} of each row's first T positions otherwise "
+            f"than prefill(T) (held: rows with both 0); {dropped} of its "
+            f"{routes} routes dropped")
+    return rows, note
+
+
+def serve_phase(torch, dev, shapes: dict, capture: tuple = (),
+                depth: dict = None):
+    """Phases 11, 12 and 17: each model of ``shapes`` ({arch: (batch,
+    prompt, launches of one prefill)}) at full width, and at full depth
+    unless ``depth`` gives its layers, through serve().
     Returns ({kernel name: {run label: launches}}, {(arch, layer): (q, k,
     v, chunked_attention's keyword arguments)}) for the (arch, layer) pairs
     in ``capture``, taken from the warm-up prefill."""
@@ -857,9 +960,15 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
 
+    depth = depth or {}
     launches, captured = {}, {}
     for arch, (batch, prompt_len, want) in shapes.items():
+        t_model = time.time()
         m = get_spec(arch).model
+        cut = "full depth"
+        if arch in depth:
+            cut = f"{depth[arch]} of {m.n_layers} layers"
+            m = dataclasses.replace(m, n_layers=depth[arch])
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()     # earlier phases' tensors
         params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(0))
@@ -922,10 +1031,12 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
             raise AssertionError(f"{arch}: non-finite logits or tokens of "
                                  f"shape {tuple(res.tokens.shape)}")
         # the same shape again, warm: the median of SERVE_TIMED prefills
-        # and of the per-step decode times (host clock, synchronised)
+        # (the counted run's, which followed the warm-up, and SERVE_TIMED
+        # - 1 more) and of the per-step decode times (host clock,
+        # synchronised)
         max_len = prompt_len + SERVE_GEN + 1
-        pre_ms, step_ms = [], []
-        for _ in range(SERVE_TIMED):
+        pre_ms, step_ms = [res.prefill_s * 1e3], []
+        for _ in range(SERVE_TIMED - 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, st = tfm.prefill(params, m, prompts, max_len=max_len)
@@ -940,8 +1051,8 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
             step_ms.append((time.perf_counter() - t0) * 1e3)
         pre_med = statistics.median(pre_ms)
         step_med = statistics.median(step_ms)
-        print(f"[serve] {arch}: {n_params} params bf16, batch {batch} "
-              f"prompt {prompt_len} gen {SERVE_GEN}: prefill ms median "
+        print(f"[serve] {arch} ({cut}): {n_params} params bf16, batch "
+              f"{batch} prompt {prompt_len} gen {SERVE_GEN}: prefill ms median "
               f"{pre_med!r} of {pre_ms!r}; decode ms/step median {step_med!r}"
               f" (min {min(step_ms)!r}, max {max(step_ms)!r}; "
               f"{batch * 1e3 / step_med!r} tokens/s); the counted serve "
@@ -952,26 +1063,37 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
               f"tokens[0][:8] {res.tokens[0, :8].tolist()}", flush=True)
         del st, logits
 
-        # prefill(T) + one decode step against prefill(T + 1)
+        # prefill(T) + one decode step against prefill(T + 1); an MoE
+        # model's rows are held only where the routes agree (moe_gap_rows)
         max_len = prompt_len + 2
-        _, st = tfm.prefill(params, m, prompts, max_len=max_len)
+        with RouteRecorder(torch) as rec_t:
+            _, st = tfm.prefill(params, m, prompts, max_len=max_len)
         l_step, _ = tfm.decode_step(params, m, toks[:, prompt_len], st)
-        l_long, _ = tfm.prefill(params, m, toks, max_len=max_len)
-        gap = float((l_step - l_long).abs().max())
+        with RouteRecorder(torch) as rec_t1:
+            l_long, _ = tfm.prefill(params, m, toks, max_len=max_len)
+        rows, note = list(range(batch)), ""
+        if m.moe is not None:
+            rows, note = moe_gap_rows(torch, rec_t.calls, rec_t1.calls,
+                                      batch, prompt_len)
         scale = float(l_long.abs().max())
+        gap = float((l_step - l_long)[rows].abs().max()) if rows else None
         agree = float((l_step.argmax(-1) == l_long.argmax(-1)).float().mean())
         print(f"[serve] {arch}: prefill(T) + decode vs prefill(T+1): max abs "
-              f"gap {gap!r} against max |logits| {scale!r} (limit "
-              f"{GAP_REL} x); argmax agreement {agree!r}", flush=True)
-        if not gap <= GAP_REL * scale:
+              f"gap {gap!r} over rows {rows} of {batch} against max |logits| "
+              f"{scale!r} (limit {GAP_REL} x){note}; argmax agreement "
+              f"{agree!r}", flush=True)
+        if gap is not None and not gap <= GAP_REL * scale:
             raise AssertionError(f"{arch}: self-consistency gap {gap!r} > "
                                  f"{GAP_REL} * {scale!r}")
-        del st, l_step, l_long
+        del st, l_step, l_long, rec_t, rec_t1
 
         # the device's busy share: one prefill, then 8 decode steps
+        # the prefill's trace records the device only: the host's operator
+        # events of a full-depth prefill take the profiler longer to stop
+        # and parse than the prefill itself runs
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             logits, st = tfm.prefill(params, m, prompts,
                                      max_len=prompt_len + SERVE_GEN + 1)
@@ -1000,7 +1122,8 @@ def serve_phase(torch, dev, shapes: dict, capture: tuple = ()):
               f"(top device ms: {pre_top}); {SERVE_PROFILE_STEPS} decode "
               f"steps wall ms {dec_wall!r} busy ms {dec_busy!r} idle share "
               f"{1 - dec_busy / dec_wall!r}; decode host self time (ms/step): "
-              f"{host}", flush=True)
+              f"{host}; the model's serve checks took "
+              f"{time.time() - t_model:.1f} s", flush=True)
         del params, res, st, logits
         torch.cuda.empty_cache()
     return launches, captured
@@ -1392,6 +1515,125 @@ def cuda_vs_cpu_phase(torch, dev) -> None:
               f"|cpu|) over prefill and 4 decode logits {worst!r} (limit "
               f"{CPU_LOGIT_TOL}); greedy tokens equal {same}", flush=True)
         if not (worst <= CPU_LOGIT_TOL and same):
+            raise AssertionError(f"{arch}: CUDA and CPU serving differ")
+        del params, cpu_params, runs
+        torch.cuda.empty_cache()
+
+
+def moe_cuda_vs_cpu_phase(torch, dev, cache_dtype=None) -> None:
+    """Phase 17b: the MoE models, float32 (``MOE_CPU_CHECK``), the card
+    against the CPU on the same weights: batch 2, prompt 128 (every
+    position's logits from ``forward_hidden``, then prefill) and 4 decode
+    steps, both sides fed the CPU's greedy tokens, with KV caches of
+    ``cache_dtype`` (float32 by default: the bf16 caches' rounding is
+    ROADMAP Queue C's; ``torch.bfloat16`` shows it, reduced llama4's
+    decode rows then parting past ``CPU_LOGIT_TOL``).  Every MoE call's
+    routing is recorded on both sides (``RouteRecorder``).  A token routed
+    otherwise on the card (another expert, or another route kept) is
+    printed with the CPU's probability gap at its top-k boundary (a change
+    of expert must be a near-tie: gap <= ``FLIP_GAP``), and the rows it
+    can reach are not held: its own position and the later ones of its
+    sequence, and that sequence's decode rows from the step of the change
+    (every one if the prompt's routes changed).  Every other row: logits
+    within ``CPU_LOGIT_TOL`` and greedy tokens equal."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_spec, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    b_, t_, steps = 2, 128, 4
+    cache_dtype = cache_dtype or torch.float32
+    for arch, n_layers in MOE_CPU_CHECK:
+        spec = get_spec(arch)
+        if n_layers is None:
+            m, what = reduced(spec).model, "reduced()"
+        else:
+            m = dataclasses.replace(spec.model, n_layers=n_layers,
+                                    dtype=torch.float32)
+            what = f"full width, {n_layers} of {spec.model.n_layers} layers"
+        params = tfm.init_params(m, torch.Generator(device=dev).manual_seed(1))
+        cpu_params = tree_util.map(lambda x: x.cpu(), params)
+        prompts = serve.prompts_for(m, b_, t_, dev)
+        runs, fed = {}, None
+        for label, where, p_ in (("cpu", torch.device("cpu"), cpu_params),
+                                 ("cuda", dev, params)):
+            rows, picks = [], []
+            with torch.no_grad(), RouteRecorder(torch) as rec:
+                h, _ = tfm.forward_hidden(p_, m, prompts.to(where),
+                                          remat=False)
+                full = tfm._unembed(p_, m, h).cpu()          # (B, T, V)
+                logits, st = tfm.prefill(p_, m, prompts.to(where),
+                                         t_ + steps + 1, dtype=cache_dtype)
+                for step in range(steps):
+                    picks.append(logits.argmax(-1).cpu())
+                    rows.append(logits.cpu())
+                    tok = picks[-1] if fed is None else fed[step]
+                    logits, st = tfm.decode_step(p_, m, tok.to(where), st)
+                rows.append(logits.cpu())
+            runs[label] = (full, rows, picks, rec.calls)
+            if fed is None:
+                fed = picks
+        (f_cpu, r_cpu, p_cpu, c_cpu), (f_gpu, r_gpu, p_gpu, c_gpu) = (
+            runs["cpu"], runs["cuda"])
+        # first position of each sequence whose prompt routes changed, and
+        # the first decode step whose routes changed
+        first_t = [t_] * b_
+        first_step = [steps + 1] * b_      # logit rows held: 0 .. first - 1
+        changes = []
+        n_moe = sum(m.is_moe_layer(i) for i in range(m.n_layers))
+        if not len(c_cpu) == len(c_gpu) == n_moe * (2 + steps):
+            raise AssertionError(f"{arch}: {len(c_cpu)} / {len(c_gpu)} MoE "
+                                 f"calls recorded")
+        for c, ((shp, ti0, k0, pr0), (_, ti1, k1, _)) in enumerate(
+                zip(c_cpu, c_gpu)):
+            diff = ((ti0 != ti1) | (k0 != k1)).any(-1).reshape(shp)
+            for b, t in diff.nonzero().tolist():
+                kk = ti0.shape[-1]
+                top = torch.sort(pr0[b * shp[1] + t], descending=True)[0]
+                gap = float(top[kk - 1] - top[kk])
+                flip = bool((ti0 != ti1)[b * shp[1] + t].any())
+                changes.append((c, b, t, gap, flip))
+                if shp[1] == t_:
+                    first_t[b] = min(first_t[b], t)
+                else:       # decode step c // n_moe - 2 gives row step + 1
+                    first_step[b] = min(first_step[b], c // n_moe - 1)
+        for b in range(b_):
+            if first_t[b] < t_:
+                first_step[b] = 0
+        def rel(g, c_):
+            return float(((g - c_).abs() / (1 + c_.abs())).max())
+
+        worst_t = worst_s = 0.0           # prompt positions; prefill + decode
+        held, same = 0, True
+        for b in range(b_):
+            n = first_t[b]
+            if n:
+                worst_t = max(worst_t, rel(f_gpu[b, :n], f_cpu[b, :n]))
+                held += n
+            for s_ in range(min(first_step[b], steps + 1)):
+                worst_s = max(worst_s, rel(r_gpu[s_][b], r_cpu[s_][b]))
+                held += 1
+                if s_ < steps:
+                    same &= bool(p_gpu[s_][b] == p_cpu[s_][b])
+        worst = max(worst_t, worst_s)
+        report = "; ".join(
+            f"call {c} row {b} position {t}: "
+            f"{'expert changed' if flip else 'kept route changed'}, CPU "
+            f"probability gap {gap!r}" for c, b, t, gap, flip in changes)
+        print(f"[cuda-vs-cpu] {arch} ({what}, d {m.d_model}, float32, "
+              f"{str(cache_dtype).split('.')[-1]} KV caches, batch {b_}, "
+              f"prompt {t_}, {steps} decode steps fed the CPU's greedy "
+              f"tokens): tokens routed otherwise on the card: "
+              f"{len(changes)}{' (' + report + ')' if changes else ''}; held "
+              f"{held} of {b_ * (t_ + steps + 1)} logit rows (positions "
+              f"before the first change {first_t}, prefill and decode rows "
+              f"before {first_step}): max |cuda - cpu| / (1 + |cpu|) {worst!r}"
+              f" (every position {worst_t!r}, prefill and decode rows "
+              f"{worst_s!r}; limit {CPU_LOGIT_TOL}); greedy tokens equal "
+              f"{same}", flush=True)
+        if any(flip and gap > FLIP_GAP for _, _, _, gap, flip in changes):
+            raise AssertionError(f"{arch}: an expert changed past a near-tie")
+        if not (held and worst <= CPU_LOGIT_TOL and same):
             raise AssertionError(f"{arch}: CUDA and CPU serving differ")
         del params, cpu_params, runs
         torch.cuda.empty_cache()
@@ -2309,7 +2551,6 @@ def population_phase(torch, dev, launches: dict) -> None:
     from repro_torch.core.locodl import LoCoDL, LoCoDLConfig
     from repro_torch.kernels import ops
 
-    t_phase = time.time()
     art = {row["name"]: row for row in json.loads(
         (ROOT / POP_ARTIFACT).read_text())["rows"]}
 
@@ -2553,8 +2794,6 @@ def population_phase(torch, dev, launches: dict) -> None:
         alg.store.flush()
     finally:
         shutil.rmtree(spool, ignore_errors=True)
-    print(f"[phases] population took {time.time() - t_phase:.1f} s",
-          flush=True)
 
 
 def backward_kernels_phase(torch, dev, recs) -> None:
@@ -2854,6 +3093,12 @@ def fed_round_phase(torch, dev, launches, arch: str = "rwkv6-3b",
     from repro_torch.launch import fed_train, steps
 
     spec = get_spec(arch)
+    depth = "full width and depth"
+    if arch in TRAIN_LAYERS:
+        spec = dataclasses.replace(spec, model=dataclasses.replace(
+            spec.model, n_layers=TRAIN_LAYERS[arch]))
+        depth = (f"full width, {TRAIN_LAYERS[arch]} of "
+                 f"{get_spec(arch).model.n_layers} layers")
 
     def stacked_init():
         """The clients' stacked weights (every run from the same seeded
@@ -2924,7 +3169,8 @@ def fed_round_phase(torch, dev, launches, arch: str = "rwkv6-3b",
                                  f"({n_leaves}) expected")
         for k, v in counts.items():
             launches.setdefault(k, {})[f"fed round {arch} {label}"] = v
-        print(f"[train] fed round {arch} {label}: {FED_CLIENTS} clients, "
+        print(f"[train] fed round {arch} ({depth}) {label}: {FED_CLIENTS} "
+              f"clients, "
               f"{FED_LOCAL_STEPS} local steps, seq {FED_SEQ} (inputs "
               f"{list(data)}): loss {loss!r}, "
               f"comm_bits {bits!r} (closed form {closed}, {n} parameters in "
@@ -3080,6 +3326,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.time()
+    t_lap = [t_start]
+
+    def lap(what: str) -> None:
+        now = time.time()
+        print(f"[phases] {what} took {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
+
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     card = card_line()
@@ -3822,6 +4075,8 @@ def main() -> int:
         torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    lap("build and kernels")
+
     # ---- 3. train ----------------------------------------------------------- #
     ds = synthetic.make_mnist_like(n_train=8000, n_test=1000)
     parts = dirichlet.dirichlet_partition(ds.y_train, n_clients=20,
@@ -4176,54 +4431,66 @@ def main() -> int:
         print(f"[profile] {name}: steady ms/round packed {p['wall_ms']!r} vs "
               f"account {a['wall_ms']!r}; {busy}", flush=True)
 
+    lap("quickstart train")
+
     # ---- 4. fig9, 5. hetero ------------------------------------------------ #
     cifar = cifar_setup(torch, dev)
     fig9_phase(torch, dev, cifar, launches)
     hetero_phase(torch, dev, cifar, launches)
     del cifar
     torch.cuda.empty_cache()
+    lap("fig9 and hetero")
 
     # ---- 6. downlink, 7. het_system, 8. scope ------------------------------ #
     mnist = {"loss_fn": loss_fn, "data": data, "eval_fn": eval_fn,
              "params0": params0}
-    t0 = time.time()
     downlink_phase(torch, dev, mnist, launches)
     het_system_phase(torch, dev, mnist, launches)
     scope_phase(torch, dev, mnist, launches)
-    print(f"[phases] downlink, het_system and scope took "
-          f"{time.time() - t0:.1f} s", flush=True)
+    lap("downlink, het_system and scope")
     del mnist, data
     torch.cuda.empty_cache()
 
     # ---- 9. population ----------------------------------------------------- #
     population_phase(torch, dev, launches)
     torch.cuda.empty_cache()
+    lap("population")
 
     # ---- 10. scans, 11.-12. serve, 13. attention, 14. CUDA against CPU ----- #
     check_scan_kernels(torch, dev, recs)
+    lap("scans")
     launches.update(serve_phase(torch, dev, SERVE_SHAPES)[0])
+    lap("serve")
     _, captured = serve_phase(torch, dev, DENSE_SHAPES, ATTN_CAPTURE)
+    lap("dense serve")
     launches["flash_attention"] = attention_phase(torch, dev, recs["K10"],
                                                   captured)
     del captured
     torch.cuda.empty_cache()
+    lap("attention")
     cuda_vs_cpu_phase(torch, dev)
+    lap("CUDA against CPU")
 
     # ---- 15. train --------------------------------------------------------- #
-    t0 = time.time()
     backward_kernels_phase(torch, dev, recs)
     block_grads_phase(torch, dev)
     train_steps_phase(torch, dev, launches)
     fed_round_phase(torch, dev, launches)
     fed_round_phase(torch, dev, launches, "seamless-m4t-large-v2",
                     only=("quant r=8",))
-    print(f"[phases] train took {time.time() - t0:.1f} s", flush=True)
+    fed_round_phase(torch, dev, launches, "mixtral-8x7b",
+                    only=("quant r=8",))
+    lap("train")
 
     # ---- 16. multimodal serve ---------------------------------------------- #
-    t0 = time.time()
     mm_serve_phase(torch, dev)
-    print(f"[phases] multimodal serve took {time.time() - t0:.1f} s",
-          flush=True)
+    lap("multimodal serve")
+
+    # ---- 17. MoE ----------------------------------------------------------- #
+    serve_phase(torch, dev, MOE_SERVE, depth=MOE_SERVE_LAYERS)
+    lap("MoE serve")
+    moe_cuda_vs_cpu_phase(torch, dev)
+    lap("MoE CUDA against CPU")
 
     # kernel -> (the counter of its main-path entry, the tag of its runs)
     entries = {"topk_mask": (FUSED_K1_K2, "fused"),

@@ -1,12 +1,13 @@
 """Architecture registry, the port of ``repro.configs``:
 ``get_spec("rwkv6-3b")`` / ``--arch`` ids.
 
-The port serves and trains the recurrent families, ``rwkv6-3b`` (K12)
-and ``recurrentgemma-2b`` (K11), the dense GQA family (``qwen2-0.5b``,
-``qwen2-7b``, ``gemma2-9b``, ``gemma3-4b``), the VLM backbone
-``qwen2-vl-7b`` (prefix embeddings, M-RoPE) and the encoder-decoder
-``seamless-m4t-large-v2``.  The MoE architectures (``mixtral-8x7b``,
-``llama4-maverick-400b-a17b``) raise ``NotImplementedError``.
+Every architecture of the reference is here: the recurrent families,
+``rwkv6-3b`` (K12) and ``recurrentgemma-2b`` (K11), the dense GQA family
+(``qwen2-0.5b``, ``qwen2-7b``, ``gemma2-9b``, ``gemma3-4b``), the VLM
+backbone ``qwen2-vl-7b`` (prefix embeddings, M-RoPE), the
+encoder-decoder ``seamless-m4t-large-v2`` and the MoE family
+(``mixtral-8x7b``, ``llama4-maverick-400b-a17b``).  An unknown id raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ __all__ = ["ArchSpec", "reduced", "ARCH_IDS", "get_spec"]
 _MODULES = {
     "gemma2-9b": "gemma2_9b",
     "gemma3-4b": "gemma3_4b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen2-7b": "qwen2_7b",
     "qwen2-vl-7b": "qwen2_vl_7b",

@@ -13,7 +13,6 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.models.encdec import EncDecConfig
 
 
@@ -60,7 +59,8 @@ def reduced(spec: ArchSpec) -> ArchSpec:
     feature flags kept, one pattern cycle deep (at least 2 layers, at most
     4), d_model 256 (128 for rwkv), head_dim 64, window 16, the
     long-context cap 16 where the full config has one, M-RoPE sections
-    (16, 8, 8), float32; an encoder-decoder gets one layer each side at
+    (16, 8, 8), at most 4 experts and top-2 in groups of 64 at capacity
+    factor 2.0, float32; an encoder-decoder gets one layer each side at
     d_model 128; at most 16 prefix tokens."""
     m = spec.model
     if isinstance(m, EncDecConfig):
@@ -69,8 +69,12 @@ def reduced(spec: ArchSpec) -> ArchSpec:
             n_kv_heads=4, head_dim=32, d_ff=256, vocab=512,
             dtype=torch.float32)
     else:
+        moe_cfg = None
         if m.moe is not None:
-            raise not_ported("reduced MoE configs")
+            moe_cfg = dataclasses.replace(
+                m.moe, n_experts=min(4, m.moe.n_experts),
+                topk=min(m.moe.topk, 2), group_size=64,
+                capacity_factor=2.0)
         n_layers = max(2, min(len(m.block_pattern), 4)) \
             if len(m.block_pattern) > 1 else 2
         d_model = 256 if m.block_type(0) != "rwkv" else 128
@@ -80,7 +84,7 @@ def reduced(spec: ArchSpec) -> ArchSpec:
             head_dim=64, d_ff=512, vocab=512,
             window=(16 if m.window else None),
             long_context_cap=(16 if m.long_context_cap else None),
-            dtype=torch.float32)
+            moe=moe_cfg, dtype=torch.float32)
         if m.mrope_sections is not None:
             small = dataclasses.replace(small, mrope_sections=(16, 8, 8))
     return dataclasses.replace(spec, model=small,

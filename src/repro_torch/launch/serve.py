@@ -5,12 +5,19 @@ batch of prompts, then decode tokens against the carried state.
       --reduced --batch 4 --prompt-len 64 --gen 16 --device cpu
 
 Without ``--reduced`` it serves the published width and depth (bfloat16)
-and wants the card (``--device cuda``, the default).  :func:`serve` is the
-body, for callers that bring their own weights and prompts.  For the
-encoder-decoder family (``seamless-m4t-large-v2``) the CLI encodes
-``--prompt-len`` seeded source frames and decodes after a target prefix
-of the prompt's first 4 tokens, as the reference does; qwen2-vl is served
-text-only (no prefix embeddings), as in the reference's CLI.
+and wants the card (``--device cuda``, the default); ``--layers N`` keeps
+the first N layers of a decoder stack, so that a model whose weights
+outgrow one card (mixtral-8x7b: ~93 GB in bf16) serves at full width:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --layers 16 --batch 4 --prompt-len 4608 --gen 32
+
+:func:`serve` is the body, for callers that bring their own weights and
+prompts.  For the encoder-decoder family (``seamless-m4t-large-v2``) the
+CLI encodes ``--prompt-len`` seeded source frames and decodes after a
+target prefix of the prompt's first 4 tokens, as the reference does;
+qwen2-vl is served text-only (no prefix embeddings), as in the
+reference's CLI.
 """
 
 from __future__ import annotations
@@ -126,11 +133,19 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers of a decoder stack")
     args = ap.parse_args(argv)
 
     spec = get_spec(args.arch)
     if args.reduced:
         spec = make_reduced(spec)
+    if args.layers is not None:
+        if spec.is_encdec:
+            raise ValueError("--layers cuts a decoder stack; "
+                             f"{args.arch} is an encoder-decoder")
+        spec = dataclasses.replace(spec, model=dataclasses.replace(
+            spec.model, n_layers=args.layers))
     m = spec.model
     device = torch.device(args.device)
     params = init_params(spec, torch.Generator(device=device).manual_seed(0))

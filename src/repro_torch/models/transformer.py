@@ -19,9 +19,10 @@ final logit softcap (gemma2), the long-context window cap on "attn"
 layers (gemma2, gemma3), and qwen2-vl's multimodal inputs: precomputed
 prefix embeddings placed before the tokens (``prefix_embeds``) and M-RoPE
 over (t, h, w) position ids (``positions3``; text-only by default, every
-axis the linear position).  MoE layers are not ported yet and raise
-``NotImplementedError`` (``_NOT_PORTED``); the encoder-decoder family is
-``models/encdec.py``.
+axis the linear position), and the MoE feed-forward (mixtral, llama4:
+``models/moe.py`` on every ``moe_period``-th layer, plus a shared expert
+where ``n_shared_experts`` is set), whose load-balance loss ``loss`` adds
+at ``aux_weight``.  The encoder-decoder family is ``models/encdec.py``.
 
 The reference's dtype conventions are kept: KV caches and the rglru conv
 state leave prefill in ``dtype`` (bfloat16 by default, even in a float32
@@ -32,15 +33,14 @@ and the rwkv shift states at the model's dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import not_ported
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, rglru, rwkv6
+from repro_torch.models import layers, moe, rglru, rwkv6
 
 RWKV_HEAD = 64      # the rwkv blocks' head size, as in the reference
 
@@ -65,9 +65,9 @@ class ModelConfig:
     act: str = "silu"
     rope_theta: float = 10_000.0
     mrope_sections: Optional[tuple] = None  # qwen2-vl (t, h, w) split
-    moe: Any = None                        # MoE config (not ported)
-    moe_period: int = 1
-    n_shared_experts: int = 0
+    moe: Optional[moe.MoEConfig] = None
+    moe_period: int = 1                    # every k-th layer is MoE
+    n_shared_experts: int = 0              # llama4 shared expert
     embed_scale: bool = False              # gemma: x *= sqrt(d)
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
@@ -83,6 +83,10 @@ class ModelConfig:
     def block_type(self, i: int) -> str:
         return self.block_pattern[i % len(self.block_pattern)]
 
+    def is_moe_layer(self, i: int) -> bool:
+        return self.moe is not None and (i % self.moe_period
+                                         == self.moe_period - 1)
+
     def layer_window(self, i: int) -> Optional[int]:
         bt = self.block_type(i)
         if bt == "swa":
@@ -91,16 +95,41 @@ class ModelConfig:
             return self.long_context_cap
         return None
 
+    def num_params(self) -> int:
+        """The reference's analytic parameter count (its rglru and rwkv
+        terms approximate; norms and biases left out)."""
+        d, f, v, hd = self.d_model, self.d_ff, self.vocab, self.hd
+        total = v * d  # embed
+        if not self.tie_embeddings:
+            total += v * d
+        for i in range(self.n_layers):
+            bt = self.block_type(i)
+            if bt in ("attn", "swa"):
+                total += d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                total += self.n_heads * hd * d
+            elif bt == "rglru":
+                total += 2 * d * d + 3 * d * d + d  # in/gates/out approx
+            elif bt == "rwkv":
+                total += 4 * d * d + d * 64 * 2 + d * d  # time-mix
+                total += d * d + 2 * d * f               # channel-mix
+            if bt != "rwkv":
+                if self.is_moe_layer(i):
+                    total += (self.moe.n_experts * 3 * d * f
+                              + d * self.moe.n_experts)
+                    total += self.n_shared_experts * 3 * d * f
+                else:
+                    total += 3 * d * f
+        return total
 
-# options of the reference's other families; the served configs leave each
-# at its default, and any other value raises
-_NOT_PORTED = {"moe": "MoE layers"}
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for name, what in _NOT_PORTED.items():
-        if getattr(cfg, name) != getattr(ModelConfig, name):
-            raise not_ported(what)
+    def active_params(self) -> int:
+        """Parameters a token uses: an MoE layer counts its top-k
+        experts."""
+        if self.moe is None:
+            return self.num_params()
+        d, f = self.d_model, self.d_ff
+        inactive = (self.moe.n_experts - self.moe.topk) * 3 * d * f
+        n_moe = sum(self.is_moe_layer(i) for i in range(self.n_layers))
+        return self.num_params() - n_moe * inactive
 
 
 # --------------------------------------------------------------------------- #
@@ -111,7 +140,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random weights with the reference's distributions and layout, drawn
     from ``gen`` on its device (not the reference's bits: tests carry the
     reference's weights across instead)."""
-    _check_ported(cfg)
     params: dict = {
         "embed": layers.embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
         "final_norm": layers.rmsnorm_init(cfg.d_model, cfg.dtype, gen.device),
@@ -154,7 +182,13 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, i: int) -> dict:
     else:
         raise ValueError(f"unknown block type {bt!r}")
     p["ln_mlp"] = layers.rmsnorm_init(d, dt, dev)
-    p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dt)
+    if cfg.is_moe_layer(i):
+        p["moe"] = moe.moe_init(gen, d, cfg.d_ff, cfg.moe, dt)
+        if cfg.n_shared_experts:
+            p["shared_mlp"] = layers.mlp_init(
+                gen, d, cfg.n_shared_experts * cfg.d_ff, dt)
+    else:
+        p["mlp"] = layers.mlp_init(gen, d, cfg.d_ff, dt)
     if cfg.post_norm:
         p["ln_mlp_post"] = layers.rmsnorm_init(d, dt, dev)
     return p
@@ -204,9 +238,16 @@ def _default_positions3(cfg: ModelConfig, positions: torch.Tensor,
     return positions3
 
 
-def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The dense feed-forward block (MoE layers are not ported)."""
-    return layers.mlp(p["mlp"], x, cfg.act)
+def _ffn(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor):
+    """Layer ``i``'s feed-forward, dense or MoE (plus the shared expert);
+    returns ``(out, aux)``, aux the MoE balance loss or a float32 0."""
+    if cfg.is_moe_layer(i):
+        out, aux = moe.moe_apply(p["moe"], x, cfg.moe, cfg.act)
+        if cfg.n_shared_experts:
+            out = out + layers.mlp(p["shared_mlp"], x, cfg.act)
+        return out, aux
+    return (layers.mlp(p["mlp"], x, cfg.act),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _embed_in(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -243,13 +284,12 @@ def _post_norm(p: dict, cfg: ModelConfig, name: str,
 def _layer_fwd(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
                positions: torch.Tensor, positions3=None, causal: bool = True):
     """Full-sequence layer forward (training).  Returns ``(x, aux)``; aux
-    is the MoE balance loss, 0 here (MoE layers are not ported)."""
+    is the layer's MoE balance loss (a float32 0 on other layers)."""
     bt = cfg.block_type(i)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if bt == "rwkv":
         x = x + rwkv6.time_mix(p["rwkv"], layers.layernorm(p["ln_tm"], x))
         x = x + rwkv6.channel_mix(p["rwkv"], layers.layernorm(p["ln_cm"], x))
-        return x, aux
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.rmsnorm(p["ln_attn"], x)
     if bt == "rglru":
         y = rglru.rglru_block(p["rglru"], h)
@@ -261,7 +301,8 @@ def _layer_fwd(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
         y = layers.dense(p["o"], _merge_heads(y))
     x = x + _post_norm(p, cfg, "ln_attn_post", y)
     h = layers.rmsnorm(p["ln_mlp"], x)
-    return x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, h)), aux
+    y, aux = _ffn(p, cfg, i, h)
+    return x + _post_norm(p, cfg, "ln_mlp_post", y), aux
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -278,7 +319,6 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     it from the layer's input, as the reference's per-layer
     ``jax.checkpoint`` does: K11 and K12 then launch twice a step, once
     in the forward and once in the recompute."""
-    _check_ported(cfg)
     x = _embed_in(params, cfg, tokens, prefix_embeds)
     b, t = x.shape[:2]
     positions = torch.arange(t, device=x.device).expand(b, t)
@@ -378,7 +418,6 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     (B, vocab) float32, new_state)``.  Its position is the caches' length
     (prefix positions included); ``positions3`` (B, 3, 1) overrides it
     for M-RoPE."""
-    _check_ported(cfg)
     b = token.shape[0]
     x = _embed_in(params, cfg, token[:, None])
     # absolute position: every layer tracks the same length; the first
@@ -419,7 +458,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             y = layers.dense(p["o"], _merge_heads(y))
         x = x + _post_norm(p, cfg, "ln_attn_post", y)
         h = layers.rmsnorm(p["ln_mlp"], x)
-        x = x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, h))
+        x = x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, i, h)[0])
         new_state[f"layer_{i}"] = st_new
     h = layers.rmsnorm(params["final_norm"], x)
     return _unembed(params, cfg, h)[:, 0], new_state
@@ -434,9 +473,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     tokens to decode.  ``positions3`` (B, 3, P + T): M-RoPE's ids.
 
     rwkv layers run K12 and rglru layers K11 over the whole prompt; caches
-    are produced by the full-sequence forward.
+    are produced by the full-sequence forward; an MoE layer's balance
+    loss is dropped, as in the reference.
     """
-    _check_ported(cfg)
     b, t = tokens.shape
     x = _embed_in(params, cfg, tokens, prefix_embeds)
     ttot = x.shape[1]
@@ -493,7 +532,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             new_state[f"layer_{i}"] = st_new
         x = x + _post_norm(p, cfg, "ln_attn_post", y)
         h = layers.rmsnorm(p["ln_mlp"], x)
-        x = x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, h))
+        x = x + _post_norm(p, cfg, "ln_mlp_post", _ffn(p, cfg, i, h)[0])
     h = layers.rmsnorm(params["final_norm"], x)
     logits = _unembed(params, cfg, h[:, -1:])[:, 0]
     return logits, new_state

@@ -449,17 +449,22 @@ def _same_fields(t, j):
         got, want = getattr(t, f.name), getattr(j, f.name)
         if f.name == "dtype":
             assert got == _DTYPES[want], f.name
+        elif dataclasses.is_dataclass(want):     # the MoE config
+            assert type(got).__name__ == type(want).__name__, f.name
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
+            assert got.capacity() == want.capacity(), f.name
         else:
             assert got == want, f.name
 
 
 def test_registry_and_published_dims():
-    """Every ported spec (the ArchSpec's fields, ``is_encdec`` and
-    ``runs``), its model config and its ``reduced()`` equal the
-    reference's; the MoE architectures still raise."""
+    """Every spec (the ArchSpec's fields, ``is_encdec`` and ``runs``), its
+    model config and its ``reduced()`` equal the reference's, the MoE
+    configs (and their capacities) included, and so do the analytic
+    parameter counts; an unknown id raises."""
     assert set(ARCH_IDS) == set(ARCHS) | set(DENSE_ARCHS) | set(
-        MULTIMODAL_ARCHS)
-    for arch in ARCHS + DENSE_ARCHS + MULTIMODAL_ARCHS:
+        MULTIMODAL_ARCHS) | set(MOE_ARCHS)
+    for arch in ARCHS + DENSE_ARCHS + MULTIMODAL_ARCHS + MOE_ARCHS:
         j, t = jget_spec(arch), get_spec(arch)
         for f in ("arch_id", "family", "citation", "modality", "skip_shapes",
                   "skip_reason", "n_prefix_tokens", "is_encdec"):
@@ -470,12 +475,20 @@ def test_registry_and_published_dims():
         rj, rt = jreduced(j), reduced(t)
         assert rt.n_prefix_tokens == rj.n_prefix_tokens
         _same_fields(rt.model, rj.model)
+        if not t.is_encdec:
+            for mt, mj in ((t.model, j.model), (rt.model, rj.model)):
+                assert mt.num_params() == mj.num_params(), arch
+                assert mt.active_params() == mj.active_params(), arch
+                assert [mt.is_moe_layer(i) for i in range(mt.n_layers)] == [
+                    mj.is_moe_layer(i) for i in range(mj.n_layers)], arch
     assert get_spec("qwen2-vl-7b").n_prefix_tokens == 256
     assert reduced(get_spec("qwen2-vl-7b")).model.mrope_sections == (16, 8, 8)
     assert get_spec("seamless-m4t-large-v2").is_encdec
-    for arch in MOE_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_spec(arch)
+    assert reduced(get_spec("mixtral-8x7b")).model.moe.capacity() == 64
+    assert get_spec("mixtral-8x7b").model.moe.capacity() == 80
+    assert get_spec("llama4-maverick-400b-a17b").model.moe.capacity() == 4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_spec("no-such-arch")
 
 
 def test_make_lm_tokens_byte_equal():
@@ -572,21 +585,24 @@ def test_other_families_options_are_not_ported(option, value):
 
 
 def test_training_and_other_families_are_not_ported():
-    """Training, prefix embeddings, M-RoPE and the encoder-decoder are
-    ported; the MoE family still raises, from the registry, from
-    ``reduced`` and from every model entry given a ``moe=`` config."""
+    """Training, prefix embeddings, M-RoPE, the encoder-decoder and the MoE
+    family are ported; what still raises is outside the model zoo:
+    ``CommMeter``'s device-resident modes (the reference's ``"jnp"``) and
+    ``prng.choice(replace=True)``, which no part of the reference calls."""
+    from repro_torch import prng
+    from repro_torch.core import comm
+
+    for mode in ("jnp", "device"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            comm.CommMeter(mode=mode)
+    assert comm.CommMeter().mode == "host"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_spec("mixtral-8x7b")
-    jspec = jget_spec("mixtral-8x7b")
-    _, m = _configs("qwen2-0.5b")
-    m = dataclasses.replace(m, moe=jspec.model.moe)
-    spec = dataclasses.replace(get_spec("qwen2-0.5b"), model=m)
-    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP"):
-        reduced(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.init_params(m, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.loss({}, m, torch.zeros((1, 2), dtype=torch.int64),
-                 prefix_embeds=torch.zeros((1, 2, 256)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.prefill({}, m, torch.zeros((1, 2), dtype=torch.int64), 4)
+        prng.choice(prng.PRNGKey(0), 5, 2, replace=True)
+    for arch in MOE_ARCHS:
+        m = reduced(get_spec(arch)).model
+        tp = tfm.init_params(m, torch.Generator().manual_seed(0))
+        moe_layers = [i for i in range(m.n_layers) if m.is_moe_layer(i)]
+        assert moe_layers and all("moe" in tp["layers"][f"layer_{i}"]
+                                  for i in moe_layers)
+        tfm.loss(tp, m, torch.zeros((1, 4), dtype=torch.int64))
+        tfm.prefill(tp, m, torch.zeros((1, 2), dtype=torch.int64), 4)
