@@ -161,6 +161,13 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    account wire (no kernel); then a QuantQr(8) round with a per-client r of
    4 or 8, whose every K4 launch (one r a row) must equal ``prng.uniform``
    + the plain version bit for bit;
+8b. client_mesh — the client axis over ranks (DESIGN.md §6) under an
+   NCCL group of world size 1: ``CLIENT_MESH_ROUNDS`` quickstart rounds of
+   FedComLoc with TopK(0.3), QuantQr(8) and k25_q4 on both wires, FedAvg
+   with TopK(0.5) and LoCoDL (packed TopK(0.1) up and down) under
+   ``make_client_mesh(1)`` must equal the unsharded runs bit for bit
+   (state, every metric, the meter) with the same launches by kernel;
+   steady ms a round, sharded and unsharded in turns;
 9. population — ``benchmarks/population_scale.py``'s configuration at
    ``POP_N`` = 10^6 clients, not cut: ``SyntheticFederatedData`` (2048,
    hetero 0.2, noise 0.01), a diurnal + churn availability trace with the
@@ -330,6 +337,9 @@ DIVERGING_REPLAY_ROUNDS = 6
 PROFILE_ROUNDS = 5
 FIG9_ROUNDS = 12              # benchmarks/common.py FAST_ROUNDS
 DOWNLINK_ROUNDS = 60          # benchmarks/common.py FULL_ROUNDS
+CLIENT_MESH_ROUNDS = 5        # the client_mesh phase's rounds a run
+CLIENT_MESH_WINDOW = 3        # ... and its timed windows' rounds
+CLIENT_MESH_PROFILED = ("FedComLoc TopK account", "LoCoDL packed")
 DOWNLINK_TARGET = 0.9         # benchmarks/downlink.py TARGET_ACC
 DOWNLINK_ARTIFACT = "benchmarks/artifacts/downlink.json"
 # locodl_double's downlink bits count the ties of TopK(0.1) on the mean of
@@ -2140,8 +2150,8 @@ def downlink_phase(torch, dev, mnist, launches: dict) -> None:
     seams = (fedcomloc_mod, locodl_mod)
     orig_seam = clients_mod.apply_downlink
 
-    def checking_seam(mode, comp, ref, x_new, key, s_):
-        y_new, bits, extras = orig_seam(mode, comp, ref, x_new, key, s_)
+    def checking_seam(mode, comp, ctx, ref, x_new, key, s_):
+        y_new, bits, extras = orig_seam(mode, comp, ctx, ref, x_new, key, s_)
         delta = [a - b for a, b in zip(tree_util.leaves(x_new),
                                        tree_util.leaves(ref))]
         topk = comp.first if isinstance(comp, Compose) else comp
@@ -2520,6 +2530,175 @@ def scope_phase(torch, dev, mnist, launches: dict) -> None:
           f"K4 per-row launches bit-equal to prng.uniform + the plain "
           f"version (rows' r {checked[0]}); client bits "
           f"{m['client_uplink_bits'][0].tolist()}", flush=True)
+
+
+def collective_profile(torch, prng, alg, state, key, label: str):
+    """``CLIENT_MESH_WINDOW`` rounds of ``alg`` under ``torch.profiler``:
+    a round's device operations, its NCCL kernels and their device ms,
+    and the host time of its collective calls; returns the carried
+    ``(state, key)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(CLIENT_MESH_WINDOW):
+            key, sub = prng.split(key, 2)
+            state, _ = alg.round(state, sub)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) / CLIENT_MESH_WINDOW * 1e3
+    n = CLIENT_MESH_WINDOW
+    dev_ops, launch_calls = round_op_counts(prof)
+    nccl = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and "nccl" in ev.name.lower()]
+    nccl_ms = sum(ev.time_range.elapsed_us() for ev in nccl) / 1e3
+    host = {e.key: e for e in prof.key_averages()
+            if any(t in e.key.lower() for t in
+                   ("c10d", "nccl", "all_reduce", "allreduce", "all_gather",
+                    "allgather", "_allgather_base"))}
+    print(f"[client_mesh] {label}: under the profiler {wall_ms!r} ms a "
+          f"round, {dev_ops / n!r} device operations and {launch_calls / n!r}"
+          f" cudaLaunchKernel calls a round; NCCL kernels {len(nccl) / n!r} a "
+          f"round, {nccl_ms / n!r} device ms; host collective calls (calls, "
+          f"host ms a round): " + ("; ".join(
+              f"{k[:48]} {e.count / n!r} {e.cpu_time_total / n / 1e3!r}"
+              for k, e in sorted(host.items())) or "none"), flush=True)
+    return state, key
+
+
+def client_mesh_phase(torch, dev, mnist, launches: dict) -> None:
+    """Phase 8b (``client_mesh``): the client axis over ranks (DESIGN.md §6)
+    on the card, an NCCL group of world size 1 from a ``FileStore`` under
+    a temporary directory, so every collective of the sharded round is a
+    real NCCL call.  On the quickstart setup, CLIENT_MESH_ROUNDS rounds of
+    FedComLoc with TopK(0.3), QuantQr(8) and k25_q4 on both wires, FedAvg
+    with TopK(0.5) and LoCoDL (packed TopK(0.1) both ways) run under
+    ``make_client_mesh(1)`` and unsharded: the state and every metric bit
+    for bit, the launch counts by kernel equal; then steady ms a round,
+    sharded and unsharded in turns.  The group is destroyed at the end."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import Compose, QuantQr, TopK
+    from repro_torch.core.baselines import FedAvg, FedConfig
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.core.locodl import LoCoDL, LoCoDLConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_client_mesh
+
+    loss_fn, data, params0 = mnist["loss_fn"], mnist["data"]["cuda"], \
+        mnist["params0"]
+    s = 5
+    com = FedComLocConfig(gamma=0.1, p=0.1, n_clients=20, clients_per_round=s,
+                          batch_size=32, variant="com")
+    runs = {
+        **{f"FedComLoc {name} {w}": (lambda comp=comp, w=w: FedComLoc(
+            loss_fn, data, com, comp(), wire=w))
+           for name, comp in (("TopK", lambda: TopK(0.3)),
+                              ("QuantQr", lambda: QuantQr(8)),
+                              ("k25_q4", lambda: Compose(TopK(0.25),
+                                                         QuantQr(4))))
+           for w in ("account", "packed")},
+        "FedAvg TopK(0.5)": lambda: FedAvg(
+            loss_fn, data, FedConfig(gamma=0.1, local_steps=10, n_clients=20,
+                                     clients_per_round=s, batch_size=32),
+            TopK(0.5)),
+        "LoCoDL packed": lambda: LoCoDL(
+            loss_fn, data, LoCoDLConfig(gamma=0.1, p=0.1, lam=0.9,
+                                        n_clients=20, clients_per_round=s,
+                                        batch_size=32),
+            TopK(0.1), wire="packed", downlink="packed",
+            downlink_compressor=TopK(0.1)),
+    }
+
+    def bits(t):
+        a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t
+        return np.ascontiguousarray(a).view(np.uint8)
+
+    def state_leaves(state):
+        return [t for v in state if isinstance(v, (dict, tuple)) and v != ()
+                for t in tree_util.leaves(v)]
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_client_mesh(1)
+        print(f"[client_mesh] NCCL group of world size "
+              f"{dist.get_world_size()}, mesh {mesh}", flush=True)
+        for label, make in runs.items():
+            out = {}
+            for mode in ("unsharded", "sharded"):
+                alg = make()
+                if mode == "sharded":
+                    alg.use_mesh(mesh)
+                (state, metrics), counts = counted(
+                    torch, ops, lambda: alg.run_rounds(
+                        alg.init(params0), prng.PRNGKey(1),
+                        CLIENT_MESH_ROUNDS))
+                out[mode] = (alg, state, metrics, counts)
+            (ua, us, um, uc), (sa, ss, sm, sc) = out["unsharded"], \
+                out["sharded"]
+            if sc != uc:
+                raise AssertionError(f"client_mesh {label}: launches {sc} "
+                                     f"sharded != {uc} unsharded")
+            for k, c in sc.items():
+                launches.setdefault(k, {})[f"client_mesh {label}"] = c
+            ul, sl = state_leaves(us), state_leaves(ss)
+            if len(ul) != len(sl) or not all(
+                    np.array_equal(bits(a), bits(b)) for a, b in zip(ul, sl)):
+                raise AssertionError(f"client_mesh {label}: the sharded "
+                                     f"state is not the unsharded bit for bit")
+            if set(sm) != set(um) or not all(
+                    np.array_equal(bits(sm[k]), bits(um[k])) for k in um):
+                raise AssertionError(f"client_mesh {label}: metrics differ")
+            if sa.meter.snapshot() != ua.meter.snapshot():
+                raise AssertionError(f"client_mesh {label}: meters differ")
+            # steady ms a round, unsharded and sharded in turns
+            times = {"unsharded": [], "sharded": []}
+            chains = {}
+            for mode, (alg, *_rest) in out.items():
+                state, key = alg.init(params0), prng.PRNGKey(2)
+                for _ in range(2):                        # warm up
+                    key, sub = prng.split(key, 2)
+                    state, _ = alg.round(state, sub)
+                chains[mode] = (state, key)
+            for mode in ("unsharded", "sharded", "sharded", "unsharded"):
+                alg = out[mode][0]
+                state, key = chains[mode]
+                torch.cuda.synchronize()
+                t0 = time.time()
+                for _ in range(CLIENT_MESH_WINDOW):
+                    key, sub = prng.split(key, 2)
+                    state, _ = alg.round(state, sub)
+                torch.cuda.synchronize()
+                times[mode].append((time.time() - t0) / CLIENT_MESH_WINDOW
+                                   * 1e3)
+                chains[mode] = (state, key)
+            if label in CLIENT_MESH_PROFILED:
+                for mode in ("unsharded", "sharded"):
+                    chains[mode] = collective_profile(
+                        torch, prng, out[mode][0], *chains[mode],
+                        f"{label} {mode}")
+            print(f"[client_mesh] {label}: state, {len(um)} metrics and the "
+                  f"meter bit-equal over {CLIENT_MESH_ROUNDS} rounds; "
+                  f"launches {sc} (unsharded {uc}); steady ms/round in turns "
+                  f"(windows of {CLIENT_MESH_WINDOW}) sharded "
+                  f"{times['sharded']!r} (median "
+                  f"{statistics.median(times['sharded'])!r}) vs unsharded "
+                  f"{times['unsharded']!r} (median "
+                  f"{statistics.median(times['unsharded'])!r}); train_loss "
+                  f"{[float(v) for v in sm['train_loss']]!r}", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[client_mesh] card: {card_line()}", flush=True)
 
 
 def population_phase(torch, dev, launches: dict) -> None:
@@ -4448,6 +4627,8 @@ def main() -> int:
     het_system_phase(torch, dev, mnist, launches)
     scope_phase(torch, dev, mnist, launches)
     lap("downlink, het_system and scope")
+    client_mesh_phase(torch, dev, mnist, launches)
+    lap("client_mesh")
     del mnist, data
     torch.cuda.empty_cache()
 

@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.core.clients import NULL_CTX, per_client
 
 MODES = ("sync", "semi_sync", "async_buffered")
 
@@ -307,25 +308,37 @@ def apply_policy(policy, sched, plan,
 
 
 class ResolvedPolicy(NamedTuple):
+    """One round's policy outcome and the views every round body needs."""
+
     out: PolicyOutcome
+    part: torch.Tensor        # the shard's bool participation (plan and policy)
+    partf: torch.Tensor       # the same as float32
     may_exclude: bool         # gate the keep-old state paths
-    client_up: torch.Tensor   # (s,) applied wire bits (excluded -> 0)
+    client_up: torch.Tensor   # full (s,) applied wire bits (excluded -> 0)
+    weight: torch.Tensor      # the shard's float32 mean-aggregation weights
 
 
-def resolve_policy(policy, sched, plan,
-                   client_bits_full: torch.Tensor) -> ResolvedPolicy:
+def resolve_policy(policy, sched, plan, client_bits_full: torch.Tensor,
+                   ctx=NULL_CTX) -> ResolvedPolicy:
+    """``apply_policy`` on the full ``(s,)`` plan, and the shard's views of
+    it under a sharded ``ctx`` (DESIGN.md §6)."""
     out = apply_policy(policy, sched, plan, client_bits_full)
+    part = ctx.shard(out.participating)
     return ResolvedPolicy(
-        out=out, may_exclude=sched.may_drop or policy.may_exclude,
-        client_up=client_bits_full * out.partf)
+        out=out, part=part, partf=part.to(torch.float32),
+        may_exclude=sched.may_drop or policy.may_exclude,
+        client_up=client_bits_full * out.partf,
+        weight=ctx.shard(out.weight))
 
 
-def async_weighted_sum(out: PolicyOutcome, stacked):
+def async_weighted_sum(out: PolicyOutcome, stacked, ctx=NULL_CTX):
     """Staleness-weighted delta combine ``sum_i coef_i * stacked_i`` over
-    the client axis (the async server application, in delta form)."""
-    from repro_torch.core.clients import per_client
-    return tree_util.map(
-        lambda t: (t * per_client(out.coef, t)).sum(dim=0), stacked)
+    the client axis (the async server application, in delta form).  Under
+    a sharded ``ctx`` ``stacked`` holds the shard's rows; ``out.coef`` is
+    the full vector, sliced here, and the shards' sums are summed."""
+    coef = ctx.shard(out.coef)
+    return ctx.psum(tree_util.map(
+        lambda t: (t * per_client(coef, t)).sum(dim=0), stacked))
 
 
 def policy_metrics(out: PolicyOutcome) -> dict:

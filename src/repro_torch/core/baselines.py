@@ -19,7 +19,8 @@ under the sync, semi_sync and async_buffered policies on both wires
 §10: clients start from the model they last received, ``y``; Scaffold's
 one payload codes the ``(x, c)`` pair).  Scaffold's ``ci`` and FedDyn's
 ``grads`` live behind the client-store contract (``store=``, DESIGN.md
-§11).  Scaffnew is FedComLoc with ``variant="none"``.
+§11).  Scaffnew is FedComLoc with ``variant="none"``.  Every round body
+takes a client-axis ``ctx`` (DESIGN.md §6), as FedComLoc's does.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, TopK, dense_bits
 from repro_torch.core import aggregation, comm
 from repro_torch.core.clients import (
-    ClientSchedule, apply_downlink, batched_compress, gather_decoded,
+    NULL_CTX, ClientAxisCtx, ClientSchedule, apply_downlink, batched_compress,
     keep_where, masked_mean, mean_over_active, payload_metrics, per_client,
-    tree_where, validate_schedule, vmap_encode)
+    tree_where, validate_schedule)
 from repro_torch.core.engine import RoundEngine, value_and_grad
 from repro_torch.core.fed_data import FederatedData
 
@@ -71,20 +72,27 @@ def _tmap(f, *trees):
 def _local_sgd(loss_fn: LossFn, data: FederatedData, cfg: FedConfig,
                x0: PyTree, clients: torch.Tensor, key: torch.Tensor,
                grad_adjust: Optional[Callable[[PyTree, PyTree], PyTree]] = None,
-               steps: Optional[torch.Tensor] = None):
+               steps: Optional[torch.Tensor] = None,
+               ctx: ClientAxisCtx = NULL_CTX):
     """Minibatch SGD on every sampled client at once.
 
     ``x0`` is the stacked ``(s, ...)`` start, ``clients`` the ``(s,)`` host
     cohort.  ``steps`` is the optional ``(s,)`` per-client step count: all
     ``cfg.local_steps`` steps run and a client past its count carries
     through unchanged.  ``grad_adjust(g, x)`` adjusts the stacked
-    gradient.  Returns ``(x_final, summed per-step mean loss)``.
+    gradient.  Under a sharded ``ctx`` (DESIGN.md §6) ``x0``, ``clients``
+    and ``steps`` are the shard's rows and the per-step mean losses are
+    summed across shards.  Returns ``(x_final, summed per-step mean
+    loss)``.
     """
     s, n_steps = cfg.clients_per_round, cfg.local_steps
-    # step j, client i draws split(split(key, L)[j], s)[i]
-    keys = prng.split(prng.split(key, n_steps), s)           # (L, s, 2)
+    s_loc = ctx.local_count(s)
+    # step j, client i draws split(split(key, L)[j], s)[i], the full split
+    # sliced to the shard's clients
+    keys = ctx.shard(prng.split(prng.split(key, n_steps), s).transpose(
+        0, 1)).transpose(0, 1)                               # (L, s_loc, 2)
     xb_all, yb_all = data.sample_batch(
-        keys, clients.unsqueeze(0).expand(n_steps, s), cfg.batch_size)
+        keys, clients.unsqueeze(0).expand(n_steps, s_loc), cfg.batch_size)
     x_i = x0
     loss_sum = torch.zeros((), dtype=torch.float32, device=data.device)
     for j in range(n_steps):
@@ -94,11 +102,11 @@ def _local_sgd(loss_fn: LossFn, data: FederatedData, cfg: FedConfig,
         x_new = _tmap(lambda xc, gc: xc - cfg.gamma * gc, x_i, g)
         if steps is None:
             x_i = x_new
-            loss_sum = loss_sum + losses.mean()
+            loss_sum = loss_sum + ctx.mean_clients(losses)
             continue
         active = j < steps
         x_i = x_new if bool(active.all()) else keep_where(active, x_new, x_i)
-        loss_sum = loss_sum + mean_over_active(losses, active)
+        loss_sum = loss_sum + mean_over_active(losses, active, ctx)
     return x_i, loss_sum
 
 
@@ -110,15 +118,17 @@ def _on(x: PyTree, device) -> PyTree:
     return _tmap(lambda p: p.detach().to(device), x)
 
 
-def _combine(policy, out, may_exclude: bool, deltas: PyTree) -> PyTree:
+def _combine(policy, out, may_exclude: bool, deltas: PyTree,
+             weight: torch.Tensor, ctx: ClientAxisCtx) -> PyTree:
     """The server's combine of the ``(s, ...)`` client deltas: the
     staleness-weighted sum (async_buffered), the participation-weighted
-    mean (an excluding policy or schedule), or the plain mean."""
+    mean (an excluding policy or schedule, ``weight`` the rows' weights),
+    or the plain mean, across ``ctx``'s shards."""
     if aggregation.uses_delta_combine(policy):
-        return aggregation.async_weighted_sum(out, deltas)
+        return aggregation.async_weighted_sum(out, deltas, ctx)
     if may_exclude:
-        return masked_mean(deltas, out.weight, weight_sum=out.n_selected)
-    return _tmap(lambda t: t.mean(dim=0), deltas)
+        return masked_mean(deltas, weight, ctx, weight_sum=out.n_selected)
+    return ctx.mean_clients(deltas)
 
 
 class _Baseline(RoundEngine):
@@ -153,13 +163,14 @@ class _Baseline(RoundEngine):
     def _dl_on(self) -> bool:
         return self.downlink != "dense"
 
-    def _downlink(self, state, x_new, k_dl, s: int, dense_down: float):
+    def _downlink(self, state, x_new, k_dl, s: int, dense_down: float,
+                  ctx: ClientAxisCtx):
         """The round's downlink: ``(y_new, downlink_bits, extra
         metrics)``; dense, the broadcast is ``x_new`` at full width."""
         if not self._dl_on:
             return state.y, torch.tensor(dense_down, dtype=torch.float32), {}
-        return apply_downlink(self.downlink, self.down_comp, state.y, x_new,
-                              k_dl[0], s)
+        return apply_downlink(self.downlink, self.down_comp, ctx, state.y,
+                              x_new, k_dl[0], s)
 
     def _cohort(self, k_sample, round_idx: int):
         """The round's cohort, plan, plan-participation mask and whether
@@ -226,45 +237,56 @@ class FedAvg(_Baseline):
         # the reference's split: one more key for the downlink codec
         return 4 if self._dl_on else 3
 
-    def _round_impl(self, state: FedAvgState, key: torch.Tensor):
+    def _round_impl(self, state: FedAvgState, key: torch.Tensor,
+                    ctx: ClientAxisCtx = NULL_CTX):
         cfg, sched = self.cfg, self.sched
         s = cfg.clients_per_round
         k_sample, k_local, k_comp, *k_dl = prng.split(
             key, self._round_key_fanout)
-        clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
+        clients_full, plan, partf_plan, het = self._cohort(k_sample,
+                                                           state.round)
+        plan_l, clients = ctx.shard_tree(plan), ctx.shard(clients_full)
         # clients start from the model they last received
-        x0 = _broadcast(state.y if self._dl_on else state.x, s)
+        ref = state.y if self._dl_on else state.x
+        x0 = _broadcast(ref, ctx.local_count(s))
         x_fin, loss_sum = _local_sgd(
             self.loss_fn, self.data, cfg, x0, clients, k_local,
-            steps=plan.steps if het else None)
-        comp_keys = prng.split(k_comp, s)
+            steps=plan_l.steps if het else None, ctx=ctx)
+        comp_keys = ctx.shard(prng.split(k_comp, s))
         payload = None
         if self.wire == "packed":
-            payload, up_rep = vmap_encode(self.comp, plan, x_fin, comp_keys)
+            payload, up_rep = ctx.encode_payload(self.comp, plan_l, x_fin,
+                                                 comp_keys)
         else:
-            x_fin, up_rep = batched_compress(self.comp, plan, x_fin,
+            x_fin, up_rep = batched_compress(self.comp, plan_l, x_fin,
                                              comp_keys)
         pol = aggregation.resolve_policy(
-            self.policy, sched, plan, up_rep.total_bits.cpu() * partf_plan)
+            self.policy, sched, plan,
+            ctx.all_clients(up_rep.total_bits.cpu()) * partf_plan, ctx)
         out = pol.out
+        agg_ctx, weight = ctx, pol.weight
         if payload is not None:
-            # server-side decode of the masked packed stack
-            x_fin = gather_decoded(payload, out.partf)
+            # server-side decode of the masked packed stack, aggregated
+            # whole with the unsharded formula
+            x_fin, x0 = (ctx.gather_decoded_payload(payload, out.partf),
+                         _broadcast(ref, s))
+            agg_ctx, weight = NULL_CTX, out.weight
         if aggregation.uses_delta_combine(self.policy):
             x_new = _tmap(lambda x_, u: x_ + u, state.x,
                           aggregation.async_weighted_sum(
-                              out, _tmap(lambda yf, xs: yf - xs, x_fin, x0)))
+                              out, _tmap(lambda yf, xs: yf - xs, x_fin, x0),
+                              agg_ctx))
         elif pol.may_exclude:
             # if every sampled client was excluded, the server keeps its
             # model
             x_new = tree_where(out.n_selected > 0,
-                               masked_mean(x_fin, out.weight,
+                               masked_mean(x_fin, weight, agg_ctx,
                                            weight_sum=out.n_selected),
                                state.x)
         else:
-            x_new = _tmap(lambda t: t.mean(dim=0), x_fin)
+            x_new = agg_ctx.mean_clients(x_fin)
         y_new, down_bits, dl_extras = self._downlink(
-            state, x_new, k_dl, s, s * dense_bits(state.x))
+            state, x_new, k_dl, s, s * dense_bits(state.x), ctx)
         metrics = self._metrics(self._mean_loss(loss_sum, plan, het),
                                 pol.client_up.sum(), down_bits, plan,
                                 pol.client_up, out, payload, dl_extras)
@@ -321,16 +343,19 @@ class Scaffold(_Baseline):
         # the reference's split: one more key for the downlink codec
         return 3 if self._dl_on else 2
 
-    def _round_impl(self, state: ScaffoldState, key: torch.Tensor):
+    def _round_impl(self, state: ScaffoldState, key: torch.Tensor,
+                    ctx: ClientAxisCtx = NULL_CTX):
         cfg, sched = self.cfg, self.sched
         s = cfg.clients_per_round
         k_sample, k_local, *k_dl = prng.split(key, self._round_key_fanout)
-        clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
+        clients_full, plan, partf_plan, het = self._cohort(k_sample,
+                                                           state.round)
+        plan_l, clients = ctx.shard_tree(plan), ctx.shard(clients_full)
         rows = self.store.cohort_index(clients, self.device)
         ci_s = self.store.gather("ci", state.ci, rows)
         # clients work from the (x, c) pair they last received
         x_ref, c_ref = state.y if self._dl_on else (state.x, state.c)
-        x0 = _broadcast(x_ref, s)
+        x0 = _broadcast(x_ref, ctx.local_count(s))
 
         def adjust(g, x_c):
             return _tmap(lambda gc, cic, cc: gc - cic + cc.unsqueeze(0),
@@ -338,19 +363,20 @@ class Scaffold(_Baseline):
 
         x_fin, loss_sum = _local_sgd(self.loss_fn, self.data, cfg, x0,
                                      clients, k_local, grad_adjust=adjust,
-                                     steps=plan.steps if het else None)
+                                     steps=plan_l.steps if het else None,
+                                     ctx=ctx)
 
         # option II: ci+ = ci - c + (x - y_i) / (K_i * gamma), K_i the steps
         # the client completed
         if het:
-            coef = 1.0 / (torch.clamp(plan.steps, min=1).to(torch.float32)
+            coef = 1.0 / (torch.clamp(plan_l.steps, min=1).to(torch.float32)
                           * cfg.gamma)
             ci_new = _tmap(
                 lambda cic, cc, xs, yf: cic - cc.unsqueeze(0)
                 + per_client(coef, xs) * (xs - yf),
                 ci_s, c_ref, x0, x_fin)
             # a zero-step client did no work: keep its old variate
-            ci_new = keep_where(plan.steps > 0, ci_new, ci_s)
+            ci_new = keep_where(plan_l.steps > 0, ci_new, ci_s)
         else:
             coef = 1.0 / (cfg.local_steps * cfg.gamma)
             ci_new = _tmap(
@@ -359,39 +385,44 @@ class Scaffold(_Baseline):
         # the model and the control variate both go up, dense
         dense = dense_bits(state.x)
         pol = aggregation.resolve_policy(self.policy, sched, plan,
-                                         2 * dense * partf_plan)
+                                         2 * dense * partf_plan, ctx)
         out, may_exclude = pol.out, pol.may_exclude
         if may_exclude:   # excluded stragglers never report; keep ci
-            ci_new = keep_where(out.participating, ci_new, ci_s)
+            ci_new = keep_where(pol.part, ci_new, ci_s)
         payload = None
-        x_up, ci_up = x_fin, ci_new
-        ci_old = ci_s
+        x_up, ci_up, ci_old = x_fin, ci_new, ci_s
+        agg_ctx, weight = ctx, pol.weight
         if self.wire == "packed":
             # one dense payload carries (model, variate); the server reads
-            # the cohort's old variates from the store itself (a host
-            # store's second read, as the reference makes it; the stacked
-            # store's rows are ci_s already)
-            payload, _ = vmap_encode(None, plan, (x_fin, ci_new))
-            x_up, ci_up = gather_decoded(payload, out.partf)
-            if self.store.host_side:
-                ci_old = self.store.gather("ci", state.ci, rows)
+            # the cohort's old variates from the store itself (the
+            # reference's second read) and aggregates the whole decoded
+            # stack with the unsharded formula
+            payload, _ = ctx.encode_payload(None, plan_l, (x_fin, ci_new))
+            x_up, ci_up = ctx.gather_decoded_payload(payload, out.partf)
+            ci_old = self.store.gather(
+                "ci", state.ci, self.store.cohort_index(clients_full,
+                                                        self.device))
+            x0 = _broadcast(x_ref, s)
+            agg_ctx, weight = NULL_CTX, out.weight
         dx = _combine(self.policy, out, may_exclude,
-                      _tmap(lambda yf, xs: yf - xs, x_up, x0))
+                      _tmap(lambda yf, xs: yf - xs, x_up, x0), weight,
+                      agg_ctx)
         dc = _combine(self.policy, out, may_exclude,
-                      _tmap(lambda cn, co: cn - co, ci_up, ci_old))
+                      _tmap(lambda cn, co: cn - co, ci_up, ci_old), weight,
+                      agg_ctx)
         if aggregation.uses_delta_combine(self.policy) or may_exclude:
             s_eff = float(out.n_selected / cfg.n_clients)
         else:
             s_eff = s / cfg.n_clients
         x_new = _tmap(lambda x_, d: x_ + d, state.x, dx)
         c_new = _tmap(lambda c_, d: c_ + s_eff * d, state.c, dc)
-        ci_all = self.store.scatter("ci", state.ci, rows, ci_new)
+        ci_all = self.store.scatter("ci", state.ci, rows, ci_new, ctx)
         up_bits = (pol.client_up.sum() if may_exclude
                    else torch.tensor(2 * s * dense, dtype=torch.float32))
         # one payload delta-codes both halves of the broadcast (model and
         # server control variate) against the cohort's (x, c) reference
         y_new, down_bits, dl_extras = self._downlink(
-            state, (x_new, c_new), k_dl, s, 2 * s * dense)
+            state, (x_new, c_new), k_dl, s, 2 * s * dense, ctx)
         metrics = self._metrics(self._mean_loss(loss_sum, plan, het), up_bits,
                                 down_bits, plan, pol.client_up, out, payload,
                                 dl_extras)
@@ -435,15 +466,19 @@ class FedDyn(_Baseline):
         # the reference's split: one more key for the downlink codec
         return 3 if self._dl_on else 2
 
-    def _round_impl(self, state: FedDynState, key: torch.Tensor):
+    def _round_impl(self, state: FedDynState, key: torch.Tensor,
+                    ctx: ClientAxisCtx = NULL_CTX):
         cfg, sched = self.cfg, self.sched
         s = cfg.clients_per_round
         k_sample, k_local, *k_dl = prng.split(key, self._round_key_fanout)
-        clients, plan, partf_plan, het = self._cohort(k_sample, state.round)
+        clients_full, plan, partf_plan, het = self._cohort(k_sample,
+                                                           state.round)
+        plan_l, clients = ctx.shard_tree(plan), ctx.shard(clients_full)
         rows = self.store.cohort_index(clients, self.device)
         g_s = self.store.gather("grads", state.grads, rows)
         # clients start from the model they last received
-        x0 = _broadcast(state.y if self._dl_on else state.x, s)
+        ref = state.y if self._dl_on else state.x
+        x0 = _broadcast(ref, ctx.local_count(s))
 
         def adjust(g, x_c):
             return _tmap(
@@ -452,53 +487,59 @@ class FedDyn(_Baseline):
 
         x_fin, loss_sum = _local_sgd(self.loss_fn, self.data, cfg, x0,
                                      clients, k_local, grad_adjust=adjust,
-                                     steps=plan.steps if het else None)
+                                     steps=plan_l.steps if het else None,
+                                     ctx=ctx)
         dense = dense_bits(state.x)
         pol = aggregation.resolve_policy(self.policy, sched, plan,
-                                         dense * partf_plan)
+                                         dense * partf_plan, ctx)
         out, may_exclude = pol.out, pol.may_exclude
         g_new = _tmap(lambda gp, yf, xs: gp - cfg.alpha * (yf - xs),
                       g_s, x_fin, x0)
         if may_exclude:   # excluded stragglers keep their dual variables
-            g_new = keep_where(out.participating, g_new, g_s)
-        grads_all = self.store.scatter("grads", state.grads, rows, g_new)
+            g_new = keep_where(pol.part, g_new, g_s)
+        grads_all = self.store.scatter("grads", state.grads, rows, g_new,
+                                       ctx)
+        delta_combine = aggregation.uses_delta_combine(self.policy)
         payload = None
         x_up = x_fin
+        agg_ctx, weight = ctx, pol.weight
         if self.wire == "packed":
-            payload, _ = vmap_encode(None, plan, x_fin)
-            x_up = gather_decoded(payload, out.partf)
+            # the whole decoded stack, aggregated with the unsharded formula
+            payload, _ = ctx.encode_payload(None, plan_l, x_fin)
+            x_up, x0 = (ctx.gather_decoded_payload(payload, out.partf),
+                        _broadcast(ref, s))
+            agg_ctx, weight = NULL_CTX, out.weight
         deltas = _tmap(lambda yf, xs: yf - xs, x_up, x0)
-        delta_combine = aggregation.uses_delta_combine(self.policy)
         if delta_combine or may_exclude:
             # the server correction absorbs the (staleness-discounted)
             # delta sum of the clients it applies
-            w = out.discount if delta_combine else out.partf
-            dsum = _tmap(lambda d_: (d_ * per_client(w, d_)).sum(dim=0),
-                         deltas)
+            w = agg_ctx.shard(out.discount if delta_combine else out.partf)
+            dsum = agg_ctx.psum(_tmap(
+                lambda d_: (d_ * per_client(w, d_)).sum(dim=0), deltas))
         else:
-            dsum = _tmap(lambda d_: d_.sum(dim=0), deltas)
+            dsum = agg_ctx.sum_clients(deltas)
         h_new = _tmap(
             lambda h_, d_: h_ - cfg.alpha * (1.0 / cfg.n_clients) * d_,
             state.h, dsum)
         if delta_combine:
             x_new = _tmap(
                 lambda x_, u, h_: x_ + u - h_ / cfg.alpha, state.x,
-                aggregation.async_weighted_sum(out, deltas), h_new)
+                aggregation.async_weighted_sum(out, deltas, agg_ctx), h_new)
             if sched.may_drop:
                 # if every sampled client dropped, keep the server model
                 x_new = tree_where(out.n_selected > 0, x_new, state.x)
         elif may_exclude:
             x_new = _tmap(lambda ym, h_: ym - h_ / cfg.alpha,
-                          masked_mean(x_up, out.weight,
+                          masked_mean(x_up, weight, agg_ctx,
                                       weight_sum=out.n_selected), h_new)
             x_new = tree_where(out.n_selected > 0, x_new, state.x)
         else:
             x_new = _tmap(lambda ym, h_: ym - h_ / cfg.alpha,
-                          _tmap(lambda t: t.mean(dim=0), x_up), h_new)
+                          agg_ctx.mean_clients(x_up), h_new)
         up_bits = (pol.client_up.sum() if may_exclude
                    else torch.tensor(s * dense, dtype=torch.float32))
         y_new, down_bits, dl_extras = self._downlink(state, x_new, k_dl, s,
-                                                     s * dense)
+                                                     s * dense, ctx)
         metrics = self._metrics(self._mean_loss(loss_sum, plan, het), up_bits,
                                 down_bits, plan, pol.client_up, out, payload,
                                 dl_extras)

@@ -12,8 +12,11 @@ variates) keeps it behind one cohort-row contract:
   host int64 for a host store), so a round moves its cohort once;
 * ``gather(name, slot, idx)`` — the cohort's rows, on the template's
   device, at round start;
-* ``scatter(name, slot, idx, rows)`` — write the cohort's updated rows
-  back at round end; returns the slot's next value.
+* ``scatter(name, slot, idx, rows, ctx)`` — write the cohort's updated
+  rows back at round end; returns the slot's next value.  Under a sharded
+  client-axis ``ctx`` (DESIGN.md §6) ``idx`` and ``rows`` are the
+  shard's, and the in-memory store writes every shard's rows through
+  ``ctx.scatter_rows``.
 
 Two backends:
 
@@ -65,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.core.clients import NULL_CTX
 
 PyTree = Any
 
@@ -95,7 +99,8 @@ class ClientStore:
     def gather(self, name: str, slot: PyTree, idx) -> PyTree:
         raise NotImplementedError
 
-    def scatter(self, name: str, slot: PyTree, idx, rows: PyTree) -> PyTree:
+    def scatter(self, name: str, slot: PyTree, idx, rows: PyTree,
+                ctx=NULL_CTX) -> PyTree:
         raise NotImplementedError
 
 
@@ -127,9 +132,9 @@ class InMemoryStore(ClientStore):
         idx = self._on_slot_device(idx, slot)
         return tree_util.map(lambda t: t[idx], slot)
 
-    def scatter(self, name: str, slot: PyTree, idx, rows: PyTree) -> PyTree:
-        idx = self._on_slot_device(idx, slot)
-        return tree_util.map(lambda t, r: t.index_copy(0, idx, r), slot, rows)
+    def scatter(self, name: str, slot: PyTree, idx, rows: PyTree,
+                ctx=NULL_CTX) -> PyTree:
+        return ctx.scatter_rows(slot, self._on_slot_device(idx, slot), rows)
 
 
 @dataclasses.dataclass
@@ -417,7 +422,8 @@ class HostStore(ClientStore):
             self.rows_gathered += int(idx_np.shape[0])
             self.phase_seconds["gather"] += time.perf_counter() - t0
 
-    def scatter(self, name: str, slot, idx, rows: PyTree) -> torch.Tensor:
+    def scatter(self, name: str, slot, idx, rows: PyTree,
+                ctx=NULL_CTX) -> torch.Tensor:
         hs = self._slots[name]
         leaves = tree_util.leaves(rows)
         if len(leaves) != len(hs.leaves):

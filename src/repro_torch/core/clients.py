@@ -23,11 +23,14 @@ device).
   compress call for the whole stacked cohort);
 * the packed uplink (DESIGN.md §8): ``vmap_encode`` at the client
   boundary, ``mask_payload`` and ``gather_decoded`` on the server, and
-  ``payload_metrics``.  The port has one device, so there is no client
-  axis to gather across;
+  ``payload_metrics``;
 * the compressed downlink (DESIGN.md §10): ``apply_downlink`` delta-codes
   the broadcast against the cohort's last-received model, on a one-row
-  stack (one payload serves the whole cohort).
+  stack (one payload serves the whole cohort);
+* :class:`ClientAxisCtx` (DESIGN.md §6): every cross-client operation of
+  a round body.  The base class, ``NULL_CTX``, is the unsharded path;
+  :class:`repro_torch.core.distributed.ShardCtx` splits the sampled
+  clients over the ranks of a ``torch.distributed`` group.
 
 Plans and cohorts live on the host (small ``(s,)`` tensors); the stacked
 model rows live on the device.
@@ -505,26 +508,117 @@ def tree_where(cond: torch.Tensor, a: PyTree, b: PyTree) -> PyTree:
     return a if bool(cond) else b
 
 
-def mean_over_active(values: torch.Tensor,
-                     active: torch.Tensor) -> torch.Tensor:
+class ClientAxisCtx:
+    """The unsharded view of the sampled-client axis (DESIGN.md §6).
+
+    Round bodies write every cross-client operation against this
+    interface.  Each method of the base class is exactly the operation
+    the round bodies inlined before it existed, so the unsharded rounds
+    are unchanged; :class:`repro_torch.core.distributed.ShardCtx`
+    overrides them with a slice of the cohort a rank and collectives."""
+
+    #: ranks the sampled-client axis is split across
+    n_shards: int = 1
+
+    def local_count(self, s: int) -> int:
+        """Clients this shard owns of the ``s`` sampled a round."""
+        return s
+
+    def shard(self, arr: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of a full ``(s, ...)`` tensor."""
+        return arr
+
+    def shard_tree(self, tree: PyTree) -> PyTree:
+        """``shard`` over every ``(s, ...)`` leaf (a stacked tree, a
+        :class:`RoundPlan`)."""
+        return tree
+
+    def all_clients(self, vec: torch.Tensor) -> torch.Tensor:
+        """The full ``(s, ...)`` tensor from every shard's rows, in shard
+        order: metric vectors pass through it before any reduction, so
+        every total comes from the same full vector at any shard count."""
+        return vec
+
+    def psum(self, x):
+        """Sum a tensor (or a tree of them) across shards."""
+        return x
+
+    def all_clients_tree(self, tree: PyTree) -> PyTree:
+        """``all_clients`` over every leaf: on the packed wire this moves
+        the packed buffers across shards, not dense trees."""
+        return tree
+
+    def mean_clients(self, stacked: PyTree) -> PyTree:
+        """Mean over the client axis of a stacked tree."""
+        return tree_util.map(lambda t: t.mean(dim=0), stacked)
+
+    def sum_clients(self, stacked: PyTree) -> PyTree:
+        """Sum over the client axis of a stacked tree."""
+        return tree_util.map(lambda t: t.sum(dim=0), stacked)
+
+    def scatter_rows(self, full: PyTree, idx: torch.Tensor,
+                     upd: PyTree) -> PyTree:
+        """Write the shard's ``(s_loc, ...)`` rows ``upd`` at ``idx`` (on
+        ``full``'s device) into the ``(n_clients, ...)`` store ``full``."""
+        return tree_util.map(lambda t, r: t.index_copy(0, idx, r), full, upd)
+
+    def encode_payload(self, comp, plan: RoundPlan, stacked: PyTree,
+                       keys: Optional[torch.Tensor] = None):
+        """The client boundary of the packed uplink (:func:`vmap_encode`)."""
+        return vmap_encode(comp, plan, stacked, keys)
+
+    def gather_decoded_payload(self, payload, partf_full: torch.Tensor):
+        """The server side of the packed uplink (:func:`gather_decoded`):
+        the full ``(s, ...)`` decode, on every shard."""
+        return gather_decoded(payload, partf_full, self)
+
+    def encode_broadcast(self, comp, tree: PyTree,
+                         key: Optional[torch.Tensor] = None):
+        """The downlink encode (DESIGN.md §10): one payload for the whole
+        cohort, as a one-row stack.  The broadcast tree is the same on
+        every shard, and so is its payload."""
+        from repro_torch.compress import wire
+        return wire.encode(comp, tree_util.map(lambda t: t.unsqueeze(0), tree),
+                           None if key is None else key.unsqueeze(0))
+
+    def decode_broadcast(self, payload) -> PyTree:
+        """The clients' downlink decode, the companion of
+        :meth:`encode_broadcast`."""
+        from repro_torch.compress import wire
+        return tree_util.map(lambda t: t[0], wire.decode(payload))
+
+
+#: The default (unsharded) client-axis context.
+NULL_CTX = ClientAxisCtx()
+
+
+def mean_over_active(values: torch.Tensor, active: torch.Tensor,
+                     ctx: ClientAxisCtx = NULL_CTX) -> torch.Tensor:
     """Mean of per-client scalars over the active subset; 0 if none is
     active.  With every client active this is ``values.mean()``'s sum and
-    divisor."""
+    divisor.  Under a sharded ``ctx`` the masked sum and the active count
+    are summed across shards."""
     act = active.to(device=values.device, dtype=values.dtype)
-    return (values * act).sum() / torch.clamp(act.sum(), min=1.0)
+    return (ctx.psum((values * act).sum())
+            / torch.clamp(ctx.psum(act.sum()), min=1.0))
 
 
 def masked_mean(stacked: PyTree, weights: torch.Tensor,
+                ctx: ClientAxisCtx = NULL_CTX,
                 weight_sum: Optional[torch.Tensor] = None) -> PyTree:
     """Mean over the client axis weighted by the host ``weights`` ``(s,)``
     (e.g. the participation mask); a zero-weight round returns zeros,
     never NaN.  ``weight_sum`` replaces ``weights.sum()`` as the divisor
     (a hierarchical policy's weights sum to its ``n_selected`` only up to
-    rounding)."""
+    rounding).  Under a sharded ``ctx`` ``stacked`` and ``weights`` are
+    the shard's rows, the numerator is summed across shards, and
+    ``weight_sum`` (the full vector's total) keeps the divisor the
+    unsharded one."""
     wsum = float(torch.clamp(weights.sum() if weight_sum is None
                              else weight_sum, min=1.0))
     return tree_util.map(
-        lambda t: (t * per_client(weights, t)).sum(dim=0) / wsum, stacked)
+        lambda t: ctx.psum((t * per_client(weights, t)).sum(dim=0)) / wsum,
+        stacked)
 
 
 def batched_compress(comp, plan: RoundPlan, stacked, keys: torch.Tensor):
@@ -572,15 +666,19 @@ def payload_metrics(payload, partf_full: torch.Tensor) -> Dict[str, torch.Tensor
     return {"client_payload_bytes": pb, "uplink_payload_bytes": pb.sum()}
 
 
-def gather_decoded(payload, partf_full: torch.Tensor):
-    """The server side of the packed uplink: mask non-participants and
-    decode the whole ``(s, ...)`` stack once."""
+def gather_decoded(payload, partf_full: torch.Tensor,
+                   ctx: ClientAxisCtx = NULL_CTX):
+    """The server side of the packed uplink: mask non-participants, gather
+    the packed buffers across shards (a sharded round's only uplink
+    traffic) and decode the whole ``(s, ...)`` stack once."""
     from repro_torch.compress import wire
-    return wire.decode(mask_payload(payload, partf_full))
+    masked = mask_payload(payload, ctx.shard(partf_full))
+    return wire.decode(type(payload)(ctx.all_clients_tree(masked.data),
+                                     payload.spec))
 
 
-def apply_downlink(mode: str, comp, ref: PyTree, x_new: PyTree,
-                   key: torch.Tensor, s: int):
+def apply_downlink(mode: str, comp, ctx: ClientAxisCtx, ref: PyTree,
+                   x_new: PyTree, key: torch.Tensor, s: int):
     """The downlink seam (DESIGN.md §10) every round body shares: the
     server delta-codes the new broadcast ``x_new`` against ``ref``, the
     model the cohort last received, once for the whole cohort, and every
@@ -588,23 +686,24 @@ def apply_downlink(mode: str, comp, ref: PyTree, x_new: PyTree,
 
     The delta goes through the compressor or the wire as a one-row stack
     (leading axis 1, key ``key[None]``): ``"account"`` applies the
-    transform, ``"packed"`` moves the packed payload and adds the measured
+    transform, ``"packed"`` moves the packed payload (``ctx``'s
+    ``encode_broadcast`` / ``decode_broadcast``) and adds the measured
     ``downlink_payload_bytes`` (``s`` copies of it).  Both draw from the
     same key the same way, so the two modes are bit-identical.  Returns
     ``(y_new, downlink_bits, extra metrics)`` with the bits counted once a
     receiving client (``s * report.total_bits``)."""
-    delta = tree_util.map(lambda a, b: (a - b).unsqueeze(0), x_new, ref)
-    keys = key.unsqueeze(0)
+    delta = tree_util.map(lambda a, b: a - b, x_new, ref)
     if mode == "packed":
-        from repro_torch.compress import wire
-        payload, rep = wire.encode(comp, delta, keys)
-        dec = wire.decode(payload)
+        payload, rep = ctx.encode_broadcast(comp, delta, key)
+        dec = ctx.decode_broadcast(payload)
         extras = {"downlink_payload_bytes": torch.tensor(
             float(s * payload.nbytes), dtype=torch.float32)}
     else:
-        dec, rep = comp.compress(delta, keys)
+        dec, rep = comp.compress(
+            tree_util.map(lambda t: t.unsqueeze(0), delta), key.unsqueeze(0))
+        dec = tree_util.map(lambda t: t[0], dec)
         extras = {}
-    y_new = tree_util.map(lambda y, d: y + d[0], ref, dec)
+    y_new = tree_util.map(lambda y, d: y + d, ref, dec)
     return y_new, rep.total_bits[0] * s, extras
 
 

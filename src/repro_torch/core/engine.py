@@ -1,6 +1,6 @@
 """Round drivers (the port of ``repro.core.engine``).
 
-Algorithms define ``_round_impl(state, key) -> (state, metrics)`` where
+Algorithms define ``_round_impl(state, key, ctx) -> (state, metrics)`` where
 ``metrics`` holds scalars and ``(s,)`` per-client vectors (tensors);
 :class:`RoundEngine` provides the two drivers:
 
@@ -11,6 +11,10 @@ Algorithms define ``_round_impl(state, key) -> (state, metrics)`` where
   CUDA graph over a round is later work.
 
 Both record into ``self.meter`` (:class:`repro_torch.core.comm.CommMeter`).
+``use_mesh`` binds a client-axis mesh (DESIGN.md §6): both drivers then
+run ``_round_impl`` under a :class:`repro_torch.core.distributed.ShardCtx`
+with the sampled clients split over the mesh's ``clients`` ranks, every
+rank calling them with the same state and key.
 ``set_policy`` binds one of the three aggregation policies (DESIGN.md §7),
 ``set_wire`` the wire mode, ``"account"`` or ``"packed"`` (DESIGN.md §8),
 and ``set_downlink`` the downlink mode, ``"dense"``, ``"account"`` or
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch import tree as tree_util
+from repro_torch.core.clients import NULL_CTX
 
 PyTree = Any
 
@@ -101,6 +106,9 @@ def validate_wire(wire: Optional[str], compressor, schedule=None) -> str:
 class RoundEngine:
     """Mixin: host-stepped ``round`` + multi-round ``run_rounds``."""
 
+    _mesh = None        # the bound client-axis mesh (None: unsharded)
+    _ctx = NULL_CTX     # the ctx every _round_impl call gets
+
     def _setup_engine(self) -> None:
         from repro_torch.core import aggregation, client_store
         self.policy = aggregation.validate_policy(
@@ -141,6 +149,37 @@ class RoundEngine:
         from repro_torch.core import aggregation
         self.policy = aggregation.validate_policy(
             policy, self.cfg.clients_per_round)
+        return self
+
+    def use_mesh(self, mesh, axis: str = "clients") -> "RoundEngine":
+        """Bind (or, with ``None``, unbind) a client-axis mesh, a
+        ``torch.distributed`` ``DeviceMesh`` with a ``clients`` axis
+        (:func:`repro_torch.launch.mesh.make_client_mesh`).  With a mesh
+        bound, ``round`` and ``run_rounds`` split the sampled clients over
+        its ranks (DESIGN.md §6): metric scalars bit-identical to the
+        unsharded rounds, parameters allclose (bit-identical on one rank).
+        Binding the mesh already bound is a no-op.  Returns self."""
+        if (mesh is self._mesh
+                or (mesh is not None and self._mesh is not None
+                    and mesh == self._mesh)):
+            return self
+        ctx = NULL_CTX
+        if mesh is not None:
+            if self.store.host_side:
+                raise ValueError(
+                    "host-side client stores (HostStore) cannot run under a "
+                    "client-axis mesh; use the in-memory store with meshes, "
+                    "or drop the mesh for out-of-core populations")
+            if getattr(getattr(self, "sched", None), "uses_host_sampler",
+                       False):
+                raise ValueError(
+                    "host-side cohort sampling (sampler='tree') cannot run "
+                    "under a client-axis mesh; use sampler='gumbel' with "
+                    "meshes")
+            from repro_torch.core import distributed
+            ctx = distributed.client_ctx(mesh, self.cfg.clients_per_round,
+                                         axis)
+        self._mesh, self._ctx = mesh, ctx
         return self
 
     #: the round's key fanout: ``_round_impl`` draws its sampling key as
@@ -188,13 +227,15 @@ class RoundEngine:
         """Run one communication round; returns (state, metrics) with
         scalars as python floats and per-client vectors as numpy arrays."""
         self._plan_cohorts(state, key, 1, stepped=True)
-        state, metrics = self._round_impl(state, prng.key_data(key))
+        state, metrics = self._round_impl(state, prng.key_data(key),
+                                          ctx=self._ctx)
+        self.meter.record_round(
+            uplink_bits=metrics.get("uplink_bits", 0.0),
+            downlink_bits=metrics.get("downlink_bits", 0.0))
         out = {}
         for k, v in metrics.items():
             a = _host(v)
             out[k] = a if a.ndim else float(a)
-        self.meter.record_round(uplink_bits=out.get("uplink_bits", 0.0),
-                                downlink_bits=out.get("downlink_bits", 0.0))
         return state, out
 
     def run_rounds(self, state, key, num_rounds: int
@@ -213,10 +254,15 @@ class RoundEngine:
         rows = []
         for _ in range(num_rounds):
             key, sub = prng.split(key, 2)
-            state, metrics = self._round_impl(state, sub)
+            state, metrics = self._round_impl(state, sub, ctx=self._ctx)
             rows.append(metrics)
         stacked = {k: np.stack([_host(m[k]) for m in rows]) for k in rows[0]}
-        self.meter.record_rounds(uplink_bits=stacked.get("uplink_bits"),
-                                 downlink_bits=stacked.get("downlink_bits"),
+        bits = stacked
+        if self.meter.mode == "device":
+            # the meter sums the rounds' own tensors, where they are
+            bits = {k: torch.stack([torch.as_tensor(m[k]) for m in rows])
+                    for k in ("uplink_bits", "downlink_bits") if k in rows[0]}
+        self.meter.record_rounds(uplink_bits=bits.get("uplink_bits"),
+                                 downlink_bits=bits.get("downlink_bits"),
                                  num_rounds=num_rounds)
         return state, stacked

@@ -31,7 +31,10 @@ beyond-paper leaky error feedback on the Com uplink and Polyak server
 momentum.  The per-client ``h`` and EF memory ``e`` live behind the
 client-store contract (``store=``, DESIGN.md §11): stacked on the device
 by default, or on the host with :class:`~repro_torch.core.client_store.
-HostStore` for populations the device cannot hold.
+HostStore` for populations the device cannot hold.  Every cross-client
+operation goes through a :class:`~repro_torch.core.clients.ClientAxisCtx`
+(``ctx``): unsharded by default, or a rank's slice of the cohort under a
+client-axis mesh (``use_mesh``, DESIGN.md §6).
 """
 
 from __future__ import annotations
@@ -46,9 +49,9 @@ from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, dense_bits
 from repro_torch.core import aggregation, comm
 from repro_torch.core.clients import (
-    ClientSchedule, apply_downlink, batched_compress, gather_decoded,
+    NULL_CTX, ClientAxisCtx, ClientSchedule, apply_downlink, batched_compress,
     keep_where, masked_mean, mean_over_active, payload_metrics, tree_where,
-    validate_schedule, vmap_encode)
+    validate_schedule)
 from repro_torch.core.engine import RoundEngine, value_and_grad
 from repro_torch.core.fed_data import FederatedData
 
@@ -194,16 +197,23 @@ class FedComLoc(RoundEngine):
         # dense split stays 5-way
         return 6 if self.downlink != "dense" else 5
 
-    def _round_impl(self, state: FedComLocState, key: torch.Tensor):
+    def _round_impl(self, state: FedComLocState, key: torch.Tensor,
+                    ctx: ClientAxisCtx = NULL_CTX):
         cfg, sched = self.cfg, self.sched
         dl_on = self.downlink != "dense"
         k_sample, k_steps, k_local, k_up, k_down, *k_dl = prng.split(
             key, self._round_key_fanout)
         s = cfg.clients_per_round
-        clients, avail = sched.sample_cohort(k_sample, s, state.round,
-                                             device=self.device)
+        s_loc = ctx.local_count(s)
+        clients_full, avail = sched.sample_cohort(k_sample, s, state.round,
+                                                  device=self.device)
         num_steps = self._num_local_steps(k_steps)
-        plan = sched.plan(clients, num_steps, available=avail)
+        # the full (s,) plan is computed on every shard (the metrics use
+        # it); the per-client work below runs on this shard's slice
+        plan = sched.plan(clients_full, num_steps, available=avail)
+        plan_l = ctx.shard_tree(plan)
+        clients = ctx.shard(clients_full)
+        partf_plan_full = plan.participating.to(torch.float32)
         dev = self.device
         rows = self.store.cohort_index(clients, dev)
 
@@ -213,27 +223,29 @@ class FedComLoc(RoundEngine):
         # anchor below (EF innovation, FedBuff delta) is that model
         ref = state.y if dl_on else state.x
         x_i = tree_util.map(
-            lambda p: p.unsqueeze(0).expand((s,) + tuple(p.shape)).clone(),
+            lambda p: p.unsqueeze(0).expand((s_loc,) + tuple(p.shape)).clone(),
             ref)
 
         # the whole round's key chain at once: step j, client i draws
-        # split(split(split(k_local, cap)[j], s)[i]) -> (batch, compress).
+        # split(split(split(k_local, cap)[j], s)[i]) -> (batch, compress),
+        # the full (s,) split sliced to this shard's clients.
         # The reference scans all cap steps and masks each client past its
         # planned count (step_idx < plan.steps); a step with no active
         # client changes nothing and adds 0 to the loss, so only the
         # num_steps steps that can be active run here.
         step_keys = prng.split(k_local, cfg.steps_cap)[:num_steps]
-        client_keys = prng.split(step_keys, s)           # (steps, s, 2)
-        kb_kc = prng.split(client_keys, 2)               # (steps, s, 2, 2)
+        client_keys = ctx.shard(
+            prng.split(step_keys, s).transpose(0, 1)).transpose(0, 1)
+        kb_kc = prng.split(client_keys, 2)           # (steps, s_loc, 2, 2)
         xb_all, yb_all = self.data.sample_batch(
-            kb_kc[..., 0, :], clients.unsqueeze(0).expand(num_steps, s),
+            kb_kc[..., 0, :], clients.unsqueeze(0).expand(num_steps, s_loc),
             cfg.batch_size)
 
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for j in range(num_steps):
-            active = j < plan.steps                      # (s,) host mask
+            active = j < plan_l.steps                    # (s_loc,) host mask
             x_eval = (self.comp.apply(x_i, kb_kc[j, :, 1],
-                                      **plan.comp_overrides)
+                                      **plan_l.comp_overrides)
                       if cfg.variant == "local" else x_i)
             losses, g = value_and_grad(self.loss_fn, x_eval, xb_all[j],
                                        yb_all[j])
@@ -241,18 +253,18 @@ class FedComLoc(RoundEngine):
                 lambda xc, gc, hc: xc - cfg.gamma * (gc - hc), x_i, g, h_s)
             x_i = x_new if bool(active.all()) else keep_where(active, x_new,
                                                               x_i)
-            loss_sum = loss_sum + mean_over_active(losses, active)
+            loss_sum = loss_sum + mean_over_active(losses, active, ctx)
         x_hat = x_i
 
         # --- communication (theta_t = 1) --------------------------------- #
         dense = dense_bits(state.x)
-        client_up = torch.full((s,), dense, dtype=torch.float32)
+        client_up = torch.full((s_loc,), dense, dtype=torch.float32)
         up_bits = torch.tensor(s * dense, dtype=torch.float32)
         down_bits = torch.tensor(s * dense, dtype=torch.float32)
         wire_on = self.wire == "packed"
         ef_on = cfg.variant == "com" and cfg.error_feedback
         if cfg.variant == "com":
-            up_keys = prng.split(k_up, s)
+            up_keys = ctx.shard(prng.split(k_up, s))
             if ef_on:
                 # EF on the uplink innovation: clients send
                 # C(x^_i - x + e_i), the server rebuilds x + sent, and the
@@ -267,33 +279,37 @@ class FedComLoc(RoundEngine):
             if wire_on:
                 # the client boundary emits the packed payload; the round
                 # carries on with the server's decode of it
-                payload, up_rep = vmap_encode(self.comp, plan, up_tree,
-                                              up_keys)
+                payload, up_rep = ctx.encode_payload(self.comp, plan_l,
+                                                     up_tree, up_keys)
             else:
-                sent, up_rep = batched_compress(self.comp, plan, up_tree,
+                sent, up_rep = batched_compress(self.comp, plan_l, up_tree,
                                                 up_keys)
             client_up = up_rep.total_bits.cpu()
             up_bits = None
         elif wire_on:
             # uncompressed-uplink variants still move a real dense buffer
-            payload, _ = vmap_encode(None, plan, x_hat)
+            payload, _ = ctx.encode_payload(None, plan_l, x_hat)
 
         # --- aggregation policy (DESIGN.md §7) --------------------------- #
+        # the policy runs on the full (s,) bits, the same on every shard
         pol = aggregation.resolve_policy(
             self.policy, sched, plan,
-            client_up * plan.participating.to(torch.float32))
-        out, may_exclude = pol.out, pol.may_exclude
-        part = out.participating
+            ctx.all_clients(client_up) * partf_plan_full, ctx)
+        out, part, may_exclude = pol.out, pol.part, pol.may_exclude
         client_up = pol.client_up             # excluded clients send nothing
         if up_bits is None or may_exclude:
             up_bits = client_up.sum()
         if wire_on:
-            # decode once, server-side, on the masked stack; non-com
-            # variants ship the raw iterate, so their decode equals x_hat
-            # on every row the aggregation keeps
-            sent = gather_decoded(payload, out.partf)
-            if cfg.variant != "com":
-                x_hat = sent
+            # decode once, server-side, on the full masked stack; the
+            # shard's rows of it are what its clients sent.  Non-com
+            # variants ship the raw iterate, so x_hat keeps its rows.
+            dec_full = ctx.gather_decoded_payload(payload, out.partf)
+            srv_hat = dec_full
+            if cfg.variant == "com":
+                sent = ctx.shard_tree(dec_full)
+                if ef_on:
+                    srv_hat = tree_util.map(
+                        lambda x0, snt: x0.unsqueeze(0) + snt, ref, dec_full)
         if cfg.variant == "com":
             x_hat = (tree_util.map(lambda x0, snt: x0.unsqueeze(0) + snt,
                                    ref, sent) if ef_on else sent)
@@ -304,23 +320,28 @@ class FedComLoc(RoundEngine):
                                     innov, sent)
             if may_exclude:    # an excluded client never transmitted
                 e_s_new = keep_where(part, e_s_new, e_s)
-            e_new = self.store.scatter("e", state.e, rows, e_s_new)
+            e_new = self.store.scatter("e", state.e, rows, e_s_new, ctx)
+        # the server's aggregate: on the packed wire from the full decoded
+        # stack with the unsharded formula, else from the shards' rows
+        agg_hat, agg_ctx, weight = ((srv_hat, NULL_CTX, out.weight)
+                                    if wire_on else (x_hat, ctx, pol.weight))
         if aggregation.uses_delta_combine(self.policy):
             # FedBuff server application in delta form: each buffer flush
             # applies its staleness-discounted mean of anchor deltas
             delta = tree_util.map(lambda xh, x0: xh - x0.unsqueeze(0),
-                                  x_hat, ref)
-            x_bar = tree_util.map(lambda x0, u: x0 + u, state.x,
-                                  aggregation.async_weighted_sum(out, delta))
+                                  agg_hat, ref)
+            x_bar = tree_util.map(
+                lambda x0, u: x0 + u, state.x,
+                aggregation.async_weighted_sum(out, delta, agg_ctx))
         elif may_exclude:
             # if every sampled client was excluded, the server keeps its
             # model
             x_bar = tree_where(out.n_selected > 0,
-                               masked_mean(x_hat, out.weight,
+                               masked_mean(agg_hat, weight, agg_ctx,
                                            weight_sum=out.n_selected),
                                state.x)
         else:
-            x_bar = tree_util.map(lambda t: t.mean(dim=0), x_hat)
+            x_bar = agg_ctx.mean_clients(agg_hat)
         if cfg.variant == "global":
             x_bar, down_rep = self.comp.compress(
                 tree_util.map(lambda t: t.unsqueeze(0), x_bar),
@@ -334,7 +355,8 @@ class FedComLoc(RoundEngine):
         dl_extras = {}
         if dl_on:
             y_new, down_bits, dl_extras = apply_downlink(
-                self.downlink, self.down_comp, state.y, x_bar, k_dl[0], s)
+                self.downlink, self.down_comp, ctx, state.y, x_bar, k_dl[0],
+                s)
         bcast = y_new if dl_on else x_bar
 
         # line 16: h_i += (p/gamma) (x_{t+1} - x^_{i,t+1}) for i in S, with
@@ -344,7 +366,7 @@ class FedComLoc(RoundEngine):
             h_s, x_hat, bcast)
         if may_exclude:   # an excluded client keeps its control variate
             h_s_new = keep_where(part, h_s_new, h_s)
-        h_new = self.store.scatter("h", state.h, rows, h_s_new)
+        h_new = self.store.scatter("h", state.h, rows, h_s_new, ctx)
 
         # beyond-paper: Polyak momentum on the broadcast point only (the
         # control variates above saw the plain mean)

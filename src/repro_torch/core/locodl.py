@@ -33,7 +33,8 @@ client-store contract (``store=``, DESIGN.md §11), gathered and scattered
 by cohort index: stacked ``(n_clients, ...)`` on the device by default, or
 on the host in a ``HostStore``, where ``xs``'s broadcast start is one fill
 row; the shared reference ``y`` sits in the ``x`` slot that ``round``,
-``run_rounds`` and the eval hooks read.
+``run_rounds`` and the eval hooks read.  The round body takes a
+client-axis ``ctx`` (DESIGN.md §6), as FedComLoc's does.
 """
 
 from __future__ import annotations
@@ -48,9 +49,9 @@ from repro_torch import tree as tree_util
 from repro_torch.compress import Compressor, Identity, dense_bits
 from repro_torch.core import aggregation, comm
 from repro_torch.core.clients import (
-    ClientSchedule, apply_downlink, batched_compress, gather_decoded,
+    NULL_CTX, ClientAxisCtx, ClientSchedule, apply_downlink, batched_compress,
     keep_where, masked_mean, mean_over_active, payload_metrics, tree_where,
-    validate_schedule, vmap_encode)
+    validate_schedule)
 from repro_torch.core.engine import RoundEngine, value_and_grad
 from repro_torch.core.fed_data import FederatedData
 from repro_torch.core.fedcomloc import geometric_steps
@@ -154,16 +155,19 @@ class LoCoDL(RoundEngine):
     # one 5-way split in every downlink mode
     _round_key_fanout = 5
 
-    def _round_impl(self, state: LoCoDLState, key: torch.Tensor):
+    def _round_impl(self, state: LoCoDLState, key: torch.Tensor,
+                    ctx: ClientAxisCtx = NULL_CTX):
         cfg, sched = self.cfg, self.sched
         # LoCoDL always has a downlink leg, so every mode shares one key
         # chain; the dense mode never uses k_dl
         k_sample, k_steps, k_local, k_up, k_dl = prng.split(key, 5)
         s = cfg.clients_per_round
-        clients, avail = sched.sample_cohort(k_sample, s, state.round,
-                                             device=self.device)
+        s_loc = ctx.local_count(s)
+        clients_full, avail = sched.sample_cohort(k_sample, s, state.round,
+                                                  device=self.device)
         num_steps = self._num_local_steps(k_steps)
-        plan = sched.plan(clients, num_steps, available=avail)
+        plan = sched.plan(clients_full, num_steps, available=avail)
+        plan_l, clients = ctx.shard_tree(plan), ctx.shard(clients_full)
         rows = self.store.cohort_index(clients, self.device)
 
         h_s = self.store.gather("h", state.h, rows)
@@ -171,24 +175,26 @@ class LoCoDL(RoundEngine):
         x0 = self.store.gather("xs", state.xs, rows)
 
         # step j, client i draws its batch with split(split(k_local,
-        # cap)[j], s)[i]; as in FedComLoc, only the num_steps steps that
-        # can have an active client run
+        # cap)[j], s)[i] (the full split sliced to the shard's clients);
+        # as in FedComLoc, only the num_steps steps that can have an
+        # active client run
         step_keys = prng.split(k_local, cfg.steps_cap)[:num_steps]
-        client_keys = prng.split(step_keys, s)           # (steps, s, 2)
+        client_keys = ctx.shard(
+            prng.split(step_keys, s).transpose(0, 1)).transpose(0, 1)
         xb_all, yb_all = self.data.sample_batch(
-            client_keys, clients.unsqueeze(0).expand(num_steps, s),
+            client_keys, clients.unsqueeze(0).expand(num_steps, s_loc),
             cfg.batch_size)
         x_i = x0
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for j in range(num_steps):
-            active = j < plan.steps                      # (s,) host mask
+            active = j < plan_l.steps                    # (s_loc,) host mask
             losses, g = value_and_grad(self.loss_fn, x_i, xb_all[j],
                                        yb_all[j])
             x_new = tree_util.map(
                 lambda xc, gc, hc: xc - cfg.gamma * (gc - hc), x_i, g, h_s)
             x_i = x_new if bool(active.all()) else keep_where(active, x_new,
                                                               x_i)
-            loss_sum = loss_sum + mean_over_active(losses, active)
+            loss_sum = loss_sum + mean_over_active(losses, active, ctx)
         x_hat = x_i
 
         # reference phase: the server objective is g = 0, so its local
@@ -200,38 +206,46 @@ class LoCoDL(RoundEngine):
         diff = tree_util.map(lambda xh, yh: xh - yh.unsqueeze(0), x_hat,
                              y_hat)
         wire_on = self.wire == "packed"
-        up_keys = prng.split(k_up, s)
+        up_keys = ctx.shard(prng.split(k_up, s))
         payload = None
         if wire_on:
-            payload, up_rep = vmap_encode(self.comp, plan, diff, up_keys)
+            payload, up_rep = ctx.encode_payload(self.comp, plan_l, diff,
+                                                 up_keys)
         else:
-            u, up_rep = batched_compress(self.comp, plan, diff, up_keys)
+            u, up_rep = batched_compress(self.comp, plan_l, diff, up_keys)
         pol = aggregation.resolve_policy(
             self.policy, sched, plan,
-            up_rep.total_bits.cpu() * plan.participating.to(torch.float32))
-        out, may_exclude = pol.out, pol.may_exclude
-        part = out.participating
+            ctx.all_clients(up_rep.total_bits.cpu())
+            * plan.participating.to(torch.float32), ctx)
+        out, part, may_exclude = pol.out, pol.part, pol.may_exclude
+        u_agg, agg_ctx, weight = None, ctx, pol.weight
         if wire_on:
-            # one server-side decode of the masked packed stack
-            u = gather_decoded(payload, out.partf)
+            # one server-side decode of the masked packed stack, aggregated
+            # whole with the unsharded formula; the shard's rows of it are
+            # what its clients sent
+            u_agg = ctx.gather_decoded_payload(payload, out.partf)
+            u = ctx.shard_tree(u_agg)
+            agg_ctx, weight = NULL_CTX, out.weight
+        else:
+            u_agg = u
 
         # --- aggregate v under the policy -------------------------------- #
         if aggregation.uses_delta_combine(self.policy):
-            v = aggregation.async_weighted_sum(out, u)
+            v = aggregation.async_weighted_sum(out, u_agg, agg_ctx)
         elif may_exclude:
             # all-excluded rounds send m from v = 0: y drifts only by its
             # control variate
             v = tree_where(out.n_selected > 0,
-                           masked_mean(u, out.weight,
+                           masked_mean(u_agg, weight, agg_ctx,
                                        weight_sum=out.n_selected),
                            tree_util.map(torch.zeros_like, y_hat))
         else:
-            v = tree_util.map(lambda t: t.mean(dim=0), u)
+            v = agg_ctx.mean_clients(u_agg)
 
         # --- downlink: m from v, delta-coded against a zero reference ---- #
         if self.downlink != "dense":
             m, down_bits, dl_extras = apply_downlink(
-                self.downlink, self.down_comp,
+                self.downlink, self.down_comp, ctx,
                 tree_util.map(torch.zeros_like, v), v, k_dl, s)
         else:
             m, dl_extras = v, {}
@@ -249,8 +263,8 @@ class LoCoDL(RoundEngine):
             # an excluded straggler neither sent u_i nor received m
             xs_rows = keep_where(part, xs_rows, x0)
             h_rows = keep_where(part, h_rows, h_s)
-        xs_new = self.store.scatter("xs", state.xs, rows, xs_rows)
-        h_new = self.store.scatter("h", state.h, rows, h_rows)
+        xs_new = self.store.scatter("xs", state.xs, rows, xs_rows, ctx)
+        h_new = self.store.scatter("h", state.h, rows, h_rows, ctx)
         y_new = tree_util.map(lambda yh, mm: yh + cfg.lam * mm, y_hat, m)
         hy_new = tree_util.map(
             lambda hy, mm: hy + (cfg.p / cfg.gamma) * cfg.lam * mm,

@@ -66,6 +66,7 @@ def run_federated(
     key,
     eval_fn: Optional[Callable] = None,
     eval_every: int = 10,
+    mesh: Optional[Any] = None,
     policy: Optional[Any] = None,
     wire: Optional[str] = None,
     downlink: Optional[str] = None,
@@ -74,7 +75,10 @@ def run_federated(
     """Drive ``algorithm`` (anything with .init/.round/.meter) for R rounds,
     one ``algorithm.round`` per round on the ``key, sub = split(key)``
     chain, evaluating after round 1, every ``eval_every`` rounds, and
-    after the last.  ``policy`` (an
+    after the last.  ``mesh`` (a ``DeviceMesh`` with a ``clients`` axis,
+    :func:`repro_torch.launch.mesh.make_client_mesh`) binds the rounds to
+    the client-sharded path (DESIGN.md §6): every rank of the mesh calls
+    ``run_federated`` with the same arguments.  ``policy`` (an
     :class:`repro_torch.core.aggregation.AggregationPolicy`) rebinds the
     aggregation policy (DESIGN.md §7), ``wire`` (``"account"`` |
     ``"packed"``) the wire mode (DESIGN.md §8) and ``downlink``
@@ -82,6 +86,8 @@ def run_federated(
     ``downlink_compressor``) the broadcast's codec path (DESIGN.md §10)
     first, before ``init``, since the downlink reference ``y`` lives in
     the algorithm's state."""
+    if mesh is not None:
+        algorithm.use_mesh(mesh)
     if policy is not None:
         algorithm.set_policy(policy)
     if wire is not None:

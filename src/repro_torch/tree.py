@@ -18,6 +18,18 @@ def leaves(tree: PyTree) -> List[Any]:
     return [tree]
 
 
+def leaves_with_paths(tree: PyTree, prefix: tuple = ()) -> List[tuple]:
+    """``(keys, leaf)`` in ``leaves`` order, ``keys`` the tuple of dict
+    keys and tuple positions that lead to the leaf."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in leaves_with_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, tuple):
+        return [item for i, t in enumerate(tree)
+                for item in leaves_with_paths(t, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 def map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:  # noqa: A001
     if isinstance(tree, dict):
         return {k: map(fn, tree[k], *(r[k] for r in rest))

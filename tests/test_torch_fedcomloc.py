@@ -11,6 +11,7 @@ so the parameter tolerance needs no allowance for one.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: no spinning OpenMP pools
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

@@ -32,6 +32,7 @@ import pytest
 import chip_smoke
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: no spinning OpenMP pools
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402

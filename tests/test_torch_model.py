@@ -4,6 +4,7 @@ reference, from the same weights and seeds."""
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: no spinning OpenMP pools
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -151,5 +152,12 @@ def test_comm_meter_matches_reference():
     a.record_rounds(uplink_bits=arr, downlink_bits=None, num_rounds=3)
     b.record_rounds(uplink_bits=arr, downlink_bits=None, num_rounds=3)
     assert a.snapshot() == b.snapshot()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        comm.CommMeter(mode="jnp")
+    # the reference's "jnp" meter and the port's device meter, same records
+    a, b = jcomm.CommMeter(mode="jnp"), comm.CommMeter(mode="jnp")
+    assert b.mode == "device"
+    for up, down in [(1.5, 2.0), (3.25, 0.0)]:
+        a.record_round(uplink_bits=up, downlink_bits=down)
+        b.record_round(uplink_bits=up, downlink_bits=down)
+    a.record_rounds(uplink_bits=arr, downlink_bits=None, num_rounds=3)
+    b.record_rounds(uplink_bits=arr, downlink_bits=None, num_rounds=3)
+    assert a.snapshot() == b.snapshot()

@@ -18,6 +18,7 @@ port, against the reference.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: no spinning OpenMP pools
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402

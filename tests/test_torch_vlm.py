@@ -30,6 +30,7 @@ import re
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: no spinning OpenMP pools
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

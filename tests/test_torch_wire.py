@@ -12,6 +12,7 @@ reference's packed rounds, from the same carried weights and keys.
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: no spinning OpenMP pools
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -29,6 +29,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # xdist workers share the cores: no spinning OpenMP pools
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -586,16 +587,17 @@ def test_other_families_options_are_not_ported(option, value):
 
 def test_training_and_other_families_are_not_ported():
     """Training, prefix embeddings, M-RoPE, the encoder-decoder and the MoE
-    family are ported; what still raises is outside the model zoo:
-    ``CommMeter``'s device-resident modes (the reference's ``"jnp"``) and
+    family are ported, and so is ``CommMeter``'s device-resident mode (the
+    reference's ``"jnp"``); what still raises outside the model zoo is
     ``prng.choice(replace=True)``, which no part of the reference calls."""
     from repro_torch import prng
     from repro_torch.core import comm
 
     for mode in ("jnp", "device"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            comm.CommMeter(mode=mode)
+        assert comm.CommMeter(mode=mode).mode == "device"
     assert comm.CommMeter().mode == "host"
+    with pytest.raises(ValueError, match="mode"):
+        comm.CommMeter(mode="bogus")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prng.choice(prng.PRNGKey(0), 5, 2, replace=True)
     for arch in MOE_ARCHS:
