@@ -312,7 +312,6 @@ class ResolvedPolicy(NamedTuple):
 
     out: PolicyOutcome
     part: torch.Tensor        # the shard's bool participation (plan and policy)
-    partf: torch.Tensor       # the same as float32
     may_exclude: bool         # gate the keep-old state paths
     client_up: torch.Tensor   # full (s,) applied wire bits (excluded -> 0)
     weight: torch.Tensor      # the shard's float32 mean-aggregation weights
@@ -325,7 +324,7 @@ def resolve_policy(policy, sched, plan, client_bits_full: torch.Tensor,
     out = apply_policy(policy, sched, plan, client_bits_full)
     part = ctx.shard(out.participating)
     return ResolvedPolicy(
-        out=out, part=part, partf=part.to(torch.float32),
+        out=out, part=part,
         may_exclude=sched.may_drop or policy.may_exclude,
         client_up=client_bits_full * out.partf,
         weight=ctx.shard(out.weight))

@@ -52,10 +52,6 @@ PyTree = Any
 
 CLIENT_AXIS = "clients"
 
-# the name torch >= 2.13 gives all_gather_into_tensor
-_all_gather = getattr(dist, "all_gather_single", None) or \
-    dist.all_gather_into_tensor
-
 
 def _group_device(group) -> torch.device:
     """The device a group's collectives run on: the current card under
@@ -105,7 +101,7 @@ class ShardCtx(ClientAxisCtx):
         t = self._out(vec)
         full = torch.empty((t.shape[0] * self.n_shards,) + tuple(t.shape[1:]),
                            dtype=t.dtype, device=t.device)
-        _all_gather(full, t, group=self.group)
+        dist.all_gather_into_tensor(full, t, group=self.group)
         return full.to(vec.device)
 
     def all_clients_tree(self, tree: PyTree) -> PyTree:

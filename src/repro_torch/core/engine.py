@@ -33,7 +33,6 @@ import torch
 
 from repro_torch import prng
 from repro_torch import tree as tree_util
-from repro_torch.core.clients import NULL_CTX
 
 PyTree = Any
 
@@ -107,7 +106,7 @@ class RoundEngine:
     """Mixin: host-stepped ``round`` + multi-round ``run_rounds``."""
 
     _mesh = None        # the bound client-axis mesh (None: unsharded)
-    _ctx = NULL_CTX     # the ctx every _round_impl call gets
+    _sharded = None     # shard_round(_round_impl, _mesh) while it is bound
 
     def _setup_engine(self) -> None:
         from repro_torch.core import aggregation, client_store
@@ -163,7 +162,7 @@ class RoundEngine:
                 or (mesh is not None and self._mesh is not None
                     and mesh == self._mesh)):
             return self
-        ctx = NULL_CTX
+        sharded = None
         if mesh is not None:
             if self.store.host_side:
                 raise ValueError(
@@ -177,10 +176,16 @@ class RoundEngine:
                     "under a client-axis mesh; use sampler='gumbel' with "
                     "meshes")
             from repro_torch.core import distributed
-            ctx = distributed.client_ctx(mesh, self.cfg.clients_per_round,
-                                         axis)
-        self._mesh, self._ctx = mesh, ctx
+            sharded = distributed.shard_round(
+                self._round_impl, mesh, self.cfg.clients_per_round, axis)
+        self._mesh, self._sharded = mesh, sharded
         return self
+
+    def _step(self, state, key):
+        """One ``_round_impl`` call, split over the bound mesh if any."""
+        if self._sharded is None:
+            return self._round_impl(state, key)
+        return self._sharded(state, key)
 
     #: the round's key fanout: ``_round_impl`` draws its sampling key as
     #: ``split(key, fanout)[0]``; algorithms set it so that
@@ -227,8 +232,7 @@ class RoundEngine:
         """Run one communication round; returns (state, metrics) with
         scalars as python floats and per-client vectors as numpy arrays."""
         self._plan_cohorts(state, key, 1, stepped=True)
-        state, metrics = self._round_impl(state, prng.key_data(key),
-                                          ctx=self._ctx)
+        state, metrics = self._step(state, prng.key_data(key))
         self.meter.record_round(
             uplink_bits=metrics.get("uplink_bits", 0.0),
             downlink_bits=metrics.get("downlink_bits", 0.0))
@@ -254,7 +258,7 @@ class RoundEngine:
         rows = []
         for _ in range(num_rounds):
             key, sub = prng.split(key, 2)
-            state, metrics = self._round_impl(state, sub, ctx=self._ctx)
+            state, metrics = self._step(state, sub)
             rows.append(metrics)
         stacked = {k: np.stack([_host(m[k]) for m in rows]) for k in rows[0]}
         bits = stacked

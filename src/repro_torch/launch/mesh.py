@@ -39,17 +39,15 @@ def make_host_mesh(device: str = "cpu") -> DeviceMesh:
 
 
 def make_client_mesh(n_shards: int | None = None, *, data: int = 1,
-                     model: int = 1, config=None,
-                     device: str = "cuda") -> DeviceMesh:
+                     model: int = 1, device: str = "cuda") -> DeviceMesh:
     """The 1-D ``("clients",)`` mesh whose ranks split the sampled clients
     of a federated round (DESIGN.md §6; consumed by
     ``RoundEngine.use_mesh`` and ``server.run_federated(mesh=...)``).
 
     ``n_shards`` defaults to the world size; a smaller mesh holds ranks
     ``0 .. n_shards - 1`` (every rank calls this, and a rank outside the
-    mesh cannot use it).  A ``data`` or ``model`` axis
-    larger than 1 (the composed clients x model regime) is the next slice
-    and raises; ``config`` is checked against such an axis there.
+    mesh cannot use it).  A ``data`` or ``model`` axis larger than 1 (the
+    composed clients x model regime) is the next slice and raises.
     """
     if data != 1 or model != 1:
         raise not_ported(f"a client mesh composed with data={data}, "

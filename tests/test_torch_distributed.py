@@ -10,8 +10,9 @@ Every rank of a group writes its final state, metrics and meter to a file
 that this process reads; the parent joins the spawn with a timeout, so a
 hung collective fails the test instead of holding the run.
 
-Held: the five ``EXACT_METRICS`` and the meter's bits bit-equal to the
-unsharded port at every D; params within rtol 1e-5 / atol 1e-6 and
+Held: every metric but ``train_loss`` (the five exact metrics of
+``tests/test_distributed.py`` among them) and the meter's bits bit-equal
+to the unsharded port at every D; params within rtol 1e-5 / atol 1e-6 and
 ``train_loss`` within rtol 1e-5 / atol 1e-7 (the all-reduce sums in
 another order); at D = 1 the params and every metric bit-equal; every
 rank of a group ends with the same state and metrics bit for bit.  The
@@ -40,7 +41,7 @@ from repro_torch.core.baselines import (  # noqa: E402
     FedAvg, FedConfig, FedDyn, Scaffold)
 from repro_torch.core.client_store import HostStore  # noqa: E402
 from repro_torch.core.clients import (  # noqa: E402
-    NULL_CTX, ClientAvailability, ClientProfile, ClientSchedule)
+    ClientAvailability, ClientProfile, ClientSchedule)
 from repro_torch.core.comm import CommMeter  # noqa: E402
 from repro_torch.core.distributed import usable_shard_counts  # noqa: E402
 from repro_torch.core.fedcomloc import (  # noqa: E402
@@ -49,8 +50,6 @@ from repro_torch.core.locodl import LoCoDL, LoCoDLConfig  # noqa: E402
 
 N_CLIENTS, DIM, S, ROUNDS, KEY = 16, 6, 8, 4, 9
 GROUPS = (1, 2, 4)
-EXACT_METRICS = ("uplink_bits", "downlink_bits", "client_steps",
-                 "client_uplink_bits", "sim_time")
 JOIN_TIMEOUT_S = 120.0
 
 
@@ -228,7 +227,7 @@ def _checks(rank, mesh4, data):
         alg = build("fedavg", data).use_mesh(mesh4)
         assert alg.use_mesh(mesh4) is alg and alg._mesh is mesh4
         alg.use_mesh(None)
-        assert alg._mesh is None and alg._ctx is NULL_CTX
+        assert alg._mesh is None and alg._sharded is None
         got, gm, _ = run(alg)
         want, wm, _ = run(build("fedavg", data))
         np.testing.assert_array_equal(got["x"][0], want["x"][0])
@@ -347,9 +346,14 @@ def test_sharded_rounds_match_unsharded(ranks, unsharded, name, d):
     state, m, snap = ranks[0][(name, d)]
     st_ref, m_ref, snap_ref = unsharded[name]
     label = f"{name} D={d}"
-    for k in EXACT_METRICS:
-        np.testing.assert_array_equal(m[k], m_ref[k], err_msg=f"{label} {k}")
+    # every metric but the loss (the five exact metrics of
+    # tests/test_distributed.py among them) comes from the full plan or
+    # gathered full vectors: bit-equal at any D
     assert set(m) == set(m_ref)
+    for k in m_ref:
+        if k != "train_loss":
+            np.testing.assert_array_equal(m[k], m_ref[k],
+                                          err_msg=f"{label} {k}")
     np.testing.assert_allclose(m["train_loss"], m_ref["train_loss"],
                                rtol=1e-5, atol=1e-7, err_msg=label)
     _assert_state(state, st_ref, exact=False, label=label)
