@@ -13,12 +13,13 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    where ``cuobjdump`` is in the toolkit, the ``HGMMA`` (wgmma) and
    ``UTMALDG`` (TMA load) instructions in its SASS, both of which must be
    there;
-2. kernels — holds each kernel (K1 TopK threshold, K2 TopK mask, K3 l2
-   norm, K4 Q_r rounding, K5 slot compaction, K6 coded slot compaction,
-   K7 fused Q_r pack, K8 code pack, K9 code unpack) against its plain
-   PyTorch version on the card, at the main path's shapes, edge cases and
-   one large shape: all bit-equal except K3, which must be within
-   ``NORM_RTOL``; K9 must invert K8 (K8 on b = 1..32, codes with bits
+2. kernels — holds each kernel (K1 TopK threshold, K1h K1's histogram
+   pass alone, K2 TopK mask, K3 l2 norm and its sum-of-squares entry, K4
+   Q_r rounding, K5 slot compaction, K6 coded slot compaction, K7 fused
+   Q_r pack, K8 code pack, K9 code unpack) against its plain PyTorch
+   version on the card, at the main path's shapes, edge cases and one
+   large shape: all bit-equal except K3, which must be within
+   ``NORM_RTOL`` (its sum of squares' root bit-equal to it); K9 must invert K8 (K8 on b = 1..32, codes with bits
    above b, rows 1-3 codes off a 16-byte boundary).  K1's cases also take
    rows shorter than a cluster's CTAs, n not a multiple of 4, per-row k of
    0, 1, n-1, n and beyond n, +-0 / subnormals / inf / ties, and rows at
@@ -168,6 +169,23 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    ``make_client_mesh(1)`` must equal the unsharded runs bit for bit
    (state, every metric, the meter) with the same launches by kernel;
    steady ms a round, sharded and unsharded in turns;
+8c. model_mesh — the model axis (DESIGN.md §9) at qwen2-0.5b's published
+   width, ``MODEL_MESH_LAYERS`` of its 24 layers, float32: K1's histogram
+   pass against its byte bound at the sharded embedding's slices; under
+   NCCL at world size 1 the (1, 1, 1) mesh's FedAvg TopK(0.1) packed
+   rounds equal ``make_client_mesh(1)``'s bit for bit; then 4 gloo ranks
+   spawned on the card run ``MODEL_MESH_PLAN``: FedAvg TopK(0.1) on the
+   meshes (1, 1, 2), (2, 1, 2) and (1, 1, 4), FedComLoc QuantQr(8) on
+   (1, 1, 2) and (1, 1, 4), FedComLoc TopK(0.1) with the packed TopK(0.1)
+   downlink on
+   (1, 1, 4), each against the flat mesh of as many clients ranks: bits exact (past a round with ties beyond k or a
+   shard's overflow, within rtol 1e-4), ``train_loss`` within rtol 2e-3,
+   round 1's model apart only where the printed ties and overflows allow
+   (the state bit-equal where there are none), each rank's buffers a
+   client ``per_device_payload_nbytes``, and K1's histogram pass, K3's
+   sum of squares, K5, the keyed K7 and K9's values entry launched on
+   every rank; FedAvg's steady rounds composed and flat in turns (the
+   ranks time-share one card);
 9. population — ``benchmarks/population_scale.py``'s configuration at
    ``POP_N`` = 10^6 clients, not cut: ``SyntheticFederatedData`` (2048,
    hetero 0.2, noise 0.01), a diurnal + churn availability trace with the
@@ -319,6 +337,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -332,14 +351,43 @@ NORM_RTOL = 1e-5               # K3 vs torch.sum: float32 sums in other orders
 LOSS_RTOL = 1e-4               # cuBLAS vs CPU matmuls in the replayed rounds
 PARAM_RTOL, PARAM_ATOL = 1e-6, 1e-7   # packed vs account rounds on the card
 ROUNDS = 20
-REPLAY_ROUNDS = 3
-DIVERGING_REPLAY_ROUNDS = 6
-PROFILE_ROUNDS = 5
+REPLAY_ROUNDS = 2             # CPU replays a run
+DIVERGING_REPLAY_ROUNDS = 3   # ... k25_q4's
+PROFILE_ROUNDS = 2            # steady and profiled windows
 FIG9_ROUNDS = 12              # benchmarks/common.py FAST_ROUNDS
 DOWNLINK_ROUNDS = 60          # benchmarks/common.py FULL_ROUNDS
-CLIENT_MESH_ROUNDS = 5        # the client_mesh phase's rounds a run
+CLIENT_MESH_ROUNDS = 3        # the client_mesh phase's rounds a run
 CLIENT_MESH_WINDOW = 3        # ... and its timed windows' rounds
 CLIENT_MESH_PROFILED = ("FedComLoc TopK account", "LoCoDL packed")
+MODEL_MESH_ARCH = "qwen2-0.5b"
+MODEL_MESH_LAYERS = 4         # of 24: every rank on the card holds a replica
+MODEL_MESH_SEQ = 512
+# 2 clients, 2 a round, batch 1: at 4 the ranks' stacks, control variates
+# and decoded uplinks (17-20 GB a rank) overran the H100's 80 GB
+MODEL_MESH_CLIENTS = 2
+MODEL_MESH_ROUNDS = 2
+MODEL_MESH_GAMMA = 0.01
+#: the composed meshes (clients, data, model) and their ranks, and the
+#: flat client meshes each is held to (same clients a rank), with theirs
+MODEL_MESH_SHAPES = {(1, 1, 2): (0, 1), (2, 1, 2): (0, 1, 2, 3),
+                     (1, 1, 4): (0, 1, 2, 3)}
+MODEL_MESH_FLAT = {(1,): (0,), (2,): (0, 2)}
+#: each run's composed meshes: FedAvg on all three, FedComLoc's Q_r at
+#: m = 2 and 4 on one clients rank, the packed downlink's one run at m = 4
+#: (a FedComLoc round gathers its dense control variates through the host:
+#: ~3.4 s of 5.9 at (2, 1, 2), so its runs keep to the flat (1,) mesh)
+MODEL_MESH_PLAN = {
+    "FedAvg TopK(0.1)": ((1, 1, 2), (2, 1, 2), (1, 1, 4)),
+    "FedComLoc QuantQr(8)": ((1, 1, 2), (1, 1, 4)),
+    "FedComLoc TopK(0.1), downlink TopK(0.1)": ((1, 1, 4),)}
+MODEL_MESH_TIMED = ((2, 1, 2), (2,))  # the pair timed in turns
+MODEL_MESH_WORLD = 4
+MODEL_MESH_JOIN_S = 400.0
+MODEL_MESH_LOSS_RTOL = 2e-3   # tests/test_big_model_mesh.py's composed round
+MODEL_MESH_BITS_RTOL = 1e-4   # ... and its bits, past a round with ties
+#: the kernels the shard-local wire launches, on every rank
+MODEL_MESH_KERNELS = ("topk_radix_hist", "sum_squares", "compact_slots",
+                      "quantize_pack_keyed", "unpack_qr_values")
 DOWNLINK_TARGET = 0.9         # benchmarks/downlink.py TARGET_ACC
 DOWNLINK_ARTIFACT = "benchmarks/artifacts/downlink.json"
 # locodl_double's downlink bits count the ties of TopK(0.1) on the mean of
@@ -2230,7 +2278,7 @@ def downlink_phase(torch, dev, mnist, launches: dict) -> None:
                              f"{DOWNLINK_TARGET}, not fewer than fedcomloc's "
                              f"{to_target['fedcomloc']}")
 
-    # account == packed on the compressed downlinks, 3 rounds each.  The
+    # account == packed on the compressed downlinks, REPLAY_ROUNDS each.  The
     # topk_qr wire keeps the lowest-index cap of the survivors tied at the
     # threshold and saturates the top level at 2^r - 1 (its format), and
     # the mean of Q_r-coded messages that locodl_double broadcasts ties by
@@ -2699,6 +2747,572 @@ def client_mesh_phase(torch, dev, mnist, launches: dict) -> None:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[client_mesh] card: {card_line()}", flush=True)
+
+
+def model_mesh_config(torch, reduced: bool = False):
+    """qwen2-0.5b at its published width, float32, MODEL_MESH_LAYERS of its
+    24 layers (``reduced``: the family's smoke-test size, for a dry run of
+    the phase on the CPU)."""
+    from repro_torch import configs
+    spec = configs.get_spec(MODEL_MESH_ARCH)
+    if reduced:
+        spec = configs.reduced(spec)
+    return dataclasses.replace(spec.model,
+                               n_layers=2 if reduced else MODEL_MESH_LAYERS,
+                               dtype=torch.float32)
+
+
+def model_mesh_runs(torch, cfg, seq: int, dev):
+    """``({label: (codec, make)}, seeded weights)``: the phase's three runs
+    on seeded tokens (two sequences a client, batch 1), the loss over
+    stacked clients a per-client loop over ``transformer.loss``."""
+    import numpy as np
+
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import QuantQr, TopK
+    from repro_torch.core import fed_data
+    from repro_torch.core.baselines import FedAvg, FedConfig
+    from repro_torch.core.fedcomloc import FedComLoc, FedComLocConfig
+    from repro_torch.models import transformer as tfm
+
+    c = MODEL_MESH_CLIENTS
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, cfg.vocab, (2 * c, seq)).astype(np.int32)
+    data = fed_data.from_numpy_partition(
+        x, np.zeros((2 * c,), np.float32),
+        [np.arange(2 * i, 2 * i + 2) for i in range(c)], device=dev)
+
+    def loss_fn(params, xb, yb):
+        return torch.stack([
+            tfm.loss(tree_util.map(lambda t: t[i], params), cfg, xb[i],
+                     loss_chunk=seq)
+            for i in range(xb.shape[0])])
+
+    fed = FedConfig(gamma=MODEL_MESH_GAMMA, local_steps=2, n_clients=c,
+                    clients_per_round=c, batch_size=1)
+    com = FedComLocConfig(gamma=MODEL_MESH_GAMMA, p=0.5, n_clients=c,
+                          clients_per_round=c, batch_size=1, variant="com")
+    runs = {
+        "FedAvg TopK(0.1)": ("topk", lambda: FedAvg(
+            loss_fn, data, fed, TopK(0.1), wire="packed")),
+        "FedComLoc QuantQr(8)": ("qr", lambda: FedComLoc(
+            loss_fn, data, com, QuantQr(8), wire="packed")),
+        "FedComLoc TopK(0.1), downlink TopK(0.1)": ("topk", lambda: FedComLoc(
+            loss_fn, data, com, TopK(0.1), wire="packed", downlink="packed",
+            downlink_compressor=TopK(0.1))),
+    }
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return runs, tfm.init_params(cfg, gen)
+
+
+def _mm_state(state) -> list:
+    from repro_torch import tree as tree_util
+    return [t for v in state if isinstance(v, (dict, tuple)) and v != ()
+            for t in tree_util.leaves(v)]
+
+
+def _mm_encode_stats(rec) -> dict:
+    """One shard-local encode: the whole support beyond k on its sharded
+    leaves (ties), this rank's survivors past its caps (overflow), its
+    buffers' bytes a client against ``per_device_payload_nbytes``, and
+    whether m x (the shard-specific part) + (the part every rank ships
+    alike: replicated leaves, norms) is ``nbytes``."""
+    from repro_torch.compress import wire
+    spec, counts = rec["spec"], rec["counts"]
+    ties = overflow = 0
+    if spec.codec == "topk":
+        for i, mdim in enumerate(spec.model_dims):
+            if mdim is None:
+                continue
+            k = rec["comp"]._k(math.prod(spec.shapes[i]))
+            ties += int((counts["nnz"][:, i] - k).clamp(min=0).sum())
+            overflow += int((counts["nnz_local"][:, i]
+                             - spec.caps[i]).clamp(min=0).sum())
+    own = alike = ci = 0
+    for n, dt, mdim in zip(wire._local_sizes(spec), spec.dtypes,
+                           spec.model_dims):
+        if spec.codec == "topk":
+            b, side = spec.caps[ci] * (4 + dt.itemsize), 0
+            ci += 1
+        elif spec.codec == "qr":
+            b, side = -(-n // 32) * (1 + spec.r) * 4, 4
+        else:
+            b, side = n * dt.itemsize, 0
+        if mdim is None:
+            alike += b + side
+        else:
+            own, alike = own + b, alike + side
+    per_dev = wire.per_device_payload_nbytes(spec)
+    return {"ties": ties, "overflow": overflow,
+            "measured": rec["device_nbytes"], "per_device": per_dev,
+            "nbytes": spec.nbytes,
+            "conserved": (spec.model_shards * own + alike == spec.nbytes
+                          and own + alike == per_dev)}
+
+
+def _mm_capture_error(ctx, err: dict, tree_util) -> None:
+    """Wraps ``ctx``'s uplink so that the first round's decode error of
+    this rank's clients, leaf by leaf, lands in ``err["err"]``: the
+    reference's contract for the sharded Q_r wire (its dither differs from
+    the unsharded wire's by design) is an error within 1.5x the unsharded
+    one."""
+    encode, gather = ctx.encode_payload, ctx.gather_decoded_payload
+
+    def encode_payload(comp, plan, stacked, keys=None):
+        if "err" not in err:
+            err["x"] = stacked
+        return encode(comp, plan, stacked, keys)
+
+    def gather_decoded_payload(payload, partf_full):
+        dec = gather(payload, partf_full)
+        if "x" in err:
+            err["err"] = [float((a - b).norm()) for a, b in zip(
+                tree_util.leaves(ctx.shard_tree(dec)),
+                tree_util.leaves(err.pop("x")))]
+        return dec
+
+    ctx.encode_payload = encode_payload
+    ctx.gather_decoded_payload = gather_decoded_payload
+
+
+def _mm_rank(rank: int, world: int, tmp: str, device: str,
+             reduced: bool) -> None:
+    """One gloo rank of the model_mesh phase, on ``device`` (every rank on
+    the one card): the runs of ``model_mesh_runs`` on the flat and the
+    composed meshes, stage by stage with a barrier between; writes what it
+    saw to ``tmp/rank<r>.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/ranks",
+                                                         world),
+                            rank=rank, world_size=world)
+    out = {"stages": [], "times": {}}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    try:
+        names3 = ("clients", "data", "model")
+        meshes = {shape: DeviceMesh("cpu", torch.tensor(ranks).view(shape),
+                                    mesh_dim_names=names3)
+                  for shape, ranks in MODEL_MESH_SHAPES.items()}
+        meshes.update({shape: DeviceMesh("cpu", torch.tensor(ranks).view(
+            shape), mesh_dim_names=("clients",))
+            for shape, ranks in MODEL_MESH_FLAT.items()})
+        owners = {**MODEL_MESH_SHAPES, **MODEL_MESH_FLAT}
+        cfg = model_mesh_config(torch, reduced)
+        seq = 64 if reduced else MODEL_MESH_SEQ
+        runs, params0 = model_mesh_runs(torch, cfg, seq, dev)
+        # every rank's first forward and backward at once (a process's first
+        # takes ~12 s on an H100, alone): one step of one client
+        warm = runs["FedAvg TopK(0.1)"][1]()
+        t0 = time.time()
+        engine.value_and_grad(warm.loss_fn, tree_util.map(
+            lambda t: t.unsqueeze(0), params0), *warm.data.sample_batch(
+                prng.split(prng.PRNGKey(0), 1),
+                torch.zeros(1, dtype=torch.int64), 1))
+        sync()
+        out["warm_s"] = time.time() - t0
+        del warm
+        timed = {}              # FedAvg's flat and composed (2,) runs, kept
+        for label, (codec, make) in runs.items():
+            kept = {}               # rank 0: each flat run's round-1 x, state
+            plan = MODEL_MESH_PLAN[label]
+            flats = sorted({(shape[0],) for shape in plan})
+            for shape in (*flats, *plan):
+                dist.barrier()
+                if rank not in owners[shape]:
+                    continue
+                alg = make().use_mesh(meshes[shape])
+                ctx = alg._sharded.ctx
+                composed = len(shape) == 3
+                if composed:
+                    ctx.record = []
+                err = {}
+                if codec == "qr":
+                    _mm_capture_error(ctx, err, tree_util)
+                sync()
+                ops.reset_launch_counts()
+                t0 = time.time()
+                state, key = alg.init(params0), prng.PRNGKey(1)
+                rounds, x1 = [], None
+                for r in range(MODEL_MESH_ROUNDS):
+                    key, sub = prng.split(key, 2)
+                    n0 = len(ctx.record) if composed else 0
+                    state, m = alg.round(state, sub)
+                    encodes = ([_mm_encode_stats(rec)
+                                for rec in ctx.record[n0:]]
+                               if composed else [])
+                    rounds.append({"metrics": m, "encodes": encodes})
+                    if r == 0 and rank == 0:
+                        x1 = [t.detach().to("cpu", copy=True)
+                              for t in tree_util.leaves(state.x)]
+                sync()
+                stage = {"run": label, "codec": codec, "shape": shape,
+                         "rounds": rounds, "s": time.time() - t0,
+                         "round1_error": err.get("err"),
+                         "launches": {k: v for k, v in
+                                      ops.launch_counts().items() if v}}
+                if rank == 0:
+                    # the final state is held bit for bit only by a TopK
+                    # run (a Q_r run's sharded dither differs by design)
+                    final = ([t.detach().to("cpu", copy=True)
+                              for t in _mm_state(state)]
+                             if codec == "topk" else [])
+                    if not composed:
+                        kept[shape] = (x1, final)
+                    else:
+                        fx1, ffinal = kept[(shape[0],)]
+                        stage["round1_differ"] = int(sum(
+                            int((a != b).sum()) for a, b in zip(x1, fx1)))
+                        stage["state_equal"] = codec == "topk" and len(
+                            final) == len(ffinal) and all(
+                            torch.equal(a.view(torch.int32),
+                                        b.view(torch.int32))
+                            for a, b in zip(final, ffinal))
+                        stage["finite"] = all(bool(torch.isfinite(a).all())
+                                              for a in _mm_state(state))
+                out["stages"].append(stage)
+                if rank == 0:
+                    print(f"[model_mesh] {label} {shape}: {stage['s']:.1f} s "
+                          f"on rank 0", flush=True)
+                if label == "FedAvg TopK(0.1)" and shape in MODEL_MESH_TIMED:
+                    ctx.record = None
+                    timed[shape] = (alg, state, key)
+                del alg, state, ctx
+                if dev.type == "cuda":     # idle ranks hand the memory back
+                    torch.cuda.empty_cache()
+            del kept
+        # steady ms a round, composed and flat in turns (one round a turn,
+        # each run past its two rounds above), FedAvg TopK
+        times = {shape: [] for shape in MODEL_MESH_TIMED}
+        for shape in (*MODEL_MESH_TIMED, *MODEL_MESH_TIMED[::-1]):
+            sync()
+            dist.barrier()
+            t0 = time.time()
+            if shape in timed:
+                alg, state, key = timed[shape]
+                key, sub = prng.split(key, 2)
+                state, _ = alg.round(state, sub)
+                timed[shape] = (alg, state, key)
+                sync()
+            dist.barrier()
+            times[shape].append((time.time() - t0) * 1e3)
+        del timed
+        out["times"] = {str(k): v for k, v in times.items()}
+        if dev.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mm_spawn(torch, tmp: str, device: str, reduced: bool) -> dict:
+    """:func:`_mm_rank` on MODEL_MESH_WORLD spawned ranks, joined with a
+    timeout (a failing rank fails the phase); returns each rank's
+    results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_mm_rank, args=(MODEL_MESH_WORLD, tmp, device,
+                                             reduced),
+                             nprocs=MODEL_MESH_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MODEL_MESH_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"model_mesh: the ranks did not finish "
+                                     f"in {MODEL_MESH_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = {}
+    for r in range(MODEL_MESH_WORLD):
+        with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+            out[r] = pickle.load(f)     # written by the ranks just above
+    return out
+
+
+def _mm_close(a, b, rtol) -> bool:
+    import numpy as np
+    return bool(np.allclose(np.asarray(a, np.float64),
+                            np.asarray(b, np.float64), rtol=rtol, atol=0.0))
+
+
+def model_mesh_check(torch, results: dict, launches: dict) -> None:
+    """Hold the ranks' results (:func:`_mm_rank`) to the phase's contract
+    and print them; adds the composed runs' launches by kernel to
+    ``launches``."""
+    import numpy as np
+
+    stages = {}
+    for r, res in results.items():
+        for st in res["stages"]:
+            stages.setdefault((st["run"], st["shape"]), {})[r] = st
+    on_card = any("peak_bytes" in res for res in results.values())
+    for (label, shape), by_rank in stages.items():
+        if len(shape) != 3:
+            continue
+        st0 = by_rank[0]
+        flat = stages[(label, (shape[0],))][0]
+        m = shape[2]
+        # ties on the whole support: counted on model rank 0 of each
+        # clients rank; overflow on each rank's slice
+        heads = [r for r in by_rank if r % m == 0]
+        per_round = []
+        for i in range(MODEL_MESH_ROUNDS):
+            ties = sum(e["ties"] for r in heads
+                       for e in by_rank[r]["rounds"][i]["encodes"])
+            over = sum(e["overflow"] for r in by_rank
+                       for e in by_rank[r]["rounds"][i]["encodes"])
+            per_round.append((ties, over))
+        for r, st in by_rank.items():
+            for i, rnd in enumerate(st["rounds"]):
+                for e in rnd["encodes"]:
+                    if e["measured"] != e["per_device"] or not e["conserved"]:
+                        raise AssertionError(
+                            f"model_mesh {label} {shape} rank {r} round "
+                            f"{i}: buffer bytes {e['measured']} a client, "
+                            f"per_device_payload_nbytes {e['per_device']}, "
+                            f"conserved {e['conserved']}")
+        exact = ("uplink_bits", "downlink_bits", "client_steps",
+                 "num_local_steps", "client_uplink_bits")
+        clean = True        # no tie or overflow in the rounds before this
+        for i, (rc, rf) in enumerate(zip(st0["rounds"], flat["rounds"])):
+            mc, mf = rc["metrics"], rf["metrics"]
+            for k in exact:
+                if k not in mf:
+                    continue
+                # the broadcast codes the server's new model, which this
+                # round's uplink ties already moved
+                held = clean and (k != "downlink_bits"
+                                  or per_round[i] == (0, 0))
+                same = np.array_equal(np.asarray(mc[k]), np.asarray(mf[k]))
+                if not same and (held or not _mm_close(
+                        mc[k], mf[k], MODEL_MESH_BITS_RTOL)):
+                    raise AssertionError(
+                        f"model_mesh {label} {shape} round {i}: {k} "
+                        f"{mc[k]!r} != flat {mf[k]!r} (ties and overflows "
+                        f"so far {per_round[:i + 1]})")
+            if st0["codec"] == "qr" and not np.array_equal(
+                    np.asarray(mc["uplink_payload_bytes"]),
+                    np.asarray(mf["uplink_payload_bytes"])):
+                raise AssertionError(f"model_mesh {label} {shape} round {i}: "
+                                     f"payload bytes differ")
+            # round 1 starts from the same state: the loss is the flat
+            # run's bit for bit; past it a TopK run holds the reference's
+            # rtol, while a Q_r run's sharded dither (the folded key, by
+            # design) moves its loss by the quantizer's noise (the round-1
+            # error below holds the quantizer instead)
+            if i == 0 and mc["train_loss"] != mf["train_loss"]:
+                raise AssertionError(
+                    f"model_mesh {label} {shape}: round 1's train_loss "
+                    f"{mc['train_loss']!r} != flat {mf['train_loss']!r}")
+            if st0["codec"] == "topk" and not _mm_close(
+                    mc["train_loss"], mf["train_loss"], MODEL_MESH_LOSS_RTOL):
+                raise AssertionError(
+                    f"model_mesh {label} {shape} round {i}: train_loss "
+                    f"{mc['train_loss']!r} vs flat {mf['train_loss']!r}")
+            clean = clean and per_round[i] == (0, 0)
+        for r, st in by_rank.items():   # every rank reports the same
+            for a, b in zip(st["rounds"], st0["rounds"]):
+                if set(a["metrics"]) != set(b["metrics"]) or not all(
+                        np.array_equal(np.asarray(a["metrics"][k]),
+                                       np.asarray(b["metrics"][k]))
+                        for k in b["metrics"]):
+                    raise AssertionError(f"model_mesh {label} {shape}: rank "
+                                         f"{r}'s metrics differ from rank 0's")
+        if not st0["finite"]:
+            raise AssertionError(f"model_mesh {label} {shape}: non-finite "
+                                 f"state")
+        if st0["codec"] == "qr":
+            # each leaf's round-1 decode error of rank 0's clients within
+            # 1.5x the flat run's (tests/test_big_model_mesh.py's qr bound)
+            for j, (e, ef) in enumerate(zip(st0["round1_error"],
+                                            flat["round1_error"])):
+                if not e <= 1.5 * ef + 1e-6:
+                    raise AssertionError(f"model_mesh {label} {shape}: leaf "
+                                         f"{j}'s Q_r error {e!r} > 1.5 x the "
+                                         f"flat run's {ef!r}")
+            ratio = max(e / ef for e, ef in zip(st0["round1_error"],
+                                                flat["round1_error"]) if ef)
+        r1 = sum(per_round[0])
+        if st0["codec"] == "topk" and st0["round1_differ"] > r1:
+            raise AssertionError(
+                f"model_mesh {label} {shape}: round 1's model differs from "
+                f"the flat run's at {st0['round1_differ']} coordinates, "
+                f"more than its ties + overflows {per_round[0]}")
+        if st0["codec"] == "topk" and clean and not st0["state_equal"]:
+            raise AssertionError(f"model_mesh {label} {shape}: no tie or "
+                                 f"overflow, yet the state differs")
+        for r, st in by_rank.items():
+            for k, c in st["launches"].items():
+                launches.setdefault(k, {})
+                launches[k][f"model_mesh {label} {shape}"] = \
+                    launches[k].get(f"model_mesh {label} {shape}", 0) + c
+        nbytes = st0["rounds"][0]["encodes"][0]["nbytes"] \
+            if st0["rounds"][0]["encodes"] else None
+        per_dev = st0["rounds"][0]["encodes"][0]["per_device"] \
+            if st0["rounds"][0]["encodes"] else None
+        gaps = [abs(a["metrics"]["train_loss"] - b["metrics"]["train_loss"])
+                / abs(b["metrics"]["train_loss"])
+                for a, b in zip(st0["rounds"], flat["rounds"])]
+        qr_note = (f"Q_r round-1 error at most {ratio!r} x the flat run's a "
+                   f"leaf; " if st0["codec"] == "qr" else "")
+        final = ("bit-equal" if st0["state_equal"] else "apart"
+                 if st0["codec"] == "topk" else "not held (another dither)")
+        print(f"[model_mesh] {label} {shape} (m = {m}) vs flat "
+              f"({shape[0]},): bits "
+              f"{'exact' if clean else 'exact up to the first tie or overflow, then within rtol %g' % MODEL_MESH_BITS_RTOL} over "
+              f"{MODEL_MESH_ROUNDS} rounds; (ties beyond k, overflows) a "
+              f"round {per_round}; round 1's model differs at "
+              f"{st0['round1_differ']} coordinates; final state {final}; "
+              f"uplink "
+              f"bytes a client {nbytes} whole wire (flat "
+              f"{flat['rounds'][0]['metrics'].get('uplink_payload_bytes', 0) / MODEL_MESH_CLIENTS!r}), "
+              f"{per_dev} a rank (measured); {qr_note}relative train_loss "
+              f"gap a round "
+              f"{gaps!r}; train_loss "
+              f"{[rd['metrics']['train_loss'] for rd in st0['rounds']]!r} vs "
+              f"flat {[rd['metrics']['train_loss'] for rd in flat['rounds']]!r}"
+              f"; uplink_bits "
+              f"{[rd['metrics']['uplink_bits'] for rd in st0['rounds']]!r}; "
+              f"{st0['s']:.1f} s", flush=True)
+    for r, res in results.items():
+        seen = {}
+        for st in res["stages"]:
+            if len(st["shape"]) == 3:
+                for k, c in st["launches"].items():
+                    seen[k] = seen.get(k, 0) + c
+        if on_card:
+            missing = [k for k in MODEL_MESH_KERNELS if not seen.get(k)]
+            if missing:
+                raise AssertionError(f"model_mesh rank {r}: {missing} "
+                                     f"launched no time ({seen})")
+        print(f"[model_mesh] rank {r} launches over the composed runs: "
+              f"{seen}; peak device bytes {res.get('peak_bytes')}; first "
+              f"forward and backward {res['warm_s']:.1f} s; steady "
+              f"ms/round in turns {res['times']}", flush=True)
+
+
+def model_mesh_phase(torch, dev, launches: dict, reduced: bool = False
+                     ) -> None:
+    """Phase 8c (``model_mesh``): the model axis (DESIGN.md §9) on the
+    card.  qwen2-0.5b at full width, MODEL_MESH_LAYERS of 24 layers,
+    float32, MODEL_MESH_CLIENTS clients, all of them a round, batch 1 at
+    seq MODEL_MESH_SEQ:
+
+    * an NCCL group of world size 1: the composed (1, 1, 1) mesh and
+      ``make_client_mesh(1)`` give the same FedAvg TopK(0.1) packed rounds
+      bit for bit (state, metrics, launches);
+    * MODEL_MESH_WORLD gloo ranks spawned on the one card (a FileStore in
+      a temporary directory; every kernel library built here first), the
+      collectives through the host: FedAvg TopK(0.1), FedComLoc Q_r(8) and
+      FedComLoc TopK(0.1) with the packed TopK(0.1) downlink on the
+      composed meshes (1, 1, 2), (2, 1, 2), (1, 1, 4) against the same
+      runs on the flat meshes of as many clients ranks (held by
+      :func:`model_mesh_check`), then FedAvg's steady rounds in turns.
+      The ranks time-share one card: their ms are not a four-card mesh's.
+    """
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import prng
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.launch.mesh import make_client_mesh
+
+    cfg = model_mesh_config(torch, reduced)
+    seq = 64 if reduced else MODEL_MESH_SEQ
+    if dev.type == "cuda":
+        build.build_all()
+        # K1's histogram pass at the sharded embedding's slices (m = 2)
+        n = cfg.vocab * cfg.d_model // 2
+        xe = torch.randn(MODEL_MESH_CLIENTS, n, device=dev)
+        pre = torch.zeros(MODEL_MESH_CLIENTS, dtype=torch.int64, device=dev)
+        ms = time_ms(torch, lambda: tk.radix_hist(xe, pre, 24), 20)
+        b_ms = 4.0 * xe.numel() / HBM_BYTES_PER_S * 1e3
+        print(f"[model_mesh] K1h topk_radix_hist at the embedding's shard "
+              f"({MODEL_MESH_CLIENTS}, {n}): {ms!r} ms against its byte "
+              f"bound {b_ms!r} ms (n x 4 B / 3.35 TB/s); card: "
+              f"{card_line()}", flush=True)
+        del xe, pre
+    runs, params0 = model_mesh_runs(torch, cfg, seq, dev)
+    tmp = tempfile.mkdtemp()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", 1),
+                            rank=0, world_size=1)
+    try:
+        mesh_dev = "cuda" if dev.type == "cuda" else "cpu"
+        flat = make_client_mesh(1, device=mesh_dev)
+        composed = init_device_mesh(mesh_dev, (1, 1, 1), mesh_dim_names=(
+            "clients", "data", "model"))
+        label = "FedAvg TopK(0.1)"
+        got = {}
+        for name, mesh in (("flat", flat), ("(1, 1, 1)", composed)):
+            alg = runs[label][1]().use_mesh(mesh)
+            (state, metrics), counts = counted(
+                torch, ops, lambda: alg.run_rounds(
+                    alg.init(params0), prng.PRNGKey(1), MODEL_MESH_ROUNDS))
+            got[name] = ([t.cpu() for t in _mm_state(state)], metrics,
+                         counts)
+            del alg, state
+        (fs, fm, fc), (cs, cm, cc) = got["flat"], got["(1, 1, 1)"]
+        if fc != cc or not all(torch.equal(a.view(torch.int32),
+                                           b.view(torch.int32))
+                               for a, b in zip(fs, cs)) or set(fm) != set(
+                cm) or not all(np.array_equal(np.asarray(fm[k]),
+                                              np.asarray(cm[k])) for k in fm):
+            raise AssertionError("model_mesh: the (1, 1, 1) mesh's rounds "
+                                 "differ from make_client_mesh(1)'s")
+        print(f"[model_mesh] {backend} world size 1: the (1, 1, 1) mesh's "
+              f"{MODEL_MESH_ROUNDS} {label} rounds bit-equal to "
+              f"make_client_mesh(1)'s (state, {len(fm)} metrics, launches "
+              f"{cc}); train_loss {list(map(float, fm['train_loss']))!r}",
+              flush=True)
+        del got, fs, cs
+    finally:
+        dist.destroy_process_group()
+    del runs, params0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # four replicas and their round's stacks share the card: segments that
+    # grow in place keep the ranks' caches from fragmenting it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        results = _mm_spawn(torch, tmp, dev.type, reduced)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    model_mesh_check(torch, results, launches)
+    print(f"[model_mesh] {MODEL_MESH_WORLD} gloo ranks time-share one card: "
+          f"their ms are not a {MODEL_MESH_WORLD}-card mesh's; card: "
+          f"{card_line()}", flush=True)
 
 
 def population_phase(torch, dev, launches: dict) -> None:
@@ -3538,6 +4152,10 @@ def main() -> int:
     recs = {
         "K1": KernelRecord("topk_threshold_bits", csrc + "topk_compress.cu",
                            tpu + "topk_compress.py:94"),
+        # K1's histogram pass alone: the model-sharded wire walks the
+        # counts summed over the model ranks (the model_mesh phase)
+        "K1h": KernelRecord("topk_radix_hist", csrc + "topk_compress.cu",
+                            tpu + "topk_compress.py:94"),
         "K2": KernelRecord("topk_mask", csrc + "topk_compress.cu",
                            tpu + "topk_compress.py:149"),
         "K3": KernelRecord("l2_norm", csrc + "quantize.cu",
@@ -3669,6 +4287,44 @@ def main() -> int:
             if ops_a_call != want:
                 raise AssertionError(f"K1 n={n}: {ops_a_call} device "
                                      f"operations a {what} call, not {want}")
+    # K1's histogram pass alone, at every digit of the walk under each
+    # row's decided prefix, and the walk it drives (one rank: the sum is
+    # the counts themselves; two halves of each row: their counts summed)
+    hist_cases = 0
+    for label, xc, k in topk_cases:
+        if isinstance(k, torch.Tensor) or not 0 < k < xc.shape[1]:
+            continue
+        bits = ref.mag_bits(xc)
+        t = ref.topk_threshold_bits(xc, k)
+        for shift in ref.RADIX_SHIFTS:
+            high = ((ref.ALL_ONES << (shift + 8)) & ref.ALL_ONES
+                    if shift + 8 < 32 else 0)
+            h = tk.radix_hist(xc, t & high, shift)
+            h_ref = ref.radix_digit_hist(bits, t & high, shift)
+            torch.cuda.synchronize()
+            if not torch.equal(h.long(), h_ref):
+                raise AssertionError(f"K1h {label} shift {shift}: kernel "
+                                     f"histogram differs")
+            recs["K1h"].err(h, h_ref)
+            hist_cases += 1
+        walked = tk.threshold_bits_sharded([xc], [k], [xc.shape[1]],
+                                           lambda h: h)[0]
+        if not torch.equal(walked, t):
+            raise AssertionError(f"K1h {label}: the walk's threshold differs")
+        rows, n = xc.shape
+        if n % 2 == 0:
+            halves = xc.reshape(rows * 2, n // 2)
+            summed = tk.threshold_bits_sharded(
+                [halves], [k], [n], lambda h: h.reshape(rows, 2, -1).sum(
+                    1, keepdim=True).expand(rows, 2, 256).reshape(h.shape))[0]
+            if not torch.equal(summed.reshape(rows, 2),
+                               t[:, None].expand(rows, 2)):
+                raise AssertionError(f"K1h {label}: the halves' summed walk "
+                                     f"differs from K1")
+    print(f"[kernels] K1h (K1's histogram pass alone) bit-equal to the plain "
+          f"version on {hist_cases} (case, digit) pairs; its walk equal to "
+          f"K1's threshold on one rank and over two halves summed",
+          flush=True)
     print(f"[kernels] K1 one kernel a call under torch.profiler (n = 10, "
           f"{leaf_sizes[0]}, {LARGE[1]}), threshold_mask one up to n = "
           f"{resident} (rows that stay in shared memory), K1 then K2 past "
@@ -3709,6 +4365,10 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(norm, again):
             raise AssertionError(f"K3 {label}: two runs gave different norms")
+        # K3's sum-of-squares entry: the value the norm is the root of
+        if not same_bits(torch.sqrt(qk.sum_squares(xc)), norm):
+            raise AssertionError(f"K3 sum_squares {label}: its root differs "
+                                 f"from K3's norm")
         if not torch.allclose(norm, norm_ref, rtol=NORM_RTOL, atol=0.0):
             raise AssertionError(f"K3 {label}: norm off by more than "
                                  f"rtol {NORM_RTOL}")
@@ -3728,8 +4388,9 @@ def main() -> int:
     print(f"[kernels] K4 (both entries: reading u, and drawing it with "
           f"threefry against prng.uniform, key words >= 2^31, the keyed one "
           f"also with one r a row) bit-equal and "
-          f"K3 within rtol {NORM_RTOL} (and deterministic) on "
-          f"{len(qr_cases)} cases", flush=True)
+          f"K3 within rtol {NORM_RTOL} (and deterministic; its sum-of-"
+          f"squares entry's root bit-equal to it) on {len(qr_cases)} cases",
+          flush=True)
     for n in (10, leaf_sizes[0], LARGE[1]):
         rows = s if n != LARGE[1] else LARGE[0]
         xc, keys = randn(rows, n), wide_keys(rows, n)
@@ -4025,6 +4686,7 @@ def main() -> int:
         nx = rows * n
         wbytes = 4 * rows * -(-n // 32) * 9      # 9-bit words
         # K6 at the k25 cap: r = 4 on the main path's leaf, r = 8 at LARGE
+        pre0 = torch.zeros(rows, dtype=torch.int64, device=dev)
         cap6, r6 = k25._k(n), (4 if shape != LARGE else 8)
         t6 = tk.threshold_bits(xc, cap6)
         norm6 = masked_norm(xc, t6)
@@ -4033,6 +4695,11 @@ def main() -> int:
                    lambda: ref.topk_threshold_bits(xc, k),
                    lambda: torch.topk(xa, k, dim=1, sorted=False),
                    4 * nx + 12 * rows, 16 * nx),
+            # the walk's first pass (every element matches the empty
+            # prefix): reads x and the prefix, writes the (rows, 256) counts
+            "K1h": (lambda: tk.radix_hist(xc, pre0, 24),
+                    lambda: ref.radix_digit_hist(ref.mag_bits(xc), pre0, 24),
+                    None, 4 * nx + 8 * rows + 1024 * rows, 5 * nx),
             # the route the main path takes: K1 and K2 in one launch; reads
             # x, writes thr and the masked rows
             "K2": (lambda: tk.threshold_mask(xc, k),
@@ -4629,6 +5296,8 @@ def main() -> int:
     lap("downlink, het_system and scope")
     client_mesh_phase(torch, dev, mnist, launches)
     lap("client_mesh")
+    model_mesh_phase(torch, dev, launches)
+    lap("model_mesh")
     del mnist, data
     torch.cuda.empty_cache()
 
@@ -4676,7 +5345,8 @@ def main() -> int:
     # kernel -> (the counter of its main-path entry, the tag of its runs)
     entries = {"topk_mask": (FUSED_K1_K2, "fused"),
                "quantize_pack_with_uniforms": (KEYED_K7, "keyed"),
-               "unpack_codes": (VALUES_K9, "values")}
+               "unpack_codes": (VALUES_K9, "values"),
+               "l2_norm": ("sum_squares", "sum of squares")}
     kernels = []
     for rec in recs.values():
         main_t = rec.timings["main"]
@@ -4685,7 +5355,8 @@ def main() -> int:
             # K2 runs inside K1's launch on the main path (threshold_mask),
             # K7 as its keyed entry, K9 as its values entry; the other
             # entry serves a caller that has the threshold, u or wants
-            # the codes
+            # the codes.  K3's sum-of-squares entry is the model axis's
+            # (model_mesh)
             counter, tag = entries[rec.name]
             by_run = {**{f"{label} ({tag})": c for label, c in
                          launches.get(counter, {}).items()}, **by_run}

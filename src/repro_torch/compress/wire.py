@@ -1,6 +1,6 @@
 """Wire codec layer: real packed payloads for compressed trees (DESIGN.md
-§8) — the port of ``repro.compress.wire`` without its model-sharded part
-(``encode_shard_local``/``decode_shard_local``, ROADMAP Queue A).
+§8) — the port of ``repro.compress.wire``, with its model-sharded wire
+(§9: :func:`encode_shard_local` / :func:`decode_shard_local`).
 
 The compressors are *transforms*: they return a dense tree whose zeros and
 levels represent the compressed message, plus a :class:`BitsReport` of
@@ -36,6 +36,12 @@ Uplink buffers are uint32 bit patterns in int32 containers, 4 bytes each,
 as in the reference.  The reports are computed as the transforms compute
 them, so account and packed rounds see identical bit metrics;
 ``padding_bits`` is the slack between measured and accounted bits.
+
+Over a model axis (§9) each model rank packs only its slice of every
+sharded leaf (:func:`sharded_wire_spec` names the layout): TopK against
+the whole leaf's threshold (the radix counts summed over the ranks), Q_r
+against the whole leaf's norm (the summed squares), with the bits equal to
+the unsharded wire's.
 
 ``scope="tensor"`` codecs emit one *unit* per leaf; ``scope="global"``
 flattens each client's tree to one ``(s, n_total)`` unit at the leaves'
@@ -78,6 +84,10 @@ class WireSpec:
     caps: Tuple[int, ...] = ()       # per-unit sparse capacity (topk codecs)
     r: int = 0                       # level bits (qr / topk_qr / int8)
     nbytes: int = 0                  # packed payload bytes per client
+    # model-sharded wire (§9): ranks over the model axis, and each leaf's
+    # sharded dimension (None: replicated; () for an unsharded spec)
+    model_shards: int = 1
+    model_dims: Tuple[Optional[int], ...] = ()
 
 
 @dataclasses.dataclass
@@ -384,4 +394,248 @@ def decode(payload: Payload) -> PyTree:
         units = [units[0][:, off:off + n] for off, n in zip(offs, sizes)]
     parts = [u.reshape((u.shape[0],) + shp).to(dt)
              for u, shp, dt in zip(units, spec.shapes, spec.dtypes)]
+    return tree_util.unflatten(spec.treedef, parts)
+
+
+# --------------------------------------------------------------------------- #
+# the model-sharded wire (DESIGN.md §9): shard-local encode / decode
+# --------------------------------------------------------------------------- #
+#
+# With the clients composed with a model axis, each model rank packs the
+# slots of its own slice of every sharded leaf, against the exact whole-leaf
+# TopK threshold (each radix pass's counts summed over the ranks) or the
+# whole leaf's l2 norm (one summed sum of squares).  The gathered uplink then
+# moves each rank's buffers, ~1/m of a client's payload a rank.  Replicated
+# leaves (biases, norms: whatever the placement rules leave whole) are packed
+# alike on every rank and shipped once.
+
+def shard_cap(k_global: int, model_shards: int, n_local: int) -> int:
+    """Static slot capacity of one shard of a sharded sparse leaf: the
+    ``ceil(k/m)`` slots a shard expects plus ``max(64, ceil(4 sqrt(k/m)))``
+    of slack (about 4 sigma of the binomial spread), at most ``n_local``.
+    A shard whose support overflows it keeps the lowest-index ``cap``; the
+    bits count the summed support, not the slots."""
+    base = -(-int(k_global) // int(model_shards))
+    slack = max(64, math.ceil(4.0 * math.sqrt(max(base, 1))))
+    return int(min(int(n_local), base + slack))
+
+
+def check_sharded_supported(comp: Optional[Compressor],
+                            model_shards: int) -> str:
+    """:func:`check_supported` plus the shard-local rules: ``dense``,
+    ``topk`` and ``qr`` have shard-local formats; ``topk_qr`` (the
+    survivors' norm needs the whole support), ``int8`` (its scales come
+    from whole leaves) and ``scope="global"`` (one unit cannot straddle
+    sharded and replicated leaves) raise with the reference's messages."""
+    codec = check_supported(comp)
+    if model_shards <= 1:
+        return codec
+    if isinstance(comp, Compose) or codec in ("topk_qr", "int8"):
+        raise ValueError(
+            f"codec {codec!r} has no shard-local wire format (survivor "
+            f"quantization / int8 scales need whole leaves before coding); "
+            f"run wire='account' or a model=1 mesh, or use TopK(select) / "
+            f"QuantQr / dense on the sharded path")
+    if _scope_of(comp, codec) != "tensor":
+        raise ValueError(
+            'scope="global" flattens the tree to one unit, which cannot '
+            "straddle model-sharded and replicated leaves; use "
+            'scope="tensor" (or wire="account" / a model=1 mesh)')
+    return codec
+
+
+def sharded_wire_spec(comp: Optional[Compressor], tree: PyTree,
+                      model_dims: Tuple[Optional[int], ...],
+                      model_shards: int) -> WireSpec:
+    """The :class:`WireSpec` of a shard-local payload.  ``tree`` is one
+    client's tree at the whole leaves' shapes (any tensors: meta ones do);
+    ``model_dims[i]`` is leaf i's sharded dimension (None: replicated),
+    whose size ``model_shards`` must divide.  Caps are per shard for
+    sharded leaves and ``k`` for replicated ones; ``nbytes`` is the whole
+    wire's size a client: sharded buffers ``model_shards`` times,
+    replicated ones and the ``qr`` norms once."""
+    m = int(model_shards)
+    codec = check_sharded_supported(comp, m)
+    leaves = tree_util.leaves(tree)
+    if len(model_dims) != len(leaves):
+        raise ValueError(f"model_dims has {len(model_dims)} entries for "
+                         f"{len(leaves)} leaves")
+    shapes = tuple(tuple(l.shape) for l in leaves)
+    dtypes = tuple(l.dtype for l in leaves)
+    r = comp.r if codec == "qr" else 0
+    caps, nbytes = [], 0
+    for shp, dt, mdim in zip(shapes, dtypes, model_dims):
+        n_glob = math.prod(shp)
+        if mdim is not None:
+            if not (0 <= mdim < len(shp)) or shp[mdim] % m:
+                raise ValueError(
+                    f"leaf shape {shp}: model dim {mdim} does not divide "
+                    f"into {m} shards")
+            n_loc = n_glob // m
+        else:
+            n_loc = n_glob
+        if codec == "dense":
+            nbytes += n_glob * dt.itemsize
+        elif codec == "topk":
+            k_glob = comp._k(n_glob)
+            if mdim is not None:
+                cap = shard_cap(k_glob, m, n_loc)
+                nbytes += m * cap * (INDEX_BITS // 8 + dt.itemsize)
+            else:
+                cap = k_glob
+                nbytes += cap * (INDEX_BITS // 8 + dt.itemsize)
+            caps.append(cap)
+        else:                                 # qr
+            copies = m if mdim is not None else 1
+            nbytes += copies * -(-n_loc // 32) * (1 + r) * 4 + FLOAT_BITS // 8
+    return WireSpec(codec=codec, scope="tensor",
+                    treedef=tree_util.map(lambda _: None, tree),
+                    shapes=shapes, dtypes=dtypes, caps=tuple(caps), r=r,
+                    nbytes=int(nbytes), model_shards=m,
+                    model_dims=tuple(model_dims))
+
+
+def per_device_payload_nbytes(spec: WireSpec) -> int:
+    """One model rank's share of one client's packed payload, in bytes:
+    its sharded buffers and every replicated one (``qr`` norms included).
+    ``spec.nbytes`` for an unsharded spec; across the axis, ``m`` x the
+    sharded part + the replicated part == ``spec.nbytes``."""
+    if spec.model_shards <= 1:
+        return spec.nbytes
+    total, ci = 0, 0
+    for n_loc, dt in zip(_local_sizes(spec), spec.dtypes):
+        if spec.codec == "dense":
+            total += n_loc * dt.itemsize
+        elif spec.codec == "topk":
+            total += spec.caps[ci] * (INDEX_BITS // 8 + dt.itemsize)
+            ci += 1
+        else:                                 # qr
+            total += -(-n_loc // 32) * (1 + spec.r) * 4 + FLOAT_BITS // 8
+    return int(total)
+
+
+def _local_sizes(spec: WireSpec):
+    """Each leaf's size on one model rank under ``spec``."""
+    return [math.prod(shp) // (spec.model_shards if mdim is not None else 1)
+            for shp, mdim in zip(spec.shapes, spec.model_dims)]
+
+
+def _local_shape(shp, mdim, m):
+    if mdim is None:
+        return tuple(shp)
+    return tuple(d // m if i == mdim else d for i, d in enumerate(shp))
+
+
+def encode_shard_local(comp: Optional[Compressor], stacked_loc: PyTree,
+                       spec: WireSpec, keys: Optional[torch.Tensor] = None,
+                       *, model_rank: int, model_sum,
+                       counts: Optional[dict] = None):
+    """This model rank's shard-local encode of its clients' rows.
+
+    ``stacked_loc`` holds, for each of the rank's ``s_loc`` clients (the
+    leading axis), this rank's slice of every leaf ``spec`` names sharded
+    and the replicated leaves whole; ``keys`` is the ``(s_loc, 2)`` key
+    batch.  ``model_sum(t)`` sums a tensor over the model ranks (integer
+    counts exactly, floats in one fixed order).  One launch a leaf for all
+    the rows.  Returns ``(data, report)``: this rank's buffers in
+    ``spec``'s unit order, each with the client axis, and the whole wire's
+    :class:`BitsReport` (``(s_loc,)`` vectors, bit-equal to the unsharded
+    :func:`encode`'s):
+
+    * ``topk``: the summed-count walk (every sharded leaf's counts of a
+      digit in one reduction) and K5 at the whole leaf's threshold and the
+      per-shard cap; each leaf's support counted over the model ranks (one
+      reduction) and accumulated in leaf order, as :func:`encode` does;
+    * ``qr``: each row's sum of squares summed over the ranks (one
+      reduction for every leaf), its root the norm, and K7's keyed entry
+      with the client's leaf key folded with ``model_rank`` for a sharded
+      leaf (as it is for a replicated one): the same quantizer as the
+      unsharded wire, another dither;
+    * ``dense``: the slices as they are.
+
+    ``counts``, when a dict, receives the ``topk`` support counts: ``nnz``
+    (``(s_loc, L)``, summed) and ``nnz_local`` (this rank's)."""
+    leaves = tree_util.leaves(stacked_loc)
+    s, dev = leaves[0].shape[0], leaves[0].device
+    units = [leaf.reshape(s, -1) for leaf in leaves]
+
+    if spec.codec == "dense":
+        data = tuple((u,) for u in units)
+        vb = float(sum(math.prod(shp) * dt.itemsize * 8
+                       for shp, dt in zip(spec.shapes, spec.dtypes)))
+        return data, BitsReport(value_bits=per_client(vb, s, dev),
+                                index_bits=per_client(0.0, s, dev),
+                                meta_bits=per_client(0.0, s, dev))
+
+    if spec.codec == "topk":
+        sharded = [i for i, d in enumerate(spec.model_dims) if d is not None]
+        n_glob = [math.prod(spec.shapes[i]) for i in sharded]
+        slots = dict(zip(sharded, kops.topk_slots_sharded(
+            [units[i] for i in sharded], [comp._k(n) for n in n_glob],
+            [spec.caps[i] for i in sharded], n_glob, model_sum)
+            if sharded else ()))
+        for i, u in enumerate(units):
+            if i not in slots:
+                slots[i] = kops.topk_slots(u, spec.caps[i], spec.caps[i])
+        data = tuple(slots[i][:2] for i in range(len(units)))
+        nnz_local = torch.stack([slots[i][2] for i in range(len(units))],
+                                dim=1)                          # (s, L)
+        # one reduction for every leaf's count; a replicated leaf's count
+        # is every rank's and stays as it is
+        mask = torch.tensor([d is not None for d in spec.model_dims],
+                            device=dev)
+        nnz = torch.where(mask, model_sum(nnz_local), nnz_local)
+        if counts is not None:
+            counts.update(nnz=nnz, nnz_local=nnz_local)
+        vb = torch.zeros(s, dtype=torch.float32, device=dev)
+        ib = torch.zeros(s, dtype=torch.float32, device=dev)
+        for i, dt in enumerate(spec.dtypes):
+            nnzf = nnz[:, i].to(torch.float32)
+            vb = vb + nnzf * (dt.itemsize * 8)
+            ib = ib + nnzf * INDEX_BITS
+        return data, BitsReport(value_bits=vb, index_bits=ib,
+                                meta_bits=per_client(0.0, s, dev))
+
+    # codec == "qr"
+    if keys is None:
+        raise ValueError("the qr codec needs an rng key")
+    leaf_keys = prng.split(keys, len(units))                    # (s, L, 2)
+    ss = torch.stack([kops.sum_squares(u) for u in units], dim=1)
+    mask = torch.tensor([d is not None for d in spec.model_dims], device=dev)
+    norms = torch.sqrt(torch.where(mask, model_sum(ss), ss))   # one sum
+    data = []
+    for i, u in enumerate(units):
+        key = leaf_keys[:, i]
+        if spec.model_dims[i] is not None:
+            key = prng.fold_in(key, model_rank)
+        norm = norms[:, i].contiguous()
+        data.append((kops.quantize_pack_global_norm(u, spec.r, key, norm),
+                     norm))
+    n_total = sum(math.prod(shp) for shp in spec.shapes)
+    report = BitsReport(
+        value_bits=per_client(float(n_total) * (1 + spec.r), s, dev),
+        index_bits=per_client(0.0, s, dev),
+        meta_bits=per_client(float(len(units)) * FLOAT_BITS, s, dev))
+    return tuple(data), report
+
+
+def decode_shard_local(data, spec: WireSpec) -> PyTree:
+    """The inverse of :func:`encode_shard_local` on one model rank's
+    buffers: the stacked tree of that rank's slices (each leaf at its
+    local shape, the model dimension divided by ``model_shards``), K9's
+    values entry for ``qr`` and one scatter for ``topk``."""
+    sizes = _local_sizes(spec)
+    if spec.codec == "topk":
+        dtype = functools.reduce(torch.promote_types,
+                                 [v.dtype for _, v in data])
+        units = _scatter_units(list(data), sizes, dtype)
+    elif spec.codec == "qr":
+        units = [kops.unpack_qr_values(words, spec.r, n, norm)
+                 for (words, norm), n in zip(data, sizes)]
+    else:                                     # dense
+        units = [bufs[0] for bufs in data]
+    parts = [u.reshape((u.shape[0],)
+                       + _local_shape(shp, mdim, spec.model_shards)).to(dt)
+             for u, shp, dt, mdim in zip(units, spec.shapes, spec.dtypes,
+                                         spec.model_dims)]
     return tree_util.unflatten(spec.treedef, parts)

@@ -32,8 +32,35 @@ are under gloo and NCCL alike.  A collective on a tensor that lives on
 another device than the group's (a host ``(s,)`` plan vector under NCCL)
 copies it to the group's device and back.
 
-``ModelShardCtx`` — the composed clients x model mesh with the
-shard-local wire — is the next slice, and raises.
+:class:`ModelShardCtx` is the composed ``("clients", "data", "model")``
+mesh (DESIGN.md §9) with the shard-local wire.  The reference runs that
+regime as one GSPMD program: the per-client compute keeps global
+semantics with placement hints, so XLA splits the local SGD's math over
+``model``, and only the wire runs in manual ``shard_map`` islands.  torch
+has no GSPMD, so the port gets the same values another way:
+
+* the sampled clients split over the ``clients`` sub-group exactly as
+  :class:`ShardCtx` splits them (slicing, ``mean_clients``,
+  ``scatter_rows``, metric gathers);
+* every rank of a model group runs the same local SGD on full weights
+  (so in this slice the model axis cuts the wire's bytes a rank, not the
+  weights' memory; tensor-parallel compute on ``torch.distributed.tensor``
+  comes with the pod-sharded round, ROADMAP Queue A);
+* the wire runs shard-local over the ``model`` sub-group: each rank packs
+  its slice of every sharded leaf (``compress/wire.py``'s
+  ``encode_shard_local``: the TopK threshold from radix counts summed over
+  the group, the Q_r norm from summed squares), the packed buffers are
+  gathered (in one byte tensor) over the model group and then the
+  clients group, and every rank decodes each shard and joins the slices
+  along each leaf's model dimension.  The state stays replicated, as under :class:`ShardCtx`.
+
+The bits equal the unsharded wire's; the decoded values equal it too
+unless a leaf's support has ties at its threshold beyond ``k`` (the
+unsharded wire keeps the lowest-index ``k``, a shard its own cap) or a
+shard's support overflows its cap (it keeps its lowest-index ``cap``);
+the Q_r dither of a sharded leaf comes from the client's leaf key folded
+with the model rank.  A ``data`` axis larger than 1 with ``model`` 1
+replicates the rounds over its ranks and runs the unsharded wire.
 """
 
 from __future__ import annotations
@@ -43,10 +70,9 @@ from typing import Any, Callable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch import not_ported
 from repro_torch import tree as tree_util
-from repro_torch.core.clients import ClientAxisCtx, RoundPlan
-from repro_torch.sharding.specs import mesh_axes
+from repro_torch.core.clients import ClientAxisCtx, RoundPlan, mask_payload
+from repro_torch.sharding.specs import mesh_axes, model_dim_index
 
 PyTree = Any
 
@@ -138,11 +164,179 @@ class ShardCtx(ClientAxisCtx):
             full, upd)
 
 
-class ModelShardCtx(ClientAxisCtx):
-    """The composed clients x model regime (the shard-local wire)."""
+def _bytes(data) -> tuple:
+    """A payload's buffers (units of ``(rows, ...)`` tensors) as one
+    ``(rows, B)`` uint8 tensor, and the layout that :func:`_from_bytes`
+    reads it back with: one collective moves them all."""
+    flat, layout = [], []
+    for unit in data:
+        for b in unit:
+            row = b.reshape(b.shape[0], -1)
+            if row.stride(-1) != 1:     # a size-1 view may keep any stride
+                row = torch.empty_like(row,
+                                       memory_format=torch.contiguous_format
+                                       ).copy_(row)
+            row = row.contiguous().view(torch.uint8)
+            flat.append(row)
+            layout.append((tuple(b.shape[1:]), b.dtype, row.shape[1]))
+    return torch.cat(flat, dim=1), (layout, tuple(len(u) for u in data))
 
-    def __init__(self, *args, **kwargs):
-        raise not_ported("ModelShardCtx (a mesh with a model or data axis)")
+
+def _from_bytes(flat: torch.Tensor, layout) -> tuple:
+    """The inverse of :func:`_bytes` on ``flat`` ``(..., rows, B)``: the
+    units of ``(..., rows) + shape`` tensors."""
+    bufs, off = [], 0
+    lead = tuple(flat.shape[:-1])
+    for shape, dtype, nb in layout[0]:
+        part = flat[..., off:off + nb].contiguous().view(dtype)
+        bufs.append(part.reshape(lead + shape))
+        off += nb
+    it = iter(bufs)
+    return tuple(tuple(next(it) for _ in range(n)) for n in layout[1])
+
+
+def _gather(t: torch.Tensor, group, size: int, device) -> torch.Tensor:
+    """``(size,) + t.shape``: every rank's ``t`` of ``group`` in rank
+    order, on the group's ``device``."""
+    src = t.detach().to(device).contiguous()
+    out = torch.empty((size * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.reshape((size,) + tuple(src.shape))
+
+
+class ModelShardCtx(ShardCtx):
+    """The composed clients x model regime: :class:`ShardCtx` over the
+    mesh's ``clients`` axis, and the shard-local wire over its ``model``
+    axis (module docstring)."""
+
+    def __init__(self, mesh, axis: str = CLIENT_AXIS,
+                 model_axis: str = "model"):
+        axes = mesh_axes(mesh)
+        super().__init__(mesh.get_group(axis), axes[axis])
+        self.mesh = mesh
+        self.model_shards = axes.get(model_axis, 1)
+        self.model_group = (mesh.get_group(model_axis)
+                            if model_axis in axes else None)
+        self.model_rank = (dist.get_rank(self.model_group)
+                           if self.model_group is not None else 0)
+        self.model_device = (_group_device(self.model_group)
+                             if self.model_group is not None else None)
+        #: when a list, each shard-local encode appends its compressor and
+        #: spec, this rank's measured bytes a client and the topk support
+        #: counts
+        self.record: Optional[list] = None
+
+    # -- the model group's collectives -------------------------------------- #
+
+    def _model_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``(m,) + t.shape`` over the model group, on its device."""
+        return _gather(t, self.model_group, self.model_shards,
+                       self.model_device)
+
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the model group: gathered, then summed in rank
+        order, so every rank gets the same bits (integers exactly)."""
+        return self._model_gather(t).sum(dim=0, dtype=t.dtype).to(t.device)
+
+    # -- the shard-local wire ----------------------------------------------- #
+
+    def _slices(self, stacked: PyTree, lead: int):
+        """``(model dims, one whole tree, local tree)``: each leaf's model
+        dimension by the path rules (on the shape past ``lead`` leading
+        axes), the tree without its leading axis (the spec's shapes), and
+        this rank's slice of every sharded leaf."""
+        pairs = tree_util.leaves_with_paths(stacked)
+        mdims = tuple(model_dim_index(path, tuple(leaf.shape[lead:]),
+                                      self.model_shards)
+                      for path, leaf in pairs)
+        loc = []
+        for (_, leaf), mdim in zip(pairs, mdims):
+            if mdim is not None:
+                leaf = leaf.chunk(self.model_shards, dim=lead + mdim)[
+                    self.model_rank]
+            loc.append(leaf)
+        one = tree_util.map(lambda t: t[0] if lead else t, stacked)
+        return mdims, one, tree_util.unflatten(stacked, loc)
+
+    def _encode(self, comp, stacked: PyTree, keys, lead: int):
+        from repro_torch.compress import wire
+        mdims, one, loc = self._slices(stacked, lead)
+        spec = wire.sharded_wire_spec(comp, one, mdims, self.model_shards)
+        if not lead:
+            loc = tree_util.map(lambda t: t.unsqueeze(0), loc)
+            keys = None if keys is None else keys.unsqueeze(0)
+        counts = {} if self.record is not None else None
+        data, report = wire.encode_shard_local(
+            comp, loc, spec, keys, model_rank=self.model_rank,
+            model_sum=self.model_sum, counts=counts)
+        if self.record is not None:
+            self.record.append({"comp": comp, "spec": spec, "counts": counts,
+                                "device_nbytes": wire._buffers_nbytes(data)})
+        return wire.Payload(data, spec), report
+
+    def _decode_gathered(self, data, spec) -> PyTree:
+        """Every shard's buffers ``(m, rows, ...)`` decoded, one shard at a
+        time, into each whole leaf's slice along its model dimension (a
+        replicated leaf from shard 0): the ``(rows, ...)`` stack of whole
+        leaves, with one shard's decode alive beside it at a time."""
+        from repro_torch.compress import wire
+        out = None
+        for j in range(self.model_shards):
+            part = tree_util.leaves(wire.decode_shard_local(
+                tuple(tuple(b[j] for b in unit) for unit in data), spec))
+            if out is None:
+                out = [torch.empty((t.shape[0],) + tuple(shp), dtype=t.dtype,
+                                   device=t.device)
+                       for t, shp in zip(part, spec.shapes)]
+            for whole, t, mdim in zip(out, part, spec.model_dims):
+                if mdim is None:
+                    if j == 0:
+                        whole.copy_(t)
+                else:
+                    whole.narrow(1 + mdim, j * t.shape[1 + mdim],
+                                 t.shape[1 + mdim]).copy_(t)
+            del part
+        return tree_util.unflatten(spec.treedef, out)
+
+    def encode_payload(self, comp, plan: RoundPlan, stacked: PyTree,
+                       keys: Optional[torch.Tensor] = None):
+        if self.model_shards <= 1:
+            return super().encode_payload(comp, plan, stacked, keys)
+        if plan.comp_overrides:
+            raise ValueError(
+                "packed wire mode cannot carry per-client compressor "
+                "overrides (static payload capacity); run them in account "
+                "mode")
+        return self._encode(comp, stacked, keys, lead=1)
+
+    def gather_decoded_payload(self, payload, partf_full: torch.Tensor):
+        if payload.spec.model_shards <= 1:
+            return super().gather_decoded_payload(payload, partf_full)
+        masked = mask_payload(payload, self.shard(partf_full))
+        # every buffer in one byte tensor: (m, s_loc, B) over the model
+        # group, then (D, m, s_loc, B) over the clients group, to (m, s, B)
+        # in client order
+        flat, layout = _bytes(masked.data)
+        t = self._model_gather(flat)
+        full = _gather(t, self.group, self.n_shards, self.device)
+        full = full.transpose(0, 1).reshape(t.shape[0], -1, t.shape[-1])
+        return self._decode_gathered(_from_bytes(full.to(flat.device),
+                                                 layout), payload.spec)
+
+    def encode_broadcast(self, comp, tree: PyTree,
+                         key: Optional[torch.Tensor] = None):
+        if self.model_shards <= 1:
+            return super().encode_broadcast(comp, tree, key)
+        return self._encode(comp, tree, key, lead=0)
+
+    def decode_broadcast(self, payload) -> PyTree:
+        if payload.spec.model_shards <= 1:
+            return super().decode_broadcast(payload)
+        flat, layout = _bytes(payload.data)
+        data = _from_bytes(self._model_gather(flat).to(flat.device), layout)
+        return tree_util.map(lambda t: t[0],
+                             self._decode_gathered(data, payload.spec))
 
 
 def validate_model_axis(mesh, model_cfg, axis: str = "model") -> int:
@@ -194,28 +388,28 @@ def validate_client_mesh(mesh, clients_per_round: int,
 
 def client_ctx(mesh, clients_per_round: int,
                axis: str = CLIENT_AXIS) -> ShardCtx:
-    """The :class:`ShardCtx` of ``mesh``'s client axis, validated; a mesh
-    with another axis larger than 1 raises (the model axis is the next
-    slice)."""
+    """The context of ``mesh``'s client axis, validated: a
+    :class:`ModelShardCtx` where another axis is larger than 1 (a composed
+    clients x data x model mesh), else a :class:`ShardCtx`."""
     n = validate_client_mesh(mesh, clients_per_round, axis)
-    extra = {a: k for a, k in mesh_axes(mesh).items() if a != axis and k > 1}
-    if extra:
-        raise not_ported(f"a client mesh composed with {extra} "
-                         f"(ModelShardCtx)")
+    if any(k > 1 for a, k in mesh_axes(mesh).items() if a != axis):
+        return ModelShardCtx(mesh, axis)
     return ShardCtx(mesh.get_group(axis), n)
 
 
 def shard_round(round_impl: Callable, mesh, clients_per_round: int,
                 axis: str = CLIENT_AXIS) -> Callable:
-    """Bind ``_round_impl(state, key, ctx)`` to ``mesh``'s client axis:
-    a drop-in ``(state, key) -> (state, metrics)`` that every rank of the
-    axis calls with the same state and key, and that returns the same
-    state and metrics on every rank."""
+    """Bind ``_round_impl(state, key, ctx)`` to ``mesh``'s client axis
+    (composed with a model axis, :class:`ModelShardCtx`): a drop-in
+    ``(state, key) -> (state, metrics)`` that every rank of the mesh calls
+    with the same state and key, and that returns the same state and
+    metrics on every rank.  The context is the function's ``ctx``."""
     ctx = client_ctx(mesh, clients_per_round, axis)
 
     def run(state, key):
         return round_impl(state, key, ctx=ctx)
 
+    run.ctx = ctx
     return run
 
 

@@ -14,7 +14,9 @@ Both record into ``self.meter`` (:class:`repro_torch.core.comm.CommMeter`).
 ``use_mesh`` binds a client-axis mesh (DESIGN.md §6): both drivers then
 run ``_round_impl`` under a :class:`repro_torch.core.distributed.ShardCtx`
 with the sampled clients split over the mesh's ``clients`` ranks, every
-rank calling them with the same state and key.
+rank calling them with the same state and key; on a mesh composed with a
+``model`` axis (DESIGN.md §9) under a ``ModelShardCtx``, whose wire runs
+shard-local over the model ranks.
 ``set_policy`` binds one of the three aggregation policies (DESIGN.md §7),
 ``set_wire`` the wire mode, ``"account"`` or ``"packed"`` (DESIGN.md §8),
 and ``set_downlink`` the downlink mode, ``"dense"``, ``"account"`` or
@@ -152,11 +154,14 @@ class RoundEngine:
 
     def use_mesh(self, mesh, axis: str = "clients") -> "RoundEngine":
         """Bind (or, with ``None``, unbind) a client-axis mesh, a
-        ``torch.distributed`` ``DeviceMesh`` with a ``clients`` axis
+        ``torch.distributed`` ``DeviceMesh`` with a ``clients`` axis, alone
+        or composed with ``data`` and ``model`` axes
         (:func:`repro_torch.launch.mesh.make_client_mesh`).  With a mesh
         bound, ``round`` and ``run_rounds`` split the sampled clients over
         its ranks (DESIGN.md §6): metric scalars bit-identical to the
         unsharded rounds, parameters allclose (bit-identical on one rank).
+        A ``model`` axis packs the wire shard-local (DESIGN.md §9): bits
+        still exact, values apart only where ties or a shard's cap say.
         Binding the mesh already bound is a no-op.  Returns self."""
         if (mesh is self._mesh
                 or (mesh is not None and self._mesh is not None

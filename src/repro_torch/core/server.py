@@ -76,8 +76,9 @@ def run_federated(
     one ``algorithm.round`` per round on the ``key, sub = split(key)``
     chain, evaluating after round 1, every ``eval_every`` rounds, and
     after the last.  ``mesh`` (a ``DeviceMesh`` with a ``clients`` axis,
+    or a composed ``("clients", "data", "model")`` one,
     :func:`repro_torch.launch.mesh.make_client_mesh`) binds the rounds to
-    the client-sharded path (DESIGN.md §6): every rank of the mesh calls
+    the client-sharded path (DESIGN.md §6, §9): every rank of the mesh calls
     ``run_federated`` with the same arguments.  ``policy`` (an
     :class:`repro_torch.core.aggregation.AggregationPolicy`) rebinds the
     aggregation policy (DESIGN.md §7), ``wire`` (``"account"`` |

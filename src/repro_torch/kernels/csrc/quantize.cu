@@ -31,7 +31,10 @@
 // row's partials in index order, takes sqrtf and resets the counter to 0.
 // The order of every sum depends only on (rows, n) and whether x is 16-byte
 // aligned, never on which block finishes last.  Float atomics would make two runs give different norms,
-// and so different Q_r trajectories.
+// and so different Q_r trajectories.  K3 has a second entry, qr_sum_squares,
+// the same launch without the final sqrtf: the model-sharded wire sums each
+// shard's sum of squares over the model ranks and takes the square root of
+// the total (the norm of the whole sharded leaf).
 //
 // This file is compiled with --fmad=false: K4 must keep the reference's
 // operation order (y = |x|/safe, scaled = L*y, lo = floor(scaled),
@@ -63,9 +66,10 @@ constexpr int kMaxPartials = 512;    // K3 blocks a row, at most
 // grid: (parts, rows); block: kThreads.  vec4: rows are 16-byte aligned
 // and n % 4 == 0, so x is read as float4.  partial holds rows * parts
 // floats; count holds rows counters, 0 on entry and left at 0.
+// take_sqrt: norm[row] is sqrtf of the sum (K3), else the sum itself.
 __global__ void sumsq_norm(const float* __restrict__ x, long long n, int vec4,
                            float* __restrict__ partial,
-                           unsigned int* __restrict__ count,
+                           unsigned int* __restrict__ count, int take_sqrt,
                            float* __restrict__ norm) {
   __shared__ float sh[kThreads];
   __shared__ float part_sh[kMaxPartials];
@@ -112,7 +116,7 @@ __global__ void sumsq_norm(const float* __restrict__ x, long long n, int vec4,
     if (threadIdx.x == 0) {
       float s = 0.0f;
       for (int j = 0; j < parts; ++j) s += part_sh[j];
-      norm[row] = sqrtf(s);
+      norm[row] = take_sqrt ? sqrtf(s) : s;
       count[row] = 0;
     }
   }
@@ -177,6 +181,17 @@ qr_round(const float* __restrict__ x, const float* __restrict__ u,
   }
 }
 
+int launch_sumsq(const float* x, int rows, long long n, float* partial,
+                 unsigned int* count, int parts, int take_sqrt, float* out,
+                 cudaStream_t stream) {
+  if (parts < 1 || parts > kMaxPartials) return (int)cudaErrorInvalidValue;
+  const int vec4 = n % 4 == 0 && ((uintptr_t)x & 15) == 0;
+  const dim3 grid((unsigned int)parts, (unsigned int)rows);
+  sumsq_norm<<<grid, kThreads, 0, stream>>>(x, n, vec4, partial, count, take_sqrt,
+                                           out);
+  return (int)cudaGetLastError();
+}
+
 template <bool kKeyed>
 int launch_round(const float* x, const float* u, const ThreefryKeys& keys, const float* norm,
                  float* out, int rows, long long n, float levels, const float* row_levels,
@@ -195,12 +210,6 @@ int launch_round(const float* x, const float* u, const ThreefryKeys& keys, const
 
 }  // namespace
 
-#define RETURN_IF_ERROR()                          \
-  do {                                             \
-    cudaError_t err_ = cudaGetLastError();         \
-    if (err_ != cudaSuccess) return (int)err_;     \
-  } while (0)
-
 extern "C" {
 
 const char* qr_error_string(int code) {
@@ -215,13 +224,17 @@ const char* qr_error_string(int code) {
 int qr_l2_norm(const float* x, int rows, long long n, float* partial,
                unsigned int* count, int parts, float* norm,
                void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (parts < 1 || parts > kMaxPartials) return (int)cudaErrorInvalidValue;
-  const int vec4 = n % 4 == 0 && ((uintptr_t)x & 15) == 0;
-  const dim3 grid((unsigned int)parts, (unsigned int)rows);
-  sumsq_norm<<<grid, kThreads, 0, stream>>>(x, n, vec4, partial, count, norm);
-  RETURN_IF_ERROR();
-  return 0;
+  return launch_sumsq(x, rows, n, partial, count, parts, 1, norm,
+                      (cudaStream_t)stream_ptr);
+}
+
+// K3 without its sqrtf: out[row] = sum_i x[row, i]^2, the sum K3 takes the
+// square root of, bit for bit (same launch, same order).
+int qr_sum_squares(const float* x, int rows, long long n, float* partial,
+                   unsigned int* count, int parts, float* out,
+                   void* stream_ptr) {
+  return launch_sumsq(x, rows, n, partial, count, parts, 0, out,
+                      (cudaStream_t)stream_ptr);
 }
 
 // K4 reading its uniforms: Q_r of every row against its norm, with u

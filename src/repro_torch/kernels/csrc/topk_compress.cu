@@ -57,6 +57,18 @@
 // launch re-reads x from HBM on 64 SMs at (4, 2^24) and K1 then K2 on
 // every SM measured faster (PERF.md).
 //
+// K1's histogram pass alone (radix_hist, topk_radix_hist): the model-sharded
+// wire (DESIGN.md §9) holds each leaf's slice on its own rank, and the exact
+// global threshold needs every pass's counts summed over the model ranks
+// before the digit is chosen.  So the walk runs in the caller: a launch
+// counts one digit of this rank's slice (rows, 256) under each row's
+// decided prefix, the caller all-reduces the integer counts, walks them with
+// the plain version's radix_walk_step on the card (no host sync) and calls
+// the next pass.  A block-strided pass with shared-memory bins, the high
+// digit through K1's register slots and warp flush; blocks add their bins
+// to the caller's zeroed int32 histogram with global atomics (integers: the
+// order does not change the sum).  Bound: 4n bytes read a pass.
+//
 // Edge conventions (those of the TPU kernel): k >= n gives threshold 0
 // (every entry kept), k <= 0 gives 0xFFFFFFFF (empty support).
 //
@@ -361,6 +373,47 @@ threshold_select(const float* __restrict__ x, const int* __restrict__ k, int k_s
   if (rank == 0 && tid == 0) thr[row] = (long long)prefix;
 }
 
+// grid: (parts, rows); block: kThreads.  hist (rows, 256) is zeroed by the
+// caller; prefix[row] holds the digits decided so far (int64 holding a
+// uint32 pattern).  vec: x is 16-byte aligned and n % 4 == 0.
+__global__ void __launch_bounds__(kThreads)
+radix_hist(const float* __restrict__ x, long long n, const long long* __restrict__ prefix,
+           int shift, int vec, int* __restrict__ hist) {
+  __shared__ unsigned H[kBins];
+  for (int i = threadIdx.x; i < kBins; i += kThreads) H[i] = 0u;
+  __syncthreads();
+  const long long row = blockIdx.y;
+  const unsigned high = shift + 8 < 32 ? (0xFFFFFFFFu << (shift + 8)) : 0u;
+  const unsigned want = (unsigned)prefix[row] & high;
+  const int pass = shift == 24 ? 0 : 1;   // the high digit: register slots
+  const float* xr = x + row * n;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  BinSlots sl = {0u, 0u, 0u, 0u};
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+#pragma unroll 4
+    for (long long i = first; i < n / 4; i += stride) {
+      const float4 v = __ldg(x4 + i);
+      const unsigned e[4] = {mag_bits(v.x), mag_bits(v.y), mag_bits(v.z), mag_bits(v.w)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if ((e[j] & high) == want) count_bin(sl, H, (e[j] >> shift) & 0xFFu, pass);
+    }
+  } else {
+    for (long long i = first; i < n; i += stride) {
+      const unsigned e = mag_bits(__ldg(xr + i));
+      if ((e & high) == want) count_bin(sl, H, (e >> shift) & 0xFFu, pass);
+    }
+  }
+  warp_flush(H, sl.b0, sl.c0);
+  warp_flush(H, sl.b1, sl.c1);
+  __syncthreads();
+  int* hr = hist + row * kBins;
+  for (int i = threadIdx.x; i < kBins; i += kThreads)
+    if (H[i] != 0u) atomicAdd(hr + i, (int)H[i]);
+}
+
 __global__ void mask_vec4(const float4* __restrict__ x,
                           const long long* __restrict__ thr,
                           float4* __restrict__ out, long long n4,
@@ -465,6 +518,25 @@ int topk_threshold_bits(const float* x, const int* k, int k_scalar, int rows, lo
   cudaError_t err = cudaLaunchKernelEx(&cfg, threshold_select, x, k, k_scalar, n, slice,
                                        vec, thr, out);
   if (err != cudaSuccess) return (int)err;
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+// K1's histogram pass: hist[row, d] += #{i : digit at shift of |x[row, i]|
+// bits == d, and its bits above the digit equal prefix[row]'s}.  hist is
+// (rows, 256) int32, zeroed by the caller; shift is 24, 16, 8 or 0.
+int topk_radix_hist(const float* x, int rows, long long n, const long long* prefix,
+                    int shift, int* hist, void* stream_ptr) {
+  if (shift < 0 || shift > 24 || shift % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int vec = n % 4 == 0 && ((uintptr_t)x % 16 == 0);
+  // about 16 elements a thread; within the grid cap over all rows
+  long long parts = (n + 16LL * kThreads - 1) / (16LL * kThreads);
+  const long long cap = kMaxBlocks / rows > 0 ? kMaxBlocks / rows : 1;
+  if (parts > cap) parts = cap;
+  if (parts < 1) parts = 1;
+  radix_hist<<<dim3((unsigned)parts, (unsigned)rows), kThreads, 0, stream>>>(x, n, prefix,
+                                                                           shift, vec, hist);
   RETURN_IF_ERROR();
   return 0;
 }

@@ -84,6 +84,38 @@ def quantize_pack(x: torch.Tensor, r: int, keys: torch.Tensor):
     return _qr_pack.quantize_pack_keyed(x, r, keys, norm), norm
 
 
+def topk_slots_sharded(xs, ks, caps, n_totals, reduce) -> list:
+    """Shard-local slots of the exact whole-row TopK, the model-sharded
+    ``topk`` codec's encode (``repro.kernels.ops.topk_slots_sharded``),
+    for several leaves at once: each row of ``xs[i]`` is this rank's slice
+    of a row of ``n_totals[i]`` elements, ``reduce`` sums an ``(R, 256)``
+    int32 histogram over the model ranks.  K1's histogram pass a digit and
+    leaf, each digit's counts of every leaf reduced together and walked on
+    the device, then K5 a leaf at the whole row's threshold and the
+    per-shard ``caps[i]``.  Returns each leaf's ``(idx, vals, nnz)`` as
+    :func:`topk_slots` does, the slots indexing the slice and ``nnz`` the
+    slice's survivor count."""
+    thrs = _topk.threshold_bits_sharded(xs, ks, n_totals, reduce)
+    return [_sel.compact_slots(x, t, int(cap))
+            for x, t, cap in zip(xs, thrs, caps)]
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Each row's float32 sum of squares (K3's launch without its sqrt):
+    the model-sharded ``qr`` codec sums it over the model ranks and takes
+    the square root for the whole leaf's norm."""
+    return _quant.sum_squares(x)
+
+
+def quantize_pack_global_norm(x: torch.Tensor, r: int, keys: torch.Tensor,
+                              norm: torch.Tensor) -> torch.Tensor:
+    """:func:`quantize_pack` with the norm given (the whole leaf's, from
+    the model ranks' summed squares) and each row's own keys (the client
+    key folded with the model rank): K7's keyed entry alone.  Returns the
+    ``(rows, ceil(n/32) * (1+r))`` words."""
+    return _qr_pack.quantize_pack_keyed(x, r, keys, norm)
+
+
 def topk_qr_slots(x: torch.Tensor, k: int, cap: int, r: int,
                   keys: torch.Tensor):
     """TopK -> Q_r -> packed slots, the ``topk_qr`` codec's encode (K1

@@ -25,8 +25,9 @@ import torch
 from repro_torch import prng
 from repro_torch.kernels import build, ref
 
-# "quantize_qr" counts both of K4's entries
-LAUNCHES = {"l2_norm": 0, "quantize_qr": 0}
+# "quantize_qr" counts both of K4's entries; "sum_squares" is K3 without
+# its sqrt (the model-sharded wire's entry)
+LAUNCHES = {"l2_norm": 0, "sum_squares": 0, "quantize_qr": 0}
 
 # K3's scratch per (device index, stream): (uint32 counters in int32
 # containers, zeroed once and left at 0 by every launch; float32 partials).
@@ -44,6 +45,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qr_l2_norm.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, _P, _P,
                                ctypes.c_int, _P, _P]
     lib.qr_l2_norm.restype = ctypes.c_int
+    lib.qr_sum_squares.argtypes = lib.qr_l2_norm.argtypes
+    lib.qr_sum_squares.restype = ctypes.c_int
     lib.qr_quantize.argtypes = [_P, _P, _P, _P, ctypes.c_int,
                                 ctypes.c_longlong, ctypes.c_float, _P]
     lib.qr_quantize.restype = ctypes.c_int
@@ -84,25 +87,44 @@ def _norm_scratch(device: torch.device, stream: int, rows: int,
     return have
 
 
+def _sumsq_launch(x: torch.Tensor, entry: str) -> torch.Tensor:
+    """K3's one launch through ``entry`` (``qr_l2_norm`` or
+    ``qr_sum_squares``) on CUDA rows: (rows,) float32."""
+    xf = build.cuda_rows(x)
+    rows, n = xf.shape
+    out = xf.new_empty(rows)
+    if n == 0:
+        return out.zero_()
+    lib = _lib()
+    parts = norm_parts(rows, n)
+    stream = build.stream_ptr()
+    count, partial = _norm_scratch(out.device, stream, rows, rows * parts)
+    code = getattr(lib, entry)(xf.data_ptr(), rows, n, partial.data_ptr(),
+                               count.data_ptr(), parts, out.data_ptr(),
+                               stream)
+    build.check(code, entry, lib, "qr_error_string")
+    return out
+
+
 def l2_norm(x: torch.Tensor) -> torch.Tensor:
     """K3: per-row ``sqrt(sum x**2)`` (float32), deterministic on the card:
     one launch, no scratch allocated per call."""
     if build.on_cpu(x):
         return ref.l2_norm(x)
-    xf = build.cuda_rows(x)
-    rows, n = xf.shape
-    norm = xf.new_empty(rows)
-    if n == 0:
-        return norm.zero_()
-    lib = _lib()
-    parts = norm_parts(rows, n)
-    stream = build.stream_ptr()
-    count, partial = _norm_scratch(norm.device, stream, rows, rows * parts)
-    code = lib.qr_l2_norm(xf.data_ptr(), rows, n, partial.data_ptr(),
-                          count.data_ptr(), parts, norm.data_ptr(), stream)
-    build.check(code, "qr_l2_norm", lib, "qr_error_string")
+    norm = _sumsq_launch(x, "qr_l2_norm")
     LAUNCHES["l2_norm"] += 1
     return norm
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """K3 without its sqrt: per-row ``sum x**2`` (float32), the value
+    :func:`l2_norm` takes the square root of, bit for bit.  The sharded
+    wire sums it over the model ranks before the root."""
+    if build.on_cpu(x):
+        return ref.sum_squares(x)
+    out = _sumsq_launch(x, "qr_sum_squares")
+    LAUNCHES["sum_squares"] += 1
+    return out
 
 
 def quantize_qr_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,

@@ -75,7 +75,31 @@ def radix_walk_step(hist: torch.Tensor, k_rem: torch.Tensor):
     return digit, k_rem - above
 
 
-def topk_threshold_bits(x: torch.Tensor, k) -> torch.Tensor:
+def radix_walk(hist_fn, k, rows: int, n_total: int, device,
+               reduce=None) -> torch.Tensor:
+    """The four-pass radix walk, MSB first, over the histograms
+    ``hist_fn(prefix, shift)`` gives (``(rows, 256)`` counts under each
+    row's decided ``prefix``), each summed by ``reduce`` (an all-reduce of
+    the ``(rows, 256)`` int32 counts over the ranks a row is sharded
+    across; None for a whole row).  ``n_total`` is the whole row's size
+    (an int, or one a row), for the edge conventions: ``k >= n_total``
+    gives 0 (every entry kept), ``k <= 0`` gives ``0xFFFFFFFF`` (empty
+    support)."""
+    kk = _per_row(k, rows, device)
+    prefix = torch.zeros(rows, dtype=torch.int64, device=device)
+    k_rem = kk.clone()
+    for shift in RADIX_SHIFTS:
+        hist = hist_fn(prefix, shift)
+        if reduce is not None:
+            hist = reduce(hist.to(torch.int32))
+        digit, k_rem = radix_walk_step(hist.to(torch.int64), k_rem)
+        prefix = prefix | (digit << shift)
+    prefix = torch.where(kk >= n_total, torch.zeros_like(prefix), prefix)
+    return torch.where(kk <= 0, torch.full_like(prefix, ALL_ONES), prefix)
+
+
+def topk_threshold_bits(x: torch.Tensor, k, *, n_total=None,
+                        reduce=None) -> torch.Tensor:
     """Per-row uint32 bit pattern (int64) of the k-th largest ``|x|``.
 
     Four radix-histogram passes, MSB first, exactly as the TPU kernel
@@ -84,19 +108,20 @@ def topk_threshold_bits(x: torch.Tensor, k) -> torch.Tensor:
     gives ``0xFFFFFFFF`` (empty support).  For ``1 <= k < n`` this is the
     value ``repro.kernels.ref.topk_threshold_bits`` returns: the largest
     ``t`` with ``count(bits >= t) >= k``, ties included.
+
+    With ``reduce`` each row of ``x`` is this rank's slice of a row of
+    ``n_total`` elements sharded across ranks, and every pass's counts are
+    summed over them (the reference's ``psum_axis`` at 8-bit digits): the
+    walk returns the whole row's threshold from the slices alone, the
+    integer counts making the sum exact.
     """
     x = _rows(x)
     rows, n = x.shape
-    kk = _per_row(k, rows, x.device)
     bits = mag_bits(x)
-    prefix = torch.zeros(rows, dtype=torch.int64, device=x.device)
-    k_rem = kk.clone()
-    for shift in RADIX_SHIFTS:
-        hist = radix_digit_hist(bits, prefix, shift)
-        digit, k_rem = radix_walk_step(hist, k_rem)
-        prefix = prefix | (digit << shift)
-    prefix = torch.where(kk >= n, torch.zeros_like(prefix), prefix)
-    return torch.where(kk <= 0, torch.full_like(prefix, ALL_ONES), prefix)
+    return radix_walk(lambda prefix, shift: radix_digit_hist(bits, prefix,
+                                                             shift),
+                      k, rows, n if n_total is None else int(n_total),
+                      x.device, reduce)
 
 
 def mask_by_threshold(x: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
@@ -112,10 +137,15 @@ def topk_mask(x: torch.Tensor, k) -> torch.Tensor:
     return mask_by_threshold(x, topk_threshold_bits(x, k))
 
 
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """Per-row ``sum(x**2)`` over float32 values."""
+    xf = _rows(x).to(torch.float32)
+    return torch.sum(xf * xf, dim=1)
+
+
 def l2_norm(x: torch.Tensor) -> torch.Tensor:
     """Per-row ``sqrt(sum(x**2))`` over float32 values."""
-    xf = _rows(x).to(torch.float32)
-    return torch.sqrt(torch.sum(xf * xf, dim=1))
+    return torch.sqrt(sum_squares(x))
 
 
 def jax_sign(x: torch.Tensor) -> torch.Tensor:
@@ -222,6 +252,20 @@ def topk_slots(x: torch.Tensor, k, cap: int):
     ``compact_slots`` at the radix threshold of each row's k-th largest
     magnitude."""
     return compact_slots(x, topk_threshold_bits(x, k), cap)
+
+
+def topk_slots_sharded(x: torch.Tensor, k_global, cap: int, n_total: int,
+                       reduce):
+    """Shard-local slots of the exact whole-row TopK (DESIGN.md §9;
+    ``repro.kernels.ref.topk_slots_sharded``): each row of ``x`` is this
+    rank's slice of a row of ``n_total`` elements, the threshold is the
+    whole row's (:func:`topk_threshold_bits` with ``reduce``), and the
+    slots index the slice (sentinel: the slice's size).  A slice whose
+    survivors overflow the per-shard ``cap`` keeps the lowest-index
+    ``cap``.  Returns :func:`compact_slots`'s ``(idx, vals, nnz)``, ``nnz``
+    the slice's whole survivor count."""
+    thr = topk_threshold_bits(x, k_global, n_total=n_total, reduce=reduce)
+    return compact_slots(x, thr, cap)
 
 
 def qr_codes_with_uniforms(x: torch.Tensor, r: int, u: torch.Tensor,

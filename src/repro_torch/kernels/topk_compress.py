@@ -9,7 +9,10 @@ float32 for the kernel (an exact order-embedding of the magnitudes).  K1
 is one launch a call and allocates nothing but its output;
 :func:`threshold_mask` (and so :func:`topk_mask`) runs K2 inside K1's
 launch, and :func:`mask_by_threshold` is K2 alone, for a threshold
-computed elsewhere.
+computed elsewhere.  :func:`radix_hist` is K1's histogram pass alone,
+for the model-sharded wire: :func:`threshold_bits_sharded` walks its
+counts after a reduction across the model ranks, one launch a digit and
+leaf, one reduction a digit for all of a tree's sharded leaves.
 
 ``LAUNCHES`` counts kernel launches per wrapper (``topk_threshold_mask``
 for K1 and K2 in one launch); only the CUDA path adds to it, so a CPU run
@@ -25,7 +28,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"topk_threshold_bits": 0, "topk_mask": 0,
-            "topk_threshold_mask": 0}
+            "topk_threshold_mask": 0, "topk_radix_hist": 0}
 
 # resident_max_n(), asked of the card once
 _RESIDENT_MAX_N = None
@@ -42,6 +45,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.topk_mask_apply.argtypes = [_P, _P, _P, ctypes.c_int,
                                     ctypes.c_longlong, _P]
     lib.topk_mask_apply.restype = ctypes.c_int
+    lib.topk_radix_hist.argtypes = [_P, ctypes.c_int, ctypes.c_longlong, _P,
+                                    ctypes.c_int, _P, _P]
+    lib.topk_radix_hist.restype = ctypes.c_int
     lib.topk_error_string.argtypes = [ctypes.c_int]
     lib.topk_error_string.restype = ctypes.c_char_p
 
@@ -150,3 +156,52 @@ def topk_mask(x: torch.Tensor, k) -> torch.Tensor:
     row's k largest-magnitude entries, in x's dtype (ties at the threshold
     kept; ``k >= n`` keeps every entry)."""
     return threshold_mask(x, k)[1].to(x.dtype)
+
+
+def radix_hist(x: torch.Tensor, prefix: torch.Tensor,
+               shift: int) -> torch.Tensor:
+    """K1's histogram pass alone: each row's ``(256,)`` int32 counts of the
+    8-bit magnitude digit at ``shift`` among the elements whose bits above
+    it equal ``prefix[row]``'s (``ref.radix_digit_hist``).  ``prefix`` is
+    ``(rows,)`` int64 on x's device."""
+    if build.on_cpu(x):
+        return ref.radix_digit_hist(ref.mag_bits(x), prefix,
+                                    shift).to(torch.int32)
+    xf = _cuda_input(x)
+    rows, n = xf.shape
+    prefix = build.expect(prefix, "prefix", torch.int64, (rows,), xf.device)
+    hist = torch.zeros((rows, 256), dtype=torch.int32, device=xf.device)
+    if n == 0:
+        return hist
+    lib = _lib()
+    code = lib.topk_radix_hist(xf.data_ptr(), rows, n, prefix.data_ptr(),
+                               int(shift), hist.data_ptr(),
+                               build.stream_ptr())
+    build.check(code, "topk_radix_hist", lib, "topk_error_string")
+    LAUNCHES["topk_radix_hist"] += 1
+    return hist
+
+
+def threshold_bits_sharded(xs, ks, n_totals, reduce) -> list:
+    """The exact TopK thresholds of rows sharded across ranks, for several
+    row sets at once (the sharded leaves of a tree, each ``(rows, n_i)``
+    with the same rows): ``xs[i]`` holds this rank's slice of each row of
+    ``n_totals[i]`` elements, and ``reduce`` sums an ``(R, 256)`` int32
+    histogram over the ranks (an all-reduce).  Four passes of
+    :func:`radix_hist` a set, the sets' counts reduced together (one
+    reduction a pass for all of them) and walked on the device
+    (``ref.radix_walk``): every rank gets the bit patterns
+    ``ref.topk_threshold_bits`` gives on the whole rows, ties included,
+    with the edge conventions at ``n_totals[i]``."""
+    xs = [x if build.on_cpu(x) else _cuda_input(x) for x in xs]
+    rows, dev = xs[0].shape[0], xs[0].device
+    k = torch.cat([ref._per_row(k_i, rows, dev) for k_i in ks])
+    n_total = torch.tensor([int(n) for n in n_totals],
+                           device=dev).repeat_interleave(rows)
+
+    def hist(prefix, shift):
+        return torch.cat([radix_hist(x, prefix[i * rows:(i + 1) * rows],
+                                     shift) for i, x in enumerate(xs)])
+
+    thr = ref.radix_walk(hist, k, rows * len(xs), n_total, dev, reduce)
+    return list(thr.split(rows))

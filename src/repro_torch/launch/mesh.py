@@ -39,23 +39,40 @@ def make_host_mesh(device: str = "cpu") -> DeviceMesh:
 
 
 def make_client_mesh(n_shards: int | None = None, *, data: int = 1,
-                     model: int = 1, device: str = "cuda") -> DeviceMesh:
-    """The 1-D ``("clients",)`` mesh whose ranks split the sampled clients
-    of a federated round (DESIGN.md §6; consumed by
-    ``RoundEngine.use_mesh`` and ``server.run_federated(mesh=...)``).
+                     model: int = 1, config=None,
+                     device: str = "cuda") -> DeviceMesh:
+    """The mesh whose ``clients`` ranks split the sampled clients of a
+    federated round (DESIGN.md §6; consumed by ``RoundEngine.use_mesh``
+    and ``server.run_federated(mesh=...)``).
 
-    ``n_shards`` defaults to the world size; a smaller mesh holds ranks
-    ``0 .. n_shards - 1`` (every rank calls this, and a rank outside the
-    mesh cannot use it).  A ``data`` or ``model`` axis larger than 1 (the
-    composed clients x model regime) is the next slice and raises.
+    With ``data`` and ``model`` at 1 this is the 1-D ``("clients",)`` mesh
+    of ``n_shards`` ranks.  Otherwise it is the ``("clients", "data",
+    "model")`` mesh of ``n_shards x data x model`` ranks, clients
+    outermost and row-major over the ranks, so each clients rank holds a
+    contiguous data x model block (DESIGN.md §9: the shard-local wire over
+    ``model``).  ``n_shards`` defaults to ``world size // (data x
+    model)``; the mesh holds ranks ``0 ..`` of its size (every rank calls
+    this, and a rank outside the mesh cannot use it).  ``config`` (an
+    ``ArchSpec`` or ``ModelConfig``) with ``model > 1`` checks that the
+    model axis divides its sharded dimensions
+    (:func:`repro_torch.core.distributed.validate_model_axis`).
     """
-    if data != 1 or model != 1:
-        raise not_ported(f"a client mesh composed with data={data}, "
-                         f"model={model} (ModelShardCtx)")
     _require_group("make_client_mesh")
+    world = dist.get_world_size()
+    if data < 1 or model < 1:
+        raise ValueError(f"data and model must be >= 1, got data={data}, "
+                         f"model={model}")
     if n_shards is None:
-        n_shards = dist.get_world_size()
-    if not 1 <= n_shards <= dist.get_world_size():
-        raise ValueError(f"n_shards must be in [1, world size "
-                         f"{dist.get_world_size()}], got {n_shards}")
-    return init_device_mesh(device, (n_shards,), mesh_dim_names=("clients",))
+        n_shards = max(1, world // (data * model))
+    if not 1 <= n_shards * data * model <= world:
+        raise ValueError(f"n_shards x data x model must be in [1, world size "
+                         f"{world}], got {n_shards} x {data} x {model}")
+    if data == 1 and model == 1:
+        return init_device_mesh(device, (n_shards,),
+                                mesh_dim_names=("clients",))
+    mesh = init_device_mesh(device, (n_shards, data, model),
+                            mesh_dim_names=("clients", "data", "model"))
+    if config is not None and model > 1:
+        from repro_torch.core.distributed import validate_model_axis
+        validate_model_axis(mesh, config)
+    return mesh

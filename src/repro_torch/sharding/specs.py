@@ -8,12 +8,16 @@ sharding (the weights' d_model-sized dims); ``pod``, where present, joins
 same paths as the reference's trees).  A spec is a tuple with one entry a
 dimension: an axis name, a tuple of axis names, or ``None``.
 
-Only the path rules are here: :func:`param_spec`, :func:`_sanitize`,
-:func:`model_dim_index` and :func:`batch_axis`, which read a mesh's axis
-names and sizes and nothing else (a ``DeviceMesh``, or any object with
-``mesh_dim_names`` and ``shape``).  Turning them into
-``torch.distributed.tensor`` placements (``param_shardings``,
-``state_sharding``) comes with the model axis.
+The path rules (:func:`param_spec`, :func:`_sanitize`,
+:func:`model_dim_index`, :func:`batch_axis`) read a mesh's axis names and
+sizes and nothing else (a ``DeviceMesh``, or any object with
+``mesh_dim_names`` and ``shape``).  :func:`param_shardings`,
+:func:`batch_spec`, :func:`cache_spec` and :func:`state_sharding` turn
+them into ``torch.distributed.tensor`` placements: one ``Shard(dim)`` or
+``Replicate()`` a mesh dimension, in the mesh's order, the argument
+``DTensor.from_local`` and ``distribute_tensor`` take.  The model axis's
+wire (``core/distributed.py``) reads :func:`model_dim_index`, which names
+the dimension these placements shard over ``model``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,12 @@ from __future__ import annotations
 import re
 from typing import Any, Optional, Tuple
 
+from torch.distributed.tensor import Replicate, Shard
+
+from repro_torch import tree as tree_util
+
 Spec = Tuple[Any, ...]
+PyTree = Any
 
 
 def mesh_axes(mesh) -> dict:
@@ -161,3 +170,69 @@ class _RuleMesh:
 
 
 _RULE_MESH = _RuleMesh()
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """A spec as ``torch.distributed.tensor`` placements, one a mesh
+    dimension in the mesh's order: ``Shard(d)`` where tensor dimension
+    ``d``'s entry names that axis (alone or in a tuple), else
+    ``Replicate()``."""
+    out = []
+    for name in mesh.mesh_dim_names or ():
+        dims = [d for d, e in enumerate(spec)
+                if e == name or (isinstance(e, tuple) and name in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def param_shardings(params_shape: PyTree, mesh, *,
+                    n_experts: Optional[int] = None) -> PyTree:
+    """The tree of each parameter's placements (``repro.sharding.specs.
+    param_shardings``): :func:`param_spec` after :func:`_sanitize`.
+    ``params_shape`` holds tensors (meta ones do).  The reference's
+    ``seq_parallel`` prefill scheme belongs to the dry run, not ported."""
+    model_size = mesh_axes(mesh)["model"]
+    expert_over_model = bool(n_experts) and n_experts % model_size == 0
+
+    def one(keys, leaf):
+        shape = tuple(leaf.shape)
+        spec = param_spec(path_str(keys), shape, mesh, expert_over_model)
+        return placements(_sanitize(spec, shape, mesh), mesh)
+
+    pairs = tree_util.leaves_with_paths(params_shape)
+    return tree_util.unflatten(params_shape, [one(k, l) for k, l in pairs])
+
+
+def batch_spec(mesh) -> tuple:
+    """Tokens and labels: the batch over (pod, data)."""
+    return placements((_fsdp_axis(mesh),), mesh)
+
+
+def cache_spec(mesh, kv_heads: int, cache_len: int) -> tuple:
+    """KV caches ``(B, H, S, Dh)``: the batch over (pod, data), the cache
+    length over ``model``."""
+    return placements((_fsdp_axis(mesh), None, "model", None), mesh)
+
+
+def state_sharding(state_shape: PyTree, mesh) -> PyTree:
+    """The decode state's placements (KV caches and recurrent states):
+    a KV cache's length over ``model`` where it is long and divides, every
+    leading batch dimension over (pod, data) where it divides, scalars
+    (the cache ``length``) replicated."""
+    model = mesh_axes(mesh)["model"]
+
+    def one(keys, leaf):
+        p = path_str(keys)
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if p.endswith("length") or nd == 0:
+            return placements((), mesh)
+        b = batch_axis(mesh, shape[0])
+        if nd == 4 and (p.endswith("/k") or p.endswith("/v")):
+            long = shape[2] >= 4 * model and shape[2] % model == 0
+            return placements((b, None, "model" if long else None, None),
+                              mesh)
+        return placements((b,) + (None,) * (nd - 1), mesh)
+
+    pairs = tree_util.leaves_with_paths(state_shape)
+    return tree_util.unflatten(state_shape, [one(k, l) for k, l in pairs])

@@ -8,8 +8,10 @@ the port only (no JAX), so it runs on a GPU machine as
 K1, K2 (alone and in K1's launch, ``threshold_mask``; per-row k), K4 and
 K7 (reading their uniforms, and drawing them with threefry against the
 torch draw; K4 also with one r a row),
-K5, K6, K8, K9 (codes, and decoded to Q_r values) and K11 must be
-bit-equal to the plain versions; K3 within rtol
+K5, K6, K8, K9 (codes, and decoded to Q_r values), K1's histogram pass
+alone (``topk_radix_hist``, the model-sharded wire's) and K11 must be
+bit-equal to the plain versions; K3's sum-of-squares entry bit-equal to
+the value K3's norm is the root of; K3 within rtol
 1e-5 (float32 sums in another order) and bit-equal to itself run to run.  K12's state S_T must be bit-equal (its
 update keeps the plain version's operation order) and y within
 ``WKV6_YTOL`` of max |y| in float32 (64-term sums in another order), plus
@@ -330,6 +332,62 @@ def test_l2_norm_one_launch_same_bits_within_rtol(cuda_device, n):
     torch.testing.assert_close(norms[0], ref.l2_norm(x), rtol=1e-5, atol=0.0)
 
 
+def test_sum_squares_is_the_l2_norm_before_its_sqrt(cuda_device):
+    """K3's sum-of-squares entry (the model-sharded wire's) gives the value
+    K3's norm is the square root of, bit for bit, one launch a call."""
+    for n in (10, 50176, (1 << 24) + 3):
+        x = _rows(3, n, cuda_device, n + 1)
+        quant.LAUNCHES["sum_squares"] = 0
+        ss = quant.sum_squares(x)
+        torch.cuda.synchronize()
+        assert quant.LAUNCHES["sum_squares"] == 1
+        assert _same_bits(torch.sqrt(ss), quant.l2_norm(x))
+        torch.testing.assert_close(ss, ref.sum_squares(x), rtol=1e-5, atol=0.0)
+
+
+def _hist_cases(rows, n, device):
+    """Gaussian rows with ties, zeros and -0.0, and the prefixes of each
+    pass of the walk to each row's threshold at k = n // 10."""
+    x = _rows(rows, n, device, n)
+    x[0, ::7] = 0.5                               # ties
+    x[-1, : n // 3] = 0.0                         # zeros ...
+    x[-1, 1: n // 3: 5] = -0.0                    # ... and -0.0
+    bits = ref.mag_bits(x)
+    t = ref.topk_threshold_bits(x, max(1, n // 10))
+    for shift in ref.RADIX_SHIFTS:
+        high = (ref.ALL_ONES << (shift + 8)) & ref.ALL_ONES \
+            if shift + 8 < 32 else 0
+        yield x, bits, t & high, shift
+
+
+@pytest.mark.parametrize("rows,n", [(5, 784 * 64), (4, 1 << 24), (3, 1001)])
+def test_radix_hist_bit_equal_to_plain(cuda_device, rows, n):
+    """K1's histogram pass alone (``topk_radix_hist``) at each of the
+    walk's four digits under each row's decided prefix: bit-equal to
+    ``ref.radix_digit_hist``, one launch a call; the sharded walk it
+    drives gives K1's threshold."""
+    for x, bits, prefix, shift in _hist_cases(rows, n, cuda_device):
+        topk.LAUNCHES["topk_radix_hist"] = 0
+        got = topk.radix_hist(x, prefix, shift)
+        torch.cuda.synchronize()
+        assert topk.LAUNCHES["topk_radix_hist"] == 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got.long(), ref.radix_digit_hist(bits, prefix,
+                                                            shift))
+    k = max(1, n // 10)
+    one = topk.threshold_bits_sharded([x], [k], [n], lambda h: h)[0]
+    assert torch.equal(one, topk.threshold_bits(x, k))
+    # two halves of every row, their counts summed: the whole row's
+    halves = x.reshape(rows * 2, n // 2) if n % 2 == 0 else None
+    if halves is not None:
+        def summed(h):
+            s = h.reshape(rows, 2, -1).sum(1, keepdim=True)
+            return s.expand(rows, 2, 256).reshape(h.shape)
+        got = topk.threshold_bits_sharded([halves], [k], [n], summed)[0]
+        assert torch.equal(got.reshape(rows, 2)[:, 0], one)
+        assert torch.equal(got.reshape(rows, 2)[:, 1], one)
+
+
 @pytest.mark.parametrize("rows,n,k,cap", [
     (5, 50176, 15053, 15053), (5, 10, 3, 3), (3, 1000, 100, 300),
     (3, 4097, 1, 1), (2, 33, 33, 33), (2, 1, 1, 1), (2, 5000, 2000, 100),
@@ -561,12 +619,18 @@ def test_launch_counters_count_cuda_launches(cuda_device):
     quant.quantize_qr_with_uniforms(x, 4, torch.rand_like(x),
                                     quant.l2_norm(x))
     qr_pack.quantize_pack_with_uniforms(x, 4, torch.rand_like(x), norm)
+    # the model axis's entries: four histogram passes and K5; K3's sum of
+    # squares; the keyed K7
+    ops.topk_slots_sharded([x], [10], [10], [256], lambda h: h)
+    ops.sum_squares(x)
+    ops.quantize_pack_global_norm(x, 4, keys, norm)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "topk_threshold_bits": 1, "topk_mask": 0, "topk_threshold_mask": 2,
-        "l2_norm": 4, "quantize_qr": 2, "compact_slots": 1,
+        "topk_radix_hist": 4, "l2_norm": 4, "sum_squares": 1,
+        "quantize_qr": 2, "compact_slots": 2,
         "compact_code_slots": 1, "quantize_pack_with_uniforms": 1,
-        "quantize_pack_keyed": 1, "pack_codes": 2, "unpack_codes": 1,
+        "quantize_pack_keyed": 2, "pack_codes": 2, "unpack_codes": 1,
         "unpack_qr_values": 1, "rglru_scan": 0, "rglru_scan_bwd": 0,
         "wkv6_scan": 0, "wkv6_scan_bwd": 0, "flash_attention": 0}
 

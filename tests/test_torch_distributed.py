@@ -205,8 +205,9 @@ def _checks(rank, mesh4, data):
         assert tuple(full.shape) == (4,)
         assert dist.get_rank(full.get_group("clients")) == rank
         assert distributed.usable_shard_counts(S) == [1, 2, 4]
-        raises(lambda: mesh_mod.make_client_mesh(2, data=2, device="cpu"),
-               NotImplementedError, "not yet ported")
+        composed = mesh_mod.make_client_mesh(2, data=2, device="cpu")
+        assert composed.mesh_dim_names == ("clients", "data", "model")
+        assert tuple(composed.shape) == (2, 2, 1)
         raises(lambda: mesh_mod.make_production_mesh(),
                NotImplementedError, "not yet ported")
         raises(lambda: mesh_mod.make_client_mesh(5, device="cpu"),
@@ -436,20 +437,23 @@ def test_device_meter_sums_tensors_until_read():
 
 
 def test_the_model_axis_is_not_ported():
-    """A mesh composed with a model or data axis larger than 1, and
-    ``ModelShardCtx``, are the next slice: they raise before touching a
-    process group."""
+    """The model axis is ported (``ModelShardCtx``; over gloo ranks in
+    ``tests/test_torch_model_axis_ranks.py``): a mesh composed with a
+    model or data axis larger than 1 selects it, and the client axis is
+    validated before any process group is touched."""
     from repro_torch.core import distributed
 
     class Mesh:
         mesh_dim_names = ("clients", "data", "model")
         shape = (2, 1, 2)
 
-    with pytest.raises(NotImplementedError, match="ModelShardCtx"):
+        def get_group(self, axis):
+            raise LookupError(axis)      # no process group here
+
+    assert issubclass(distributed.ModelShardCtx, distributed.ShardCtx)
+    with pytest.raises(LookupError, match="clients"):
         distributed.client_ctx(Mesh(), S)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        distributed.ModelShardCtx()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(LookupError, match="clients"):
         distributed.shard_round(lambda st, k, ctx: (st, {}), Mesh(), S)
     Mesh.shape = (2, 1, 1)
     with pytest.raises(ValueError, match="divide"):

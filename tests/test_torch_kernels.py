@@ -369,8 +369,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     (ys.sum() + yw.sum()).backward()            # the two backward wrappers
     ops.mha_attention(r4, r4, r4, window=2, softcap=5.0)
     assert set(ops.launch_counts()) == {
-        "topk_threshold_bits", "topk_mask", "topk_threshold_mask", "l2_norm",
-        "quantize_qr",
+        "topk_threshold_bits", "topk_mask", "topk_threshold_mask",
+        "topk_radix_hist", "l2_norm", "sum_squares", "quantize_qr",
         "compact_slots", "compact_code_slots", "quantize_pack_with_uniforms",
         "quantize_pack_keyed", "pack_codes", "unpack_codes",
         "unpack_qr_values", "rglru_scan", "rglru_scan_bwd", "wkv6_scan",

@@ -359,7 +359,7 @@ def test_cpu_run_leaves_every_launch_counter_at_zero(setup):
                                                             "cpu")),
                            prng.PRNGKey(0), 1)
     counts = ops.launch_counts()
-    assert len(counts) == 17 and all(v == 0 for v in counts.values()), counts
+    assert len(counts) == 19 and all(v == 0 for v in counts.values()), counts
 
 
 def test_ef_state_layout(setup):

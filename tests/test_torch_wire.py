@@ -562,4 +562,4 @@ def test_packed_cpu_run_leaves_every_launch_counter_at_zero(setup):
         alg.run_rounds(alg.init(convert.params_from_jax(setup["p0"], "cpu")),
                        prng.PRNGKey(0), 2)
     counts = ops.launch_counts()
-    assert len(counts) == 17 and all(v == 0 for v in counts.values()), counts
+    assert len(counts) == 19 and all(v == 0 for v in counts.values()), counts
