@@ -174,18 +174,37 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    pass against its byte bound at the sharded embedding's slices; under
    NCCL at world size 1 the (1, 1, 1) mesh's FedAvg TopK(0.1) packed
    rounds equal ``make_client_mesh(1)``'s bit for bit; then 4 gloo ranks
-   spawned on the card run ``MODEL_MESH_PLAN``: FedAvg TopK(0.1) on the
-   meshes (1, 1, 2), (2, 1, 2) and (1, 1, 4), FedComLoc QuantQr(8) on
-   (1, 1, 2) and (1, 1, 4), FedComLoc TopK(0.1) with the packed TopK(0.1)
-   downlink on
-   (1, 1, 4), each against the flat mesh of as many clients ranks: bits exact (past a round with ties beyond k or a
+   spawned on the card (one spawn for 8c and 8d, before phase 1: they
+   import while the kernels build, then start up while both phases'
+   world-size-1 parts run) run ``MODEL_MESH_WAVES``: FedAvg TopK(0.1) on
+   the meshes (1, 1, 2), (2, 1, 2) and (1, 1, 4) and
+   FedComLoc QuantQr(8) with the packed QuantQr(8) downlink (the
+   shard-local broadcast) on (1, 1, 4), each against the flat mesh of as
+   many clients ranks: bits exact (past a round with ties beyond k or a
    shard's overflow, within rtol 1e-4), ``train_loss`` within rtol 2e-3,
    round 1's model apart only where the printed ties and overflows allow
    (the state bit-equal where there are none), each rank's buffers a
-   client ``per_device_payload_nbytes``, and K1's histogram pass, K3's
-   sum of squares, K5, the keyed K7 and K9's values entry launched on
-   every rank; FedAvg's steady rounds composed and flat in turns (the
-   ranks time-share one card);
+   client ``per_device_payload_nbytes`` (the broadcast's too, one a round
+   on every rank), and K1's histogram pass, K3's sum of squares, K5, the
+   keyed K7 and K9's values entry launched on every rank (in the Q_r run
+   once a leaf an encode, K9 once a leaf a shard a decode); FedAvg's
+   steady rounds composed and flat in turns (the ranks time-share one
+   card);
+8d. pod_round — ``launch/fed_train.py``'s pod round (one client a rank of
+   a ``("pod", "data", "model")`` mesh, the sync as collectives) on the
+   same qwen2-0.5b, 2 clients of ``POD_ROWS`` rows, ``POD_STEPS`` local
+   steps, ``POD_ROUNDS`` rounds, TopK(quantile, 0.1), Q_r(8) and the int8
+   sync at r = 7: under NCCL at world size 1 the (1, 1, 1) pod round
+   equals the stacked round of 1 client bit for bit; then the 4 gloo
+   ranks of 8c run the meshes (2, 1, 1) and (2, 2, 1), each held
+   to the stacked round of the 2 clients (``POD_LOSS_RTOL``, the state
+   within ``POD_STATE_ULPS``/``POD_MOVE_ULPS`` but ``POD_FLIP_SHARE`` of
+   the coordinates; Q_r's and int8's ``comm_bits`` exact and at their
+   closed forms, TopK's exact at data 1 and within ``POD_BITS_RTOL`` at
+   data 2), each rank's bytes a collective at their closed forms (the
+   dense all-reduce 4n, the int8 gather n + 4 a tensor), K3 and the keyed
+   K4 once a leaf a round on every rank in the Q_r run; TopK's pod round
+   and the stacked round in turns (ms a round), peak memory a rank;
 9. population — ``benchmarks/population_scale.py``'s configuration at
    ``POP_N`` = 10^6 clients, not cut: ``SyntheticFederatedData`` (2048,
    hetero 0.2, noise 0.01), a diurnal + churn availability trace with the
@@ -334,6 +353,7 @@ Prints the card's name and power limit, one line per kernel and shape, a
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -343,6 +363,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -367,19 +388,24 @@ MODEL_MESH_SEQ = 512
 MODEL_MESH_CLIENTS = 2
 MODEL_MESH_ROUNDS = 2
 MODEL_MESH_GAMMA = 0.01
-#: the composed meshes (clients, data, model) and their ranks, and the
-#: flat client meshes each is held to (same clients a rank), with theirs
+#: the composed meshes (clients, data, model) and their ranks
 MODEL_MESH_SHAPES = {(1, 1, 2): (0, 1), (2, 1, 2): (0, 1, 2, 3),
                      (1, 1, 4): (0, 1, 2, 3)}
-MODEL_MESH_FLAT = {(1,): (0,), (2,): (0, 2)}
-#: each run's composed meshes: FedAvg on all three, FedComLoc's Q_r at
-#: m = 2 and 4 on one clients rank, the packed downlink's one run at m = 4
-#: (a FedComLoc round gathers its dense control variates through the host:
-#: ~3.4 s of 5.9 at (2, 1, 2), so its runs keep to the flat (1,) mesh)
-MODEL_MESH_PLAN = {
-    "FedAvg TopK(0.1)": ((1, 1, 2), (2, 1, 2), (1, 1, 4)),
-    "FedComLoc QuantQr(8)": ((1, 1, 2), (1, 1, 4)),
-    "FedComLoc TopK(0.1), downlink TopK(0.1)": ((1, 1, 4),)}
+#: each run's flat client meshes and their ranks: a composed stage is held,
+#: on its flat mesh's first rank, to the flat run of as many clients ranks
+MM_FEDAVG = "FedAvg TopK(0.1)"
+MM_QR = "FedComLoc QuantQr(8), downlink QuantQr(8)"
+MODEL_MESH_FLAT = {MM_FEDAVG: {(1,): (1,), (2,): (0, 2)}, MM_QR: {(1,): (3,)}}
+#: the stages, in waves of stages on disjoint ranks (the flat runs at
+#: once): FedAvg on all three composed meshes, FedComLoc's Q_r, up and
+#: down (the packed downlink: the shard-local broadcast), at m = 4 on one
+#: clients rank (a FedComLoc round gathers its dense control variates
+#: through the host: ~3.4 s of 5.9 at (2, 1, 2), so its runs keep to the
+#: flat (1,) mesh)
+MODEL_MESH_WAVES = (
+    ((MM_FEDAVG, (1,)), (MM_FEDAVG, (2,)), (MM_QR, (1,))),
+    ((MM_FEDAVG, (1, 1, 2)),), ((MM_FEDAVG, (2, 1, 2)),),
+    ((MM_FEDAVG, (1, 1, 4)),), ((MM_QR, (1, 1, 4)),))
 MODEL_MESH_TIMED = ((2, 1, 2), (2,))  # the pair timed in turns
 MODEL_MESH_WORLD = 4
 MODEL_MESH_JOIN_S = 400.0
@@ -388,6 +414,37 @@ MODEL_MESH_BITS_RTOL = 1e-4   # ... and its bits, past a round with ties
 #: the kernels the shard-local wire launches, on every rank
 MODEL_MESH_KERNELS = ("topk_radix_hist", "sum_squares", "compact_slots",
                       "quantize_pack_keyed", "unpack_qr_values")
+#: the pod round (launch/fed_train.py with a ("pod", "data", "model")
+#: mesh): qwen2-0.5b at MODEL_MESH_LAYERS of 24 layers, float32, seeded
+#: init, a client's batch of POD_ROWS rows (so that data = 2 splits it)
+POD_ROWS = 2
+POD_ROUNDS = 2
+POD_STEPS = 2
+POD_RUNS = {"topk (quantile, 0.1)": dict(compressor="topk", density=0.1),
+            "quant r=8": dict(compressor="quant", quant_bits=8),
+            "quant r=7, int8 sync": dict(compressor="quant", quant_bits=7,
+                                         sync_mode="int8")}
+POD_MESHES = {(2, 1, 1): (0, 1), (2, 2, 1): (0, 1, 2, 3)}
+POD_TIMED = (2, 1, 1)         # timed in turns with the stacked round
+POD_JOIN_S = 400.0
+#: against the stacked round of the same 2 clients (PERF.md §6): the
+#: loss within rtol 1e-5 in round 1 (no sync yet) and 1e-3 after (a
+#: flipped Q_r level of a leaf normed at ~233 moves a weight by ~0.45); a
+#: coordinate of x agrees within 4 float32 steps of its leaf's largest
+#: magnitude plus 128 of the leaf's largest move from the init (the data
+#: axis sums each gradient over 512 tokens, not 1024: a sum's rounding
+#: grows with sqrt(1024) = 32 x its terms' cancellation, and a bias that
+#: starts at zero is all move), one of h within p / gamma x 2 x POD_ROUNDS
+#: times that (h sums, round by round, p / gamma times a difference of two
+#: iterates), and at most 1e-6 of the coordinates (flipped Q_r levels,
+#: TopK ties) may not; TopK's bits at (2, 2, 1) within rtol 1e-4.
+#: Without the move term (4 steps of max |x|) 286 coordinates of TopK's
+#: (2, 2, 1) passed the bound on an H100, by up to 6.6x
+POD_LOSS_RTOL = (1e-5, 1e-3)
+POD_STATE_ULPS = 4 * 2.0 ** -23
+POD_MOVE_ULPS = 128 * 2.0 ** -23
+POD_FLIP_SHARE = 1e-6
+POD_BITS_RTOL = 1e-4
 DOWNLINK_TARGET = 0.9         # benchmarks/downlink.py TARGET_ACC
 DOWNLINK_ARTIFACT = "benchmarks/artifacts/downlink.json"
 # locodl_double's downlink bits count the ties of TopK(0.1) on the mean of
@@ -2763,7 +2820,7 @@ def model_mesh_config(torch, reduced: bool = False):
 
 
 def model_mesh_runs(torch, cfg, seq: int, dev):
-    """``({label: (codec, make)}, seeded weights)``: the phase's three runs
+    """``({label: (codec, make)}, seeded weights)``: the phase's two runs
     on seeded tokens (two sequences a client, batch 1), the loss over
     stacked clients a per-client loop over ``transformer.loss``."""
     import numpy as np
@@ -2795,11 +2852,10 @@ def model_mesh_runs(torch, cfg, seq: int, dev):
     runs = {
         "FedAvg TopK(0.1)": ("topk", lambda: FedAvg(
             loss_fn, data, fed, TopK(0.1), wire="packed")),
-        "FedComLoc QuantQr(8)": ("qr", lambda: FedComLoc(
-            loss_fn, data, com, QuantQr(8), wire="packed")),
-        "FedComLoc TopK(0.1), downlink TopK(0.1)": ("topk", lambda: FedComLoc(
-            loss_fn, data, com, TopK(0.1), wire="packed", downlink="packed",
-            downlink_compressor=TopK(0.1))),
+        "FedComLoc QuantQr(8), downlink QuantQr(8)": (
+            "qr", lambda: FedComLoc(loss_fn, data, com, QuantQr(8),
+                                    wire="packed", downlink="packed",
+                                    downlink_compressor=QuantQr(8))),
     }
     gen = torch.Generator(device=dev).manual_seed(0)
     return runs, tfm.init_params(cfg, gen)
@@ -2812,7 +2868,8 @@ def _mm_state(state) -> list:
 
 
 def _mm_encode_stats(rec) -> dict:
-    """One shard-local encode: the whole support beyond k on its sharded
+    """One shard-local encode (the uplink's, or the broadcast's where
+    ``rec["downlink"]``): the whole support beyond k on its sharded
     leaves (ties), this rank's survivors past its caps (overflow), its
     buffers' bytes a client against ``per_device_payload_nbytes``, and
     whether m x (the shard-specific part) + (the part every rank ships
@@ -2844,6 +2901,8 @@ def _mm_encode_stats(rec) -> dict:
             own, alike = own + b, alike + side
     per_dev = wire.per_device_payload_nbytes(spec)
     return {"ties": ties, "overflow": overflow,
+            "downlink": rec.get("downlink", False),
+            "leaves": len(spec.shapes),
             "measured": rec["device_nbytes"], "per_device": per_dev,
             "nbytes": spec.nbytes,
             "conserved": (spec.model_shards * own + alike == spec.nbytes
@@ -2875,12 +2934,37 @@ def _mm_capture_error(ctx, err: dict, tree_util) -> None:
     ctx.gather_decoded_payload = gather_decoded_payload
 
 
+def _mm_mark_downlink(ctx) -> None:
+    """Wraps ``ctx``'s broadcast encode so that its record says so."""
+    encode = ctx.encode_broadcast
+
+    def encode_broadcast(comp, tree, key=None):
+        n0 = len(ctx.record or ())
+        out = encode(comp, tree, key)
+        for rec in (ctx.record or [])[n0:]:
+            rec["downlink"] = True
+        return out
+
+    ctx.encode_broadcast = encode_broadcast
+
+
+def _wait_for(path: str, parent: Optional[int]) -> None:
+    """Sleeps until ``path`` exists; exits once the process ``parent``
+    that spawned this one is gone (None: no such check)."""
+    while not os.path.exists(path):
+        if parent is not None and os.getppid() != parent:
+            sys.exit(1)
+        time.sleep(0.05)
+
+
 def _mm_rank(rank: int, world: int, tmp: str, device: str,
-             reduced: bool) -> None:
+             reduced: bool, parent: Optional[int] = None) -> None:
     """One gloo rank of the model_mesh phase, on ``device`` (every rank on
-    the one card): the runs of ``model_mesh_runs`` on the flat and the
-    composed meshes, stage by stage with a barrier between; writes what it
-    saw to ``tmp/rank<r>.pkl``."""
+    the one card): its first forward and backward, then (once ``tmp/go``
+    exists) the runs of ``model_mesh_runs`` on the flat and the composed
+    meshes, wave by wave of MODEL_MESH_WAVES with a barrier between (a
+    composed stage held to its flat run on that run's first rank); writes
+    what it saw to ``tmp/rank<r>.pkl``."""
     import pickle
 
     import numpy as np
@@ -2911,19 +2995,20 @@ def _mm_rank(rank: int, world: int, tmp: str, device: str,
 
     try:
         names3 = ("clients", "data", "model")
-        meshes = {shape: DeviceMesh("cpu", torch.tensor(ranks).view(shape),
-                                    mesh_dim_names=names3)
-                  for shape, ranks in MODEL_MESH_SHAPES.items()}
-        meshes.update({shape: DeviceMesh("cpu", torch.tensor(ranks).view(
-            shape), mesh_dim_names=("clients",))
-            for shape, ranks in MODEL_MESH_FLAT.items()})
-        owners = {**MODEL_MESH_SHAPES, **MODEL_MESH_FLAT}
+        meshes = {(None, shape): DeviceMesh(
+            "cpu", torch.tensor(ranks).view(shape), mesh_dim_names=names3)
+            for shape, ranks in MODEL_MESH_SHAPES.items()}
+        meshes.update({(label, shape): DeviceMesh(
+            "cpu", torch.tensor(ranks).view(shape),
+            mesh_dim_names=("clients",))
+            for label, flats in MODEL_MESH_FLAT.items()
+            for shape, ranks in flats.items()})
         cfg = model_mesh_config(torch, reduced)
         seq = 64 if reduced else MODEL_MESH_SEQ
         runs, params0 = model_mesh_runs(torch, cfg, seq, dev)
         # every rank's first forward and backward at once (a process's first
         # takes ~12 s on an H100, alone): one step of one client
-        warm = runs["FedAvg TopK(0.1)"][1]()
+        warm = runs[MM_FEDAVG][1]()
         t0 = time.time()
         engine.value_and_grad(warm.loss_fn, tree_util.map(
             lambda t: t.unsqueeze(0), params0), *warm.data.sample_batch(
@@ -2931,21 +3016,27 @@ def _mm_rank(rank: int, world: int, tmp: str, device: str,
                 torch.zeros(1, dtype=torch.int64), 1))
         sync()
         out["warm_s"] = time.time() - t0
+        out["t_warm"] = time.time()
         del warm
+        _wait_for(f"{tmp}/go", parent)      # the parent's NCCL part
         timed = {}              # FedAvg's flat and composed (2,) runs, kept
-        for label, (codec, make) in runs.items():
-            kept = {}               # rank 0: each flat run's round-1 x, state
-            plan = MODEL_MESH_PLAN[label]
-            flats = sorted({(shape[0],) for shape in plan})
-            for shape in (*flats, *plan):
-                dist.barrier()
-                if rank not in owners[shape]:
-                    continue
-                alg = make().use_mesh(meshes[shape])
-                ctx = alg._sharded.ctx
+        kept = {}   # each flat run's round-1 x and state, on its first rank
+        for wave in MODEL_MESH_WAVES:
+            dist.barrier()
+            for label, shape in wave:
                 composed = len(shape) == 3
+                ranks = (MODEL_MESH_SHAPES[shape] if composed
+                         else MODEL_MESH_FLAT[label][shape])
+                if rank not in ranks:
+                    continue
+                keeper = MODEL_MESH_FLAT[label][(shape[0],)][0]
+                codec, make = runs[label]
+                alg = make().use_mesh(meshes[(None if composed else label,
+                                              shape)])
+                ctx = alg._sharded.ctx
                 if composed:
                     ctx.record = []
+                    _mm_mark_downlink(ctx)
                 err = {}
                 if codec == "qr":
                     _mm_capture_error(ctx, err, tree_util)
@@ -2962,7 +3053,7 @@ def _mm_rank(rank: int, world: int, tmp: str, device: str,
                                 for rec in ctx.record[n0:]]
                                if composed else [])
                     rounds.append({"metrics": m, "encodes": encodes})
-                    if r == 0 and rank == 0:
+                    if r == 0 and rank == keeper:
                         x1 = [t.detach().to("cpu", copy=True)
                               for t in tree_util.leaves(state.x)]
                 sync()
@@ -2971,16 +3062,16 @@ def _mm_rank(rank: int, world: int, tmp: str, device: str,
                          "round1_error": err.get("err"),
                          "launches": {k: v for k, v in
                                       ops.launch_counts().items() if v}}
-                if rank == 0:
+                if rank == keeper:
                     # the final state is held bit for bit only by a TopK
                     # run (a Q_r run's sharded dither differs by design)
                     final = ([t.detach().to("cpu", copy=True)
                               for t in _mm_state(state)]
                              if codec == "topk" else [])
                     if not composed:
-                        kept[shape] = (x1, final)
+                        kept[(label, shape)] = (x1, final)
                     else:
-                        fx1, ffinal = kept[(shape[0],)]
+                        fx1, ffinal = kept[(label, (shape[0],))]
                         stage["round1_differ"] = int(sum(
                             int((a != b).sum()) for a, b in zip(x1, fx1)))
                         stage["state_equal"] = codec == "topk" and len(
@@ -2991,16 +3082,16 @@ def _mm_rank(rank: int, world: int, tmp: str, device: str,
                         stage["finite"] = all(bool(torch.isfinite(a).all())
                                               for a in _mm_state(state))
                 out["stages"].append(stage)
-                if rank == 0:
+                if rank == ranks[0]:
                     print(f"[model_mesh] {label} {shape}: {stage['s']:.1f} s "
-                          f"on rank 0", flush=True)
-                if label == "FedAvg TopK(0.1)" and shape in MODEL_MESH_TIMED:
+                          f"on rank {rank}", flush=True)
+                if label == MM_FEDAVG and shape in MODEL_MESH_TIMED:
                     ctx.record = None
                     timed[shape] = (alg, state, key)
                 del alg, state, ctx
                 if dev.type == "cuda":     # idle ranks hand the memory back
                     torch.cuda.empty_cache()
-            del kept
+        del kept
         # steady ms a round, composed and flat in turns (one round a turn,
         # each run past its two rounds above), FedAvg TopK
         times = {shape: [] for shape in MODEL_MESH_TIMED}
@@ -3020,39 +3111,11 @@ def _mm_rank(rank: int, world: int, tmp: str, device: str,
         out["times"] = {str(k): v for k, v in times.items()}
         if dev.type == "cuda":
             out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["t_end"] = time.time()
         with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     finally:
         dist.destroy_process_group()
-
-
-def _mm_spawn(torch, tmp: str, device: str, reduced: bool) -> dict:
-    """:func:`_mm_rank` on MODEL_MESH_WORLD spawned ranks, joined with a
-    timeout (a failing rank fails the phase); returns each rank's
-    results."""
-    import pickle
-
-    import torch.multiprocessing as mp
-    ctx = mp.start_processes(_mm_rank, args=(MODEL_MESH_WORLD, tmp, device,
-                                             reduced),
-                             nprocs=MODEL_MESH_WORLD, join=False,
-                             start_method="spawn")
-    deadline = time.monotonic() + MODEL_MESH_JOIN_S
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"model_mesh: the ranks did not finish "
-                                     f"in {MODEL_MESH_JOIN_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    out = {}
-    for r in range(MODEL_MESH_WORLD):
-        with open(f"{tmp}/rank{r}.pkl", "rb") as f:
-            out[r] = pickle.load(f)     # written by the ranks just above
-    return out
 
 
 def _mm_close(a, b, rtol) -> bool:
@@ -3075,8 +3138,10 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
     for (label, shape), by_rank in stages.items():
         if len(shape) != 3:
             continue
-        st0 = by_rank[0]
-        flat = stages[(label, (shape[0],))][0]
+        # held on the flat mesh's first rank, which ran both
+        keeper = MODEL_MESH_FLAT[label][(shape[0],)][0]
+        st0 = by_rank[keeper]
+        flat = stages[(label, (shape[0],))][keeper]
         m = shape[2]
         # ties on the whole support: counted on model rank 0 of each
         # clients rank; overflow on each rank's slice
@@ -3088,6 +3153,9 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
             over = sum(e["overflow"] for r in by_rank
                        for e in by_rank[r]["rounds"][i]["encodes"])
             per_round.append((ties, over))
+        # the packed downlink's run: one shard-local broadcast a round on
+        # every rank; the others none
+        n_down = 1 if "downlink" in label else 0
         for r, st in by_rank.items():
             for i, rnd in enumerate(st["rounds"]):
                 for e in rnd["encodes"]:
@@ -3097,6 +3165,23 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
                             f"{i}: buffer bytes {e['measured']} a client, "
                             f"per_device_payload_nbytes {e['per_device']}, "
                             f"conserved {e['conserved']}")
+                downs = sum(e["downlink"] for e in rnd["encodes"])
+                if downs != n_down:
+                    raise AssertionError(
+                        f"model_mesh {label} {shape} rank {r} round {i}: "
+                        f"{downs} shard-local broadcasts, not {n_down}")
+            encs = [e for rnd in st["rounds"] for e in rnd["encodes"]]
+            if on_card and st0["codec"] == "qr":
+                # K3's sum of squares and the keyed K7 once a leaf an
+                # encode, K9's values once a leaf a shard a decode
+                per = len(encs) * encs[0]["leaves"]
+                want = {"sum_squares": per, "quantize_pack_keyed": per,
+                        "unpack_qr_values": per * m}
+                got = {k: st["launches"].get(k, 0) for k in want}
+                if got != want:
+                    raise AssertionError(
+                        f"model_mesh {label} {shape} rank {r}: launches "
+                        f"{got} != {want} ({len(encs)} encodes)")
         exact = ("uplink_bits", "downlink_bits", "client_steps",
                  "num_local_steps", "client_uplink_bits")
         clean = True        # no tie or overflow in the rounds before this
@@ -3148,8 +3233,9 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
             raise AssertionError(f"model_mesh {label} {shape}: non-finite "
                                  f"state")
         if st0["codec"] == "qr":
-            # each leaf's round-1 decode error of rank 0's clients within
-            # 1.5x the flat run's (tests/test_big_model_mesh.py's qr bound)
+            # each leaf's round-1 decode error of the keeper's clients
+            # within 1.5x the flat run's (tests/test_big_model_mesh.py's qr
+            # bound)
             for j, (e, ef) in enumerate(zip(st0["round1_error"],
                                             flat["round1_error"])):
                 if not e <= 1.5 * ef + 1e-6:
@@ -3172,10 +3258,9 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
                 launches.setdefault(k, {})
                 launches[k][f"model_mesh {label} {shape}"] = \
                     launches[k].get(f"model_mesh {label} {shape}", 0) + c
-        nbytes = st0["rounds"][0]["encodes"][0]["nbytes"] \
-            if st0["rounds"][0]["encodes"] else None
-        per_dev = st0["rounds"][0]["encodes"][0]["per_device"] \
-            if st0["rounds"][0]["encodes"] else None
+        up = [e for e in st0["rounds"][0]["encodes"] if not e["downlink"]]
+        nbytes = up[0]["nbytes"] if up else None
+        per_dev = up[0]["per_device"] if up else None
         gaps = [abs(a["metrics"]["train_loss"] - b["metrics"]["train_loss"])
                 / abs(b["metrics"]["train_loss"])
                 for a, b in zip(st0["rounds"], flat["rounds"])]
@@ -3200,6 +3285,17 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
               f"; uplink_bits "
               f"{[rd['metrics']['uplink_bits'] for rd in st0['rounds']]!r}; "
               f"{st0['s']:.1f} s", flush=True)
+        down = [e for e in st0["rounds"][0]["encodes"] if e["downlink"]]
+        if down:
+            bits = [[rd["metrics"]["downlink_bits"] for rd in x["rounds"]]
+                    for x in (st0, flat)]
+            print(f"[model_mesh] {label} {shape}: the broadcast shard-local "
+                  f"over m = {m} (one encode a round on every rank): bytes "
+                  f"a rank {down[0]['measured']} (per_device_payload_nbytes "
+                  f"{down[0]['per_device']}) of the whole broadcast's "
+                  f"{down[0]['nbytes']}; downlink_bits {bits[0]!r} (flat "
+                  f"{bits[1]!r}); launches on rank 0, uplink and downlink "
+                  f"{st0['launches']}", flush=True)
     for r, res in results.items():
         seen = {}
         for st in res["stages"]:
@@ -3217,54 +3313,42 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
               f"ms/round in turns {res['times']}", flush=True)
 
 
-def model_mesh_phase(torch, dev, launches: dict, reduced: bool = False
-                     ) -> None:
-    """Phase 8c (``model_mesh``): the model axis (DESIGN.md §9) on the
-    card.  qwen2-0.5b at full width, MODEL_MESH_LAYERS of 24 layers,
-    float32, MODEL_MESH_CLIENTS clients, all of them a round, batch 1 at
-    seq MODEL_MESH_SEQ:
+def model_mesh_k1h(torch, dev, reduced: bool = False) -> None:
+    """Phase 8c's first part: every kernel library built (the spawned ranks
+    load them), then K1's histogram pass at the sharded embedding's slices
+    (m = 2) against its byte bound, before any rank starts."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import topk_compress as tk
 
-    * an NCCL group of world size 1: the composed (1, 1, 1) mesh and
-      ``make_client_mesh(1)`` give the same FedAvg TopK(0.1) packed rounds
-      bit for bit (state, metrics, launches);
-    * MODEL_MESH_WORLD gloo ranks spawned on the one card (a FileStore in
-      a temporary directory; every kernel library built here first), the
-      collectives through the host: FedAvg TopK(0.1), FedComLoc Q_r(8) and
-      FedComLoc TopK(0.1) with the packed TopK(0.1) downlink on the
-      composed meshes (1, 1, 2), (2, 1, 2), (1, 1, 4) against the same
-      runs on the flat meshes of as many clients ranks (held by
-      :func:`model_mesh_check`), then FedAvg's steady rounds in turns.
-      The ranks time-share one card: their ms are not a four-card mesh's.
-    """
-    import shutil
-    import tempfile
+    cfg = model_mesh_config(torch, reduced)
+    build.build_all()
+    n = cfg.vocab * cfg.d_model // 2
+    xe = torch.randn(MODEL_MESH_CLIENTS, n, device=dev)
+    pre = torch.zeros(MODEL_MESH_CLIENTS, dtype=torch.int64, device=dev)
+    ms = time_ms(torch, lambda: tk.radix_hist(xe, pre, 24), 20)
+    b_ms = 4.0 * xe.numel() / HBM_BYTES_PER_S * 1e3
+    print(f"[model_mesh] K1h topk_radix_hist at the embedding's shard "
+          f"({MODEL_MESH_CLIENTS}, {n}): {ms!r} ms against its byte bound "
+          f"{b_ms!r} ms (n x 4 B / 3.35 TB/s); card: {card_line()}",
+          flush=True)
 
+
+def model_mesh_world1(torch, dev, tmp: str, reduced: bool = False) -> None:
+    """Phase 8c's part in this process: under a group of world size 1
+    (NCCL on the card, a ``FileStore`` in ``tmp``) the composed (1, 1, 1)
+    mesh and ``make_client_mesh(1)`` give the same FedAvg TopK(0.1) packed
+    rounds bit for bit (state, metrics, launches)."""
     import numpy as np
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch import prng
-    from repro_torch.kernels import build, ops
-    from repro_torch.kernels import topk_compress as tk
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_client_mesh
 
     cfg = model_mesh_config(torch, reduced)
     seq = 64 if reduced else MODEL_MESH_SEQ
-    if dev.type == "cuda":
-        build.build_all()
-        # K1's histogram pass at the sharded embedding's slices (m = 2)
-        n = cfg.vocab * cfg.d_model // 2
-        xe = torch.randn(MODEL_MESH_CLIENTS, n, device=dev)
-        pre = torch.zeros(MODEL_MESH_CLIENTS, dtype=torch.int64, device=dev)
-        ms = time_ms(torch, lambda: tk.radix_hist(xe, pre, 24), 20)
-        b_ms = 4.0 * xe.numel() / HBM_BYTES_PER_S * 1e3
-        print(f"[model_mesh] K1h topk_radix_hist at the embedding's shard "
-              f"({MODEL_MESH_CLIENTS}, {n}): {ms!r} ms against its byte "
-              f"bound {b_ms!r} ms (n x 4 B / 3.35 TB/s); card: "
-              f"{card_line()}", flush=True)
-        del xe, pre
     runs, params0 = model_mesh_runs(torch, cfg, seq, dev)
-    tmp = tempfile.mkdtemp()
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", 1),
                             rank=0, world_size=1)
@@ -3302,17 +3386,567 @@ def model_mesh_phase(torch, dev, launches: dict, reduced: bool = False
     del runs, params0
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+
+def pod_round_spec(torch, reduced: bool = False):
+    """qwen2-0.5b's ``ArchSpec`` at ``model_mesh_config``'s width, depth
+    and dtype (``reduced``: the family's smoke-test size, for a dry run of
+    the phase on the CPU)."""
+    from repro_torch import configs
+    spec = configs.get_spec(MODEL_MESH_ARCH)
+    if reduced:
+        spec = configs.reduced(spec)
+    return dataclasses.replace(spec, model=model_mesh_config(torch, reduced))
+
+
+def pod_round_inputs(torch, spec, seq: int, dev):
+    """``(one client's seeded weights, the 2 clients' (2, POD_ROWS, seq)
+    tokens)``: uniform over the vocabulary, so that no token id repeats
+    often enough for the embedding gradient's atomics to reorder a sum."""
+    import numpy as np
+
+    from repro_torch.launch import steps
+    one = steps.init_params(spec, torch.Generator(device=dev).manual_seed(0))
+    toks = np.random.default_rng(0).integers(0, spec.model.vocab,
+                                             (2, POD_ROWS, seq))
+    return one, torch.from_numpy(toks).to(dev)
+
+
+def _pod_start(torch, tree_util, one, clients: int):
+    """``clients`` stacked copies of ``one`` and zero control variates."""
+    x = tree_util.map(lambda t: torch.stack([t] * clients), one)
+    return x, tree_util.map(torch.zeros_like, x)
+
+
+def _pod_rounds(prng, fn, x, h, batch, key, rounds: int = POD_ROUNDS):
+    """``rounds`` rounds of ``fn`` from ``key``: ``(x, h, [(loss,
+    comm_bits)], the next key)``."""
+    out = []
+    for _ in range(rounds):
+        key, sub = prng.split(key, 2)
+        x, h, loss, bits = fn(x, h, batch, sub)
+        out.append((float(loss), float(bits)))
+    return x, h, out, key
+
+
+def _pod_sums(torch, tree_util, tree) -> list:
+    """Each leaf's float32 bit patterns summed as integers: equal trees
+    give equal lists."""
+    return [int(t.view(torch.int32).sum(dtype=torch.int64))
+            for t in tree_util.leaves(tree)]
+
+
+def _pod_gaps(got: list, want: list, bounds: list) -> tuple:
+    """``(coordinates past their leaf's bound, coordinates, the largest gap
+    over its bound, that leaf's index)``."""
+    bad = total = 0
+    worst, at = 0.0, None
+    for i, (a, b, bound) in enumerate(zip(got, want, bounds)):
+        d = (a.to(b.device) - b).abs()
+        bad += int((d > bound).sum())
+        total += b.numel()
+        if float(d.max()) / bound > worst:
+            worst, at = float(d.max()) / bound, i
+    return bad, total, worst, at
+
+
+def _pr_rank(rank: int, world: int, tmp: str, device: str,
+             reduced: bool, parent: Optional[int] = None) -> None:
+    """One gloo rank of the pod_round phase on ``device`` (every rank on the
+    one card).  For each of POD_RUNS: rank 0 runs the one-card stacked
+    round of the 2 clients; then each mesh of POD_MESHES runs the pod
+    round, and rank 0 holds its own client's state and (sent over the
+    world group) pod 1's control variates against the stacked round's;
+    after TopK, pod and stacked rounds in turns.  Writes what it saw to
+    ``tmp/rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import prng
+    from repro_torch import tree as tree_util
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_train, steps
+    from repro_torch.launch.mesh import make_pod_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()    # this phase's peak alone
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{tmp}/ranks",
+                                                         world),
+                            rank=rank, world_size=world)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def counts():
+        return {k: v for k, v in ops.launch_counts().items() if v}
+
+    out = {"runs": {}, "times": {}}
+    try:
+        meshes = {shape: make_pod_mesh(shape[0], data=shape[1], device="cpu")
+                  for shape in POD_MESHES}
+        spec = pod_round_spec(torch, reduced)
+        seq = 64 if reduced else MODEL_MESH_SEQ
+        one, toks = pod_round_inputs(torch, spec, seq, dev)
+        out["paths"] = ["/".join(map(str, p)) for p, _ in
+                        tree_util.leaves_with_paths(one)]
+        shape2 = InputShape("pod_round", seq, 2 * POD_ROWS, "train")
+        # every rank's first forward and backward at once, one client's
+        t0 = time.time()
+        live = [t.detach().requires_grad_() for t in tree_util.leaves(one)]
+        torch.autograd.grad(steps.loss_fn(spec, fed_train.LOSS_CHUNK)(
+            tree_util.unflatten(one, live), {"tokens": toks[0]}), live)
+        sync()
+        out["warm_s"] = time.time() - t0
+        del live
+        _wait_for(f"{tmp}/go", parent)      # the parent's NCCL part
+        for i, (label, kw) in enumerate(POD_RUNS.items()):
+            fed = fed_train.FedTrainConfig(local_steps=POD_STEPS, **kw)
+            ref = None
+            if rank == 0:
+                stacked = fed_train.build_fed_round(spec, shape2, fed)
+                x, h = _pod_start(torch, tree_util, one, 2)
+                sync()
+                ops.reset_launch_counts()
+                t0 = time.time()
+                x, h, outs, key = _pod_rounds(prng, stacked.fn, x, h,
+                                              {"tokens": toks},
+                                              prng.PRNGKey(1))
+                sync()
+                ref = {"x": x, "h": h, "key": key}
+                out["runs"][(label, "stacked")] = {
+                    "outs": outs, "s": time.time() - t0,
+                    "launches": counts()}
+            kept = {}
+            for shape, owners in POD_MESHES.items():
+                dist.barrier()
+                head = owners[shape[1]]         # pod 1's first rank
+                if rank in owners:
+                    bundle = fed_train.build_fed_round(spec, shape2, fed,
+                                                       meshes[shape])
+                    ctx = bundle.fn.ctx
+                    ctx.record = []
+                    x, h = _pod_start(torch, tree_util, one, 1)
+                    batch = ctx.local_batch({"tokens": toks})
+                    sync()
+                    ops.reset_launch_counts()
+                    t0 = time.time()
+                    x, h, outs, key = _pod_rounds(prng, bundle.fn, x, h,
+                                                  batch, prng.PRNGKey(1))
+                    sync()
+                    leaves = tree_util.leaves(x)
+                    run = {"outs": outs, "s": time.time() - t0,
+                           "record": ctx.record, "launches": counts(),
+                           "n": sum(t[0].numel() for t in leaves),
+                           "leaves": len(leaves),
+                           "x_sums": _pod_sums(torch, tree_util, x),
+                           "h_sums": _pod_sums(torch, tree_util, h),
+                           "finite": all(bool(torch.isfinite(t).all())
+                                         for t in tree_util.leaves((x, h)))}
+                    ctx.record = None
+                    # pod 1's control variates, through page-locked memory
+                    pin = dev.type == "cuda"
+                    if rank == head:
+                        src = torch.cat([t.reshape(-1) for t in
+                                         tree_util.leaves(h)])
+                        dist.send(torch.empty(src.shape, dtype=src.dtype,
+                                              pin_memory=pin).copy_(src), 0)
+                        del src
+                    if rank == 0:
+                        flat = torch.empty(run["n"], dtype=torch.float32,
+                                           pin_memory=pin)
+                        dist.recv(flat, head)
+                        h1 = [p.view(t.shape[1:]) for p, t in zip(
+                            flat.split([t[0].numel() for t in leaves]),
+                            tree_util.leaves(h))]
+                        xb = [POD_STATE_ULPS * float(t.abs().max())
+                              + POD_MOVE_ULPS * float((t[0] - t0).abs().max())
+                              or 1.0 for t, t0 in zip(
+                                  tree_util.leaves(ref["x"]),
+                                  tree_util.leaves(one))]
+                        hb = [fed.p / fed.gamma * 2 * POD_ROUNDS * b
+                              for b in xb]
+                        run["x_gap"] = _pod_gaps(
+                            [t[0] for t in leaves],
+                            [t[0] for t in tree_util.leaves(ref["x"])], xb)
+                        run["h_gap"] = _pod_gaps(
+                            [t[0] for t in tree_util.leaves(h)] + h1,
+                            [t[0] for t in tree_util.leaves(ref["h"])]
+                            + [t[1] for t in tree_util.leaves(ref["h"])],
+                            hb + hb)
+                        del flat, h1
+                    out["runs"][(label, shape)] = run
+                    if i == 0 and shape == POD_TIMED:
+                        kept[shape] = (bundle, x, h, batch, key)
+                    del bundle, x, h, leaves
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            if i == 0:
+                # steady ms a round: the pod round and the stacked round
+                # in turns, one round a turn, every rank at a barrier
+                turns = (POD_TIMED, "stacked", "stacked", POD_TIMED)
+                times = {str(t): [] for t in turns}
+                for turn in turns:
+                    sync()
+                    dist.barrier()
+                    t0 = time.time()
+                    if turn in kept:
+                        bundle, x, h, batch, key = kept[turn]
+                        x, h, _, key = _pod_rounds(prng, bundle.fn, x, h,
+                                                   batch, key, 1)
+                        kept[turn] = (bundle, x, h, batch, key)
+                    elif turn == "stacked" and ref is not None:
+                        ref["x"], ref["h"], _, ref["key"] = _pod_rounds(
+                            prng, stacked.fn, ref["x"], ref["h"],
+                            {"tokens": toks}, ref["key"], 1)
+                    sync()
+                    dist.barrier()
+                    times[str(turn)].append((time.time() - t0) * 1e3)
+                out["times"] = times
+            del ref, kept
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _pod_record(kw: dict, shape: tuple, n: int, leaves: int) -> list:
+    """A rank's collectives of POD_ROUNDS rounds, ``(axis, op, bytes)``:
+    the data axis's mean loss and gradient a local step, the losses'
+    gather, the dense all-reduce 4n or the int8 gather n + 4 leaves, the
+    reports' gather."""
+    rnd = [("data", "all_reduce", 4 * (1 + n))] * POD_STEPS \
+        if shape[1] > 1 else []
+    rnd.append(("pod", "all_gather", 4 * POD_STEPS))
+    rnd.append(("pod", "all_gather", n + 4 * leaves)
+               if kw.get("sync_mode") == "int8"
+               else ("pod", "all_reduce", 4 * n))
+    rnd.append(("pod", "all_gather", 12))
+    return rnd * POD_ROUNDS
+
+
+def _pod_closed_bits(kw: dict, n: int, leaves: int):
+    """The 2 clients' bits a round where they have a closed form."""
+    if kw.get("sync_mode") == "int8":
+        return 2 * (8 * n + 32 * leaves)
+    if kw["compressor"] == "quant":
+        return 2 * ((1 + kw["quant_bits"]) * n + 32 * leaves)
+    return None
+
+
+def pod_round_check(results: dict, launches: dict) -> None:
+    """Hold the ranks' results (:func:`_pr_rank`) to the phase's contract
+    and print them; adds the pod runs' launches to ``launches``."""
+    on_card = any("peak_bytes" in res for res in results.values())
+    paths = results[0]["paths"]
+    for label, kw in POD_RUNS.items():
+        ref = results[0]["runs"][(label, "stacked")]
+        for shape, owners in POD_MESHES.items():
+            by_rank = {r: results[r]["runs"][(label, shape)] for r in owners}
+            run0 = by_rank[0]
+            n, leaves = run0["n"], run0["leaves"]
+            where = f"pod_round {label} {shape}"
+            for r, run in by_rank.items():
+                idx = owners.index(r)
+                pod_head = by_rank[owners[idx - idx % shape[1]]]
+                if run["outs"] != run0["outs"]:
+                    raise AssertionError(f"{where}: rank {r}'s loss and bits "
+                                         f"{run['outs']} != rank 0's")
+                if run["x_sums"] != run0["x_sums"] or \
+                        run["h_sums"] != pod_head["h_sums"]:
+                    raise AssertionError(f"{where}: rank {r}'s state differs "
+                                         f"from its pod's first rank's")
+                if not run["finite"]:
+                    raise AssertionError(f"{where}: rank {r}: non-finite "
+                                         f"state")
+                want = _pod_record(kw, shape, n, leaves)
+                if run["record"] != want:
+                    raise AssertionError(f"{where}: rank {r}'s collectives "
+                                         f"{run['record']} != {want}")
+                k3, k4 = (run["launches"].get("l2_norm", 0),
+                          run["launches"].get("quantize_qr", 0))
+                if on_card and kw == POD_RUNS["quant r=8"] and not (
+                        k3 == k4 == POD_ROUNDS * leaves):
+                    raise AssertionError(
+                        f"{where}: rank {r} launched K3 {k3} and K4 {k4} "
+                        f"times, not one each a leaf a round "
+                        f"({POD_ROUNDS} x {leaves})")
+                for k, c in run["launches"].items():
+                    launches.setdefault(k, {})
+                    launches[k][where] = launches[k].get(where, 0) + c
+            closed = _pod_closed_bits(kw, n, leaves)
+            gaps = []
+            for i, ((tl, tb), (sl, sb)) in enumerate(zip(run0["outs"],
+                                                         ref["outs"])):
+                rtol = POD_LOSS_RTOL[min(i, 1)]
+                gap = abs(tl - sl) / abs(sl)
+                gaps.append(gap)
+                if not gap <= rtol:
+                    raise AssertionError(f"{where} round {i + 1}: loss {tl!r} "
+                                         f"vs stacked {sl!r}: {gap!r} > "
+                                         f"{rtol}")
+                # TopK at data > 1: the gradient sums in another order and
+                # may move a quantile tie
+                rtol_bits = 0.0 if closed is not None or shape[1] == 1 \
+                    else POD_BITS_RTOL
+                if not abs(tb - sb) <= rtol_bits * sb:
+                    raise AssertionError(f"{where} round {i + 1}: comm_bits "
+                                         f"{tb!r} vs stacked {sb!r}")
+                if closed is not None and not abs(tb - closed) <= (
+                        leaves + 3) * FED_BITS_ULPS * closed:
+                    raise AssertionError(f"{where}: comm_bits {tb!r} against "
+                                         f"the closed form {closed}")
+            for part in ("x_gap", "h_gap"):
+                bad, total, worst, _ = run0[part]
+                if bad > POD_FLIP_SHARE * total:
+                    raise AssertionError(
+                        f"{where}: {bad} of {total} {part[0]} coordinates "
+                        f"past their bound (at most "
+                        f"{POD_FLIP_SHARE * total:.0f}); worst gap "
+                        f"{worst!r} x its bound")
+            per_round = run0["record"][:len(run0["record"]) // POD_ROUNDS]
+            print(f"[pod_round] {label} {shape} vs the stacked round of 2 "
+                  f"clients: loss {[t for t, _ in run0['outs']]!r} vs "
+                  f"{[s for s, _ in ref['outs']]!r}, relative gaps "
+                  f"{gaps!r} (bounds {POD_LOSS_RTOL}); comm_bits "
+                  f"{[b for _, b in run0['outs']]!r} vs "
+                  f"{[b for _, b in ref['outs']]!r}"
+                  + (f" (closed form {closed})" if closed else "")
+                  + f"; coordinates past their bound (x: 2^-23 x (4 max |x| "
+                  f"+ 128 max |x - x0|) of the leaf; h: p / gamma x 2 x "
+                  f"{POD_ROUNDS} times that) x {run0['x_gap'][0]} of "
+                  f"{run0['x_gap'][1]}, h {run0['h_gap'][0]} of "
+                  f"{run0['h_gap'][1]} (at most {POD_FLIP_SHARE:g} of them), "
+                  f"the largest gap x {run0['x_gap'][2]!r} (leaf "
+                  f"{paths[run0['x_gap'][3] or 0]}) and h "
+                  f"{run0['h_gap'][2]!r} (leaf "
+                  f"{paths[(run0['h_gap'][3] or 0) % len(paths)]}) times "
+                  f"its bound; (axis, collective, bytes) a rank a round "
+                  f"{per_round} ({n} parameters in {leaves} "
+                  f"tensors: 4n = {4 * n}, n + 4 leaves = {n + 4 * leaves}); "
+                  f"launches on rank 0 {run0['launches']}; "
+                  f"{POD_ROUNDS} rounds {run0['s']:.1f} s on rank 0 "
+                  f"(stacked {ref['s']:.1f} s)", flush=True)
+    for r, res in results.items():
+        print(f"[pod_round] rank {r}: peak device bytes "
+              f"{res.get('peak_bytes')}; first forward and backward "
+              f"{res['warm_s']:.1f} s; steady ms/round in turns (TopK) "
+              f"{res['times']}", flush=True)
+
+
+def pod_round_world1(torch, dev, tmp: str, launches: dict,
+                     reduced: bool = False) -> None:
+    """Phase 8d's part in this process: under a group of world size 1 (NCCL
+    on the card, a ``FileStore`` in ``tmp``) the (1, 1, 1) pod round
+    equals the one-card stacked round of 1 client bit for bit (params, h,
+    loss, comm_bits, launches), for each of POD_RUNS."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch import prng
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fed_train
+    from repro_torch.launch.mesh import make_pod_mesh
+
+    spec = pod_round_spec(torch, reduced)
+    seq = 64 if reduced else MODEL_MESH_SEQ
+    one, toks = pod_round_inputs(torch, spec, seq, dev)
+    shape1 = InputShape("pod_round", seq, POD_ROWS, "train")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(
+        f"{tmp}/store", 1), rank=0, world_size=1)
+    try:
+        mesh = make_pod_mesh(1, device=dev.type)
+        for label, kw in POD_RUNS.items():
+            fed = fed_train.FedTrainConfig(local_steps=POD_STEPS, **kw)
+            got = {}
+            for name, m in (("pod", mesh), ("stacked", None)):
+                bundle = fed_train.build_fed_round(spec, shape1, fed, m)
+                x, h = _pod_start(torch, tree_util, one, 1)
+                batch = {"tokens": toks[:1]}
+                if m is not None:
+                    batch = bundle.fn.ctx.local_batch(batch)
+                (x, h, outs, _), c = counted(
+                    torch, ops, lambda: _pod_rounds(
+                        prng, bundle.fn, x, h, batch, prng.PRNGKey(1)))
+                got[name] = (x, h, outs, c)
+            (px, ph, po, pc), (sx, sh, so, sc) = got["pod"], got["stacked"]
+            same = po == so and pc == sc and all(
+                torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(tree_util.leaves((px, ph)),
+                                tree_util.leaves((sx, sh))))
+            if not same:
+                raise AssertionError(
+                    f"pod_round {backend} (1, 1, 1) {label}: not bit-equal "
+                    f"to the stacked round of 1 client ({po} vs {so}, "
+                    f"launches {pc} vs {sc})")
+            for k, c in pc.items():
+                launches.setdefault(k, {})[
+                    f"pod_round (1, 1, 1) {label}"] = c
+            print(f"[pod_round] {backend} world size 1: the (1, 1, 1) pod "
+                  f"round's {POD_ROUNDS} rounds of {label} bit-equal to the "
+                  f"stacked round of 1 client (params, h, loss and "
+                  f"comm_bits {po!r}, launches {pc})", flush=True)
+            del got, px, ph, sx, sh, x, h
+    finally:
+        dist.destroy_process_group()
+    del one, toks
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _mesh_rank(rank: int, world: int, tmp: str, device: str,
+               reduced: bool, parent: int) -> None:
+    """One spawned rank of phases 8c and 8d.  First, with no CUDA context,
+    the imports that a process's first checkpointed forward makes
+    (``torch._dynamo``: most of a rank's first forward and backward
+    otherwise, PERF.md); then, once ``tmp/start``
+    exists, :func:`_mm_rank` in ``tmp/mm`` and :func:`_pr_rank` in
+    ``tmp/pr``, each in a gloo group of its own.  Exits if ``parent`` is
+    gone."""
     # four replicas and their round's stacks share the card: segments that
     # grow in place keep the ranks' caches from fragmenting it
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core.engine  # noqa: F401
+    import repro_torch.launch.fed_train  # noqa: F401
+    checkpoint(torch.neg, torch.ones(1, requires_grad=True),
+               use_reentrant=False)
+    _wait_for(f"{tmp}/start", parent)
+    _mm_rank(rank, world, f"{tmp}/mm", device, reduced, parent)
+    _pr_rank(rank, world, f"{tmp}/pr", device, reduced, parent)
+
+
+def mesh_spawn(device: str, reduced: bool = False) -> tuple:
+    """Spawns the MODEL_MESH_WORLD ranks of phases 8c and 8d
+    (:func:`_mesh_rank`, daemons) with a new temporary directory: ``(their
+    context, the directory)``.  Spawned before the first phase, they take
+    their imports while the kernels build, and wait with no CUDA context
+    until :func:`mesh_phases`; :func:`mesh_stop` ends them."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp()
+    for part in ("mm", "pr"):
+        os.mkdir(f"{tmp}/{part}")
+    ctx = mp.start_processes(_mesh_rank, args=(MODEL_MESH_WORLD, tmp, device,
+                                               reduced, os.getpid()),
+                             nprocs=MODEL_MESH_WORLD, join=False, daemon=True,
+                             start_method="spawn")
+    return ctx, tmp
+
+
+def mesh_stop(ranks: tuple) -> None:
+    """Kills whichever ranks of :func:`mesh_spawn` still run and removes
+    their directory."""
+    import shutil
+
+    ctx, tmp = ranks
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mesh_join(ctx, tmp: str) -> dict:
+    """The ranks of :func:`_mesh_rank`, joined with a timeout (a failing
+    rank fails the phases): ``{"mm": {rank: results}, "pr": {...}}``."""
+    import pickle
+    deadline = time.monotonic() + MODEL_MESH_JOIN_S + POD_JOIN_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"model_mesh and pod_round: the ranks did "
+                                 f"not finish in "
+                                 f"{MODEL_MESH_JOIN_S + POD_JOIN_S} s")
+    out = {}
+    for part in ("mm", "pr"):
+        out[part] = {}
+        for r in range(MODEL_MESH_WORLD):
+            with open(f"{tmp}/{part}/rank{r}.pkl", "rb") as f:
+                out[part][r] = pickle.load(f)   # written by the ranks
+    return out
+
+
+def mesh_phases(torch, dev, launches: dict, ranks: Optional[tuple] = None,
+                reduced: bool = False) -> None:
+    """Phases 8c (``model_mesh``) and 8d (``pod_round``) on the
+    MODEL_MESH_WORLD gloo ranks of :func:`mesh_spawn` (``ranks``; None:
+    spawned here), on the card (a ``FileStore`` in their directory; the
+    collectives go through the host, not NVLink; the ranks time-share one
+    card, so their ms are not a four-card mesh's).  Here K1's histogram
+    pass is timed first; then the ranks take a CUDA context and their
+    first forward and backward while this process runs both phases'
+    world-size-1 parts (:func:`model_mesh_world1`,
+    :func:`pod_round_world1`).  Then the ranks run model_mesh's stages:
+
+    * FedAvg TopK(0.1) and FedComLoc Q_r(8) with the packed Q_r(8)
+      downlink on the composed meshes of MODEL_MESH_WAVES against the same
+      runs on the flat meshes of as many clients ranks (held by
+      :func:`model_mesh_check`), then FedAvg's steady rounds in turns;
+
+    and pod_round's, ``launch/fed_train.py``'s pod round (one client a
+    rank of a ``("pod", "data", "model")`` mesh, the sync as collectives)
+    with qwen2-0.5b at full width, MODEL_MESH_LAYERS of 24 layers,
+    float32, seeded init, seq MODEL_MESH_SEQ, POD_STEPS local steps,
+    POD_ROUNDS rounds, TopK(quantile, 0.1), Q_r(8) and the int8 sync at
+    r = 7:
+
+    * meshes (2, 1, 1) and (2, 2, 1), each held by :func:`pod_round_check`
+      against the stacked round of the same 2 clients on rank 0, then
+      TopK's pod round at POD_TIMED and the stacked round in turns.
+    """
+    t0 = time.time()
+    if ranks is None:
+        ranks = mesh_spawn(dev.type, reduced)
+    ctx, tmp = ranks
     try:
-        results = _mm_spawn(torch, tmp, dev.type, reduced)
+        if dev.type == "cuda":
+            model_mesh_k1h(torch, dev, reduced)
+        open(f"{tmp}/start", "w").close()
+        model_mesh_world1(torch, dev, f"{tmp}/mm", reduced)
+        pod_round_world1(torch, dev, f"{tmp}/pr", launches, reduced)
+        t_go = time.time()
+        for part in ("mm", "pr"):
+            open(f"{tmp}/{part}/go", "w").close()
+        results = _mesh_join(ctx, tmp)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    model_mesh_check(torch, results, launches)
+        mesh_stop(ranks)
+    mm, pr = results["mm"], results["pr"]
+    t_mm = max(r["t_end"] for r in mm.values())
+    print(f"[model_mesh] this process (K1h, both world-size-1 parts): "
+          f"{t_go - t0:.1f} s, the ranks starting meanwhile; the ranks' "
+          f"model_mesh stages {t_mm - t_go:.1f} s (the last rank ready "
+          f"{max(r['t_warm'] for r in mm.values()) - t_go:+.1f} s from "
+          f"their start), pod_round meshes {time.time() - t_mm:.1f} s",
+          flush=True)
+    model_mesh_check(torch, mm, launches)
     print(f"[model_mesh] {MODEL_MESH_WORLD} gloo ranks time-share one card: "
           f"their ms are not a {MODEL_MESH_WORLD}-card mesh's; card: "
           f"{card_line()}", flush=True)
+    pod_round_check(pr, launches)
+    print(f"[pod_round] {MODEL_MESH_WORLD} gloo ranks time-share one card "
+          f"and move their collectives through the host, not over NVLink; "
+          f"card: {card_line()}", flush=True)
 
 
 def population_phase(torch, dev, launches: dict) -> None:
@@ -4130,6 +4764,9 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
     card = card_line()
     print(f"card: {card}", flush=True)
+    # the ranks of phases 8c and 8d import while the kernels build
+    mesh_ranks = mesh_spawn(dev.type)
+    atexit.register(mesh_stop, mesh_ranks)
 
     # ---- 1. build ---------------------------------------------------------- #
     t0 = time.time()
@@ -5296,8 +5933,8 @@ def main() -> int:
     lap("downlink, het_system and scope")
     client_mesh_phase(torch, dev, mnist, launches)
     lap("client_mesh")
-    model_mesh_phase(torch, dev, launches)
-    lap("model_mesh")
+    mesh_phases(torch, dev, launches, mesh_ranks)
+    lap("model_mesh and pod_round")
     del mnist, data
     torch.cuda.empty_cache()
 

@@ -6,9 +6,11 @@ Mirrors the JAX package's module layout (``core``, ``compress``,
 numpy only.  The model zoo serves (prefill, decode) and trains (the
 chunked loss, its gradient through the scans' backward kernels, the
 optimizers, ``launch/train.py`` and the one-card FedComLoc round of
-``launch/fed_train.py``).  Federated rounds split their sampled clients
-over the ranks of a ``torch.distributed`` group (``core/distributed.py``,
-``launch/mesh.py``); the model axis and the dry run are not ported yet.
+``launch/fed_train.py``, on one card or one client a rank of a ``("pod",
+"data", "model")`` mesh).  Federated rounds split their sampled clients
+over the ranks of a ``torch.distributed`` group and run the wire
+shard-local over a model axis (``core/distributed.py``,
+``launch/mesh.py``); the dry run is not ported yet.
 Entry points take an explicit ``device`` (default ``"cuda"``); the kernels
 on the path are hand-written CUDA for Hopper (``kernels/csrc``), and a
 CPU tensor runs their plain PyTorch versions.
@@ -16,7 +18,7 @@ CPU tensor runs their plain PyTorch versions.
 
 
 def not_ported(what: str) -> NotImplementedError:
-    """The error every option outside the ported slice raises (the
-    composed clients x model mesh, the dry run's meshes,
+    """The error every option outside the ported slice raises (the pod
+    round's model axis, the dry run's meshes,
     ``prng.choice(replace=True)``)."""
     return NotImplementedError(f"{what} not yet ported; see ROADMAP Queue A")

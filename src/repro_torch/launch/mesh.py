@@ -26,6 +26,24 @@ def _require_group(what: str) -> None:
             f"<port>' or store=FileStore(...), world_size=..., rank=...)")
 
 
+def _outer_size(what: str, name: str, outer: int | None, data: int,
+                model: int) -> int:
+    """The outermost axis's size of a ``(outer, data, model)`` mesh over
+    ranks ``0 ..``, checked against the world size (by default ``world
+    size // (data x model)``)."""
+    _require_group(what)
+    world = dist.get_world_size()
+    if data < 1 or model < 1:
+        raise ValueError(f"data and model must be >= 1, got data={data}, "
+                         f"model={model}")
+    if outer is None:
+        outer = max(1, world // (data * model))
+    if not 1 <= outer * data * model <= world:
+        raise ValueError(f"{name} x data x model must be in [1, world size "
+                         f"{world}], got {outer} x {data} x {model}")
+    return outer
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     """The reference's TPU production mesh (16 x 16 a pod) belongs to the
     dry run, which is not ported."""
@@ -57,16 +75,8 @@ def make_client_mesh(n_shards: int | None = None, *, data: int = 1,
     model axis divides its sharded dimensions
     (:func:`repro_torch.core.distributed.validate_model_axis`).
     """
-    _require_group("make_client_mesh")
-    world = dist.get_world_size()
-    if data < 1 or model < 1:
-        raise ValueError(f"data and model must be >= 1, got data={data}, "
-                         f"model={model}")
-    if n_shards is None:
-        n_shards = max(1, world // (data * model))
-    if not 1 <= n_shards * data * model <= world:
-        raise ValueError(f"n_shards x data x model must be in [1, world size "
-                         f"{world}], got {n_shards} x {data} x {model}")
+    n_shards = _outer_size("make_client_mesh", "n_shards", n_shards, data,
+                           model)
     if data == 1 and model == 1:
         return init_device_mesh(device, (n_shards,),
                                 mesh_dim_names=("clients",))
@@ -76,3 +86,16 @@ def make_client_mesh(n_shards: int | None = None, *, data: int = 1,
         from repro_torch.core.distributed import validate_model_axis
         validate_model_axis(mesh, config)
     return mesh
+
+
+def make_pod_mesh(pods: int | None = None, *, data: int = 1, model: int = 1,
+                  device: str = "cuda") -> DeviceMesh:
+    """The ``("pod", "data", "model")`` mesh of ``pods x data x model``
+    ranks whose pods are the federated clients of
+    ``launch/fed_train.py``'s pod round (DESIGN.md §2), pods outermost and
+    row-major over ranks ``0 ..`` of its size.  ``pods`` defaults to
+    ``world size // (data x model)``.  Every rank calls this (a new group
+    is collective), and a rank outside the mesh cannot use it."""
+    pods = _outer_size("make_pod_mesh", "pods", pods, data, model)
+    return init_device_mesh(device, (pods, data, model),
+                            mesh_dim_names=("pod", "data", "model"))
