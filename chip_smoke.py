@@ -14,9 +14,10 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    ``UTMALDG`` (TMA load) instructions in its SASS, both of which must be
    there;
 2. kernels — holds each kernel (K1 TopK threshold, K1h K1's histogram
-   pass alone, K2 TopK mask, K3 l2 norm and its sum-of-squares entry, K4
-   Q_r rounding, K5 slot compaction, K6 coded slot compaction, K7 fused
-   Q_r pack, K8 code pack, K9 code unpack) against its plain PyTorch
+   pass alone, on one leaf and grouped over many, K2 TopK mask, K3 l2
+   norm and its sum-of-squares entry, K4 Q_r rounding, K5 slot
+   compaction, K6 coded slot compaction, K7 fused Q_r pack, K8 code pack,
+   K9 code unpack) against its plain PyTorch
    version on the card, at the main path's shapes, edge cases and one
    large shape: all bit-equal except K3, which must be within
    ``NORM_RTOL`` (its sum of squares' root bit-equal to it); K9 must invert K8 (K8 on b = 1..32, codes with bits
@@ -170,8 +171,13 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (state, every metric, the meter) with the same launches by kernel;
    steady ms a round, sharded and unsharded in turns;
 8c. model_mesh — the model axis (DESIGN.md §9) at qwen2-0.5b's published
-   width, ``MODEL_MESH_LAYERS`` of its 24 layers, float32: K1's histogram
-   pass against its byte bound at the sharded embedding's slices; under
+   width, ``MODEL_MESH_LAYERS`` of its 24 layers, float32: K1h (K1's
+   histogram pass, grouped) at the encode's real leaf set of sharded
+   slices (m = 2 and 4): one grouped digit and the encode's threshold
+   stage (identity reduce) in turns against the per-leaf route (K1h a
+   leaf, ``torch.cat``, the walk in torch operations), both against the
+   slices' byte bound, with the stage's device operations; and one digit
+   at the sharded embedding's slice alone; under
    NCCL at world size 1 the (1, 1, 1) mesh's FedAvg TopK(0.1) packed
    rounds equal ``make_client_mesh(1)``'s bit for bit; then 4 gloo ranks
    spawned on the card (one spawn for 8c and 8d, before phase 1: they
@@ -186,9 +192,10 @@ Needs one CUDA card (exits non-zero without one) and ``nvcc`` (under
    (the state bit-equal where there are none), each rank's buffers a
    client ``per_device_payload_nbytes`` (the broadcast's too, one a round
    on every rank), and K1's histogram pass, K3's sum of squares, K5, the
-   keyed K7 and K9's values entry launched on every rank (in the Q_r run
-   once a leaf an encode, K9 once a leaf a shard a decode); FedAvg's
-   steady rounds composed and flat in turns (the ranks time-share one
+   keyed K7 and K9's values entry launched on every rank (in the TopK
+   runs K1h four times an encode, one grouped launch a digit; in the Q_r
+   run K3 and K7 once a leaf an encode, K9 once a leaf a shard a decode);
+   FedAvg's steady rounds composed and flat in turns (the ranks time-share one
    card);
 8d. pod_round — ``launch/fed_train.py``'s pod round (one client a rank of
    a ``("pod", "data", "model")`` mesh, the sync as collectives) on the
@@ -3171,6 +3178,15 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
                         f"model_mesh {label} {shape} rank {r} round {i}: "
                         f"{downs} shard-local broadcasts, not {n_down}")
             encs = [e for rnd in st["rounds"] for e in rnd["encodes"]]
+            if on_card and st0["codec"] == "topk":
+                # K1h: one grouped launch a digit an encode, whatever the
+                # number of sharded leaves
+                got = st["launches"].get("topk_radix_hist", 0)
+                if got != 4 * len(encs):
+                    raise AssertionError(
+                        f"model_mesh {label} {shape} rank {r}: "
+                        f"topk_radix_hist {got} != {4 * len(encs)} "
+                        f"({len(encs)} encodes)")
             if on_card and st0["codec"] == "qr":
                 # K3's sum of squares and the keyed K7 once a leaf an
                 # encode, K9's values once a leaf a shard a decode
@@ -3313,24 +3329,145 @@ def model_mesh_check(torch, results: dict, launches: dict) -> None:
               f"ms/round in turns {res['times']}", flush=True)
 
 
-def model_mesh_k1h(torch, dev, reduced: bool = False) -> None:
+def model_mesh_leaf_set(torch, cfg, m: int, dev) -> tuple:
+    """The encode's K1h leaf set at ``m`` model ranks: ``(slices, ks,
+    n_totals)``, a seeded (MODEL_MESH_CLIENTS, n / m) slice of every leaf
+    the model axis shards (``specs.model_dim_index``), in tree order, with
+    TopK(0.1)'s k and the whole leaf's n."""
+    from repro_torch import tree as tree_util
+    from repro_torch.compress import TopK
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding import specs
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tfm.init_params(cfg, gen)
+    shapes = [(path, tuple(t.shape))
+              for path, t in tree_util.leaves_with_paths(params)]
+    del params
+    xs, ks, ns = [], [], []
+    for path, shp in shapes:
+        if specs.model_dim_index(path, shp, m) is None:
+            continue
+        n = math.prod(shp)
+        xs.append(torch.randn(MODEL_MESH_CLIENTS, n // m, generator=gen,
+                              device=dev))
+        ks.append(TopK(0.1)._k(n))
+        ns.append(n)
+    return xs, ks, ns
+
+
+def model_mesh_k1h(torch, dev, rec=None, reduced: bool = False) -> None:
     """Phase 8c's first part: every kernel library built (the spawned ranks
-    load them), then K1's histogram pass at the sharded embedding's slices
-    (m = 2) against its byte bound, before any rank starts."""
-    from repro_torch.kernels import build
+    load them), then K1h at the encode's leaf set (m = 2 and 4): one
+    grouped digit and the threshold stage (identity reduce) against the
+    per-leaf route in turns, the slices' byte bound, the stage's device
+    operations (at most 3 a digit and 2 more); then one digit at the
+    sharded embedding's slice (m = 2).  ``rec`` (K1h's record) takes the
+    m = 2 digit as its main timing and the embedding's as its large one."""
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels import topk_compress as tk
 
     cfg = model_mesh_config(torch, reduced)
     build.build_all()
+    R = MODEL_MESH_CLIENTS
+
+    def ident(h):
+        return h
+
+    for m in (2, 4):
+        xs, ks, ns = model_mesh_leaf_set(torch, cfg, m, dev)
+        L, nx = len(xs), sum(x.numel() for x in xs)
+        pre0 = torch.zeros(L * R, dtype=torch.int64, device=dev)
+
+        def per_leaf_digit():
+            return torch.cat([tk.radix_hist(x, pre0[i * R:(i + 1) * R], 24)
+                              for i, x in enumerate(xs)])
+
+        def per_leaf_stage():
+            # the parent's threshold_bits_sharded: K1h a leaf, torch.cat,
+            # the walk in torch operations
+            k = torch.cat([ref._per_row(k_i, R, dev) for k_i in ks])
+            n_total = torch.tensor(ns, device=dev).repeat_interleave(R)
+            return list(ref.radix_walk(
+                lambda p, s: torch.cat([tk.radix_hist(
+                    x, p[i * R:(i + 1) * R], s) for i, x in enumerate(xs)]),
+                k, R * L, n_total, dev, ident).split(R))
+
+        grouped_digit = lambda: tk.radix_hist_grouped(xs, pre0, 24)
+        stage = lambda: tk.threshold_bits_sharded(xs, ks, ns, ident)
+        h = grouped_digit()
+        if not torch.equal(h, per_leaf_digit()) or not torch.equal(
+                h.long(), ref.radix_digit_hist_grouped(
+                    [ref.mag_bits(x) for x in xs], pre0, 24)):
+            raise AssertionError(f"K1h at the m = {m} leaf set: the grouped "
+                                 f"digit differs from the per-leaf route or "
+                                 f"the plain version")
+        if not all(torch.equal(a, b) for a, b in zip(stage(),
+                                                     per_leaf_stage())):
+            raise AssertionError(f"K1h at the m = {m} leaf set: the grouped "
+                                 f"thresholds differ from the per-leaf "
+                                 f"route's")
+        turns = {"digit per-leaf": [], "digit grouped": [],
+                 "stage per-leaf": [], "stage grouped": []}
+        for _ in range(2):
+            for what, fn in (("per-leaf", per_leaf_digit),
+                             ("grouped", grouped_digit),
+                             ("grouped", grouped_digit),
+                             ("per-leaf", per_leaf_digit)):
+                turns[f"digit {what}"].append(time_ms(torch, fn, 10))
+            for what, fn in (("per-leaf", per_leaf_stage),
+                             ("grouped", stage), ("grouped", stage),
+                             ("per-leaf", per_leaf_stage)):
+                turns[f"stage {what}"].append(time_ms(torch, fn, 5))
+        _, ops_a_call = device_per_call(torch, stage, 3)
+        want_ops = 3 * len(ref.RADIX_SHIFTS) + 2
+        if ops_a_call is not None and ops_a_call > want_ops:
+            raise AssertionError(f"K1h at the m = {m} leaf set: "
+                                 f"{ops_a_call} device operations a "
+                                 f"threshold stage, more than {want_ops}")
+        # reads every slice and the prefixes, writes the (L * R, 256) counts
+        b_ms, b_by = bound_ms(4 * nx + 8 * L * R + 1024 * L * R, 5 * nx)
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        print(f"[model_mesh] K1h at the encode's leaf set, m = {m}: {L} "
+              f"slices of ({R}, n_i), {nx // R} floats a row; one digit "
+              f"grouped {turns['digit grouped']!r} ms, per-leaf "
+              f"{turns['digit per-leaf']!r} (in turns; medians "
+              f"{med['digit grouped']!r} / {med['digit per-leaf']!r}) "
+              f"against the byte bound {b_ms!r} ms ({b_by}); the threshold "
+              f"stage grouped {turns['stage grouped']!r} ms, per-leaf "
+              f"{turns['stage per-leaf']!r} (medians {med['stage grouped']!r}"
+              f" / {med['stage per-leaf']!r}); device operations a stage "
+              f"{ops_a_call!r} (at most {want_ops}); card: {card_line()}",
+              flush=True)
+        if m == 2 and rec is not None:
+            plain = lambda: ref.radix_digit_hist_grouped(
+                [ref.mag_bits(x) for x in xs], pre0, 24)
+            rec.timings["main"] = {
+                "shape": [R, nx // R], "leaves": L,
+                "kernel_ms": med["digit grouped"],
+                "plain_ms": time_ms(torch, plain, 2, warmup=1),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "per_leaf_ms": med["digit per-leaf"],
+                "stage_ms": med["stage grouped"],
+                "stage_per_leaf_ms": med["stage per-leaf"]}
+        del xs, h
+        torch.cuda.empty_cache()
     n = cfg.vocab * cfg.d_model // 2
-    xe = torch.randn(MODEL_MESH_CLIENTS, n, device=dev)
-    pre = torch.zeros(MODEL_MESH_CLIENTS, dtype=torch.int64, device=dev)
+    xe = torch.randn(R, n, device=dev)
+    pre = torch.zeros(R, dtype=torch.int64, device=dev)
     ms = time_ms(torch, lambda: tk.radix_hist(xe, pre, 24), 20)
-    b_ms = 4.0 * xe.numel() / HBM_BYTES_PER_S * 1e3
+    b_ms, b_by = bound_ms(4 * xe.numel() + 8 * R + 1024 * R, 5 * xe.numel())
+    if rec is not None:
+        rec.timings["large"] = {
+            "shape": [R, n], "kernel_ms": ms,
+            "plain_ms": time_ms(torch, lambda: ref.radix_digit_hist(
+                ref.mag_bits(xe), pre, 24), 2, warmup=1),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
     print(f"[model_mesh] K1h topk_radix_hist at the embedding's shard "
-          f"({MODEL_MESH_CLIENTS}, {n}): {ms!r} ms against its byte bound "
-          f"{b_ms!r} ms (n x 4 B / 3.35 TB/s); card: {card_line()}",
-          flush=True)
+          f"({R}, {n}): {ms!r} ms against its byte bound {b_ms!r} ms "
+          f"({b_by}); card: {card_line()}", flush=True)
+    del xe
+    torch.cuda.empty_cache()
 
 
 def model_mesh_world1(torch, dev, tmp: str, reduced: bool = False) -> None:
@@ -3888,13 +4025,13 @@ def _mesh_join(ctx, tmp: str) -> dict:
 
 
 def mesh_phases(torch, dev, launches: dict, ranks: Optional[tuple] = None,
-                reduced: bool = False) -> None:
+                reduced: bool = False, rec=None) -> None:
     """Phases 8c (``model_mesh``) and 8d (``pod_round``) on the
     MODEL_MESH_WORLD gloo ranks of :func:`mesh_spawn` (``ranks``; None:
     spawned here), on the card (a ``FileStore`` in their directory; the
     collectives go through the host, not NVLink; the ranks time-share one
-    card, so their ms are not a four-card mesh's).  Here K1's histogram
-    pass is timed first; then the ranks take a CUDA context and their
+    card, so their ms are not a four-card mesh's).  Here K1h is timed
+    first (:func:`model_mesh_k1h`, into ``rec``); then the ranks take a CUDA context and their
     first forward and backward while this process runs both phases'
     world-size-1 parts (:func:`model_mesh_world1`,
     :func:`pod_round_world1`).  Then the ranks run model_mesh's stages:
@@ -3921,7 +4058,7 @@ def mesh_phases(torch, dev, launches: dict, ranks: Optional[tuple] = None,
     ctx, tmp = ranks
     try:
         if dev.type == "cuda":
-            model_mesh_k1h(torch, dev, reduced)
+            model_mesh_k1h(torch, dev, rec, reduced)
         open(f"{tmp}/start", "w").close()
         model_mesh_world1(torch, dev, f"{tmp}/mm", reduced)
         pod_round_world1(torch, dev, f"{tmp}/pr", launches, reduced)
@@ -4958,9 +5095,56 @@ def main() -> int:
                                t[:, None].expand(rows, 2)):
                 raise AssertionError(f"K1h {label}: the halves' summed walk "
                                      f"differs from K1")
+    # grouped: many leaves of the same rows in one launch a digit (an
+    # unaligned slice, n % 4 != 0, one-element slices, ties, +-0,
+    # subnormals), with k of 0 and n among them
+    sizes = (1, 3, 32, 64, 4097, 50176, 50177, 5000, 1 << 20)
+    gx = []
+    for i, n in enumerate(sizes):
+        xg = randn(s, n)
+        xg[0, ::7] = 0.5
+        xg[-1, : n // 3] = 0.0
+        xg[-1, 1: n // 3: 5] = -0.0
+        xg[0, 1::11] = 1e-40
+        gx.append(xg)
+    gx.append(randn(1, s * 777 + 1)[0, 1:].view(s, 777))   # unaligned
+    gn = [x.shape[1] for x in gx]
+    gk = [max(1, n // 10) for n in gn]
+    gk[0], gk[1] = 0, gn[1]
+    gbits = [ref.mag_bits(x) for x in gx]
+    gt = [tk.threshold_bits(x, k) for x, k in zip(gx, gk)]
+    for shift in ref.RADIX_SHIFTS:
+        high = ((ref.ALL_ONES << (shift + 8)) & ref.ALL_ONES
+                if shift + 8 < 32 else 0)
+        prefix = torch.cat([ref.topk_threshold_bits(x, max(1, n // 10)) & high
+                            for x, n in zip(gx, gn)])
+        h = tk.radix_hist_grouped(gx, prefix, shift)
+        h_ref = ref.radix_digit_hist_grouped(gbits, prefix, shift)
+        torch.cuda.synchronize()
+        if not torch.equal(h.long(), h_ref):
+            raise AssertionError(f"K1h grouped shift {shift}: kernel "
+                                 f"histograms differ")
+        recs["K1h"].err(h, h_ref)
+        hist_cases += 1
+    walked = tk.threshold_bits_sharded(gx, gk, gn, lambda h: h)
+    if not all(torch.equal(a, b) for a, b in zip(walked, gt)):
+        raise AssertionError("K1h grouped: the walk's thresholds differ "
+                             "from K1's")
+    even = [i for i, n in enumerate(gn) if n % 2 == 0]
+    summed = tk.threshold_bits_sharded(
+        [gx[i].reshape(2 * s, -1).contiguous() for i in even],
+        [gk[i] for i in even], [gn[i] for i in even],
+        lambda h: h.reshape(-1, 2, 256).sum(1, keepdim=True).expand(
+            -1, 2, 256).reshape(h.shape))
+    if not all(torch.equal(a.reshape(s, 2), gt[i][:, None].expand(s, 2))
+               for a, i in zip(summed, even)):
+        raise AssertionError("K1h grouped: the halves' summed walk differs "
+                             "from K1")
+    del gx, gbits
     print(f"[kernels] K1h (K1's histogram pass alone) bit-equal to the plain "
-          f"version on {hist_cases} (case, digit) pairs; its walk equal to "
-          f"K1's threshold on one rank and over two halves summed",
+          f"version on {hist_cases} (case, digit) pairs, K1's cases on one "
+          f"leaf and {len(gn)} leaves grouped; its walk equal "
+          f"to K1's threshold on one rank and over two halves summed",
           flush=True)
     print(f"[kernels] K1 one kernel a call under torch.profiler (n = 10, "
           f"{leaf_sizes[0]}, {LARGE[1]}), threshold_mask one up to n = "
@@ -5323,7 +5507,6 @@ def main() -> int:
         nx = rows * n
         wbytes = 4 * rows * -(-n // 32) * 9      # 9-bit words
         # K6 at the k25 cap: r = 4 on the main path's leaf, r = 8 at LARGE
-        pre0 = torch.zeros(rows, dtype=torch.int64, device=dev)
         cap6, r6 = k25._k(n), (4 if shape != LARGE else 8)
         t6 = tk.threshold_bits(xc, cap6)
         norm6 = masked_norm(xc, t6)
@@ -5332,11 +5515,6 @@ def main() -> int:
                    lambda: ref.topk_threshold_bits(xc, k),
                    lambda: torch.topk(xa, k, dim=1, sorted=False),
                    4 * nx + 12 * rows, 16 * nx),
-            # the walk's first pass (every element matches the empty
-            # prefix): reads x and the prefix, writes the (rows, 256) counts
-            "K1h": (lambda: tk.radix_hist(xc, pre0, 24),
-                    lambda: ref.radix_digit_hist(ref.mag_bits(xc), pre0, 24),
-                    None, 4 * nx + 8 * rows + 1024 * rows, 5 * nx),
             # the route the main path takes: K1 and K2 in one launch; reads
             # x, writes thr and the masked rows
             "K2": (lambda: tk.threshold_mask(xc, k),
@@ -5933,7 +6111,7 @@ def main() -> int:
     lap("downlink, het_system and scope")
     client_mesh_phase(torch, dev, mnist, launches)
     lap("client_mesh")
-    mesh_phases(torch, dev, launches, mesh_ranks)
+    mesh_phases(torch, dev, launches, mesh_ranks, rec=recs["K1h"])
     lap("model_mesh and pod_round")
     del mnist, data
     torch.cuda.empty_cache()

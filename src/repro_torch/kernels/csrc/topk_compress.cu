@@ -57,17 +57,38 @@
 // launch re-reads x from HBM on 64 SMs at (4, 2^24) and K1 then K2 on
 // every SM measured faster (PERF.md).
 //
-// K1's histogram pass alone (radix_hist, topk_radix_hist): the model-sharded
-// wire (DESIGN.md §9) holds each leaf's slice on its own rank, and the exact
-// global threshold needs every pass's counts summed over the model ranks
-// before the digit is chosen.  So the walk runs in the caller: a launch
-// counts one digit of this rank's slice (rows, 256) under each row's
-// decided prefix, the caller all-reduces the integer counts, walks them with
-// the plain version's radix_walk_step on the card (no host sync) and calls
-// the next pass.  A block-strided pass with shared-memory bins, the high
-// digit through K1's register slots and warp flush; blocks add their bins
-// to the caller's zeroed int32 histogram with global atomics (integers: the
-// order does not change the sum).  Bound: 4n bytes read a pass.
+// K1's histogram pass alone, grouped (K1h: radix_hist_grouped,
+// topk_radix_hist): the model-sharded wire (DESIGN.md §9) holds each leaf's
+// slice on its own rank, and the exact global threshold needs every pass's
+// counts summed over the model ranks before the digit is chosen.  An encode
+// has one slice a sharded leaf (41 of them for qwen2-0.5b at 4 layers, many
+// of 32 or 64 floats), so one launch counts one digit for every slice of
+// every leaf at once:
+//   * a leaf table, made by the wrapper once a call and copied to the card
+//     in one copy, lists each slice's pointer and n and the prefix sum of
+//     its blocks (ntotal and k for the walk beside them).  Blocks go to
+//     the slices in proportion to their size under the grid cap, at least
+//     one a slice (the wrapper's hist_block_starts); a block finds its
+//     slice by a binary search of the block starts in shared memory (in
+//     L2 past kSmemStarts leaves).  A one-leaf
+//     call needs no table: its slice comes in the launch's parameters;
+//   * the output is (leaves * rows, 256) int32, leaf-major, zeroed by the
+//     C entry (one memset); each block counts into shared-memory bins, the
+//     high digit through K1's register slots and warp flush, and adds them
+//     to the output with global atomics (integers: the order does not
+//     change the sum).  A slice is read with 16-byte loads from its first
+//     16-byte boundary, its unaligned head and its tail (n % 4) by scalar
+//     loads;
+//   * the walk runs on the card between the caller's reductions: the next
+//     digit's launch is given the reduced counts, and each of its blocks
+//     takes its row's digit from them (ref.radix_walk_step, one warp)
+//     before counting; the first block of a slice writes the row's new
+//     (prefix, k_rem) to the other of two state buffers.  One finishing
+//     launch (radix_finish, a warp a row) takes the last digit and applies
+//     the edge conventions.
+// A call of threshold_bits_sharded is then one table copy, a memset and a
+// launch a digit, and the finish: 10 device operations for any number of
+// leaves.  Bound: 4 bytes an element of every slice, read once a digit.
 //
 // Edge conventions (those of the TPU kernel): k >= n gives threshold 0
 // (every entry kept), k <= 0 gives 0xFFFFFFFF (empty support).
@@ -104,6 +125,11 @@ constexpr int kUnroll = 2;   // float4 (or float) loads a thread a block
 
 __device__ __forceinline__ uint32_t mag_bits(float v) {
   return __float_as_uint(v) & 0x7FFFFFFFu;
+}
+
+// The digits above the one at shift (decided before its pass).
+__device__ __forceinline__ unsigned shift_high(int shift) {
+  return shift + 8 < 32 ? (0xFFFFFFFFu << (shift + 8)) : 0u;
 }
 
 // A thread's two most recent bins and their counts, kept in registers:
@@ -172,6 +198,49 @@ __device__ __forceinline__ void list_add(unsigned* list, unsigned* list_n, unsig
   if (lane == __ffs(act) - 1) base = atomicAdd(list_n, (unsigned)__popc(act));
   base = __shfl_sync(0xFFFFFFFFu, base, __ffs(act) - 1);
   if (active) list[base + __popc(act & ((1u << lane) - 1u))] = b;
+}
+
+// One step of the radix walk (ref.radix_walk_step) over a row's 256
+// counts h, by one warp (every lane must call it): the largest digit d
+// with count(digit >= d) >= k_rem, and the count strictly above it.  Lane
+// l holds bins 8l .. 8l+7; a suffix scan with __shfl_down_sync, the digit
+// counted by a warp reduction.
+template <typename T>
+__device__ __forceinline__ void walk_step(const T* h, long long k_rem, int& digit,
+                                          long long& above) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long c[8];
+  unsigned long long tot = 0ull;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    c[j] = (unsigned long long)h[8 * lane + j];
+    tot += c[j];
+  }
+  unsigned long long incl = tot;   // sum over lanes >= lane
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned long long o = __shfl_down_sync(0xFFFFFFFFu, incl, off);
+    if (lane + off < 32) incl += o;
+  }
+  // ge[d] = count(digit >= d)
+  unsigned long long ge[8];
+  unsigned long long acc = incl - tot;
+  unsigned cnt = 0u;
+#pragma unroll
+  for (int j = 7; j >= 0; --j) {
+    acc += c[j];
+    ge[j] = acc;
+    cnt += (long long)acc >= k_rem ? 1u : 0u;
+  }
+  cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+  digit = min(max((int)cnt - 1, 0), kBins - 1);
+  // ge[digit + 1] lives in lane (digit + 1) / 8 (0 when digit = 255)
+  const int nb = digit + 1;
+  unsigned long long mine = 0ull;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) mine = (nb & 7) == j ? ge[j] : mine;
+  const unsigned long long a = __shfl_sync(0xFFFFFFFFu, mine, (nb >> 3) & 31);
+  above = nb >= kBins ? 0ll : (long long)a;
 }
 
 // grid: rows * C CTAs in clusters of C (one cluster a row); block:
@@ -323,40 +392,10 @@ threshold_select(const float* __restrict__ x, const int* __restrict__ k, int k_s
     }
     __syncthreads();
     if (tid < 32) {
-      // ge[d] = count(digit >= d); lane l holds bins 8l .. 8l+7
-      const int lane = tid;
-      unsigned h[8];
-      unsigned tot = 0u;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        h[j] = merged[8 * lane + j];
-        tot += h[j];
-      }
-      unsigned incl = tot;   // sum over lanes >= lane
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const unsigned o = __shfl_down_sync(0xFFFFFFFFu, incl, off);
-        if (lane + off < 32) incl += o;
-      }
-      unsigned ge[8];
-      unsigned acc = incl - tot;
-      int cnt = 0;
-#pragma unroll
-      for (int j = 7; j >= 0; --j) {
-        acc += h[j];
-        ge[j] = acc;
-        cnt += (long long)acc >= (long long)k_rem ? 1 : 0;
-      }
-      cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
-      const int digit = min(max(cnt - 1, 0), kBins - 1);
-      // ge[digit + 1] lives in lane (digit + 1) / 8 (0 when digit = 255)
-      const int nb = digit + 1;
-      unsigned mine = 0u;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mine = (nb & 7) == j ? ge[j] : mine;
-      unsigned above = __shfl_sync(0xFFFFFFFFu, mine, (nb >> 3) & 31);
-      if (nb >= kBins) above = 0u;
-      if (lane == 0) {
+      int digit;
+      long long above;
+      walk_step(merged, (long long)k_rem, digit, above);
+      if (tid == 0) {
         ctl_prefix = prefix | ((unsigned)digit << shift);
         ctl_krem = k_rem - (int)above;
       }
@@ -373,45 +412,155 @@ threshold_select(const float* __restrict__ x, const int* __restrict__ k, int k_s
   if (rank == 0 && tid == 0) thr[row] = (long long)prefix;
 }
 
-// grid: (parts, rows); block: kThreads.  hist (rows, 256) is zeroed by the
-// caller; prefix[row] holds the digits decided so far (int64 holding a
-// uint32 pattern).  vec: x is 16-byte aligned and n % 4 == 0.
-__global__ void __launch_bounds__(kThreads)
-radix_hist(const float* __restrict__ x, long long n, const long long* __restrict__ prefix,
-           int shift, int vec, int* __restrict__ hist) {
+// K1h's leaf table (int64 words) for L leaves of R rows:
+//   ptr[L] | n[L] | start[L + 1] | ntotal[L] | k[L * R]
+// slice i's rows are ptr[i] + r * n[i]; its blocks are start[i] ..
+// start[i + 1] - 1; output row j = i * R + r.
+struct HistArgs {
+  const long long* table;   // null: one leaf (x0, n0), gridDim.x blocks a row
+  int leaves;               // L (1 without a table)
+  const float* x0;
+  long long n0;
+  const long long* prefix;  // each output row's decided prefix; null: walk
+  const int* prev;          // walk: the previous digit's reduced counts
+                            // (L * R, 256); null at the first digit
+  const long long* st_in;   // walk: (prefix[L * R], k_rem[L * R]) before
+                            // the previous digit
+  long long* st_out;        // walk: the same before this digit
+  const long long* k;       // walk: each output row's k
+  int shift;
+  int* hist;                // (L * R, 256), zeroed
+};
+
+// Leaves whose block starts a block keeps in shared memory for its search.
+constexpr int kSmemStarts = 2048;
+
+// grid: (blocks of every slice, R); block: kThreads.
+__global__ void __launch_bounds__(kThreads) radix_hist_grouped(const HistArgs a) {
   __shared__ unsigned H[kBins];
-  for (int i = threadIdx.x; i < kBins; i += kThreads) H[i] = 0u;
-  __syncthreads();
-  const long long row = blockIdx.y;
-  const unsigned high = shift + 8 < 32 ? (0xFFFFFFFFu << (shift + 8)) : 0u;
-  const unsigned want = (unsigned)prefix[row] & high;
-  const int pass = shift == 24 ? 0 : 1;   // the high digit: register slots
-  const float* xr = x + row * n;
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  BinSlots sl = {0u, 0u, 0u, 0u};
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-#pragma unroll 4
-    for (long long i = first; i < n / 4; i += stride) {
-      const float4 v = __ldg(x4 + i);
-      const unsigned e[4] = {mag_bits(v.x), mag_bits(v.y), mag_bits(v.z), mag_bits(v.w)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if ((e[j] & high) == want) count_bin(sl, H, (e[j] >> shift) & 0xFFu, pass);
+  __shared__ int starts[kSmemStarts];
+  __shared__ long long ctl_prefix, ctl_krem;
+  const int tid = threadIdx.x;
+  const int r = blockIdx.y;
+  const int R = gridDim.y;
+  const int bx = blockIdx.x;
+  for (int i = tid; i < kBins; i += kThreads) H[i] = 0u;
+  int leaf = 0, b = bx, nblocks = gridDim.x;
+  long long n = a.n0;
+  const float* base = a.x0;
+  if (a.table) {
+    const int L = a.leaves;
+    const long long* start = a.table + 2 * L;
+    const bool in_smem = L + 1 <= kSmemStarts;
+    if (in_smem)
+      for (int i = tid; i <= L; i += kThreads) starts[i] = (int)start[i];
+    __syncthreads();
+    int lo = 0, hi = L - 1;   // the last leaf whose first block is <= bx
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      const int sm = in_smem ? starts[mid] : (int)start[mid];
+      if (sm <= bx) lo = mid; else hi = mid - 1;
     }
+    leaf = lo;
+    const int s0 = in_smem ? starts[leaf] : (int)start[leaf];
+    const int s1 = in_smem ? starts[leaf + 1] : (int)start[leaf + 1];
+    b = bx - s0;
+    nblocks = s1 - s0;
+    n = a.table[L + leaf];
+    base = reinterpret_cast<const float*>(a.table[leaf]);
+  }
+  const float* xr = base + (long long)r * n;
+  const int LR = a.leaves * R;
+  const int j = leaf * R + r;
+  const unsigned high = shift_high(a.shift);
+  unsigned want;
+  if (a.prefix) {
+    want = (unsigned)a.prefix[j] & high;
   } else {
-    for (long long i = first; i < n; i += stride) {
-      const unsigned e = mag_bits(__ldg(xr + i));
+    // the walk: this row's prefix and k_rem before this digit
+    long long p, kr;
+    if (a.prev == nullptr) {
+      p = 0;
+      kr = a.k[j];
+    } else {
+      if (tid < 32) {
+        int digit;
+        long long above;
+        walk_step(a.prev + (long long)j * kBins, a.st_in[LR + j], digit, above);
+        if (tid == 0) {
+          ctl_prefix = a.st_in[j] | ((long long)digit << (a.shift + 8));
+          ctl_krem = a.st_in[LR + j] - above;
+        }
+      }
+      __syncthreads();
+      p = ctl_prefix;
+      kr = ctl_krem;
+    }
+    if (b == 0 && tid == 0) {   // one block a row hands the state on
+      a.st_out[j] = p;
+      a.st_out[LR + j] = kr;
+    }
+    want = (unsigned)p & high;
+  }
+  __syncthreads();   // the bins are zeroed
+  const int pass = a.shift == 24 ? 0 : 1;   // the high digit: register slots
+  const int shift = a.shift;
+  BinSlots sl = {0u, 0u, 0u, 0u};
+  // the scalar head up to the first 16-byte boundary, the float4 body, the
+  // scalar tail (n - head) % 4; head and tail by the slice's first block
+  const long long head =
+      min(n, (long long)((((16u - (unsigned)((uintptr_t)xr & 15u)) & 15u)) >> 2));
+  const long long n4 = (n - head) >> 2;
+  const long long tail0 = head + 4 * n4;
+  if (b == 0) {
+    if (tid < head) {
+      const unsigned e = mag_bits(__ldg(xr + tid));
       if ((e & high) == want) count_bin(sl, H, (e >> shift) & 0xFFu, pass);
     }
+    if (tid < n - tail0) {
+      const unsigned e = mag_bits(__ldg(xr + tail0 + tid));
+      if ((e & high) == want) count_bin(sl, H, (e >> shift) & 0xFFu, pass);
+    }
+  }
+  const float4* x4 = reinterpret_cast<const float4*>(xr + head);
+  const long long stride = (long long)nblocks * kThreads;
+#pragma unroll 4
+  for (long long i = (long long)b * kThreads + tid; i < n4; i += stride) {
+    const float4 v = __ldg(x4 + i);
+    const unsigned e[4] = {mag_bits(v.x), mag_bits(v.y), mag_bits(v.z), mag_bits(v.w)};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if ((e[q] & high) == want) count_bin(sl, H, (e[q] >> shift) & 0xFFu, pass);
   }
   warp_flush(H, sl.b0, sl.c0);
   warp_flush(H, sl.b1, sl.c1);
   __syncthreads();
-  int* hr = hist + row * kBins;
-  for (int i = threadIdx.x; i < kBins; i += kThreads)
+  int* hr = a.hist + (long long)j * kBins;
+  for (int i = tid; i < kBins; i += kThreads)
     if (H[i] != 0u) atomicAdd(hr + i, (int)H[i]);
+}
+
+// The walk's last step and the edge conventions, a warp an output row:
+// thr[j] = the row's bit pattern, 0 where k >= ntotal, 0xFFFFFFFF where
+// k <= 0.  st: (prefix, k_rem) before the last digit; hist: its counts.
+__global__ void __launch_bounds__(kThreads)
+radix_finish(const long long* __restrict__ table, int L, int R, const int* __restrict__ hist,
+             const long long* __restrict__ st, const long long* __restrict__ k,
+             long long* __restrict__ thr) {
+  const int LR = L * R;
+  const int j = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (j >= LR) return;   // the whole warp
+  int digit;
+  long long above;
+  walk_step(hist + (long long)j * kBins, st[LR + j], digit, above);
+  if ((threadIdx.x & 31) == 0) {
+    const long long kk = k[j];
+    const long long ntotal = table[3 * L + 1 + j / R];
+    long long t = st[j] | (long long)digit;
+    if (kk >= ntotal) t = 0;
+    if (kk <= 0) t = 0xFFFFFFFFll;
+    thr[j] = t;
+  }
 }
 
 __global__ void mask_vec4(const float4* __restrict__ x,
@@ -522,21 +671,55 @@ int topk_threshold_bits(const float* x, const int* k, int k_scalar, int rows, lo
   return 0;
 }
 
-// K1's histogram pass: hist[row, d] += #{i : digit at shift of |x[row, i]|
-// bits == d, and its bits above the digit equal prefix[row]'s}.  hist is
-// (rows, 256) int32, zeroed by the caller; shift is 24, 16, 8 or 0.
-int topk_radix_hist(const float* x, int rows, long long n, const long long* prefix,
-                    int shift, int* hist, void* stream_ptr) {
-  if (shift < 0 || shift > 24 || shift % 8 != 0) return (int)cudaErrorInvalidValue;
+// K1h, one digit for every slice at once: zeroes hist (leaves * rows,
+// 256) int32 and counts into it, hist[j, d] = #{i : digit at shift of
+// |x_j[i]| bits == d, and its bits above the digit equal row j's prefix}.
+// table: the leaf table (above) on the card, or null for one leaf (x0, n0)
+// with `blocks` blocks a row; blocks is then the table's start[L].  The
+// prefix is prefix[j], or where prefix is null the walk's: the first digit
+// (prev null) starts it from k, a later one takes the digit of prev (the
+// previous digit's reduced counts) from st_in and writes st_out.  shift is
+// 24, 16, 8 or 0.
+int topk_radix_hist(const long long* table, int leaves, int rows, int blocks, const float* x0,
+                    long long n0, const long long* prefix, const int* prev,
+                    const long long* st_in, long long* st_out, const long long* k, int shift,
+                    int* hist, void* stream_ptr) {
+  if (shift < 0 || shift > 24 || shift % 8 != 0 || blocks < 1 || leaves < 1 || rows < 1 ||
+      (table == nullptr && leaves != 1) ||
+      (prefix == nullptr && (table == nullptr || k == nullptr || st_out == nullptr ||
+                             (prev != nullptr && st_in == nullptr))))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int vec = n % 4 == 0 && ((uintptr_t)x % 16 == 0);
-  // about 16 elements a thread; within the grid cap over all rows
-  long long parts = (n + 16LL * kThreads - 1) / (16LL * kThreads);
-  const long long cap = kMaxBlocks / rows > 0 ? kMaxBlocks / rows : 1;
-  if (parts > cap) parts = cap;
-  if (parts < 1) parts = 1;
-  radix_hist<<<dim3((unsigned)parts, (unsigned)rows), kThreads, 0, stream>>>(x, n, prefix,
-                                                                           shift, vec, hist);
+  cudaError_t err = cudaMemsetAsync(hist, 0, (size_t)leaves * rows * kBins * sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  HistArgs a;
+  a.table = table;
+  a.leaves = leaves;
+  a.x0 = x0;
+  a.n0 = n0;
+  a.prefix = prefix;
+  a.prev = prev;
+  a.st_in = st_in;
+  a.st_out = st_out;
+  a.k = k;
+  a.shift = shift;
+  a.hist = hist;
+  radix_hist_grouped<<<dim3((unsigned)blocks, (unsigned)rows), kThreads, 0, stream>>>(a);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+// K1h's finish: thr (leaves * rows) int64 from the last digit's reduced
+// counts hist and the walk's state st before it (radix_finish).
+int topk_radix_finish(const long long* table, int leaves, int rows, const int* hist,
+                      const long long* st, const long long* k, long long* thr,
+                      void* stream_ptr) {
+  if (table == nullptr || leaves < 1 || rows < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const long long LR = (long long)leaves * rows;
+  const int warps = kThreads / 32;
+  radix_finish<<<(unsigned)((LR + warps - 1) / warps), kThreads, 0, stream>>>(
+      table, leaves, rows, hist, st, k, thr);
   RETURN_IF_ERROR();
   return 0;
 }

@@ -63,6 +63,16 @@ def radix_digit_hist(bits: torch.Tensor, prefix: torch.Tensor,
     return hist.scatter_add_(1, digit, match.to(torch.int64))
 
 
+def radix_digit_hist_grouped(bits, prefix: torch.Tensor,
+                             shift: int) -> torch.Tensor:
+    """:func:`radix_digit_hist` of several leaves' ``(rows, n_i)`` bit
+    patterns (the same rows) in one ``(L * rows, 256)`` histogram,
+    leaf-major, under the ``(L * rows,)`` prefixes in the same order."""
+    rows = bits[0].shape[0]
+    return torch.cat([radix_digit_hist(b, prefix[i * rows:(i + 1) * rows],
+                                       shift) for i, b in enumerate(bits)])
+
+
 def radix_walk_step(hist: torch.Tensor, k_rem: torch.Tensor):
     """Fix one digit per row: the largest ``d`` with ``count(digit >= d)
     >= k_rem``; ``k_rem`` loses the strictly-greater bucket."""

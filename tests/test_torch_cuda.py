@@ -388,6 +388,73 @@ def test_radix_hist_bit_equal_to_plain(cuda_device, rows, n):
         assert torch.equal(got.reshape(rows, 2)[:, 1], one)
 
 
+def _grouped_leaves(rows, sizes, device):
+    """Leaves of ``sizes`` with the same rows: Gaussian with ties, +-0,
+    subnormals; the last one a contiguous view 4 bytes off a 16-byte
+    boundary."""
+    xs = []
+    for i, n in enumerate(sizes):
+        x = _rows(rows, n, device, 7 * i + n)
+        x[0, ::7] = 0.5                               # ties
+        x[-1, : n // 3] = 0.0                         # zeros ...
+        x[-1, 1: n // 3: 5] = -0.0                    # ... and -0.0
+        x[0, 1::11] = 1e-40                           # subnormals
+        xs.append(x)
+    flat = _rows(1, rows * 777 + 1, device, 1)[0]
+    xs.append(flat[1:].view(rows, 777))               # unaligned
+    return xs
+
+
+@pytest.mark.parametrize("rows,sizes", [
+    (2, (1, 3, 32, 64, 4097, 50176, 50177, 5000)),
+    (3, (64,) * 60 + (1, 33, 1 << 20)),
+    (1, (32,) * 2500 + (4096,))])                    # past kSmemStarts
+def test_grouped_radix_hist_bit_equal_to_plain(cuda_device, rows, sizes):
+    """K1h over many leaves in one launch (an unaligned slice, n % 4 != 0,
+    one-element slices; 2500 leaves search the block starts in L2): every
+    digit under each row's decided prefix bit-equal to
+    ``ref.radix_digit_hist_grouped``, one launch a call; the walk's
+    thresholds equal K1's on whole rows, on one rank and over summed
+    halves, with k of 0 and n; a call makes 4 launches and at most 3
+    device operations a digit and 2 more."""
+    xs = _grouped_leaves(rows, sizes, cuda_device)
+    ns = [x.shape[1] for x in xs]
+    ks = [max(1, n // 10) for n in ns]
+    ks[0], ks[1] = 0, ns[1]                           # the edge conventions
+    want = [topk.threshold_bits(x, k) for x, k in zip(xs, ks)]
+    bits = [ref.mag_bits(x) for x in xs]
+    for shift in ref.RADIX_SHIFTS:
+        high = (ref.ALL_ONES << (shift + 8)) & ref.ALL_ONES \
+            if shift + 8 < 32 else 0
+        prefix = torch.cat([ref.topk_threshold_bits(x, max(1, n // 10)) & high
+                            for x, n in zip(xs, ns)])
+        topk.LAUNCHES["topk_radix_hist"] = 0
+        got = topk.radix_hist_grouped(xs, prefix, shift)
+        torch.cuda.synchronize()
+        assert topk.LAUNCHES["topk_radix_hist"] == 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got.long(), ref.radix_digit_hist_grouped(
+            bits, prefix, shift))
+    topk.LAUNCHES["topk_radix_hist"] = 0
+    got = topk.threshold_bits_sharded(xs, ks, ns, lambda h: h)
+    assert topk.LAUNCHES["topk_radix_hist"] == 4
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    even = [i for i, n in enumerate(ns) if n % 2 == 0]
+    halves = [xs[i].reshape(rows * 2, -1).contiguous() for i in even]
+
+    def summed(h):
+        s = h.reshape(-1, 2, 256).sum(1, keepdim=True)
+        return s.expand(-1, 2, 256).reshape(h.shape)
+    got = topk.threshold_bits_sharded(halves, [ks[i] for i in even],
+                                      [ns[i] for i in even], summed)
+    for g, i in zip(got, even):
+        assert torch.equal(g.reshape(rows, 2),
+                           want[i][:, None].expand(rows, 2))
+    n_ops = len(_device_ops(lambda: topk.threshold_bits_sharded(
+        xs, ks, ns, lambda h: h)))
+    assert n_ops <= 3 * len(ref.RADIX_SHIFTS) + 2, n_ops
+
+
 @pytest.mark.parametrize("rows,n,k,cap", [
     (5, 50176, 15053, 15053), (5, 10, 3, 3), (3, 1000, 100, 300),
     (3, 4097, 1, 1), (2, 33, 33, 33), (2, 1, 1, 1), (2, 5000, 2000, 100),
